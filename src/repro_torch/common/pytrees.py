@@ -1,0 +1,136 @@
+"""Parameter-tree arithmetic for the PyTorch port.
+
+A parameter tree is nested dicts / lists / tuples whose leaves are tensors
+(the MLP is a list of ``{"w", "b"}`` dicts, the RNN a flat dict). Leaves
+are visited in the reference's pytree order — dict keys sorted, lists in
+order — so a flattened MLP row is ``[b0, w0, b1, w1, ...]`` with every ``w``
+kept ``(din, dout)``, element for element the row the JAX package builds.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable
+
+import torch
+
+PyTree = Any
+
+
+def tree_leaves(tree: PyTree) -> list:
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for x in tree for leaf in tree_leaves(x)]
+    if tree is None:
+        return []
+    return [tree]
+
+
+def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
+    """Apply ``fn`` leafwise over trees of one structure (dict keys come
+    back sorted, as the reference's unflatten returns them)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, x, *(r[i] for r in rest)) for i, x in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def _skeleton(tree: PyTree):
+    """Hashable structure descriptor (leaves dropped)."""
+    if isinstance(tree, dict):
+        return ("d", tuple((k, _skeleton(tree[k])) for k in sorted(tree)))
+    if isinstance(tree, (list, tuple)):
+        return ("l" if isinstance(tree, list) else "t", tuple(_skeleton(x) for x in tree))
+    return "*"
+
+
+def _build(skel, leaves: list) -> PyTree:
+    """Rebuild a tree from its skeleton, consuming ``leaves`` in order."""
+    if skel == "*":
+        return leaves.pop()
+    kind, body = skel
+    if kind == "d":
+        return {k: _build(s, leaves) for k, s in body}
+    items = [_build(s, leaves) for s in body]
+    return items if kind == "l" else tuple(items)
+
+
+def tree_l1(a: PyTree, b: PyTree | None = None) -> torch.Tensor:
+    """Sum of absolute (differences of) leaves — Eq. 1's L1 distance."""
+    if b is None:
+        parts = [torch.sum(torch.abs(x)) for x in tree_leaves(a)]
+    else:
+        parts = [torch.sum(torch.abs(x - y)) for x, y in zip(tree_leaves(a), tree_leaves(b))]
+    return torch.sum(torch.stack(parts)) if parts else torch.zeros(())
+
+
+def tree_lerp(a: PyTree, b: PyTree, t: float) -> PyTree:
+    """(1 - t) * a + t * b leafwise, each product rounded before the sum."""
+    return tree_map(lambda x, y: torch.mul(x, 1.0 - t) + torch.mul(y, t), a, b)
+
+
+class FlattenSpec:
+    """Flatten/unflatten plan for one tree structure.
+
+    ``flatten`` concatenates the leaves (one launch); ``unflatten`` returns
+    views into the vector it is given, so the vector must not be written in
+    place afterwards (the port never writes a vector it handed out)."""
+
+    def __init__(self, template: PyTree):
+        leaves = tree_leaves(template)
+        self.skeleton = _skeleton(template)
+        self.shapes = tuple(tuple(x.shape) for x in leaves)
+        self.sizes = tuple(math.prod(s) if s else 1 for s in self.shapes)
+        offsets, off = [], 0
+        for n in self.sizes:
+            offsets.append(off)
+            off += n
+        self.offsets = tuple(offsets)
+        self.dim = off
+
+    def flatten(self, tree: PyTree) -> torch.Tensor:
+        leaves = tree_leaves(tree)
+        return torch.cat([torch.as_tensor(x).reshape(-1).to(torch.float32) for x in leaves])
+
+    def flatten_batched(self, tree_b: PyTree) -> torch.Tensor:
+        """Leaves ``(B, *shape)`` -> ``(B, dim)``."""
+        leaves = tree_leaves(tree_b)
+        return torch.cat([x.reshape(x.shape[0], -1).to(torch.float32) for x in leaves], dim=1)
+
+    def unflatten(self, vec: torch.Tensor) -> PyTree:
+        parts = [
+            vec[off: off + n].reshape(shape)
+            for off, n, shape in zip(self.offsets, self.sizes, self.shapes)
+        ]
+        return _build(self.skeleton, parts[::-1])
+
+    def unflatten_batched(self, mat: torch.Tensor) -> PyTree:
+        """``(B, dim)`` -> tree with leaves ``(B, *shape)`` (views)."""
+        B = mat.shape[0]
+        parts = [
+            mat[:, off: off + n].reshape((B, *shape))
+            for off, n, shape in zip(self.offsets, self.sizes, self.shapes)
+        ]
+        return _build(self.skeleton, parts[::-1])
+
+
+_SPEC_CACHE: dict = {}
+
+
+def flatten_spec(template: PyTree) -> FlattenSpec:
+    """Memoized :class:`FlattenSpec` for ``template``'s structure."""
+    key = (_skeleton(template), tuple(tuple(x.shape) for x in tree_leaves(template)))
+    spec = _SPEC_CACHE.get(key)
+    if spec is None:
+        spec = _SPEC_CACHE[key] = FlattenSpec(template)
+    return spec
+
+
+def tree_flat_vector(a: PyTree) -> torch.Tensor:
+    return flatten_spec(a).flatten(a)
+
+
+def tree_unflatten_vector(vec: torch.Tensor, like: PyTree) -> PyTree:
+    return flatten_spec(like).unflatten(vec)
+

@@ -1,0 +1,399 @@
+"""The EchoPFL server, per-event path (counterpart of ``repro.core.server``).
+
+Per arriving update:
+  1. assign/confirm cluster (on-arrival L1 clustering, Eq. 1 — the fused
+     ``assign_and_lerp`` kernel),
+  2. record staleness (never decay/drop),
+  3. aggregate into the cluster branch (CI push),
+  4. update the cluster's Top-K change records and fine-tune the predictor
+     on the realized ground truth (Eq. 4),
+  5. unicast the fresh center to the uploader,
+  6. RNN broadcast decision: maybe broadcast to the other members,
+  7. every ``refine_every`` uploads: feedback-aware refinement — chi2
+     feedback for every member (segmented kernel), reassignment and dissolve
+     probes (chi2 kernel), expansion, and merging by Algorithm 1 (pairwise
+     L1 + merge-attention kernels).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.common.device import resolve_device
+from repro_torch.core.broadcast import (
+    BroadcastPredictor,
+    predictor_for_expansion,
+    predictor_for_merge,
+    pretrain_rnn,
+)
+from repro_torch.core.clustering import DynamicClustering
+from repro_torch.core.plane import l1_vec
+from repro_torch.core.staleness import StalenessTracker
+from repro_torch.core.versioning import ModelRepo
+from repro_torch.kernels import ops as K
+
+PyTree = Any
+
+
+@dataclasses.dataclass
+class Downlink:
+    client_id: Any
+    params: PyTree
+    version: int
+    cluster_id: int
+    reason: str  # "unicast" | "broadcast"
+
+
+class EchoPFLServer:
+    name = "echopfl"
+    is_synchronous = False
+
+    def __init__(
+        self,
+        init_params: PyTree,
+        *,
+        num_initial_clusters: int = 2,
+        mix_rate: float = 0.25,
+        hm: float = 2.0,
+        top_k: int = 10,
+        refine_every: int = 20,
+        feedback_fn: Callable[[Any, PyTree], tuple[np.ndarray, np.ndarray, np.ndarray]] | None = None,
+        local_train_fn: Callable[[PyTree], PyTree] | None = None,
+        rnn_params: dict | None = None,
+        seed: int = 0,
+        device: str | torch.device = "cuda",
+    ):
+        self.device = resolve_device(device)
+        self.init_params = init_params
+        self.clustering = DynamicClustering(
+            num_initial_clusters, mix_rate=mix_rate, hm=hm, device=self.device
+        )
+        self.repo = ModelRepo()
+        self.staleness = StalenessTracker()
+        self.top_k = top_k
+        self.refine_every = refine_every
+        self.feedback_fn = feedback_fn
+        # optional batched probe: [(member, center), ...] -> stacked
+        # (F_pred, F_true, S_soft); the simulator's fleet installs one
+        self.feedback_batch_fn: Callable[[list], tuple] | None = None
+        self.local_train_fn = local_train_fn
+        self._uploads = 0
+        self._decisions = 0
+        self._rnn_broadcasts = 0
+        self._refine_round = 0
+        self._upload_rows: dict[Any, int] = {}  # client -> plane row of its last upload
+        self.last_cluster_feedback_mean: dict[int, float] = {}
+        self._rng = np.random.default_rng(seed)
+        if rnn_params is not None:
+            self._rnn_init = {k: torch.tensor(np.asarray(v), dtype=torch.float32).to(self.device)
+                              for k, v in rnn_params.items()}
+        else:
+            self._rnn_init = pretrain_rnn(seed, device=self.device)
+        self.predictors: dict[int, BroadcastPredictor] = {}
+        self.client_versions: dict[Any, tuple[int, int]] = {}
+        self.events: list[dict] = []
+
+    # ------------------------------------------------------------ protocol
+    def initial_models(self, client_ids: list) -> dict[Any, PyTree]:
+        return {cid: self.init_params for cid in client_ids}
+
+    def model_for(self, client_id) -> PyTree:
+        cid = self.clustering.assignment.get(client_id)
+        if cid is None:
+            return self.init_params
+        return self.clustering.clusters[cid].center
+
+    def _predictor(self, cluster_id: int) -> BroadcastPredictor:
+        if cluster_id not in self.predictors:
+            size = self.clustering.clusters[cluster_id].size
+            self.predictors[cluster_id] = BroadcastPredictor(
+                params=self._rnn_init, k=max(self.top_k, size)
+            )
+        return self.predictors[cluster_id]
+
+    def handle_upload(self, client_id, params: PyTree, base_version: int, n_samples: int,
+                      t: float) -> list[Downlink]:
+        self._uploads += 1
+        out: list[Downlink] = []
+
+        # 1. cluster assignment
+        cid, _created = self.clustering.assign(client_id, params)
+        cluster = self.clustering.clusters[cid]
+        plane = self.clustering.plane
+        row = self._upload_rows.get(client_id)
+        if row is None:
+            row = self._upload_rows[client_id] = plane.alloc()
+        plane.write(row, self.clustering.upload_vec(params))
+        try:
+            branch = self.repo.branch(f"cluster/{cid}")
+        except KeyError:
+            branch = self.repo.branch(f"cluster/{cid}", cluster.center_vec)
+
+        # 2. staleness bookkeeping (all updates included, none dropped)
+        base_cluster, base_ver = self.client_versions.get(client_id, (cid, 0))
+        if base_cluster == cid:
+            staleness = max(0, cluster.version - base_ver)
+        elif base_cluster in self.clustering.clusters:
+            # reassigned client: measured against the branch it trained from
+            staleness = max(0, self.clustering.clusters[base_cluster].version - base_ver)
+        else:
+            # base branch merged away; the merge broadcast refreshed members
+            staleness = max(0, cluster.version - cluster.last_broadcast_version)
+        self.staleness.record(staleness)
+
+        # 3. aggregate = CI push into the branch
+        pred = self._predictor(cid)
+        prev_center = cluster.center_vec  # the pre-update center feeds the predictor
+
+        def merge_fn(head):
+            self.clustering.aggregate(cid, params)
+            return self.clustering.clusters[cid].center_vec
+        branch.push(client_id, merge_fn, f"upload from {client_id} (staleness {staleness})")
+
+        # 4. Top-K change record + online fine-tune on the ground truth (Eq. 4)
+        change = float(l1_vec(cluster.center_vec, prev_center))
+        gap_before = float(l1_vec(prev_center, cluster.broadcast_vec))
+        label = 1 if change > gap_before else 0
+        if pred.records:
+            pred.learn(label)
+        pred.observe(change)
+
+        # 5. unicast fresh center to the uploader
+        out.append(Downlink(client_id, cluster.center, cluster.version, cid, "unicast"))
+        self.client_versions[client_id] = (cid, cluster.version)
+
+        # 6. on-demand broadcast to the rest of the cluster
+        if cluster.size > 1:
+            gap = float(l1_vec(cluster.center_vec, cluster.broadcast_vec))
+            self._decisions += 1
+            if pred.decide(gap):
+                self._rnn_broadcasts += 1
+                out.extend(self._broadcast(cluster, exclude={client_id}))
+
+        # 7. periodic refinement
+        if self._uploads % self.refine_every == 0:
+            out.extend(self._refine())
+        return out
+
+    def _broadcast(self, cluster, exclude: set = frozenset()) -> list[Downlink]:
+        cluster.snapshot_broadcast()
+        cluster.last_broadcast_version = cluster.version
+        msgs = []
+        for member in cluster.members - exclude:
+            msgs.append(Downlink(member, cluster.center, cluster.version, cluster.cluster_id, "broadcast"))
+            self.client_versions[member] = (cluster.cluster_id, cluster.version)
+        self.events.append({"kind": "broadcast", "cluster": cluster.cluster_id, "n": len(msgs)})
+        return msgs
+
+    # ---------------------------------------------------------- refinement
+    def _feedback_rows(self, pairs: list) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(F_pred, F_true, S_soft) for (client, center) pairs as fp32 device
+        tensors: one batched probe when ``feedback_batch_fn`` is installed,
+        else one ``feedback_fn`` call per pair."""
+        dev = self.device
+        if self.feedback_batch_fn is not None:
+            f_pred, f_true, s_soft = self.feedback_batch_fn(list(pairs))
+        else:
+            rows = [self.feedback_fn(m, center) for m, center in pairs]
+            f_pred = np.stack([r[0] for r in rows])
+            f_true = np.stack([r[1] for r in rows])
+            s_soft = np.stack([r[2] for r in rows])
+
+        def as_dev(x):
+            return torch.as_tensor(x, dtype=torch.float32).to(dev).contiguous()
+
+        return as_dev(f_pred), torch.clamp_min(as_dev(f_true), 1e-3), as_dev(s_soft)
+
+    def _collect_feedback(self) -> dict[int, dict[Any, float]]:
+        """chi2 x Var(S) feedback for every member of every cluster in one
+        segmented launch, which also sums g per cluster."""
+        if self.feedback_fn is None:
+            return {}
+        cid_order = sorted(self.clustering.clusters)
+        entries: list[tuple[int, int, Any, Any]] = []  # (segment, cid, member, center)
+        for si, cid in enumerate(cid_order):
+            cluster = self.clustering.clusters[cid]
+            center = cluster.center  # materialized once per cluster
+            for m in sorted(cluster.members):
+                entries.append((si, cid, m, center))
+        if not entries:
+            return {}
+        f_pred, f_true, s_soft = self._feedback_rows([(m, c) for _, _, m, c in entries])
+        seg_ids = np.asarray([si for si, _, _, _ in entries], np.int32)
+        g, seg_sum = K.chi2_feedback_segmented(
+            f_pred, f_true, s_soft, torch.from_numpy(seg_ids).to(self.device),
+            num_segments=len(cid_order),
+        )
+        g = g.cpu().numpy()
+        seg_sum = seg_sum.cpu().numpy()
+        counts = np.bincount(seg_ids, minlength=len(cid_order))
+        self.last_cluster_feedback_mean = {
+            cid: float(seg_sum[si] / counts[si])
+            for si, cid in enumerate(cid_order)
+            if counts[si] > 0
+        }
+        per_cluster: dict[int, dict[Any, float]] = {}
+        for (si, cid, m, _), gi in zip(entries, g.tolist()):
+            per_cluster.setdefault(cid, {})[m] = gi
+        return per_cluster
+
+    def _reassign_by_feedback(self, feedback: dict[int, dict[Any, float]]) -> int:
+        """Probe every flagged poor-fit member's feedback against every other
+        center in one launch and move it to a decisively better fit."""
+        clusters = self.clustering.clusters
+        if self.feedback_fn is None or len(clusters) < 2:
+            return 0
+        flagged: list[tuple[Any, int, float]] = []
+        for cid, fb in feedback.items():
+            if cid not in clusters or len(fb) < 2:
+                continue
+            med = float(np.median(list(fb.values())))
+            for m, g in fb.items():
+                if g <= 2.0 * (med + 1e-12):
+                    continue
+                if m in clusters[cid].partial_finetune:
+                    continue
+                flagged.append((m, cid, g))
+        if not flagged:
+            return 0
+        centers = {cid: clusters[cid].center for cid in clusters}
+        others_of = {
+            home: [c2 for c2 in sorted(clusters) if c2 != home]
+            for home in {home for _, home, _ in flagged}
+        }
+        pairs = [(m, centers[c2]) for m, home, _ in flagged for c2 in others_of[home]]
+        f_pred, f_true, s_soft = self._feedback_rows(pairs)
+        scores = K.chi2_feedback(f_pred, f_true, s_soft).cpu().numpy().reshape(
+            len(flagged), len(clusters) - 1
+        )
+        moves = 0
+        for (m, home, g), row in zip(flagged, scores):
+            best_i = int(np.argmin(row))
+            if row[best_i] < 0.5 * g:
+                best = others_of[home][best_i]
+                self.clustering._move(m, best)
+                self.client_versions[m] = (best, clusters[best].version)
+                moves += 1
+        return moves
+
+    def _refine(self) -> list[Downlink]:
+        out: list[Downlink] = []
+        self._refine_round += 1
+        if self._refine_round % 5 == 0:  # decay peel counts
+            self.clustering.peel_counts = {
+                k: v - 1 for k, v in self.clustering.peel_counts.items() if v > 1
+            }
+        # lift head-only mode imposed before this refinement (Sec. 4.3.3)
+        for cluster in self.clustering.clusters.values():
+            if cluster.partial_finetune and cluster.pf_round < self._refine_round - 1:
+                cluster.partial_finetune.clear()
+        feedback = self._collect_feedback()
+
+        # first move poor fits to an existing better-fitting cluster
+        moved = self._reassign_by_feedback(feedback)
+        if moved:
+            self.events.append({"kind": "reassign", "n": moved})
+            feedback = self._collect_feedback()
+
+        # expansion: split poor fits out of each cluster
+        for cid, fb in list(feedback.items()):
+            if cid not in self.clustering.clusters:
+                continue
+            new_cid = self.clustering.expand(
+                cid, fb, uploads=self._upload_rows, refine_round=self._refine_round
+            )
+            if new_cid is not None:
+                parent_pred = self._predictor(cid)
+                new_cluster = self.clustering.clusters[new_cid]
+                change = max(fb.values()) if fb else 0.0
+                self.predictors[new_cid] = predictor_for_expansion(parent_pred, change)
+                self.repo.branch(f"cluster/{new_cid}", new_cluster.center)
+                self.events.append({"kind": "expand", "from": cid, "to": new_cid})
+                for m in new_cluster.members:
+                    self.client_versions[m] = (new_cid, new_cluster.version)
+
+        # merging: above hm * C clusters, fold the nearest redundant pair,
+        # else dissolve the smallest cluster
+        while self.clustering.should_merge():
+            pair = self.clustering.nearest_pair()
+            if pair is None:
+                if not self._dissolve_smallest():
+                    break
+                continue
+            a, b = pair
+            pred_a, pred_b = self._predictor(a), self._predictor(b)  # before deletion
+            train_fn = self.local_train_fn or (lambda p: p)
+            merged_cid = self.clustering.merge_pair(a, b, train_fn)
+            other = b if merged_cid == a else a
+            self.predictors[merged_cid] = predictor_for_merge(pred_a, pred_b)
+            self.predictors.pop(other, None)
+            self.repo.delete(f"cluster/{other}")
+            self.repo.branch(f"cluster/{merged_cid}", self.clustering.clusters[merged_cid].center)
+            self.events.append({"kind": "merge", "into": merged_cid, "from": other})
+            # merged model is immediately broadcast (Sec. 5.2.2)
+            out.extend(self._broadcast(self.clustering.clusters[merged_cid]))
+        return out
+
+    def _dissolve_smallest(self) -> bool:
+        """Retire the smallest cluster and refit each member to its best
+        remaining cluster (feedback probe when available, else L1 of its last
+        upload), every probe in one launch."""
+        clustering = self.clustering
+        clusters = clustering.clusters
+        if len(clusters) < 2:
+            return False
+        victim = min(clusters, key=lambda c: (clusters[c].size, clusters[c].version))
+        rest = [c for c in clusters if c != victim]
+        members = sorted(clusters[victim].members, key=str)
+        best_of: dict[Any, int] = {m: rest[0] for m in members}
+        plane = clustering.plane
+        if members and self.feedback_fn is not None:
+            centers = {c: clusters[c].center for c in rest}
+            f_pred, f_true, s_soft = self._feedback_rows(
+                [(m, centers[c]) for m in members for c in rest]
+            )
+            scores = K.chi2_feedback(f_pred, f_true, s_soft).cpu().numpy().reshape(
+                len(members), len(rest)
+            )
+            for m, row in zip(members, scores):
+                best_of[m] = rest[int(np.argmin(row))]
+        elif members:
+            have = [m for m in members if m in self._upload_rows]
+            if have:
+                U = plane.take([self._upload_rows[m] for m in have])
+                centers = plane.rows([clusters[c]._row for c in rest])
+                D = K.l1_distance_pairwise(U, centers).cpu().numpy()
+                for m, d in zip(have, D):
+                    best_of[m] = rest[int(np.argmin(d))]
+        for m in members:
+            best = best_of[m]
+            clustering._move(m, best)
+            self.client_versions[m] = (best, clusters[best].version)
+        clustering.drop_cluster(victim)
+        self.predictors.pop(victim, None)
+        self.repo.delete(f"cluster/{victim}")
+        self.events.append({"kind": "dissolve", "cluster": victim})
+        return True
+
+    # ------------------------------------------------------------- metrics
+    def stats(self) -> dict:
+        plane = self.clustering.plane
+        return {
+            "clusters": len(self.clustering.clusters),
+            "merges": self.clustering.merges,
+            "expansions": self.clustering.expansions,
+            "staleness": self.staleness.snapshot(),
+            "broadcasts": sum(1 for e in self.events if e["kind"] == "broadcast"),
+            "rnn_broadcasts": self._rnn_broadcasts,
+            "decisions": self._decisions,
+            "backend": self.clustering.backend,
+            "plane_rows": 0 if plane is None else plane.num_allocated,
+            "cluster_feedback_mean": {
+                cid: g
+                for cid, g in self.last_cluster_feedback_mean.items()
+                if cid in self.clustering.clusters
+            },
+        }

@@ -1,0 +1,63 @@
+// Shared helpers for the repro_torch kernels: fixed-order warp and block
+// reductions (deterministic for a given launch shape, no atomics) and the
+// error-return convention every C entry point follows.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define REPRO_API extern "C" __attribute__((visibility("default")))
+
+namespace repro {
+
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;  // every lane holds the same total
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Sum over a kThreads-thread block in a fixed order (warp butterflies, then
+// one warp over the per-warp partials). Result valid in every thread.
+__device__ __forceinline__ float block_sum(float v) {
+  __shared__ float part[kThreads / 32];
+  __shared__ float total;
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  v = warp_sum(v);
+  if (lane == 0) part[wid] = v;
+  __syncthreads();
+  if (wid == 0) {
+    float w = lane < kThreads / 32 ? part[lane] : 0.f;
+    w = warp_sum(w);
+    if (lane == 0) total = w;
+  }
+  __syncthreads();
+  return total;
+}
+
+__device__ __forceinline__ float block_max(float v) {
+  __shared__ float part[kThreads / 32];
+  __shared__ float total;
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  v = warp_max(v);
+  if (lane == 0) part[wid] = v;
+  __syncthreads();
+  if (wid == 0) {
+    float w = lane < kThreads / 32 ? part[lane] : -3.4e38f;
+    w = warp_max(w);
+    if (lane == 0) total = w;
+  }
+  __syncthreads();
+  return total;
+}
+
+inline int launch_status() { return static_cast<int>(cudaGetLastError()); }
+
+}  // namespace repro

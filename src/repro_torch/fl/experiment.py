@@ -1,0 +1,152 @@
+"""Experiment wiring: task + device fleet + strategy -> Simulator
+(counterpart of ``repro.fl.experiment``, EchoPFL only).
+
+``run_experiment(task, "echopfl", ...)`` is the port's end-to-end entry
+point. It runs on ``device="cuda"`` unless the caller asks for the CPU.
+``init_params=`` (MLP weights) and ``rnn_params=`` (pretrained broadcast
+RNN) hand over weights made elsewhere — e.g. the reference's, which torch
+cannot draw itself — instead of drawing them from ``seed``.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.common.device import resolve_device
+from repro_torch.configs.paper_tasks import PAPER_TASKS
+from repro_torch.core.client import SimClient
+from repro_torch.core.server import EchoPFLServer
+from repro_torch.data.synthetic import make_task
+from repro_torch.fl.devices import PAPER_SIM_MIX, make_device_fleet
+from repro_torch.fl.network import NetworkModel
+from repro_torch.fl.simulator import Simulator
+from repro_torch.fl.tasks import MLP_TASK
+
+PyTree = Any
+
+
+def build_clients(
+    task_name: str,
+    num_clients: int,
+    seed: int = 0,
+    latent_clusters: int = 4,
+    device_mix: dict | None = None,
+    base_round_time: float = 30.0,
+    samples_per_client: int = 96,
+    local_epochs: int = 5,
+    *,
+    device: str | torch.device = "cuda",
+    init_params: PyTree | None = None,
+):
+    """Synthetic clients (the reference's numpy draws, in its order) and the
+    initial MLP on ``device`` (drawn from ``seed`` unless given)."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    task = make_task(
+        task_name, num_clients, rng,
+        latent_clusters=latent_clusters, samples_per_client=samples_per_client,
+    )
+    fleet = make_device_fleet(num_clients, rng, device_mix or PAPER_SIM_MIX, base_round_time)
+    cfg = PAPER_TASKS[task_name]
+    if init_params is None:
+        init_params = MLP_TASK.init_params(torch.Generator().manual_seed(seed), cfg, device=dev)
+    else:
+        init_params = [
+            {k: torch.tensor(np.asarray(v), dtype=torch.float32).to(dev) for k, v in layer.items()}
+            for layer in init_params
+        ]
+    clients = [
+        SimClient(
+            client_id=i,
+            data=task.clients[i],
+            num_classes=cfg.num_classes,
+            device_class=fleet[i]["class"],
+            round_time_fn=fleet[i]["round_time"],
+            local_epochs=local_epochs,
+        )
+        for i in range(num_clients)
+    ]
+    return task, clients, init_params
+
+
+def build_strategy(
+    name: str,
+    init_params: PyTree,
+    clients: list[SimClient],
+    *,
+    seed: int = 0,
+    num_clusters: int = 2,
+    hm: float = 2.0,
+    mix_rate: float = 0.25,
+    rnn_params: dict | None = None,
+    device: str | torch.device = "cuda",
+):
+    if name != "echopfl":
+        raise NotImplementedError(f"repro_torch: strategy {name!r} is not ported yet")
+    by_id = {c.client_id: c for c in clients}
+
+    def feedback_fn(client_id, center):
+        return by_id[client_id].feedback_inputs(center)
+
+    def local_train_fn(center):
+        # Algorithm 1 posterior pass: one local round on a member's data
+        member = by_id[int(np.random.default_rng(seed).choice(sorted(by_id)))]
+        trained, _ = member.local_train(center)
+        return trained
+
+    return EchoPFLServer(
+        init_params,
+        num_initial_clusters=num_clusters,
+        hm=hm,
+        mix_rate=mix_rate,
+        feedback_fn=feedback_fn,
+        local_train_fn=local_train_fn,
+        rnn_params=rnn_params,
+        seed=seed,
+        device=device,
+    )
+
+
+def run_experiment(
+    task_name: str,
+    strategy_name: str,
+    *,
+    num_clients: int = 20,
+    seed: int = 0,
+    max_time: float = 3600.0,
+    target_acc: float = 0.85,
+    eval_interval: float = 60.0,
+    network: NetworkModel | None = None,
+    latent_clusters: int = 4,
+    device_mix: dict | None = None,
+    samples_per_client: int = 96,
+    local_epochs: int = 5,
+    base_round_time: float = 30.0,
+    device: str | torch.device = "cuda",
+    init_params: PyTree | None = None,
+    rnn_params: dict | None = None,
+    **strategy_kw,
+):
+    """Returns (task, clients, strategy, report)."""
+    dev = resolve_device(device)
+    task, clients, init_params = build_clients(
+        task_name, num_clients, seed=seed, latent_clusters=latent_clusters,
+        device_mix=device_mix, samples_per_client=samples_per_client,
+        local_epochs=local_epochs, base_round_time=base_round_time,
+        device=dev, init_params=init_params,
+    )
+    strategy = build_strategy(
+        strategy_name, init_params, clients, seed=seed, rnn_params=rnn_params,
+        device=dev, **strategy_kw,
+    )
+    sim = Simulator(
+        clients, strategy,
+        network=network or NetworkModel(),
+        eval_interval=eval_interval, target_acc=target_acc, seed=seed,
+    )
+    report = sim.run(max_time=max_time)
+    report.extra["task"] = task_name
+    report.extra["latent_clusters"] = {c.client_id: c.data.latent_cluster for c in clients}
+    return task, clients, strategy, report

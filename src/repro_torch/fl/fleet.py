@@ -1,0 +1,170 @@
+"""Device-resident client fleet engine: the simulated devices as batched
+compute (counterpart of ``repro.fl.fleet`` without the mesh).
+
+Every client's current model is a row of a second
+:class:`~repro_torch.core.plane.ParameterPlane`; per-client train/test data
+pads once into ``(clients, n, ...)`` device tensors with validity masks.
+Three batched calls replace per-client loops:
+
+* :meth:`ClientFleet.train_client` — the async path's single-client local
+  round, trained from (and written back to) the client's model row, padded
+  like every cohort to a power of two (padded rows train 0 epochs);
+* :meth:`ClientFleet.evaluate_fleet` — masked accuracy for the whole fleet;
+* :meth:`ClientFleet.feedback_many` — batched (member, center) probes
+  emitting the (F_pred, F_true, S_soft) rows the server's chi2 kernels take.
+"""
+from __future__ import annotations
+
+from typing import Any, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.common.pytrees import flatten_spec
+from repro_torch.core.plane import ParameterPlane
+from repro_torch.fl.tasks import MLP_TASK
+
+PyTree = Any
+
+
+def _pow2(n: int) -> int:
+    return 1 if n <= 1 else 1 << (n - 1).bit_length()
+
+
+class ClientFleet:
+    """Batched state + launches for a list of :class:`SimClient`s."""
+
+    def __init__(self, clients: Sequence[Any], template: PyTree, *, device: torch.device | str):
+        self.clients = list(clients)
+        self.ids = [c.client_id for c in self.clients]
+        self.index = {cid: i for i, cid in enumerate(self.ids)}
+        K = len(self.clients)
+        self.device = torch.device(device)
+        self.num_classes = self.clients[0].num_classes
+        self.task = getattr(self.clients[0], "task", None) or MLP_TASK
+        self.spec = flatten_spec(template)
+        self.plane = ParameterPlane(template, capacity=K, device=self.device)
+        self._model_row = [self.plane.alloc() for _ in range(K)]
+        self._has_model = [False] * K
+        fd = self.task.build_fleet_data([c.data for c in self.clients], self.device, self.num_classes)
+        self._train_data, self._test_data, self.f_true = fd.train, fd.test, fd.f_true
+        # tree -> flat vector memo keyed by object identity (the held
+        # reference keeps the id stable): a broadcast hands every member the
+        # same center object, so it costs one flatten
+        self._flat_cache: dict[int, tuple[Any, torch.Tensor]] = {}
+
+    # ------------------------------------------------------------ adapters
+    def _vec_of(self, params: PyTree) -> torch.Tensor:
+        if isinstance(params, torch.Tensor) and params.dim() == 1:
+            return params
+        key = id(params)
+        hit = self._flat_cache.pop(key, None)
+        if hit is not None and hit[0] is params:
+            self._flat_cache[key] = hit
+            return hit[1]
+        vec = self.spec.flatten(params).to(self.device)
+        if len(self._flat_cache) >= 512:  # evict the least recently used
+            self._flat_cache.pop(next(iter(self._flat_cache)))
+        self._flat_cache[key] = (params, vec)
+        return vec
+
+    # ------------------------------------------------------------- models
+    def set_model(self, cid, params: PyTree) -> None:
+        i = self.index[cid]
+        self.plane.write(self._model_row[i], self._vec_of(params))
+        self._has_model[i] = True
+
+    def model_vec(self, cid) -> torch.Tensor:
+        i = self.index[cid]
+        if not self._has_model[i]:
+            raise ValueError(f"client {cid} has no model set")
+        return self.plane.row(self._model_row[i])
+
+    # ------------------------------------------------------------ training
+    def _train_specs(self, cids: Sequence[Any]):
+        cs = [self.clients[self.index[c]] for c in cids]
+        lr = np.asarray([c.lr for c in cs], np.float32)
+        epochs = np.asarray([c.local_epochs for c in cs], np.int32)
+        head = np.asarray([1.0 if c.partial_finetune else 0.0 for c in cs], np.float32)
+        return lr, epochs, head
+
+    def _train(self, idx: np.ndarray, mat: torch.Tensor, lr, epochs, head):
+        """Padded batch: returns (S, dim) trained rows + (S,) losses."""
+        S = len(idx)
+        P = _pow2(S)
+        if P != S:
+            idx = np.concatenate([idx, np.full(P - S, idx[0])])
+            mat = torch.cat([mat, mat[:1].expand(P - S, -1)])
+            lr = np.concatenate([lr, np.zeros(P - S, np.float32)])
+            epochs = np.concatenate([epochs, np.zeros(P - S, np.int32)])  # padded rows train 0 epochs
+            head = np.concatenate([head, np.zeros(P - S, np.float32)])
+        max_epochs = int(epochs.max()) if len(epochs) else 0
+        dev = self.device
+        gather = torch.from_numpy(idx.astype(np.int64)).to(dev)
+        data = {k: v.index_select(0, gather) for k, v in self._train_data.items()}
+        params_b = self.spec.unflatten_batched(mat)
+        new_b, losses = self.task.fleet_local_train(
+            params_b, data, torch.from_numpy(lr).to(dev), torch.from_numpy(epochs).to(dev),
+            torch.from_numpy(head).to(dev), max_epochs=max_epochs,
+        )
+        return self.spec.flatten_batched(new_b)[:S], losses[:S]
+
+    def train_client(self, cid) -> tuple[PyTree, torch.Tensor]:
+        """Row-sliced single-client local round (the async event loop):
+        trains from this client's model row, writes the new row back, and
+        returns the trained params as a tree plus the device-scalar loss."""
+        i = self.index[cid]
+        mat = self.model_vec(cid)[None, :]
+        vecs, losses = self._train(np.asarray([i]), mat, *self._train_specs([cid]))
+        vec = vecs[0]
+        self.plane.write(self._model_row[i], vec)
+        self._has_model[i] = True
+        return self.spec.unflatten(vec), losses[0]
+
+    # ---------------------------------------------------------- evaluation
+    def evaluate_fleet(self, params_list: Sequence[PyTree | None]) -> np.ndarray:
+        """(K,) accuracies in fleet order, one batched call. ``params_list[i]``
+        is what client ``i`` evaluates; ``None`` falls back to the client's
+        own model row — or 0.0 when no model was ever set."""
+        zero = np.zeros(len(self.ids), bool)
+        vecs = []
+        for i, obj in enumerate(params_list):
+            if obj is None:
+                if not self._has_model[i]:
+                    zero[i] = True
+                    vecs.append(torch.zeros(self.spec.dim, device=self.device))
+                else:
+                    vecs.append(self.plane.row(self._model_row[i]))
+            else:
+                vecs.append(self._vec_of(obj))
+        mat = torch.stack(vecs)
+        accs = self.task.fleet_evaluate(self.spec.unflatten_batched(mat), self._test_data)
+        accs = accs.cpu().numpy()
+        if zero.any():
+            accs = np.where(zero, 0.0, accs)
+        return accs
+
+    # ------------------------------------------------------------ feedback
+    def feedback_many(self, pairs: Sequence[tuple[Any, PyTree]]):
+        """Batched (member, center) feedback probes -> device tensors
+        (F_pred (M, J), F_true (M, J), S_soft (M, J)), the server's
+        ``feedback_batch_fn``."""
+        idx = np.asarray([self.index[m] for m, _ in pairs])
+        bank_ids: dict[int, int] = {}
+        bank_vecs: list[torch.Tensor] = []
+        sel = np.empty(len(pairs), np.int64)
+        for k, (_, center) in enumerate(pairs):  # distinct centers only
+            slot = bank_ids.get(id(center))
+            if slot is None:
+                slot = bank_ids[id(center)] = len(bank_vecs)
+                bank_vecs.append(self._vec_of(center))
+            sel[k] = slot
+        dev = self.device
+        bank = torch.stack(bank_vecs)
+        mat = bank.index_select(0, torch.from_numpy(sel).to(dev))
+        gather = torch.from_numpy(idx.astype(np.int64)).to(dev)
+        data = {k: v.index_select(0, gather) for k, v in self._train_data.items()}
+        f_pred, s_soft = self.task.fleet_feedback(
+            self.spec.unflatten_batched(mat), data, self.num_classes
+        )
+        return f_pred, self.f_true.index_select(0, gather), s_soft

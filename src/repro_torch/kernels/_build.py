@@ -1,0 +1,128 @@
+"""Build and load the hand-written CUDA kernels.
+
+The kernels in ``src/repro_torch/csrc/*.cu`` have a plain C interface. At
+first use this module compiles each source with ``nvcc`` for ``sm_90a``
+(all sources at once, one process each), links the objects into one shared
+library under ``build/repro_torch/`` at the repository root, and loads it
+with :mod:`ctypes`. A hash of the sources and flags names the library, so an
+unchanged tree loads the existing build instead of compiling again. A
+failed build raises; nothing falls back to the plain PyTorch versions.
+
+Nothing here runs at import time: the CPU tests import every module of the
+package on hosts without ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("l1.cu", "assign_lerp.cu", "chi2.cu", "merge.cu")
+HEADERS = ("common.cuh",)
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_INT = ctypes.c_int
+# C signature of every entry point: argtypes, restype
+_SIGNATURES = {
+    "repro_l1_rows": ([_P, _P, _P, _I64, _I64, _I64, _INT, _P], _INT),
+    "repro_select_lerp": ([_P, _I64, _P, _P, _I64, ctypes.c_double, _P, _P, _INT, _P], _INT),
+    "repro_chi2_rows": ([_P, _P, _P, _P, _I64, _I64, _INT, _P], _INT),
+    "repro_segment_sum": ([_P, _P, _I64, _I64, _P, _INT, _P], _INT),
+    "repro_merge_blocks": ([_I64], _I64),
+    "repro_merge_attention": ([_P, _P, _P, _I64, _P, _P, _INT, _P], _INT),
+}
+
+_LOCK = threading.Lock()
+_LIB: ctypes.CDLL | None = None
+build_seconds: float | None = None  # wall time of the last compile (None: loaded a cached build)
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
+    return path
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in HEADERS + SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _compile(lib_path: Path) -> None:
+    exe = nvcc()
+    tmp = lib_path.parent / f"tmp-{os.getpid()}"
+    tmp.mkdir(parents=True, exist_ok=True)
+    objs, procs = [], []
+    for name in SOURCES:  # one nvcc per source, all running together
+        obj = tmp / (Path(name).stem + ".o")
+        objs.append(obj)
+        cmd = [exe, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
+        procs.append((name, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    errors = []
+    for name, p in procs:
+        out, _ = p.communicate()
+        if p.returncode != 0:
+            errors.append(f"{name}:\n{out.decode(errors='replace')}")
+    if errors:
+        raise RuntimeError("nvcc failed to compile the kernels:\n" + "\n".join(errors))
+    staged = tmp / lib_path.name
+    link = subprocess.run(
+        [exe, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(staged),
+         *map(str, objs)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+    )
+    if link.returncode != 0:
+        raise RuntimeError("nvcc failed to link the kernels:\n" + link.stdout.decode(errors="replace"))
+    os.replace(staged, lib_path)  # atomic: a reader never sees a half-written library
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _LIB, build_seconds
+    if _LIB is not None:
+        return _LIB
+    with _LOCK:
+        if _LIB is not None:
+            return _LIB
+        lib_path = BUILD_DIR / f"librepro_torch_{_source_hash()}.so"
+        if not lib_path.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            t0 = time.perf_counter()
+            _compile(lib_path)
+            build_seconds = time.perf_counter() - t0
+        lib = ctypes.CDLL(str(lib_path))
+        for fn, (argtypes, restype) in _SIGNATURES.items():
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = restype
+        _LIB = lib
+        return lib
+
+
+def stream(t: torch.Tensor) -> int:
+    """Raw handle of PyTorch's current stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {what} failed to launch: cudaError {rc}")

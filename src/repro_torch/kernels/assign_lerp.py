@@ -1,0 +1,58 @@
+"""Family B: fused on-arrival assignment + mixed-rate center blend (Eq. 1 +
+Sec. 4), kernel in ``csrc/assign_lerp.cu``; replaces
+``src/repro/kernels/assign_lerp.py``.
+
+:func:`assign_and_lerp` launches family A (:func:`~repro_torch.kernels.l1.l1_distance`)
+for the distance vector, then the select-lerp kernel, which takes the
+first-index argmin on the device and blends only the winning center row.
+The host never reads the index inside the chain; the caller syncs once on
+the distances it returns. ``assign_and_lerp.launches`` counts select-lerp
+launches (the L1 launch counts on ``l1_distance``).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels._dispatch import check_f32, use_plain
+from repro_torch.kernels.l1 import l1_distance, l1_distance_plain
+
+
+def blend_plain(c: torch.Tensor, u: torch.Tensor, beta: float) -> torch.Tensor:
+    """The pinned two-op blend round(round((1-beta)*c) + round(beta*u)):
+    (1 - beta) folds in double and rounds once to fp32, as the reference
+    folds its Python float; the two products and the sum are separate ops,
+    so nothing contracts them into an FMA."""
+    m1 = torch.mul(c, 1.0 - beta)
+    m2 = torch.mul(u, beta)
+    return torch.add(m1, m2)
+
+
+def assign_and_lerp_plain(u: torch.Tensor, centers: torch.Tensor, beta: float):
+    dists = l1_distance_plain(u, centers)
+    idx = torch.argmin(dists).to(torch.int32)  # first index among ties
+    return dists, idx, blend_plain(centers[idx.long()], u, beta)
+
+
+def assign_and_lerp(u: torch.Tensor, centers: torch.Tensor, beta: float):
+    """u (N,), centers (C, N) -> (dists (C,) fp32, idx () int32, blended (N,))
+    with ``blended = (1 - beta) * centers[idx] + beta * u``."""
+    check_f32("assign_and_lerp", ("u", u, 1), ("centers", centers, 2))
+    C, N = centers.shape
+    if u.shape[0] != N or C == 0:
+        raise ValueError(f"assign_and_lerp: bad shapes u {tuple(u.shape)}, centers {(C, N)}")
+    if use_plain("assign_and_lerp", u, centers):
+        return assign_and_lerp_plain(u, centers, beta)
+    dists = l1_distance(u, centers)
+    idx = torch.empty((), dtype=torch.int32, device=u.device)
+    out = torch.empty((N,), dtype=torch.float32, device=u.device)
+    rc = _build.library().repro_select_lerp(
+        dists.data_ptr(), C, centers.data_ptr(), u.data_ptr(), N, float(beta), idx.data_ptr(), out.data_ptr(),
+        u.device.index or 0, _build.stream(u),
+    )
+    _build.check(rc, "select_lerp")
+    assign_and_lerp.launches += 1
+    return dists, idx, out
+
+
+assign_and_lerp.launches = 0

@@ -1,0 +1,66 @@
+"""Family A: L1 rows (paper Eq. 1), kernel in ``csrc/l1.cu``.
+
+One CUDA kernel computes ``(M, N) x (C, N) -> (M, C)`` fp32 L1 distances
+and serves both entry points: :func:`l1_distance` (one upload against every
+center, ``M = 1``; replaces ``src/repro/kernels/l1_distance.py``) and
+:func:`l1_distance_pairwise` (replaces ``src/repro/kernels/l1_pairwise.py``).
+Each wrapper counts its own launches in ``.launches``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels._dispatch import check_f32, use_plain
+
+
+def l1_distance_pairwise_plain(xs: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """(M, N), (C, N) -> (M, C): sum |x - c| in fp32."""
+    return torch.sum(torch.abs(xs[:, None, :] - centers[None, :, :]), dim=-1)
+
+
+def l1_distance_plain(u: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """(N,), (C, N) -> (C,)."""
+    return torch.sum(torch.abs(centers - u[None, :]), dim=1)
+
+
+def _launch_rows(xs: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    M, N = xs.shape
+    C = centers.shape[0]
+    if M > 65535:
+        raise ValueError(f"l1 kernel: at most 65535 query rows per launch, got {M}")
+    out = torch.empty((M, C), dtype=torch.float32, device=xs.device)
+    rc = _build.library().repro_l1_rows(
+        xs.data_ptr(), centers.data_ptr(), out.data_ptr(), M, C, N, xs.device.index or 0, _build.stream(xs)
+    )
+    _build.check(rc, "l1_rows")
+    return out
+
+
+def l1_distance_pairwise(xs: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """(M, N) x (C, N) -> (M, C) L1 matrix in one launch (merge-candidate
+    search, dissolve and reassignment sweeps)."""
+    check_f32("l1_distance_pairwise", ("xs", xs, 2), ("centers", centers, 2))
+    if xs.shape[1] != centers.shape[1]:
+        raise ValueError(f"l1_distance_pairwise: widths differ {xs.shape[1]} != {centers.shape[1]}")
+    if use_plain("l1_distance_pairwise", xs, centers):
+        return l1_distance_pairwise_plain(xs, centers)
+    out = _launch_rows(xs, centers)
+    l1_distance_pairwise.launches += 1
+    return out
+
+
+def l1_distance(u: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """(N,) x (C, N) -> (C,) distances of one upload to every center."""
+    check_f32("l1_distance", ("u", u, 1), ("centers", centers, 2))
+    if u.shape[0] != centers.shape[1]:
+        raise ValueError(f"l1_distance: widths differ {u.shape[0]} != {centers.shape[1]}")
+    if use_plain("l1_distance", u, centers):
+        return l1_distance_plain(u, centers)
+    out = _launch_rows(u[None, :], centers)[0]
+    l1_distance.launches += 1
+    return out
+
+
+l1_distance_pairwise.launches = 0
+l1_distance.launches = 0

@@ -35,3 +35,4 @@ def tiny_params():
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running integration test")
+    config.addinivalue_line("markers", "cuda: needs an NVIDIA GPU; skips with a reason elsewhere")

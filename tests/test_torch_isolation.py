@@ -1,0 +1,73 @@
+"""The port stands alone: it imports neither ``jax`` nor the reference
+package, and asked for CUDA on a host without a card it raises instead of
+running on the CPU."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+
+def _modules():
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(ROOT / "src").with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts)
+
+
+def test_importing_the_port_loads_no_jax_and_no_reference():
+    mods = list(_modules())
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.'))\n"
+        "print(len(sys.modules)); assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT)]))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert len(mods) >= 25
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import_statement(path):
+    for name in _imports(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {name}"
+
+
+def test_run_experiment_on_cuda_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU")
+    from repro_torch.fl.experiment import run_experiment
+
+    calls = []
+    import repro_torch.fl.simulator as sim
+
+    orig = sim.Simulator.run
+    sim.Simulator.run = lambda self, **kw: calls.append(kw)  # would mean it ran
+    try:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            run_experiment("har", "echopfl", num_clients=4, max_time=60, device="cuda")
+    finally:
+        sim.Simulator.run = orig
+    assert not calls
