@@ -10,22 +10,36 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 1. probe — the card's name and power limit, CUDA and nvcc versions; build
    the hand-written kernels from ``src/repro_torch/csrc`` and time the build;
 2. kernels — every kernel wrapper against its plain PyTorch version on the
-   card, at the main path's widths and at edge shapes;
+   card, at the main path's widths and at edge shapes; the flash-attention
+   forward and backward at the LM paths' shapes and at the model zoo's
+   head widths (up to 256), the backward also bitwise across repeats;
 3. main path — ``repro_torch.fl.experiment.run_experiment("image_recognition",
    "echopfl", num_clients=20, max_time=1500, seed=0)`` on the card and, only
    if that run makes no merge, the same run with ``hm=1.0``; launch counts
    are zeroed just before and read just after, and every kernel must launch;
    host time is summed per layer;
-4. agreement — a small ``har`` run on the card against the same run on the
-   CPU, where every wrapper takes its plain version;
+3b. LM path — ``repro_torch.fl.lm_task.run_lm_experiment("echopfl",
+   num_clients=8, max_time=900, eval_interval=120, seed=0)`` on ``tiny_lm``:
+   its own launch counts (the flash kernels and the server's assign chain
+   must launch), host time per layer, and the training NLL of every
+   client's last upload below that of its first;
+3c. full width — the same run over a ``llama3.2-1b`` base drawn on the card
+   (4 clients, seq_len 256, one local epoch, 720 s): flash kernels at
+   ``(4, 32, 256, 64)``, wall time per upload, peak device memory;
+4. agreement — a small ``har`` run and the ``tiny_lm`` LM run on the card
+   against the same runs on the CPU, where every wrapper takes its plain
+   version;
 5. timing — each kernel, its plain version and (where one exists) a single
    PyTorch call computing the same function, at the shape the main path
-   called it with most, beside the least time the card could take: device
-   time per call from a ``torch.profiler`` trace (``ms``, ``plain_ms``,
-   ``library_ms``) and the per-call time of back-to-back calls between CUDA
-   events, host overhead included (``call_ms`` and its two siblings);
-6. profile — a short main-path run under ``torch.profiler``: device busy
-   time, the device's idle share and the kernels that take the time.
+   called it with most (the flash kernels and ``pairwise_l1`` at the
+   ``tiny_lm`` and the ``llama3.2-1b`` shapes), beside the least time the
+   card could take: device time per call from a ``torch.profiler`` trace
+   (``ms``, ``plain_ms``, ``library_ms``) and the per-call time of
+   back-to-back calls between CUDA events, host overhead included
+   (``call_ms`` and its two siblings);
+6. profile — short runs of the main path and of both LM paths under
+   ``torch.profiler``: device busy time, the device's idle share and the
+   kernels that take the time.
 
 The last lines are one JSON object with the kernel table, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -48,17 +62,36 @@ DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 
-KERNELS = {  # wrapper name -> (CUDA source, the TPU kernel's pallas_call it replaces)
+KERNELS = {  # row name -> (CUDA source, the TPU kernel's pallas_call it replaces)
     "l1_distance": ("src/repro_torch/csrc/l1.cu", "src/repro/kernels/l1_distance.py:51"),
     "l1_distance_pairwise": ("src/repro_torch/csrc/l1.cu", "src/repro/kernels/l1_pairwise.py:57"),
     "assign_and_lerp": ("src/repro_torch/csrc/assign_lerp.cu", "src/repro/kernels/assign_lerp.py:63"),
     "chi2_feedback": ("src/repro_torch/csrc/chi2.cu", "src/repro/kernels/chi2_feedback.py:50"),
     "chi2_feedback_segmented": ("src/repro_torch/csrc/chi2.cu", "src/repro/kernels/chi2_feedback.py:111"),
     "merge_attention": ("src/repro_torch/csrc/merge.cu", "src/repro/kernels/merge_attention.py:68"),
+    "pairwise_l1": ("src/repro_torch/csrc/l1.cu", "src/repro/kernels/l1_distance.py:65"),
+    "flash_attention_fwd": ("src/repro_torch/csrc/flash_fwd.cu", "src/repro/kernels/flash_attention.py:127"),
+    "flash_attention_bwd": ("src/repro_torch/csrc/flash_bwd.cu", "src/repro/kernels/flash_attention_bwd.py:176"),
 }
+MLP_PATH = KERNELS.keys() - {"pairwise_l1", "flash_attention_fwd", "flash_attention_bwd"}
+# launch counters the LM paths must move: the flash kernels and the server's assign chain
+LM_PATH = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv", "l1_distance", "assign_and_lerp")
 # the kernels' entry functions in src/repro_torch/csrc, as the profiler names them
 PORT_KERNEL_NAMES = ("l1_rows_kernel", "select_lerp_kernel", "chi2_rows_kernel", "segment_sum_kernel",
-                     "merge_max_kernel", "merge_blend_kernel")
+                     "merge_max_kernel", "merge_blend_kernel", "flash_fwd_kernel", "flash_dq_kernel",
+                     "flash_dkv_kernel")
+# flash kernel checks: name, B, H, KV, Sq, Sk, hd, dv, options
+FLASH_CASES = (
+    ("tiny_lm", 8, 4, 2, 32, 32, 16, 16, {}),
+    ("llama3.2-1b", 4, 32, 8, 256, 256, 64, 64, {}),
+    ("llama3.2-1b S=2048", 1, 32, 8, 2048, 2048, 64, 64, {}),
+    ("gemma2-2b heads", 1, 8, 4, 512, 512, 256, 256, dict(window=128, softcap=50.0, scale=256 ** -0.5)),
+    ("MLA", 1, 16, 16, 256, 256, 192, 128, {}),
+    ("non-causal", 1, 2, 2, 64, 64, 32, 32, dict(causal=False)),
+    ("ragged", 1, 8, 2, 100, 100, 64, 64, {}),
+    ("extreme GQA 4:1", 2, 4, 1, 48, 48, 16, 16, {}),
+    ("continuation", 1, 4, 2, 16, 80, 32, 32, dict(q_pos0=64)),
+)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -152,16 +185,54 @@ def kernel_phase():
                 check(all(torch.equal(r[1], runs[0][1]) and torch.equal(r[0], runs[0][0]) for r in runs),
                       "segment sums differ across repeats")
                 n_checked += 1
+    for m, n in ((8, 2304), (4, 783360), (5, 4099)):
+        x = randn(g, m, n)
+        torch.testing.assert_close(ops.pairwise_l1(x), l1.pairwise_l1_plain(x), rtol=1e-5, atol=0)
+        n_checked += 1
     sync()
     print(f"kernel phase: {n_checked} checks passed (L1/chi2 rtol 1e-5, blend bitwise, "
           "idx equal, merge rtol 1e-6 atol 1e-7, segment sums bitwise across repeats)")
+    flash_checks()
+
+
+def flash_inputs(g, B, H, KV, Sq, Sk, hd, dv):
+    return randn(g, B, H, Sq, hd), randn(g, B, KV, Sk, hd), randn(g, B, KV, Sk, dv), randn(g, B, H, Sq, dv)
+
+
+def flash_checks():
+    """Forward (o, lse) within rtol/atol 1e-5 and backward (dq, dk, dv)
+    within 3e-4 of the plain versions on the same inputs; the backward
+    bitwise equal across 3 repeats."""
+    from repro_torch.kernels import flash_attention as F
+    from repro_torch.kernels import flash_attention_bwd as FB
+
+    g = gen(5)
+    for name, B, H, KV, Sq, Sk, hd, dv, kw in FLASH_CASES:
+        q, k, v, do = flash_inputs(g, B, H, KV, Sq, Sk, hd, dv)
+        o, lse = F.flash_attention_with_lse(q, k, v, **kw)
+        o_p, lse_p = F.flash_attention_with_lse_plain(q, k, v, **kw)
+        torch.testing.assert_close(o, o_p, rtol=1e-5, atol=1e-5, msg=lambda m: f"fwd o {name}: {m}")
+        torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-5, msg=lambda m: f"fwd lse {name}: {m}")
+        runs = [FB.flash_attention_bwd(q, k, v, o, lse, do, **kw) for _ in range(3)]
+        want = FB.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+        errs = []
+        for got, w, part in zip(runs[0], want, ("dq", "dk", "dv")):
+            torch.testing.assert_close(got, w, rtol=3e-4, atol=3e-4, msg=lambda m: f"bwd {part} {name}: {m}")
+            errs.append((got - w).abs().max().item())
+        check(all(torch.equal(a, b) for r in runs[1:] for a, b in zip(r, runs[0])),
+              f"flash backward not bitwise across repeats: {name}")
+        sync()
+        print(f"  flash {name} (B {B}, H {H}, KV {KV}, Sq {Sq}, Sk {Sk}, hd {hd}, dv {dv}, {kw or 'causal'}): "
+              f"max |err| o {(o - o_p).abs().max().item():.3g}, lse {(lse - lse_p).abs().max().item():.3g}, "
+              f"dq {errs[0]:.3g}, dk {errs[1]:.3g}, dv {errs[2]:.3g}; backward bitwise across 3 repeats")
+    print(f"flash checks: {len(FLASH_CASES)} cases passed (forward rtol/atol 1e-5, backward rtol/atol 3e-4)")
 
 
 # ------------------------------------------------------------------ phase 3
 def _record_shapes(ops):
     """Wrap the ops entry points the protocol calls so the main path's
     argument shapes are logged (the wrapped functions still count)."""
-    shapes: dict[str, Counter] = {name: Counter() for name in KERNELS}
+    shapes: dict[str, Counter] = {name: Counter() for name in MLP_PATH}
     originals = {}
 
     def wrap(name, fn, key):
@@ -271,10 +342,145 @@ def main_path():
     uploads = sum(rep.extra["uploads"] for _, _, rep, _ in runs)
     print(f"main path wall time {wall:.2f} s, {uploads} uploads, {uploads / wall:.2f} uploads/s; "
           f"launches {json.dumps(counts)}")
-    for name in KERNELS:
+    for name in MLP_PATH:
         check(counts[name] > 0, f"kernel {name} never launched on the main path")
     rnn = {k: v.cpu().numpy() for k, v in runs[0][1]._rnn_init.items()}  # pretrained broadcast RNN
     return counts, shapes, wall, rnn
+
+
+# ----------------------------------------------------------------- phase 3b
+def _record_flash_shapes(ops):
+    """Log the (B, H, Sq, hd) the LM path gives the flash forward wrapper
+    (the Function in ``ops`` looks the name up at call time)."""
+    shapes: Counter = Counter()
+    fn = ops.flash_attention_with_lse
+
+    def rec(q, k, v, **kw):
+        shapes[tuple(q.shape) + (k.shape[1], k.shape[2], v.shape[3])] += 1
+        return fn(q, k, v, **kw)
+
+    ops.flash_attention_with_lse = rec
+
+    def restore():
+        ops.flash_attention_with_lse = fn
+
+    return shapes, restore
+
+
+def _record_uploads():
+    """Keep the delta of each client's first and last local round."""
+    from repro_torch.fl.fleet import ClientFleet
+
+    first, last, rounds = {}, {}, Counter()
+    fn = ClientFleet.train_client
+
+    def rec(self, cid):
+        params, loss = fn(self, cid)
+        first.setdefault(cid, params)
+        last[cid] = params
+        rounds[cid] += 1
+        return params, loss
+
+    ClientFleet.train_client = rec
+
+    def restore():
+        ClientFleet.train_client = fn
+
+    return first, last, rounds, restore
+
+
+def upload_nll(task, clients, by_cid) -> torch.Tensor:
+    """(K,) mean training NLL of each client's delta in ``by_cid``."""
+    from repro_torch.common.pytrees import tree_map
+
+    fd = task.build_fleet_data([c.data for c in clients], task.device, task.buckets)
+    cids = [c.client_id for c in clients]
+    stacked = tree_map(lambda *xs: torch.stack(xs), *[by_cid[c] for c in cids])
+    with torch.no_grad():
+        return task._nll(stacked, fd.train["tokens"], fd.train["labels"], fd.train["mask"])
+
+
+def lm_run(label: str, expect_shape=None, **kw):
+    """One EchoPFL LM run on the card with its own launch counts, host
+    timers and upload recorder; checks the LM path's kernels launched,
+    centers are finite rows of the delta's width on the card, and every
+    client's last upload has a lower training NLL than its first."""
+    from repro_torch.common.pytrees import tree_leaves
+    from repro_torch.fl.lm_task import run_lm_experiment
+    from repro_torch.kernels import ops
+
+    shapes, restore_shapes = _record_flash_shapes(ops)
+    first, last, rounds, restore_uploads = _record_uploads()
+    spent, restore_timers = _host_timers()
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    task, clients, strat, rep = run_lm_experiment("echopfl", seed=0, device=DEVICE, **kw)
+    sync()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    restore_timers()
+    restore_uploads()
+    restore_shapes()
+    for bucket in sorted(spent):
+        print(f"  host time {bucket:<40} {spent[bucket]:8.3f} s ({100 * spent[bucket] / wall:5.1f}%)")
+    uploads = rep.extra["uploads"]
+    kinds = Counter(e["kind"] for e in strat.events)
+    nll0, nll1 = upload_nll(task, clients, first), upload_nll(task, clients, last)
+    print(f"{label}: uploads {uploads}, up {rep.up_events} events / {rep.up_bytes} B, down {rep.down_events} "
+          f"events / {rep.down_bytes} B, server events {dict(kinds)}, clusters {strat.stats()['clusters']}, "
+          f"wall {wall:.2f} s ({wall / max(uploads, 1):.3f} s per upload), peak device memory "
+          f"{peak / 2**30:.2f} GiB; rounds per client {dict(sorted(rounds.items()))}; training NLL first "
+          f"upload {nll0.tolist()} -> last {nll1.tolist()}; "
+          f"accuracy curve {[(t, round(a, 4)) for t, a in rep.curve]}")
+    print(f"{label}: flash shapes (B, H, Sq, hd, KV, Sk, dv) {dict(shapes)}; launches {json.dumps(counts)}")
+    for name in LM_PATH:
+        check(counts[name] > 0, f"{label}: kernel {name} never launched")
+    check(counts["flash_attention_dq"] == counts["flash_attention_dkv"], f"{label}: dq and dkv launches differ")
+    width = sum(t.numel() for t in tree_leaves(task.init_params(torch.Generator().manual_seed(0))))
+    for c in strat.clustering.clusters.values():
+        v = c.center_vec
+        check(v.shape == (width,) and v.device.type == DEVICE and bool(torch.isfinite(v).all()),
+              f"{label}: centers must be finite ({width},) rows on the card")
+    check(all(rounds[c.client_id] >= 2 for c in clients), f"{label}: a client trained fewer than 2 rounds")
+    check(bool((nll1 < nll0).all()), f"{label}: training NLL did not fall for every client")
+    if expect_shape is not None:
+        check(any(s[:4] == expect_shape for s in shapes), f"{label}: no flash launch at {expect_shape}")
+    return dict(counts=counts, shapes=shapes, wall=wall, uploads=uploads, peak=peak, strat=strat, rep=rep)
+
+
+def lm_path():
+    out = lm_run("LM path (tiny_lm, 8 clients, 900 s)", num_clients=8, max_time=900, eval_interval=120)
+    out["rnn"] = {k: v.cpu().numpy() for k, v in out["strat"]._rnn_init.items()}
+    return out
+
+
+# ----------------------------------------------------------------- phase 3c
+def full_width(rnn_params: dict):
+    """The LM run over a ``llama3.2-1b`` base (1.24 B parameters, drawn on
+    the card from a seeded generator): 4 clients, seq_len 256, 4 training
+    and 2 test sequences each, one local epoch, 720 s of virtual time (so
+    that the slowest device class trains at least twice)."""
+    from repro_torch.configs import get_config
+    from repro_torch.fl.lm_task import FrozenBase, LMTask
+    from repro_torch.models.model import init_params
+
+    cfg = get_config("llama3.2-1b")
+    t0 = time.perf_counter()
+    task = LMTask(base=FrozenBase(init_params(cfg, gen(0))), cfg=cfg)
+    sync()
+    print(f"full width: llama3.2-1b base drawn on the card in {time.perf_counter() - t0:.2f} s")
+    out = lm_run("full width (llama3.2-1b, 4 clients, seq 256, 720 s)", expect_shape=(4, 32, 256, 64),
+                 num_clients=4, max_time=720, eval_interval=240, seq_len=256, n_train=4, n_test=2,
+                 local_epochs=1, task=task, rnn_params=rnn_params)
+    check(out["uploads"] >= 8, f"full width: {out['uploads']} uploads, fewer than 8")
+    del task
+    out.pop("strat")
+    out.pop("rep")
+    torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------------------ phase 4
@@ -301,6 +507,38 @@ def agreement():
     check(gap <= 0.02, f"agreement: accuracy curves differ by {gap}")
     print(f"agreement (har, 8 clients, 900 s, card vs CPU plain versions): ledger and "
           f"{len(sg.events)} events identical, accuracy gap {gap:.4f}")
+
+
+def lm_agreement(rnn_params: dict):
+    """The tiny_lm LM run on the card and on the CPU, base, initial delta
+    and broadcast RNN handed over: identical ledgers, server events and
+    assignments; accuracy curves within 0.02."""
+    from repro_torch.fl.lm_task import default_lm_task, run_lm_experiment
+    from repro_torch.interop import tree_to_numpy
+
+    task = default_lm_task("cpu")
+    base = tree_to_numpy(task.base.params)
+    delta = tree_to_numpy(task.init_params(torch.Generator().manual_seed(0)))
+    out = {}
+    for dev in ("cpu", DEVICE):
+        t0 = time.perf_counter()
+        _, _, strat, rep = run_lm_experiment("echopfl", num_clients=8, max_time=900, eval_interval=120, seed=0,
+                                             device=dev, base_params=base, init_params=delta,
+                                             rnn_params=rnn_params)
+        out[dev] = (strat, rep, time.perf_counter() - t0)
+    (sc, rc, tc), (sg, rg, tg) = out["cpu"], out[DEVICE]
+    for name in ("up_events", "down_events", "up_bytes", "down_bytes"):
+        check(getattr(rc, name) == getattr(rg, name),
+              f"LM agreement: {name} {getattr(rc, name)} != {getattr(rg, name)}")
+    check(sc.events == sg.events, "LM agreement: server event sequences differ")
+    check(sc.clustering.assignment == sg.clustering.assignment, "LM agreement: assignments differ")
+    gap = max(abs(a - b) for (_, a), (_, b) in zip(rc.curve, rg.curve))
+    check(gap <= 0.02, f"LM agreement: accuracy curves differ by {gap}")
+    centers = max((sc.clustering.clusters[cid].center_vec - c.center_vec.cpu()).abs().max().item()
+                  for cid, c in sg.clustering.clusters.items())
+    print(f"LM agreement (tiny_lm, 8 clients, 900 s, card vs CPU plain versions): ledger and "
+          f"{len(sg.events)} events identical, accuracy gap {gap:.4f}, centers max |diff| {centers:.3g}; "
+          f"wall CPU {tc:.2f} s, card {tg:.2f} s")
 
 
 # ------------------------------------------------------------------ phase 5
@@ -363,6 +601,8 @@ def timing(counts, shapes):
     g = gen(11)
     rows = []
     for name, (source, replaces) in KERNELS.items():
+        if name not in MLP_PATH:
+            continue
         shape = shapes[name].most_common(1)[0][0]
         lib = None
         if name in ("l1_distance", "l1_distance_pairwise"):
@@ -428,34 +668,168 @@ def timing(counts, shapes):
     return rows
 
 
-# ------------------------------------------------------------------ phase 6
-def profile_main_path(rnn_params: dict):
-    """The main path's steady state under ``torch.profiler`` (CUDA activity
-    only): a 300 s image_recognition run, the broadcast RNN handed over so
-    that pretraining stays outside the window. Device busy time is the sum
-    of kernel durations (one stream, so they do not overlap); the idle
-    share is the rest of the window's host wall time."""
-    from torch.profiler import ProfilerActivity, profile
+def _allowed_pairs(Sq: int, Sk: int) -> int:
+    """(q, k) pairs a causal mask allows (q_pos0 = 0, no window)."""
+    from repro_torch.kernels.flash_attention import attention_mask
 
-    from repro_torch.fl.experiment import run_experiment
+    return int(attention_mask(Sq, Sk, causal=True, window=None, q_pos0=0, device="cpu").sum())
+
+
+def _measure(fn, plain, lib, iters: int) -> dict:
+    return {
+        "ms": device_ms(fn, iters), "plain_ms": device_ms(plain, iters),
+        "library_ms": None if lib is None else device_ms(lib, iters),
+        "call_ms": call_ms(fn, iters, 3), "plain_call_ms": call_ms(plain, iters, 3),
+        "library_call_ms": None if lib is None else call_ms(lib, iters, 3),
+    }
+
+
+def lm_kernel_timings(shape, g) -> dict[str, dict]:
+    """The flash forward and backward and ``pairwise_l1`` at one LM shape
+    ``(B, H, Sq, hd, KV, Sk, dv)`` (causal, as the LM path calls them).
+    ``library_ms``: fp32 ``scaled_dot_product_attention`` (GQA) and its
+    autograd backward, a yardstick the port never calls; ``pairwise_l1``'s
+    is ``torch.cdist(x, x, p=1)`` over B delta rows of the width the shape's
+    model gives."""
+    from repro_torch.kernels import flash_attention as F
+    from repro_torch.kernels import flash_attention_bwd as FB
+    from repro_torch.kernels import ops
+
+    B, H, Sq, hd, KV, Sk, dv = shape
+    q, k, v, do = flash_inputs(g, B, H, KV, Sq, Sk, hd, dv)
+    pairs = B * H * _allowed_pairs(Sq, Sk)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    o, lse = ops.flash_attention_with_lse(q, k, v)
+    o_p, lse_p = F.flash_attention_with_lse_plain(q, k, v)
+    iters = 50 if pairs * hd < 1e9 else 20
+    out = {}
+    fwd = _measure(lambda: ops.flash_attention_with_lse(q, k, v), lambda: F.flash_attention_with_lse_plain(q, k, v),
+                   lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), iters)
+    fwd.update(bound_pair(4 * (q.numel() + k.numel() + v.numel() + o.numel() + lse.numel()), 2 * (hd + dv) * pairs),
+               max_abs_err=max((o - o_p).abs().max().item(), (lse - lse_p).abs().max().item()))
+    out["flash_attention_fwd"] = fwd
+    qr, kr, vr = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    o_lib = sdpa(qr, kr, vr, is_causal=True, enable_gqa=True)
+    bwd = _measure(lambda: FB.flash_attention_bwd(q, k, v, o, lse, do),
+                   lambda: FB.flash_attention_bwd_plain(q, k, v, o, lse, do),
+                   lambda: torch.autograd.grad(o_lib, (qr, kr, vr), do, retain_graph=True), iters)
+    got, want = FB.flash_attention_bwd(q, k, v, o, lse, do), FB.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    nbytes = 4 * (2 * (q.numel() + k.numel() + v.numel()) + o.numel() + lse.numel() + do.numel())
+    bwd.update(bound_pair(nbytes, 2 * (3 * hd + 2 * dv) * pairs),
+               max_abs_err=max((a - b).abs().max().item() for a, b in zip(got, want)))
+    out["flash_attention_bwd"] = bwd
+    return out
+
+
+def pairwise_timings(m: int, n: int, g) -> dict:
+    from repro_torch.kernels import l1, ops
+
+    x = randn(g, m, n)
+    row = _measure(lambda: ops.pairwise_l1(x), lambda: l1.pairwise_l1_plain(x),
+                   lambda: torch.cdist(x, x, p=1), 50)
+    row.update(bound_pair(4 * (m * n + m * m), 3 * m * m * n),
+               max_abs_err=(ops.pairwise_l1(x) - l1.pairwise_l1_plain(x)).abs().max().item())
+    return row
+
+
+def bound_pair(nbytes: float, flops: float) -> dict:
+    ms, by = bound(nbytes, flops)
+    return {"bound_ms": ms, "bound_by": by}
+
+
+def lm_timing(tiny, full) -> list[dict]:
+    """Rows for the flash kernels and ``pairwise_l1``: the numbers at the
+    full-width ``llama3.2-1b`` shape, with the ``tiny_lm`` shape's beside
+    them under ``"tiny_lm"``; ``launches`` are the full-width run's."""
+    g = gen(13)
+    tiny_shape = tiny["shapes"].most_common(1)[0][0]
+    full_shape = full["shapes"].most_common(1)[0][0]
+    per_shape = {}
+    for label, shape, width in (("tiny_lm", tiny_shape, 2304), ("llama3.2-1b", full_shape, 783360)):
+        per_shape[label] = lm_kernel_timings(shape, g)
+        m = 8 if label == "tiny_lm" else 4  # delta rows: one per client of the run
+        per_shape[label]["pairwise_l1"] = pairwise_timings(m, width, g)
+        per_shape[label]["shapes"] = {"flash": list(shape), "pairwise_l1": [m, width]}
+    rows = []
+    # launch counter of each row (dq and dkv launch in pairs, checked in lm_run)
+    counter = {"pairwise_l1": "pairwise_l1", "flash_attention_fwd": "flash_attention_fwd",
+               "flash_attention_bwd": "flash_attention_dq"}
+    for name in ("pairwise_l1", "flash_attention_fwd", "flash_attention_bwd"):
+        source, replaces = KERNELS[name]
+        key = "pairwise_l1" if name == "pairwise_l1" else "flash"
+        small = dict(per_shape["tiny_lm"][name], shape=per_shape["tiny_lm"]["shapes"][key],
+                     launches=tiny["counts"][counter[name]])
+        row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "launches": full["counts"][counter[name]], **per_shape["llama3.2-1b"][name],
+               "shape": per_shape["llama3.2-1b"]["shapes"][key], "tiny_lm": small}
+        rows.append(row)
+        for label, r in (("llama3.2-1b", row), ("tiny_lm", small)):
+            print(f"timing {name} at {label} {tuple(r['shape'])}: device time kernel {r['ms']:.5f} ms, plain "
+                  f"{r['plain_ms']:.5f} ms, library {r['library_ms']:.5f} ms; bound {r['bound_ms']:.6f} ms "
+                  f"({r['bound_by']}); per call kernel {r['call_ms']:.4f} ms, plain {r['plain_call_ms']:.4f} ms, "
+                  f"library {r['library_call_ms']:.4f} ms; launches {r['launches']}; "
+                  f"max_abs_err {r['max_abs_err']:.3g}")
+    return rows
+
+
+# ------------------------------------------------------------------ phase 6
+def profile_window(label: str, run) -> None:
+    """One run under ``torch.profiler`` (CUDA activity only). Device busy
+    time is the sum of kernel durations (one stream, so they do not
+    overlap); the idle share is the rest of the window's host wall time.
+    ``run()`` returns the number of uploads it made."""
+    from torch.profiler import ProfilerActivity, profile
 
     sync()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, _, strat, rep = run_experiment("image_recognition", "echopfl", num_clients=20, max_time=300,
-                                          seed=0, device=DEVICE, rnn_params=rnn_params)
+        uploads = run()
         sync()
         wall = time.perf_counter() - t0
     per = _device_us(prof)
     busy = sum(per.values()) / 1e6
-    check(busy > 0, "the profiler saw no device time on the main path")
+    check(busy > 0, f"profile {label}: the profiler saw no device time")
     ours = sum(v for k, v in per.items() if any(n in k for n in PORT_KERNEL_NAMES)) / 1e6
+    flash = sum(v for k, v in per.items() if "flash_" in k) / 1e6
     n_kernels = len(_device_events(prof))
-    print(f"profile (image_recognition, 20 clients, 300 s, {rep.extra['uploads']} uploads): wall {wall:.3f} s "
-          f"under the profiler, device busy {busy:.4f} s, idle share {1 - busy / wall:.4f}, "
-          f"{n_kernels} kernels; the port's CUDA kernels {ours:.5f} s ({100 * ours / busy:.2f}% of busy)")
+    print(f"profile ({label}, {uploads} uploads): wall {wall:.3f} s under the profiler, device busy {busy:.4f} s, "
+          f"idle share {1 - busy / wall:.4f}, {n_kernels} kernels; the port's CUDA kernels {ours:.5f} s "
+          f"({100 * ours / busy:.2f}% of busy), of which flash attention {flash:.5f} s ({100 * flash / busy:.2f}%)")
     for name, us in per.most_common(12):
         print(f"  device time {us / 1e3:10.3f} ms ({100 * us / 1e6 / busy:5.1f}%)  {name[:110]}")
+
+
+def profiles(rnn_params: dict, lm_rnn_params: dict) -> None:
+    """Steady-state windows, the broadcast RNN handed over so that its
+    pretraining stays outside: the MLP main path (a 300 s image_recognition
+    run), the tiny_lm LM run and the full-width llama3.2-1b LM run."""
+    from repro_torch.configs import get_config
+    from repro_torch.fl.experiment import run_experiment
+    from repro_torch.fl.lm_task import FrozenBase, LMTask, run_lm_experiment
+    from repro_torch.models.model import init_params
+
+    def mlp():
+        rep = run_experiment("image_recognition", "echopfl", num_clients=20, max_time=300, seed=0, device=DEVICE,
+                             rnn_params=rnn_params)[3]
+        return rep.extra["uploads"]
+
+    def tiny():
+        rep = run_lm_experiment("echopfl", num_clients=8, max_time=900, eval_interval=120, seed=0, device=DEVICE,
+                                rnn_params=lm_rnn_params)[3]
+        return rep.extra["uploads"]
+
+    def full():
+        cfg = get_config("llama3.2-1b")
+        task = LMTask(base=FrozenBase(init_params(cfg, gen(0))), cfg=cfg)
+        rep = run_lm_experiment("echopfl", num_clients=4, max_time=720, eval_interval=240, seq_len=256, n_train=4,
+                                n_test=2, local_epochs=1, seed=0, device=DEVICE, task=task,
+                                rnn_params=lm_rnn_params)[3]
+        return rep.extra["uploads"]
+
+    profile_window("image_recognition, 20 clients, 300 s", mlp)
+    profile_window("tiny_lm LM run, 8 clients, 900 s", tiny)
+    profile_window("llama3.2-1b LM run, 4 clients, 720 s", full)
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -470,9 +844,12 @@ def main() -> int:
     smi = probe()
     kernel_phase()
     counts, shapes, _, rnn_params = main_path()
+    tiny = lm_path()
+    full = full_width(tiny["rnn"])
     agreement()
-    rows = timing(counts, shapes)
-    profile_main_path(rnn_params)
+    lm_agreement(tiny["rnn"])
+    rows = timing(counts, shapes) + lm_timing(tiny, full)
+    profiles(rnn_params, tiny["rnn"])
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(f"card: {smi}")

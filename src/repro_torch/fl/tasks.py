@@ -1,5 +1,6 @@
 """The paper's MLP workload as the fleet engine, the simulator and the
-server see it (counterpart of ``repro.fl.tasks``; the LM task waits).
+server see it (counterpart of ``repro.fl.tasks``), and :func:`get_task`,
+which also resolves the LM task of :mod:`repro_torch.fl.lm_task`.
 
 ``MLPTask`` delegates call for call to :mod:`repro_torch.models.mlp`. The
 per-client methods take the device from the parameters they are given;
@@ -121,3 +122,15 @@ class MLPTask:
 
 
 MLP_TASK = MLPTask()
+
+
+def get_task(name: str, device: str | torch.device = "cuda"):
+    """The task by name: ``mlp`` (the paper's MLPs) or ``lm`` (the
+    ``tiny_lm`` personalization task, its base on ``device``)."""
+    if name == "mlp":
+        return MLP_TASK
+    if name == "lm":
+        from repro_torch.fl.lm_task import default_lm_task
+
+        return default_lm_task(device)
+    raise ValueError(f"unknown task {name!r}: expected 'mlp' or 'lm'")

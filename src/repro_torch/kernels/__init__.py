@@ -1,3 +1,4 @@
-"""Hand-written CUDA kernels for the server's plane arithmetic (four
-families, sources in ``src/repro_torch/csrc/``), each beside its plain
-PyTorch version. See :mod:`repro_torch.kernels.ops` for the public API."""
+"""Hand-written CUDA kernels (sources in ``src/repro_torch/csrc/``): the
+server's plane arithmetic (four families) and the LM task's flash
+attention forward and backward, each beside its plain PyTorch version.
+See :mod:`repro_torch.kernels.ops` for the public API."""

@@ -25,8 +25,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("l1.cu", "assign_lerp.cu", "chi2.cu", "merge.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("l1.cu", "assign_lerp.cu", "chi2.cu", "merge.cu", "flash_fwd.cu", "flash_bwd.cu")
+HEADERS = ("common.cuh", "flash_common.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -36,6 +36,9 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _INT = ctypes.c_int
+_F32 = ctypes.c_float
+# B, H, KV, Sq, Sk, hd, dv, scale, causal, window, softcap, q_pos0, device, stream
+_FLASH_ARGS = [_I64] * 7 + [_F32, _INT, _I64, _F32, _I64, _INT, _P]
 # C signature of every entry point: argtypes, restype
 _SIGNATURES = {
     "repro_l1_rows": ([_P, _P, _P, _I64, _I64, _I64, _INT, _P], _INT),
@@ -44,6 +47,9 @@ _SIGNATURES = {
     "repro_segment_sum": ([_P, _P, _I64, _I64, _P, _INT, _P], _INT),
     "repro_merge_blocks": ([_I64], _I64),
     "repro_merge_attention": ([_P, _P, _P, _I64, _P, _P, _INT, _P], _INT),
+    "repro_flash_fwd": ([_P] * 5 + _FLASH_ARGS, _INT),
+    "repro_flash_dq": ([_P] * 7 + _FLASH_ARGS, _INT),
+    "repro_flash_dkv": ([_P] * 8 + _FLASH_ARGS, _INT),
 }
 
 _LOCK = threading.Lock()

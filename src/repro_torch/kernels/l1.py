@@ -1,9 +1,12 @@
 """Family A: L1 rows (paper Eq. 1), kernel in ``csrc/l1.cu``.
 
 One CUDA kernel computes ``(M, N) x (C, N) -> (M, C)`` fp32 L1 distances
-and serves both entry points: :func:`l1_distance` (one upload against every
-center, ``M = 1``; replaces ``src/repro/kernels/l1_distance.py``) and
-:func:`l1_distance_pairwise` (replaces ``src/repro/kernels/l1_pairwise.py``).
+and serves three entry points: :func:`l1_distance` (one upload against
+every center, ``M = 1``; replaces ``src/repro/kernels/l1_distance.py::
+l1_distance``), :func:`l1_distance_pairwise` (replaces
+``src/repro/kernels/l1_pairwise.py``) and :func:`pairwise_l1` (the
+``(M, M)`` matrix of one set of rows against itself, ``C = M``; replaces
+``src/repro/kernels/l1_distance.py::pairwise_l1``).
 Each wrapper counts its own launches in ``.launches``.
 """
 from __future__ import annotations
@@ -62,5 +65,21 @@ def l1_distance(u: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def pairwise_l1_plain(vectors: torch.Tensor) -> torch.Tensor:
+    """(M, N) -> (M, M)."""
+    return l1_distance_pairwise_plain(vectors, vectors)
+
+
+def pairwise_l1(vectors: torch.Tensor) -> torch.Tensor:
+    """(M, N) -> (M, M) pairwise L1 matrix in one launch."""
+    check_f32("pairwise_l1", ("vectors", vectors, 2))
+    if use_plain("pairwise_l1", vectors):
+        return pairwise_l1_plain(vectors)
+    out = _launch_rows(vectors, vectors)
+    pairwise_l1.launches += 1
+    return out
+
+
 l1_distance_pairwise.launches = 0
 l1_distance.launches = 0
+pairwise_l1.launches = 0

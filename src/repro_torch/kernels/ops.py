@@ -6,9 +6,17 @@ CUDA tensors launch the hand-written kernel or raise.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels.assign_lerp import assign_and_lerp
 from repro_torch.kernels.chi2 import chi2_feedback, chi2_feedback_segmented
-from repro_torch.kernels.l1 import l1_distance, l1_distance_pairwise
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_with_lse
+from repro_torch.kernels.flash_attention_bwd import (
+    flash_attention_bwd,
+    flash_attention_dkv,
+    flash_attention_dq,
+)
+from repro_torch.kernels.l1 import l1_distance, l1_distance_pairwise, pairwise_l1
 from repro_torch.kernels.merge import merge_attention
 
 # every wrapper that launches a kernel, by the name its launch count goes under
@@ -19,7 +27,39 @@ WRAPPERS = {
     "chi2_feedback": chi2_feedback,
     "chi2_feedback_segmented": chi2_feedback_segmented,
     "merge_attention": merge_attention,
+    "pairwise_l1": pairwise_l1,
+    "flash_attention_fwd": flash_attention_with_lse,
+    "flash_attention_dq": flash_attention_dq,
+    "flash_attention_dkv": flash_attention_dkv,
 }
+
+
+class _Attention(torch.autograd.Function):
+    """Flash forward kernel in, the two backward kernels out (the
+    reference's ``custom_vjp`` ``_attention_trainable``). The options are
+    constants and get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, window, softcap, q_pos0):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, lse = flash_attention_with_lse(q, k, v, causal=causal, scale=scale, window=window,
+                                          softcap=softcap, q_pos0=q_pos0)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.opts = dict(causal=causal, scale=scale, window=window, softcap=softcap, q_pos0=q_pos0)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(), **ctx.opts)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def attention(q, k, v, *, causal=True, scale=None, window=None, softcap=None, q_pos0=0):
+    """Training/prefill attention, ``(B, H, Sq, hd) x (B, KV, Sk, hd) x
+    (B, KV, Sk, dv) -> (B, H, Sq, dv)``, differentiable in ``q``, ``k`` and
+    ``v``. One device, no mesh."""
+    return _Attention.apply(q, k, v, causal, scale, window, softcap, q_pos0)
 
 
 def launch_counts() -> dict[str, int]:
@@ -32,6 +72,7 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
-    "assign_and_lerp", "chi2_feedback", "chi2_feedback_segmented", "l1_distance",
-    "l1_distance_pairwise", "launch_counts", "merge_attention", "reset_launch_counts",
+    "assign_and_lerp", "attention", "chi2_feedback", "chi2_feedback_segmented", "flash_attention",
+    "flash_attention_bwd", "flash_attention_with_lse", "l1_distance", "l1_distance_pairwise",
+    "launch_counts", "merge_attention", "pairwise_l1", "reset_launch_counts",
 ]

@@ -4,7 +4,8 @@ These tests need an NVIDIA GPU and skip elsewhere (the kernels have no CPU
 mode); they import no JAX, so they run on a machine with only the port's
 dependencies: ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 Tolerances as in ``chip_smoke.py``: L1 and chi2 rtol 1e-5, the blend
-bitwise, the index equal, merge rtol 1e-6 / atol 1e-7.
+bitwise, the index equal, merge rtol 1e-6 / atol 1e-7, the flash forward
+1e-5 and backward 3e-4 (the backward also bitwise across repeats).
 """
 import numpy as np
 import pytest
@@ -66,3 +67,45 @@ def test_cuda_wrappers_count_launches(cuda_device):
     counts = ops.launch_counts()
     assert counts["l1_distance_pairwise"] == 1 and counts["assign_and_lerp"] == 1
     assert counts["l1_distance"] == 1  # the assign chain's distance launch
+
+
+FLASH_CASES = [
+    # B, H, KV, Sq, Sk, hd, dv, options
+    (8, 4, 2, 32, 32, 16, 16, {}),  # tiny_lm training shape
+    (1, 8, 4, 100, 100, 64, 48, dict(window=32, softcap=30.0)),  # ragged, GQA, dv != hd
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_cuda_flash_kernels_match_plain(cuda_device, case):
+    from repro_torch.kernels import flash_attention as F
+    from repro_torch.kernels import flash_attention_bwd as FB
+
+    B, H, KV, Sq, Sk, hd, dv, kw = case
+    rng = np.random.default_rng(Sq)
+    q, k, v, do = (torch.from_numpy(_f32(rng, *s)).to(cuda_device)
+                   for s in ((B, H, Sq, hd), (B, KV, Sk, hd), (B, KV, Sk, dv), (B, H, Sq, dv)))
+    o, lse = F.flash_attention_with_lse(q, k, v, **kw)
+    o_p, lse_p = F.flash_attention_with_lse_plain(q, k, v, **kw)
+    torch.testing.assert_close(o, o_p, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-5)
+    got = FB.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = FB.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=3e-4, atol=3e-4)
+    again = FB.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_wrappers_count_launches(cuda_device):
+    ops.reset_launch_counts()
+    q = torch.ones(2, 4, 16, 16, device=cuda_device, requires_grad=True)
+    kv = torch.ones(2, 2, 16, 16, device=cuda_device, requires_grad=True)
+    ops.attention(q, kv, kv).sum().backward()
+    ops.pairwise_l1(torch.ones(3, 40, device=cuda_device))
+    counts = ops.launch_counts()
+    assert counts["flash_attention_fwd"] == 1
+    assert counts["flash_attention_dq"] == counts["flash_attention_dkv"] == 1
+    assert counts["pairwise_l1"] == 1

@@ -14,7 +14,7 @@ from repro_torch.configs.paper_tasks import MLPTaskConfig
 from repro_torch.core.client import SimClient
 from repro_torch.data.synthetic import make_task
 from repro_torch.fl.fleet import ClientFleet
-from repro_torch.interop import mlp_params_from_numpy, mlp_params_to_numpy
+from repro_torch.interop import tree_from_numpy, tree_to_numpy
 from repro_torch.models import mlp
 
 TOL = dict(rtol=1e-5, atol=1e-6)
@@ -64,10 +64,10 @@ def test_fleet_local_train_ragged_epochs_head_only_and_padded_rows():
         jnp.asarray(epochs), jnp.asarray(head), max_epochs=5,
     )
     got, gloss = mlp.fleet_local_train(
-        mlp_params_from_numpy(p_np), torch.tensor(x), torch.tensor(y).long(), torch.tensor(mask),
+        tree_from_numpy(p_np), torch.tensor(x), torch.tensor(y).long(), torch.tensor(mask),
         torch.tensor(lr), torch.tensor(epochs), torch.tensor(head), max_epochs=5,
     )
-    _close(mlp_params_to_numpy(got), want)
+    _close(tree_to_numpy(got), want)
     np.testing.assert_allclose(gloss.numpy(), np.asarray(wloss), **TOL)
     # the 0-epoch row is untouched; head-only rows keep their body exactly
     for layer_np, layer_t in zip(p_np, got):
@@ -82,7 +82,7 @@ def test_fleet_evaluate_and_distributions_match():
     K = 4
     p_np = _init(3, K)
     x, y, mask = _batch(4, K)
-    pt = mlp_params_from_numpy(p_np)
+    pt = tree_from_numpy(p_np)
     acc = mlp.fleet_evaluate(pt, torch.tensor(x), torch.tensor(y).long(), torch.tensor(mask))
     want = jmlp.fleet_evaluate(_jax(p_np), jnp.asarray(x), jnp.asarray(y), jnp.asarray(mask))
     np.testing.assert_allclose(acc.numpy(), np.asarray(want), **TOL)
@@ -97,11 +97,11 @@ def test_fleet_evaluate_and_distributions_match():
 def test_per_client_local_train_and_evaluate(head_only):
     p_np = _init(5)
     x, y, _ = _batch(6, 1)
-    got, gl = mlp.local_train(mlp_params_from_numpy(p_np), torch.tensor(x[0]), torch.tensor(y[0]).long(),
+    got, gl = mlp.local_train(tree_from_numpy(p_np), torch.tensor(x[0]), torch.tensor(y[0]).long(),
                               epochs=4, lr=0.1, head_only=head_only)
     want, wl = jmlp.local_train(_jax(p_np), jnp.asarray(x[0]), jnp.asarray(y[0]),
                                 epochs=4, lr=0.1, head_only=head_only)
-    _close(mlp_params_to_numpy(got), want)
+    _close(tree_to_numpy(got), want)
     np.testing.assert_allclose(float(gl), float(wl), **TOL)
     np.testing.assert_allclose(float(mlp.evaluate(got, torch.tensor(x[0]), torch.tensor(y[0]).long())),
                                float(jmlp.evaluate(want, jnp.asarray(x[0]), jnp.asarray(y[0]))), **TOL)
@@ -120,14 +120,14 @@ def test_client_fleet_train_eval_feedback_match_reference():
     cfg_dims = (64, 10, 8, 6)  # har's input and classes, narrow hidden layers
     p0 = _init_dims(cfg_dims, 10)
     jf = JaxFleet(_clients(JaxClient, task, partial={1}), _jax(p0), mesh=False)
-    tf = ClientFleet(_clients(SimClient, task, partial={1}), mlp_params_from_numpy(p0), device="cpu")
+    tf = ClientFleet(_clients(SimClient, task, partial={1}), tree_from_numpy(p0), device="cpu")
     for cid in range(5):
         jf.set_model(cid, _jax(p0))
-        tf.set_model(cid, mlp_params_from_numpy(p0))
+        tf.set_model(cid, tree_from_numpy(p0))
     for cid in (0, 1, 3):
         want, _ = jf.train_client(cid)
         got, _ = tf.train_client(cid)
-        _close(mlp_params_to_numpy(got), want)
+        _close(tree_to_numpy(got), want)
     # a 3-row cohort pads to 4: the padded row trains 0 epochs and is dropped
     idx = np.asarray([0, 2, 4])
     mat_t = torch.stack([tf.model_vec(c) for c in idx])
@@ -139,10 +139,10 @@ def test_client_fleet_train_eval_feedback_match_reference():
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
     params = [None, _jax(p0), None, None, _jax(p0)]
     acc_j = jf.evaluate_fleet(params)
-    acc_t = tf.evaluate_fleet([None if p is None else mlp_params_from_numpy(p0) for p in params])
+    acc_t = tf.evaluate_fleet([None if p is None else tree_from_numpy(p0) for p in params])
     np.testing.assert_allclose(acc_t, acc_j, **TOL)
     center = _init_dims(cfg_dims, 11)
-    cj, ct = _jax(center), mlp_params_from_numpy(center)
+    cj, ct = _jax(center), tree_from_numpy(center)
     pairs = [0, 3, 4, 3]
     fj = jf.feedback_many([(m, cj) for m in pairs])
     ft = tf.feedback_many([(m, ct) for m in pairs])

@@ -17,7 +17,7 @@ from repro.core.broadcast import pretrain_rnn as jax_pretrain_rnn
 from repro.core.server import EchoPFLServer as JaxServer
 from repro_torch.common.pytrees import tree_leaves
 from repro_torch.core.server import EchoPFLServer
-from repro_torch.interop import rnn_params_from_numpy
+from repro_torch.interop import tree_from_numpy
 
 DIMS = (12, 10, 6)
 J = 6
@@ -72,7 +72,7 @@ def test_per_event_server_matches_reference(rnn_np):
     js = JaxServer([{k: jax.numpy.asarray(v) for k, v in layer.items()} for layer in init],
                    pretrain_key=jax.random.PRNGKey(0), plane_mesh=False, plane_backend="plane", **kw)
     ts = EchoPFLServer([{k: torch.tensor(v) for k, v in layer.items()} for layer in init],
-                       rnn_params=rnn_params_from_numpy(rnn_np), device="cpu", **kw)
+                       rnn_params=tree_from_numpy(rnn_np), device="cpu", **kw)
     for leaf_j, leaf_t in zip(jax.tree_util.tree_leaves(js._rnn_init), tree_leaves(ts._rnn_init)):
         np.testing.assert_array_equal(np.asarray(leaf_j), leaf_t.numpy())
     for k in range(n_uploads):
