@@ -9,6 +9,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. probe — the card's name and power limit, CUDA and nvcc versions; build
    the hand-written kernels from ``src/repro_torch/csrc`` and time the build;
+   each flash kernel's registers, shared memory and local memory (spills)
+   from ``cuobjdump --dump-resource-usage``, and a check of its SASS for
+   tensor-core ``HMMA`` instructions (none, or spills at head width 64,
+   fail the run);
 2. kernels — every kernel wrapper against its plain PyTorch version on the
    card, at the main path's widths and at edge shapes; the flash-attention
    forward and backward at the LM paths' shapes and at the model zoo's
@@ -33,7 +37,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    PyTorch call computing the same function, at the shape the main path
    called it with most (the flash kernels and ``pairwise_l1`` at the
    ``tiny_lm`` and the ``llama3.2-1b`` shapes), beside the least time the
-   card could take: device time per call from a ``torch.profiler`` trace
+   card could take (fp32 on the CUDA cores; for the flash kernels also
+   ``bound_tc_ms``, split TF32 on the tensor cores): device time per call from a ``torch.profiler`` trace
    (``ms``, ``plain_ms``, ``library_ms``) and the per-call time of
    back-to-back calls between CUDA events, host overhead included
    (``call_ms`` and its two siblings);
@@ -48,6 +53,7 @@ outside a checkout of the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -61,6 +67,7 @@ ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12  # H100 SXM dense TF32 on the tensor cores
 
 KERNELS = {  # row name -> (CUDA source, the TPU kernel's pallas_call it replaces)
     "l1_distance": ("src/repro_torch/csrc/l1.cu", "src/repro/kernels/l1_distance.py:51"),
@@ -91,6 +98,9 @@ FLASH_CASES = (
     ("ragged", 1, 8, 2, 100, 100, 64, 64, {}),
     ("extreme GQA 4:1", 2, 4, 1, 48, 48, 16, 16, {}),
     ("continuation", 1, 4, 2, 16, 80, 32, 32, dict(q_pos0=64)),
+    ("hd 128", 1, 8, 2, 300, 300, 128, 128, {}),
+    ("one row past a tile", 1, 4, 2, 65, 65, 64, 64, {}),
+    ("hd 12: 4-byte copies", 2, 4, 2, 70, 70, 12, 12, {}),
 )
 
 
@@ -129,7 +139,57 @@ def probe():
     built = _build.build_seconds
     print(f"kernel build: {time.perf_counter() - t0:.2f} s"
           + ("" if built is not None else " (loaded an existing build)"))
+    flash_resources()
     return smi
+
+
+def _kernel_label(mangled: str) -> str:
+    """``flash_dkv_kernel<64,3>`` from a mangled name."""
+    names = re.findall(r"flash_[a-z]+_kernel", mangled)
+    args = re.findall(r"Li(\d+)E", mangled)
+    return (names[-1] if names else mangled) + (f"<{','.join(args)}>" if args else "")
+
+
+def flash_resources() -> None:
+    """Registers, shared memory, stack and local memory of every flash
+    kernel from ``cuobjdump --dump-resource-usage``, and its count of
+    ``HMMA`` (tensor-core) instructions from ``cuobjdump -sass``. A flash
+    kernel without HMMA, or with a stack frame or local memory (spills) at
+    head width 64, fails."""
+    from repro_torch.kernels import _build
+
+    tool = _build.cuda_tool("cuobjdump")
+    if tool is None:
+        print("cuobjdump: not in the CUDA toolkit; flash kernels' resources and HMMA NOT checked")
+        return
+    lib = str(_build.library_path())
+    usage, name = {}, None
+    for line in sh(tool, "--dump-resource-usage", lib).splitlines():
+        m = re.search(r"Function (\S+?):?$", line.strip())
+        if m:
+            name = m.group(1)
+        elif name and "REG:" in line:
+            usage[name] = {k: int(v) for k, v in re.findall(r"(\w+):(\d+)", line)}
+            name = None
+    hmma: Counter = Counter()
+    name = None
+    for line in sh(tool, "-sass", lib).splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+        elif name and "HMMA" in line:
+            hmma[name] += 1
+    flash = sorted(n for n in usage if "flash_" in n)
+    check(len(flash) > 0, "cuobjdump found no flash kernel in the library")
+    for n in flash:
+        u = usage[n]
+        print(f"  {_kernel_label(n):<24} registers {u.get('REG')}, shared {u.get('SHARED')} B static, "
+              f"local {u.get('LOCAL')} B, stack {u.get('STACK')} B, HMMA {hmma[n]}")
+        check(hmma[n] > 0, f"{_kernel_label(n)} has no tensor-core HMMA instruction")
+        if "Li64E" in n:  # spilled registers take stack (local memory) space
+            check(u.get("LOCAL", 0) == 0 and u.get("STACK", 0) == 0,
+                  f"{_kernel_label(n)} spills ({u.get('STACK')} B stack, {u.get('LOCAL')} B local)")
+    print(f"flash kernels: {len(flash)} instantiations, every one with HMMA; none at head width 64 spills")
 
 
 # ------------------------------------------------------------------ phase 2
@@ -705,7 +765,8 @@ def lm_kernel_timings(shape, g) -> dict[str, dict]:
     out = {}
     fwd = _measure(lambda: ops.flash_attention_with_lse(q, k, v), lambda: F.flash_attention_with_lse_plain(q, k, v),
                    lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), iters)
-    fwd.update(bound_pair(4 * (q.numel() + k.numel() + v.numel() + o.numel() + lse.numel()), 2 * (hd + dv) * pairs),
+    fwd.update(bound_pair(4 * (q.numel() + k.numel() + v.numel() + o.numel() + lse.numel()), 2 * (hd + dv) * pairs,
+                          split_tf32=True),
                max_abs_err=max((o - o_p).abs().max().item(), (lse - lse_p).abs().max().item()))
     out["flash_attention_fwd"] = fwd
     qr, kr, vr = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
@@ -715,7 +776,7 @@ def lm_kernel_timings(shape, g) -> dict[str, dict]:
                    lambda: torch.autograd.grad(o_lib, (qr, kr, vr), do, retain_graph=True), iters)
     got, want = FB.flash_attention_bwd(q, k, v, o, lse, do), FB.flash_attention_bwd_plain(q, k, v, o, lse, do)
     nbytes = 4 * (2 * (q.numel() + k.numel() + v.numel()) + o.numel() + lse.numel() + do.numel())
-    bwd.update(bound_pair(nbytes, 2 * (3 * hd + 2 * dv) * pairs),
+    bwd.update(bound_pair(nbytes, 2 * (3 * hd + 2 * dv) * pairs, split_tf32=True),
                max_abs_err=max((a - b).abs().max().item() for a, b in zip(got, want)))
     out["flash_attention_bwd"] = bwd
     return out
@@ -732,9 +793,14 @@ def pairwise_timings(m: int, n: int, g) -> dict:
     return row
 
 
-def bound_pair(nbytes: float, flops: float) -> dict:
+def bound_pair(nbytes: float, flops: float, split_tf32: bool = False) -> dict:
+    """``bound_ms`` at fp32 on the CUDA cores; with ``split_tf32`` also
+    ``bound_tc_ms``: three TF32 tensor-core products per fp32 product."""
     ms, by = bound(nbytes, flops)
-    return {"bound_ms": ms, "bound_by": by}
+    out = {"bound_ms": ms, "bound_by": by}
+    if split_tf32:
+        out["bound_tc_ms"] = max(nbytes / HBM_BYTES_PER_S, 3 * flops / TF32_FLOPS_PER_S) * 1e3
+    return out
 
 
 def lm_timing(tiny, full) -> list[dict]:
@@ -764,9 +830,10 @@ def lm_timing(tiny, full) -> list[dict]:
                "shape": per_shape["llama3.2-1b"]["shapes"][key], "tiny_lm": small}
         rows.append(row)
         for label, r in (("llama3.2-1b", row), ("tiny_lm", small)):
+            tc = f", split-TF32 tensor-core bound {r['bound_tc_ms']:.6f} ms" if "bound_tc_ms" in r else ""
             print(f"timing {name} at {label} {tuple(r['shape'])}: device time kernel {r['ms']:.5f} ms, plain "
                   f"{r['plain_ms']:.5f} ms, library {r['library_ms']:.5f} ms; bound {r['bound_ms']:.6f} ms "
-                  f"({r['bound_by']}); per call kernel {r['call_ms']:.4f} ms, plain {r['plain_call_ms']:.4f} ms, "
+                  f"({r['bound_by']}){tc}; per call kernel {r['call_ms']:.4f} ms, plain {r['plain_call_ms']:.4f} ms, "
                   f"library {r['library_call_ms']:.4f} ms; launches {r['launches']}; "
                   f"max_abs_err {r['max_abs_err']:.3g}")
     return rows

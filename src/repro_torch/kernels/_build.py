@@ -26,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("l1.cu", "assign_lerp.cu", "chi2.cu", "merge.cu", "flash_fwd.cu", "flash_bwd.cu")
-HEADERS = ("common.cuh", "flash_common.cuh")
+HEADERS = ("common.cuh", "flash_common.cuh", "mma_tf32.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -57,11 +57,22 @@ _LIB: ctypes.CDLL | None = None
 build_seconds: float | None = None  # wall time of the last compile (None: loaded a cached build)
 
 
+def cuda_tool(name: str) -> str | None:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``), or None."""
+    path = shutil.which(name) or f"/usr/local/cuda/bin/{name}"
+    return path if os.path.exists(path) else None
+
+
 def nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
+    path = cuda_tool("nvcc")
+    if path is None:
         raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
     return path
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives (built or not)."""
+    return BUILD_DIR / f"librepro_torch_{_source_hash()}.so"
 
 
 def _source_hash() -> str:
@@ -109,7 +120,7 @@ def library() -> ctypes.CDLL:
     with _LOCK:
         if _LIB is not None:
             return _LIB
-        lib_path = BUILD_DIR / f"librepro_torch_{_source_hash()}.so"
+        lib_path = library_path()
         if not lib_path.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             t0 = time.perf_counter()

@@ -22,7 +22,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._dispatch import check_f32, use_plain
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 256  # the CUDA kernels keep hd / dv columns in registers up to this width
+MAX_HEAD_DIM = 256  # the CUDA kernels' widest head-width bucket (csrc/flash_common.cuh)
 
 
 def _scale(hd: int, scale: float | None) -> float:

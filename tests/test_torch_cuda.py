@@ -73,6 +73,9 @@ FLASH_CASES = [
     # B, H, KV, Sq, Sk, hd, dv, options
     (8, 4, 2, 32, 32, 16, 16, {}),  # tiny_lm training shape
     (1, 8, 4, 100, 100, 64, 48, dict(window=32, softcap=30.0)),  # ragged, GQA, dv != hd
+    (1, 8, 2, 300, 300, 128, 128, {}),  # head width 128 (llama3-405b, command-r)
+    (1, 4, 2, 65, 65, 64, 64, {}),  # one row past a 64-row tile
+    (2, 4, 2, 70, 70, 12, 12, {}),  # head width not a multiple of 4: 4-byte copies
 ]
 
 
