@@ -9,19 +9,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. probe — the card's name and power limit, CUDA and nvcc versions; build
    the hand-written kernels from ``src/repro_torch/csrc`` and time the build;
-   each flash kernel's registers, shared memory and local memory (spills)
-   from ``cuobjdump --dump-resource-usage``, and a check of its SASS for
-   tensor-core ``HMMA`` instructions (none, or spills at head width 64,
-   fail the run);
+   the registers, shared memory and local memory (spills) of each flash
+   kernel and of the L1 rows and fused assign kernels from ``cuobjdump
+   --dump-resource-usage``, and a check of each flash kernel's SASS for
+   tensor-core ``HMMA`` instructions (none, a spill at head width 64, or an
+   L1 or assign kernel that spills fail the run);
 2. kernels — every kernel wrapper against its plain PyTorch version on the
-   card, at the main path's widths and at edge shapes; the flash-attention
-   forward and backward at the LM paths' shapes and at the model zoo's
-   head widths (up to 256), the backward also bitwise across repeats;
+   card, at the main path's widths and at edge shapes; the L1 sums' fixed
+   order at N % 4 = 0, 1, 2, 3, N = 1 and N = 783,360 (bitwise across
+   repeats, entry points, places and alignments, ties to the first index, a
+   NaN row winning the argmin); the flash-attention forward and backward at
+   the LM paths' shapes and at the model zoo's head widths (up to 256), the
+   backward also bitwise across repeats;
 3. main path — ``repro_torch.fl.experiment.run_experiment("image_recognition",
    "echopfl", num_clients=20, max_time=1500, seed=0)`` on the card and, only
    if that run makes no merge, the same run with ``hm=1.0``; launch counts
-   are zeroed just before and read just after, and every kernel must launch;
-   host time is summed per layer;
+   are zeroed just before and read just after, and every kernel must launch
+   (``l1_distance``'s sums run inside the fused assign kernel there, so its
+   own wrapper must not); host time is summed per layer;
 3b. LM path — ``repro_torch.fl.lm_task.run_lm_experiment("echopfl",
    num_clients=8, max_time=900, eval_interval=120, seed=0)`` on ``tiny_lm``:
    its own launch counts (the flash kernels and the server's assign chain
@@ -36,10 +41,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 5. timing — each kernel, its plain version and (where one exists) a single
    PyTorch call computing the same function, at the shape the main path
    called it with most (the flash kernels and ``pairwise_l1`` at the
-   ``tiny_lm`` and the ``llama3.2-1b`` shapes), beside the least time the
+   ``tiny_lm`` and the ``llama3.2-1b`` shapes, ``l1_distance`` and
+   ``assign_and_lerp`` also at the full-width run's), beside the least time the
    card could take (fp32 on the CUDA cores; for the flash kernels also
    ``bound_tc_ms``, split TF32 on the tensor cores): device time per call from a ``torch.profiler`` trace
-   (``ms``, ``plain_ms``, ``library_ms``) and the per-call time of
+   (``ms``, ``plain_ms``, ``library_ms``; the profiler can lose a short
+   session's kernels, so a time counts only from two sessions that record
+   the same, largest event count) and the per-call time of
    back-to-back calls between CUDA events, host overhead included
    (``call_ms`` and its two siblings);
 6. profile — short runs of the main path and of both LM paths under
@@ -80,11 +88,16 @@ KERNELS = {  # row name -> (CUDA source, the TPU kernel's pallas_call it replace
     "flash_attention_fwd": ("src/repro_torch/csrc/flash_fwd.cu", "src/repro/kernels/flash_attention.py:127"),
     "flash_attention_bwd": ("src/repro_torch/csrc/flash_bwd.cu", "src/repro/kernels/flash_attention_bwd.py:176"),
 }
+# rows whose function runs on the main path inside another wrapper's kernel: l1_distance's
+# sums are the first phase of the fused assign kernel, so its own wrapper launches nothing there
+L1_WIDTHS = (25418, 4550, 4099, 783360, 1, 4097)  # N % 4 = 2, 2, 3, 0, 1, 1
+FUSED_INTO = {"l1_distance": "assign_and_lerp"}
+ALSO_IN = {"l1_distance": "src/repro_torch/csrc/assign_lerp.cu"}  # where a fused row's function also runs
 MLP_PATH = KERNELS.keys() - {"pairwise_l1", "flash_attention_fwd", "flash_attention_bwd"}
-# launch counters the LM paths must move: the flash kernels and the server's assign chain
-LM_PATH = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv", "l1_distance", "assign_and_lerp")
+# launch counters the LM paths must move: the flash kernels and the server's fused assign
+LM_PATH = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv", "assign_and_lerp")
 # the kernels' entry functions in src/repro_torch/csrc, as the profiler names them
-PORT_KERNEL_NAMES = ("l1_rows_kernel", "select_lerp_kernel", "chi2_rows_kernel", "segment_sum_kernel",
+PORT_KERNEL_NAMES = ("l1_rows_kernel", "assign_lerp_kernel", "chi2_rows_kernel", "segment_sum_kernel",
                      "merge_max_kernel", "merge_blend_kernel", "flash_fwd_kernel", "flash_dq_kernel",
                      "flash_dkv_kernel")
 # flash kernel checks: name, B, H, KV, Sq, Sk, hd, dv, options
@@ -139,28 +152,29 @@ def probe():
     built = _build.build_seconds
     print(f"kernel build: {time.perf_counter() - t0:.2f} s"
           + ("" if built is not None else " (loaded an existing build)"))
-    flash_resources()
+    kernel_resources()
     return smi
 
 
 def _kernel_label(mangled: str) -> str:
     """``flash_dkv_kernel<64,3>`` from a mangled name."""
-    names = re.findall(r"flash_[a-z]+_kernel", mangled)
+    names = re.findall(r"(?:flash_[a-z]+|l1_rows|assign_lerp)_kernel", mangled)
     args = re.findall(r"Li(\d+)E", mangled)
     return (names[-1] if names else mangled) + (f"<{','.join(args)}>" if args else "")
 
 
-def flash_resources() -> None:
+def kernel_resources() -> None:
     """Registers, shared memory, stack and local memory of every flash
-    kernel from ``cuobjdump --dump-resource-usage``, and its count of
-    ``HMMA`` (tensor-core) instructions from ``cuobjdump -sass``. A flash
-    kernel without HMMA, or with a stack frame or local memory (spills) at
-    head width 64, fails."""
+    kernel and of the L1 and fused assign kernels from ``cuobjdump
+    --dump-resource-usage``, and each flash kernel's count of ``HMMA``
+    (tensor-core) instructions from ``cuobjdump -sass``. A flash kernel
+    without HMMA, a flash kernel at head width 64 with a stack frame or
+    local memory (spills), or an L1 or assign kernel with either, fails."""
     from repro_torch.kernels import _build
 
     tool = _build.cuda_tool("cuobjdump")
     if tool is None:
-        print("cuobjdump: not in the CUDA toolkit; flash kernels' resources and HMMA NOT checked")
+        print("cuobjdump: not in the CUDA toolkit; kernels' resources and HMMA NOT checked")
         return
     lib = str(_build.library_path())
     usage, name = {}, None
@@ -190,6 +204,16 @@ def flash_resources() -> None:
             check(u.get("LOCAL", 0) == 0 and u.get("STACK", 0) == 0,
                   f"{_kernel_label(n)} spills ({u.get('STACK')} B stack, {u.get('LOCAL')} B local)")
     print(f"flash kernels: {len(flash)} instantiations, every one with HMMA; none at head width 64 spills")
+    rows = sorted(n for n in usage if "l1_rows_kernel" in n or "assign_lerp_kernel" in n)
+    check(any("l1_rows_kernel" in n for n in rows) and any("assign_lerp_kernel" in n for n in rows),
+          "cuobjdump found no L1 rows or fused assign kernel in the library")
+    for n in rows:
+        u = usage[n]
+        print(f"  {_kernel_label(n):<24} registers {u.get('REG')}, shared {u.get('SHARED')} B static, "
+              f"local {u.get('LOCAL')} B, stack {u.get('STACK')} B")
+        check(u.get("LOCAL", 0) == 0 and u.get("STACK", 0) == 0,
+              f"{_kernel_label(n)} spills ({u.get('STACK')} B stack, {u.get('LOCAL')} B local)")
+    print("L1 and fused assign kernels: no spills")
 
 
 # ------------------------------------------------------------------ phase 2
@@ -252,7 +276,93 @@ def kernel_phase():
     sync()
     print(f"kernel phase: {n_checked} checks passed (L1/chi2 rtol 1e-5, blend bitwise, "
           "idx equal, merge rtol 1e-6 atol 1e-7, segment sums bitwise across repeats)")
+    l1_order_checks()
     flash_checks()
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.int32)
+
+
+def _same_bits(*ts: torch.Tensor) -> bool:
+    return all(torch.equal(_bits(t), _bits(ts[0])) for t in ts[1:])
+
+
+def _first_argmin(d: torch.Tensor) -> int:
+    """numpy's first-index argmin (a NaN is the minimum, the first NaN wins)."""
+    import numpy as np
+
+    return int(np.argmin(d.cpu().numpy()))
+
+
+def l1_order_checks() -> None:
+    """The L1 sums' fixed order on the card (``csrc/l1_rows.cuh``), at widths
+    with N % 4 = 0, 1, 2, 3, a single element and the LM delta's 783,360:
+    distances within rtol 1e-5 (atol 0) of the plain version for C in
+    {1, 2, 5, 8, 33}; the index the first-index argmin of the returned
+    distances; the blend bitwise; repeats bitwise; the fused assign's
+    distances bitwise those of ``l1_distance``, and of ``l1_distance_pairwise``
+    and ``pairwise_l1`` for the same pair of rows at another place in their
+    matrix; equal rows in different alignment classes bitwise equal, the tie
+    to the first index; a NaN row wins the argmin."""
+    from repro_torch.kernels import assign_lerp, l1, ops
+
+    n_checked = 0
+    for n in L1_WIDTHS:
+        g = gen(n % 9973)
+        m = 1 if n > 100_000 else 3  # the plain pairwise version materializes (M, C, N)
+        for c in (1, 2, 5, 8, 33):
+            cs, u = randn(g, c, n), randn(g, n)
+            runs = [ops.assign_and_lerp(u, cs, 0.3) for _ in range(3)]
+            d, i, b = runs[0]
+            dp, _, bp = assign_lerp.assign_and_lerp_plain(u, cs, 0.3)
+            torch.testing.assert_close(d, dp, rtol=1e-5, atol=0, msg=lambda s: f"assign n={n} c={c}: {s}")
+            check(int(i) == _first_argmin(d), f"assign idx n={n} c={c}: {int(i)} != {_first_argmin(d)}")
+            check(torch.equal(b, assign_lerp.blend_plain(cs[int(i)], u, 0.3)), f"blend not bitwise n={n} c={c}")
+            if int(i) == int(torch.argmin(dp)):
+                check(torch.equal(b, bp), f"blend differs from the plain assign n={n} c={c}")
+            check(all(_same_bits(r[0], d) and torch.equal(r[1], i) and _same_bits(r[2], b) for r in runs[1:]),
+                  f"assign not bitwise across repeats n={n} c={c}")
+            xs = randn(g, m, n)
+            xs[m - 1] = u  # u at the last row: another alignment class where N % 4 != 0
+            dl, dpw = ops.l1_distance(u, cs), ops.l1_distance_pairwise(xs, cs)
+            torch.testing.assert_close(dpw, l1.l1_distance_pairwise_plain(xs, cs), rtol=1e-5, atol=0,
+                                       msg=lambda s: f"pairwise n={n} c={c}: {s}")
+            check(_same_bits(dl, d, dpw[m - 1], ops.l1_distance(u, cs)),
+                  f"l1_distance, l1_distance_pairwise and the assign differ in bits n={n} c={c}")
+            n_checked += 1
+        # rows 1 and 2 equal and nearest: different alignment classes where N % 4 != 0
+        cs, u = randn(g, 5, n) + 5.0, randn(g, n)
+        cs[1] = u + 0.5
+        cs[2] = cs[1]
+        d, i, b = ops.assign_and_lerp(u, cs, 0.25)
+        check(int(i) == 1 and _same_bits(d[1], d[2]), f"alignment tie n={n}: idx {int(i)}, d {d[1]} vs {d[2]}")
+        check(torch.equal(b, assign_lerp.blend_plain(cs[1], u, 0.25)), f"alignment tie blend n={n}")
+        dl, dpw = ops.l1_distance(u, cs), ops.l1_distance_pairwise(torch.stack([cs[0], u]), cs)
+        check(_same_bits(dl[1], dl[2], dpw[1, 1], dpw[1, 2]), f"alignment tie l1 entry points n={n}")
+        # one pair (u, cs[1]) through the four entry points, at different places in the matrices
+        pw, pw_rev = ops.pairwise_l1(torch.stack([u, cs[1]])), ops.pairwise_l1(torch.stack([cs[3], cs[1], u]))
+        check(_same_bits(d[1], dl[1], dpw[1, 1], pw[0, 1], pw[1, 0], pw_rev[2, 1], pw_rev[1, 2]),
+              f"one pair, four entry points, different bits n={n}")
+        torch.testing.assert_close(pw_rev, l1.pairwise_l1_plain(torch.stack([cs[3], cs[1], u])), rtol=1e-5, atol=0)
+        # u at an odd place in memory gives the same bits
+        u_off = torch.stack([cs[0], u])[1]
+        check(_same_bits(ops.assign_and_lerp(u_off, cs, 0.25)[0], d), f"u's alignment changed the bits n={n}")
+        # a NaN row wins the argmin; a NaN in u makes every distance NaN and idx 0
+        cs[3, n // 2] = float("nan")
+        d, i, b = ops.assign_and_lerp(u, cs, 0.25)
+        dp, ip, bp = assign_lerp.assign_and_lerp_plain(u, cs, 0.25)
+        check(int(i) == 3 == int(ip) and bool(torch.isnan(d[3])), f"NaN row did not win n={n}: idx {int(i)}")
+        torch.testing.assert_close(d, dp, rtol=1e-5, atol=0, equal_nan=True)
+        torch.testing.assert_close(b, bp, rtol=0, atol=0, equal_nan=True, msg=lambda s: f"NaN-row blend n={n}: {s}")
+        u[n // 2] = float("nan")
+        d, i, b = ops.assign_and_lerp(u, cs, 0.25)
+        check(int(i) == 0 and bool(torch.isnan(d).all()), f"NaN upload n={n}: idx {int(i)}")
+        torch.testing.assert_close(b, assign_lerp.blend_plain(cs[0], u, 0.25), rtol=0, atol=0, equal_nan=True)
+        n_checked += 5
+    sync()
+    print(f"L1 order checks: {n_checked} passed at N = {list(L1_WIDTHS)} (rtol 1e-5 atol 0, blend bitwise, "
+          "idx the first-index argmin, bitwise across repeats, entry points, places and alignments; NaN wins)")
 
 
 def flash_inputs(g, B, H, KV, Sq, Sk, hd, dv):
@@ -402,8 +512,10 @@ def main_path():
     uploads = sum(rep.extra["uploads"] for _, _, rep, _ in runs)
     print(f"main path wall time {wall:.2f} s, {uploads} uploads, {uploads / wall:.2f} uploads/s; "
           f"launches {json.dumps(counts)}")
-    for name in MLP_PATH:
+    for name in MLP_PATH - FUSED_INTO.keys():
         check(counts[name] > 0, f"kernel {name} never launched on the main path")
+    for name, host in FUSED_INTO.items():
+        check(counts[name] == 0, f"{name} launched on its own on the main path: it runs inside {host}")
     rnn = {k: v.cpu().numpy() for k, v in runs[0][1]._rnn_init.items()}  # pretrained broadcast RNN
     return counts, shapes, wall, rnn
 
@@ -470,6 +582,7 @@ def lm_run(label: str, expect_shape=None, **kw):
     from repro_torch.kernels import ops
 
     shapes, restore_shapes = _record_flash_shapes(ops)
+    server_shapes, restore_server_shapes = _record_shapes(ops)
     first, last, rounds, restore_uploads = _record_uploads()
     spent, restore_timers = _host_timers()
     sync()
@@ -483,6 +596,7 @@ def lm_run(label: str, expect_shape=None, **kw):
     peak = torch.cuda.max_memory_allocated()
     restore_timers()
     restore_uploads()
+    restore_server_shapes()
     restore_shapes()
     for bucket in sorted(spent):
         print(f"  host time {bucket:<40} {spent[bucket]:8.3f} s ({100 * spent[bucket] / wall:5.1f}%)")
@@ -498,6 +612,7 @@ def lm_run(label: str, expect_shape=None, **kw):
     print(f"{label}: flash shapes (B, H, Sq, hd, KV, Sk, dv) {dict(shapes)}; launches {json.dumps(counts)}")
     for name in LM_PATH:
         check(counts[name] > 0, f"{label}: kernel {name} never launched")
+    check(counts["l1_distance"] == 0, f"{label}: l1_distance launched on its own: it runs inside assign_and_lerp")
     check(counts["flash_attention_dq"] == counts["flash_attention_dkv"], f"{label}: dq and dkv launches differ")
     width = sum(t.numel() for t in tree_leaves(task.init_params(torch.Generator().manual_seed(0))))
     for c in strat.clustering.clusters.values():
@@ -508,7 +623,8 @@ def lm_run(label: str, expect_shape=None, **kw):
     check(bool((nll1 < nll0).all()), f"{label}: training NLL did not fall for every client")
     if expect_shape is not None:
         check(any(s[:4] == expect_shape for s in shapes), f"{label}: no flash launch at {expect_shape}")
-    return dict(counts=counts, shapes=shapes, wall=wall, uploads=uploads, peak=peak, strat=strat, rep=rep)
+    return dict(counts=counts, shapes=shapes, server_shapes=server_shapes, wall=wall, uploads=uploads, peak=peak,
+                strat=strat, rep=rep)
 
 
 def lm_path():
@@ -634,20 +750,46 @@ def _device_us(prof) -> Counter:
     return per
 
 
-def device_ms(fn, iters: int = 100) -> float:
-    """Device time per call: the summed durations of the kernels one call
-    launches, from a ``torch.profiler`` trace (host overhead excluded)."""
+PROFILER_PAD_S = 0.005  # host sleep at each end of a profiled window
+trace_sessions = Counter()  # device_ms's profiler sessions: "kept" and "refused"
+
+
+def _device_trace(run):
+    """``torch.profiler`` trace (CUDA activity only) of ``run()``, padded by
+    an idle host sleep at each end; returns ``(prof, run's result)``."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+        time.sleep(PROFILER_PAD_S)
+        out = run()
         torch.cuda.synchronize()
-    total = sum(_device_us(prof).values())
-    check(total > 0, "the profiler saw no device time")
-    return total / iters / 1e3
+        time.sleep(PROFILER_PAD_S)
+    return prof, out
+
+
+def device_ms(fn, iters: int = 100, sessions: int = 6) -> float:
+    """Device time per call: the summed durations of the kernels one call
+    launches, from a ``torch.profiler`` trace (host overhead excluded).
+
+    On the H100 the profiler now and then records only part of a short
+    session's kernels, or none. It never records more than ran, so a
+    session's event count is held to the largest seen: a time is kept once
+    two sessions record that same count, a whole number of events per call;
+    after ``sessions`` sessions without that, the run fails."""
+    fn()
+    by_count: dict[int, list[float]] = {}
+    for _ in range(sessions):
+        prof, _ = _device_trace(lambda: [fn() for _ in range(iters)])
+        events = _device_events(prof)
+        by_count.setdefault(len(events), []).append(sum(e.time_range.elapsed_us() for e in events))
+        top = max(by_count)
+        if top > 0 and top % iters == 0 and len(by_count[top]) == 2:
+            kept = sum(len(v) for v in by_count.values())
+            trace_sessions.update(kept=2, refused=kept - 2)
+            return sum(by_count[top]) / 2 / iters / 1e3
+    raise AssertionError(f"the profiler recorded no two full sessions in {sessions}: "
+                         f"event counts {sorted(by_count)} for {iters} calls")
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -655,76 +797,98 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def timing(counts, shapes):
+def _server_case(name: str, shape: tuple, g):
+    """``(fn, plain, library call or None, bytes, flops, max_abs_err)`` for one
+    server kernel at one shape, on fresh random inputs."""
     from repro_torch.kernels import assign_lerp, chi2, l1, merge, ops
 
+    lib = None
+    if name in ("l1_distance", "l1_distance_pairwise"):
+        m, c, n = shape
+        xs, cs = randn(g, m, n), randn(g, c, n)
+        if name == "l1_distance":
+            u = xs[0].contiguous()
+            fn, plain = (lambda: ops.l1_distance(u, cs)), (lambda: l1.l1_distance_plain(u, cs))
+            lib = lambda: torch.cdist(u[None], cs, p=1)  # noqa: E731
+        else:
+            fn, plain = (lambda: ops.l1_distance_pairwise(xs, cs)), (lambda: l1.l1_distance_pairwise_plain(xs, cs))
+            lib = lambda: torch.cdist(xs, cs, p=1)  # noqa: E731
+        nbytes, flops = 4 * (m * n + c * n + m * c), 3 * m * c * n
+        err = (fn() - plain()).abs().max().item()
+    elif name == "assign_and_lerp":
+        c, n = shape
+        u, cs = randn(g, n), randn(g, c, n)
+        fn, plain = (lambda: ops.assign_and_lerp(u, cs, 0.25)), (lambda: assign_lerp.assign_and_lerp_plain(u, cs, 0.25))
+        nbytes, flops = 4 * (n + c * n + c + 1 + n), 3 * c * n + c + 3 * n
+        a, b = fn(), plain()
+        err = max((a[0] - b[0]).abs().max().item(), (a[2] - b[2]).abs().max().item())
+    elif name in ("chi2_feedback", "chi2_feedback_segmented"):
+        m, j = shape[:2]
+        fp = torch.rand((m, j), generator=g, device=DEVICE) * 30
+        ft = torch.rand((m, j), generator=g, device=DEVICE) * 30 + 1.0
+        ss = torch.softmax(randn(g, m, j), dim=-1)
+        nbytes, flops = 4 * (3 * m * j + m), 9 * m * j
+        if name == "chi2_feedback":
+            fn, plain = (lambda: ops.chi2_feedback(fp, ft, ss)), (lambda: chi2.chi2_feedback_plain(fp, ft, ss))
+            err = (fn() - plain()).abs().max().item()
+        else:
+            s = shape[2]
+            seg = torch.arange(m, device=DEVICE, dtype=torch.int32) % s
+            fn = lambda: ops.chi2_feedback_segmented(fp, ft, ss, seg, s)  # noqa: E731
+            plain = lambda: chi2.chi2_feedback_segmented_plain(fp, ft, ss, seg, s)  # noqa: E731
+            nbytes += 4 * (m + s)
+            flops += m
+            a, b = fn(), plain()
+            err = max((a[0] - b[0]).abs().max().item(), (a[1] - b[1]).abs().max().item())
+    else:  # merge_attention
+        (n,) = shape
+        vm, va, vt = randn(g, n), randn(g, n), randn(g, n)
+        fn, plain = (lambda: ops.merge_attention(vm, va, vt)), (lambda: merge.merge_attention_plain(vm, va, vt))
+        nbytes, flops = 4 * 4 * n, 10 * n
+        err = (fn() - plain()[0]).abs().max().item()
+    return fn, plain, lib, nbytes, flops, err
+
+
+def _server_timing(name: str, shape: tuple, launches: int, g, label: str) -> dict:
+    fn, plain, lib, nbytes, flops, err = _server_case(name, shape, g)
+    bound_ms, bound_by = bound(nbytes, flops)
+    row = {
+        "launches": launches, "max_abs_err": err,
+        "ms": device_ms(fn), "plain_ms": device_ms(plain), "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None if lib is None else device_ms(lib),
+        "call_ms": call_ms(fn), "plain_call_ms": call_ms(plain),
+        "library_call_ms": None if lib is None else call_ms(lib),
+        "shape": list(shape),
+    }
+    print(f"timing {name} at {label}{tuple(shape)}: device time kernel {row['ms']:.5f} ms, plain "
+          f"{row['plain_ms']:.5f} ms, library " + ("n/a" if lib is None else f"{row['library_ms']:.5f} ms")
+          + f"; bound {bound_ms:.6f} ms ({bound_by}); per call kernel {row['call_ms']:.4f} ms, plain "
+          f"{row['plain_call_ms']:.4f} ms, library "
+          + ("n/a" if lib is None else f"{row['library_call_ms']:.4f} ms")
+          + f"; launches {launches}; max_abs_err {err:.3g}")
+    return row
+
+
+def timing(counts, shapes, full):
+    """Rows for the server kernels at the main path's most frequent shapes;
+    ``l1_distance`` and ``assign_and_lerp`` also at the full-width LM run's
+    assign shape, under ``"llama3.2-1b"``, with that run's launches. A row
+    whose function runs inside another kernel on the path names it in
+    ``fused_into`` and its source there in ``also_in``."""
     g = gen(11)
     rows = []
+    full_assign = full["server_shapes"]["assign_and_lerp"].most_common(1)[0][0]
+    full_shapes = {"assign_and_lerp": full_assign, "l1_distance": (1, *full_assign)}
     for name, (source, replaces) in KERNELS.items():
         if name not in MLP_PATH:
             continue
-        shape = shapes[name].most_common(1)[0][0]
-        lib = None
-        if name in ("l1_distance", "l1_distance_pairwise"):
-            m, c, n = shape
-            xs, cs = randn(g, m, n), randn(g, c, n)
-            if name == "l1_distance":
-                u = xs[0].contiguous()
-                fn, plain = (lambda: ops.l1_distance(u, cs)), (lambda: l1.l1_distance_plain(u, cs))
-                lib = lambda: torch.cdist(u[None], cs, p=1)  # noqa: E731
-            else:
-                fn, plain = (lambda: ops.l1_distance_pairwise(xs, cs)), (lambda: l1.l1_distance_pairwise_plain(xs, cs))
-                lib = lambda: torch.cdist(xs, cs, p=1)  # noqa: E731
-            nbytes, flops = 4 * (m * n + c * n + m * c), 3 * m * c * n
-            err = (fn() - plain()).abs().max().item()
-        elif name == "assign_and_lerp":
-            c, n = shape
-            u, cs = randn(g, n), randn(g, c, n)
-            fn, plain = (lambda: ops.assign_and_lerp(u, cs, 0.25)), (lambda: assign_lerp.assign_and_lerp_plain(u, cs, 0.25))
-            nbytes, flops = 4 * (n + c * n + c + 1 + n), 3 * c * n + c + 3 * n
-            a, b = fn(), plain()
-            err = max((a[0] - b[0]).abs().max().item(), (a[2] - b[2]).abs().max().item())
-        elif name in ("chi2_feedback", "chi2_feedback_segmented"):
-            m, j = shape[:2]
-            fp = torch.rand((m, j), generator=g, device=DEVICE) * 30
-            ft = torch.rand((m, j), generator=g, device=DEVICE) * 30 + 1.0
-            ss = torch.softmax(randn(g, m, j), dim=-1)
-            nbytes, flops = 4 * (3 * m * j + m), 9 * m * j
-            if name == "chi2_feedback":
-                fn, plain = (lambda: ops.chi2_feedback(fp, ft, ss)), (lambda: chi2.chi2_feedback_plain(fp, ft, ss))
-                err = (fn() - plain()).abs().max().item()
-            else:
-                s = shape[2]
-                seg = torch.arange(m, device=DEVICE, dtype=torch.int32) % s
-                fn = lambda: ops.chi2_feedback_segmented(fp, ft, ss, seg, s)  # noqa: E731
-                plain = lambda: chi2.chi2_feedback_segmented_plain(fp, ft, ss, seg, s)  # noqa: E731
-                nbytes += 4 * (m + s)
-                flops += m
-                a, b = fn(), plain()
-                err = max((a[0] - b[0]).abs().max().item(), (a[1] - b[1]).abs().max().item())
-        else:  # merge_attention
-            (n,) = shape
-            vm, va, vt = randn(g, n), randn(g, n), randn(g, n)
-            fn, plain = (lambda: ops.merge_attention(vm, va, vt)), (lambda: merge.merge_attention_plain(vm, va, vt))
-            nbytes, flops = 4 * 4 * n, 10 * n
-            err = (fn() - plain()[0]).abs().max().item()
-        bound_ms, bound_by = bound(nbytes, flops)
-        row = {
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": counts[name], "max_abs_err": err,
-            "ms": device_ms(fn), "plain_ms": device_ms(plain), "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None if lib is None else device_ms(lib),
-            "call_ms": call_ms(fn), "plain_call_ms": call_ms(plain),
-            "library_call_ms": None if lib is None else call_ms(lib),
-            "shape": list(shape),
-        }
+        row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               **_server_timing(name, shapes[name].most_common(1)[0][0], counts[name], g, "")}
+        if name in FUSED_INTO:
+            row.update(fused_into=FUSED_INTO[name], also_in=ALSO_IN[name])
+        if name in full_shapes:
+            row["llama3.2-1b"] = _server_timing(name, full_shapes[name], full["counts"][name], g, "llama3.2-1b ")
         rows.append(row)
-        print(f"timing {name} at {tuple(shape)}: device time kernel {row['ms']:.5f} ms, plain "
-              f"{row['plain_ms']:.5f} ms, library " + ("n/a" if lib is None else f"{row['library_ms']:.5f} ms")
-              + f"; bound {bound_ms:.6f} ms ({bound_by}); per call kernel {row['call_ms']:.4f} ms, plain "
-              f"{row['plain_call_ms']:.4f} ms, library "
-              + ("n/a" if lib is None else f"{row['library_call_ms']:.4f} ms")
-              + f"; max_abs_err {err:.3g}")
     return rows
 
 
@@ -844,15 +1008,20 @@ def profile_window(label: str, run) -> None:
     """One run under ``torch.profiler`` (CUDA activity only). Device busy
     time is the sum of kernel durations (one stream, so they do not
     overlap); the idle share is the rest of the window's host wall time.
-    ``run()`` returns the number of uploads it made."""
-    from torch.profiler import ProfilerActivity, profile
+    ``run()`` returns the number of uploads it made. The trace's kernels of
+    the assign and the flash forward, one per launch, are counted against
+    their wrappers' launch counts: a trace that lost kernels shows there."""
+    from repro_torch.kernels import ops
 
-    sync()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    def timed():
         t0 = time.perf_counter()
         uploads = run()
         sync()
-        wall = time.perf_counter() - t0
+        return uploads, time.perf_counter() - t0
+
+    ops.reset_launch_counts()
+    prof, (uploads, wall) = _device_trace(timed)
+    launched = ops.launch_counts()
     per = _device_us(prof)
     busy = sum(per.values()) / 1e6
     check(busy > 0, f"profile {label}: the profiler saw no device time")
@@ -862,6 +1031,10 @@ def profile_window(label: str, run) -> None:
     print(f"profile ({label}, {uploads} uploads): wall {wall:.3f} s under the profiler, device busy {busy:.4f} s, "
           f"idle share {1 - busy / wall:.4f}, {n_kernels} kernels; the port's CUDA kernels {ours:.5f} s "
           f"({100 * ours / busy:.2f}% of busy), of which flash attention {flash:.5f} s ({100 * flash / busy:.2f}%)")
+    seen = Counter(e.name for e in _device_events(prof))
+    print("  kernels in the trace / launched: " + ", ".join(
+        f"{kernel} {sum(v for k, v in seen.items() if kernel in k)}/{launched[wrapper]}"
+        for kernel, wrapper in (("assign_lerp_kernel", "assign_and_lerp"), ("flash_fwd_kernel", "flash_attention_fwd"))))
     for name, us in per.most_common(12):
         print(f"  device time {us / 1e3:10.3f} ms ({100 * us / 1e6 / busy:5.1f}%)  {name[:110]}")
 
@@ -915,7 +1088,9 @@ def main() -> int:
     full = full_width(tiny["rnn"])
     agreement()
     lm_agreement(tiny["rnn"])
-    rows = timing(counts, shapes) + lm_timing(tiny, full)
+    rows = timing(counts, shapes, full) + lm_timing(tiny, full)
+    print(f"timing: {trace_sessions['kept']} profiler sessions kept, {trace_sessions['refused']} refused "
+          f"(a partial or empty trace)")
     profiles(rnn_params, tiny["rnn"])
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))

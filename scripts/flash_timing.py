@@ -9,7 +9,7 @@ backward (``D`` pre-pass, dq and dkv) and each backward kernel alone, beside
 fp32 ``scaled_dot_product_attention`` and its backward as a yardstick, at
 the LM paths' shapes (``tiny_lm``, full-width ``llama3.2-1b``) and at
 S = 2048. Device time is the summed kernel durations of a ``torch.profiler``
-trace over 50 calls. Give two roots in turns (``old new new old``) to
+trace over 100 calls (``chip_smoke.device_ms``). Give two roots in turns (``old new new old``) to
 compare trees on one card. Prints the card's name and power limit and one
 JSON line per root. Imports no JAX.
 """
@@ -20,27 +20,14 @@ import subprocess
 import sys
 from pathlib import Path
 
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import device_ms  # noqa: E402  (profiler sessions held to a full count)
+
 SHAPES = {  # label: B, H, S, hd, KV (causal, dv = hd)
     "tiny_lm": (8, 4, 32, 16, 2),
     "llama3.2-1b": (4, 32, 256, 64, 8),
     "llama3.2-1b S=2048": (1, 32, 2048, 64, 8),
 }
-
-
-def device_ms(fn, iters: int = 50) -> float:
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type.name == "CUDA")
-    if us <= 0:
-        raise RuntimeError("the profiler saw no device time")
-    return us / iters / 1e3
 
 
 def measure(root: str) -> dict:

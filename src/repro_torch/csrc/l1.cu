@@ -1,60 +1,100 @@
 // Family A: L1 rows. (M, N) x (C, N) -> (M, C) fp32 L1 distances (Eq. 1).
 //
 // Replaces the TPU kernels src/repro/kernels/l1_distance.py::l1_distance
-// (_l1_kernel, one upload against C centers, M = 1 here) and
-// src/repro/kernels/l1_pairwise.py::l1_distance_pairwise (_pairwise_kernel).
+// (_l1_kernel, one upload against C centers, M = 1) and ::pairwise_l1
+// (C = M), and src/repro/kernels/l1_pairwise.py::l1_distance_pairwise
+// (_pairwise_kernel). On the upload path the same sums run inside the fused
+// assign kernel (assign_lerp.cu).
 //
-// Bound: bytes. Each output reads two N-float rows once and does 3 flops
-// per element pair, far below the card's operations-per-byte balance. At the
-// paper's widths (N = 4,550 .. 25,418, C <= 8) a launch moves well under a
-// megabyte, so what bounds it in practice is launch latency, not bandwidth.
-// Design: one 256-thread block per output element (grid (C, M)); threads
-// stride over N with 16-byte float4 loads where both rows are 16-byte
-// aligned (a row of odd stride falls back to scalar loads), and accumulate
-// in fp32. The block sum is a fixed-order warp butterfly plus one warp over
-// the partials, so a given launch shape always gives the same bits.
-#include "common.cuh"
+// Bound: bytes. Each output reads two N-float rows and does 3 flops per
+// element pair, far below the card's operations-per-byte balance. At the
+// paper's widths (N = 4,550 .. 25,418) a call moves well under a megabyte
+// and launch latency plus one memory round trip decide; at the LM delta's
+// width (N = 783,360) it moves megabytes and bandwidth decides.
+// Design: N splits into 4096-element chunks (l1_rows.cuh); a work item is
+// one chunk of a tile of TM x rows by TC c rows, so each block loads a chunk
+// of each row once and keeps 4 (TM + TC) 16-byte loads in flight per thread.
+// Past one chunk, one cooperative launch of at most the co-resident block
+// count: blocks walk the work items and store each chunk's partials to a
+// (chunks, M, C) scratch, the grid syncs, and one warp per output sums its
+// chunk partials in chunk order (N <= 4096: an ordinary launch that stores
+// the partials as the outputs). No atomics: the
+// bits depend only on the two rows and N (l1_rows.cuh), at any alignment.
+#include <cooperative_groups.h>
+
+#include "l1_rows.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
+// kOneChunk (N <= 4096): each block's partials are the outputs, stored
+// directly: no scratch, no grid sync, an ordinary launch of one block per
+// output. The bits are the same, since step 4 of a single partial p is
+// p + 0 + ... + 0 = p.
+template <int TM, int TC, bool kOneChunk>
 __global__ void __launch_bounds__(repro::kThreads)
-l1_rows_kernel(const float* __restrict__ x, const float* __restrict__ c,
-               float* __restrict__ out, int64_t n, int64_t c_rows) {
-  const int64_t ci = blockIdx.x;
-  const int64_t mi = blockIdx.y;
-  const float* xr = x + mi * n;
-  const float* cr = c + ci * n;
-  float acc = 0.f;
-  int64_t tail = 0;
-  const bool aligned =
-      ((reinterpret_cast<uintptr_t>(xr) | reinterpret_cast<uintptr_t>(cr)) & 15u) == 0;
-  if (aligned) {
-    const int64_t n4 = n >> 2;
-    const float4* x4 = reinterpret_cast<const float4*>(xr);
-    const float4* c4 = reinterpret_cast<const float4*>(cr);
-    for (int64_t k = threadIdx.x; k < n4; k += blockDim.x) {
-      const float4 a = x4[k];
-      const float4 b = c4[k];
-      acc += fabsf(a.x - b.x);
-      acc += fabsf(a.y - b.y);
-      acc += fabsf(a.z - b.z);
-      acc += fabsf(a.w - b.w);
-    }
-    tail = n4 << 2;
+l1_rows_kernel(const float* __restrict__ x, const float* __restrict__ c, float* __restrict__ out,
+               float* scratch, int64_t m_rows, int64_t c_rows, int64_t n, int64_t chunks) {
+  const int64_t mc = m_rows * c_rows;
+  const int64_t c_tiles = (c_rows + TC - 1) / TC;
+  const int64_t items = chunks * c_tiles * ((m_rows + TM - 1) / TM);
+  for (int64_t w = blockIdx.x; w < items; w += gridDim.x) {
+    const int64_t k = w % chunks, tile = w / chunks;
+    const int64_t m0 = (tile / c_tiles) * TM, c0 = (tile % c_tiles) * TC;
+    float* dst = kOneChunk ? out : scratch + k * mc;
+    repro::chunk_partials<TM, TC>(x, m_rows, c, c_rows, n, k, m0, c0, dst + m0 * c_rows + c0,
+                                  c_rows);
   }
-  for (int64_t k = tail + threadIdx.x; k < n; k += blockDim.x) acc += fabsf(xr[k] - cr[k]);
-  const float s = repro::block_sum(acc);
-  if (threadIdx.x == 0) out[mi * c_rows + ci] = s;
+  if constexpr (!kOneChunk) {
+    cg::this_grid().sync();
+    const int64_t warp = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+    const int64_t warps = (static_cast<int64_t>(gridDim.x) * blockDim.x) >> 5;
+    for (int64_t o = warp; o < mc; o += warps) {
+      const float s = repro::sum_chunks(scratch + o, chunks, mc);
+      if ((threadIdx.x & 31) == 0) out[o] = s;
+    }
+  }
+}
+
+// Past one chunk: a cooperative launch of TM x TC tiles.
+template <int TM>
+int launch_chunked(const float* x, const float* c, float* out, float* scratch, int64_t m,
+                   int64_t c_rows, int64_t n, int device, cudaStream_t stream) {
+  constexpr int TC = repro::kTileC;
+  static int coresident[64];
+  int64_t chunks = repro::l1_chunks(n);
+  const int64_t items = chunks * ((c_rows + TC - 1) / TC) * ((m + TM - 1) / TM);
+  const int cap = repro::coresident_blocks(l1_rows_kernel<TM, TC, false>, device, coresident);
+  const int64_t outs_blocks = (m * c_rows + repro::kWarps - 1) / repro::kWarps;
+  int64_t blocks = items > outs_blocks ? items : outs_blocks;
+  if (blocks > cap) blocks = cap;
+  void* args[] = {&x, &c, &out, &scratch, &m, &c_rows, &n, &chunks};
+  const cudaError_t rc = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(l1_rows_kernel<TM, TC, false>), dim3(static_cast<unsigned>(blocks)),
+      dim3(repro::kThreads), args, 0, stream);
+  return rc != cudaSuccess ? static_cast<int>(rc) : repro::launch_status();
 }
 
 }  // namespace
 
-REPRO_API int repro_l1_rows(const float* x, const float* c, float* out, int64_t m,
-                            int64_t c_rows, int64_t n, int device, void* stream) {
-  cudaSetDevice(device);
+// scratch: chunks * m * c_rows floats, chunks = ceil(n / 4096); any other
+// `chunks` is refused, so the caller's count cannot drift from the kernel's.
+REPRO_API int repro_l1_rows(const float* x, const float* c, float* out, float* scratch,
+                            int64_t m, int64_t c_rows, int64_t n, int64_t chunks, int device,
+                            void* stream) {
+  if (device < 0 || device >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  repro::use_device(device);
   if (m <= 0 || c_rows <= 0) return repro::launch_status();
-  const dim3 grid(static_cast<unsigned>(c_rows), static_cast<unsigned>(m));
-  l1_rows_kernel<<<grid, repro::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, c, out, n, c_rows);
-  return repro::launch_status();
+  if (n <= 0 || chunks != repro::l1_chunks(n)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (chunks == 1) {
+    l1_rows_kernel<1, 1, true><<<static_cast<unsigned>(m * c_rows), repro::kThreads, 0, s>>>(
+        x, c, out, scratch, m, c_rows, n, chunks);
+    return repro::launch_status();
+  }
+  // Four x rows per block share each c row's loads where rows are wide and
+  // blocks plenty; one where latency decides. The tile does not change the bits.
+  return m >= 4 && chunks >= 8 ? launch_chunked<4>(x, c, out, scratch, m, c_rows, n, device, s)
+                               : launch_chunked<1>(x, c, out, scratch, m, c_rows, n, device, s);
 }

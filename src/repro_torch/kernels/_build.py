@@ -26,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("l1.cu", "assign_lerp.cu", "chi2.cu", "merge.cu", "flash_fwd.cu", "flash_bwd.cu")
-HEADERS = ("common.cuh", "flash_common.cuh", "mma_tf32.cuh")
+HEADERS = ("common.cuh", "l1_rows.cuh", "flash_common.cuh", "mma_tf32.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -41,8 +41,10 @@ _F32 = ctypes.c_float
 _FLASH_ARGS = [_I64] * 7 + [_F32, _INT, _I64, _F32, _I64, _INT, _P]
 # C signature of every entry point: argtypes, restype
 _SIGNATURES = {
-    "repro_l1_rows": ([_P, _P, _P, _I64, _I64, _I64, _INT, _P], _INT),
-    "repro_select_lerp": ([_P, _I64, _P, _P, _I64, ctypes.c_double, _P, _P, _INT, _P], _INT),
+    # x, c, out, scratch, M, C, N, chunks, device, stream
+    "repro_l1_rows": ([_P] * 4 + [_I64] * 4 + [_INT, _P], _INT),
+    # u, centers, C, N, chunks, beta, scratch, dists, idx, out, device, stream
+    "repro_assign_lerp": ([_P, _P, _I64, _I64, _I64, ctypes.c_double] + [_P] * 4 + [_INT, _P], _INT),
     "repro_chi2_rows": ([_P, _P, _P, _P, _I64, _I64, _INT, _P], _INT),
     "repro_segment_sum": ([_P, _P, _I64, _I64, _P, _INT, _P], _INT),
     "repro_merge_blocks": ([_I64], _I64),
@@ -136,8 +138,9 @@ def library() -> ctypes.CDLL:
 
 
 def stream(t: torch.Tensor) -> int:
-    """Raw handle of PyTorch's current stream on ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """Raw handle of PyTorch's current stream on ``t``'s device (read
+    without building a ``torch.cuda.Stream`` object)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index or 0)
 
 
 def check(rc: int, what: str) -> None:

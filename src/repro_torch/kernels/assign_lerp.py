@@ -2,12 +2,12 @@
 Sec. 4), kernel in ``csrc/assign_lerp.cu``; replaces
 ``src/repro/kernels/assign_lerp.py``.
 
-:func:`assign_and_lerp` launches family A (:func:`~repro_torch.kernels.l1.l1_distance`)
-for the distance vector, then the select-lerp kernel, which takes the
-first-index argmin on the device and blends only the winning center row.
-The host never reads the index inside the chain; the caller syncs once on
-the distances it returns. ``assign_and_lerp.launches`` counts select-lerp
-launches (the L1 launch counts on ``l1_distance``).
+:func:`assign_and_lerp` is one ctypes call and one cooperative kernel
+launch: the L1 distances of the upload to every center (bitwise those of
+:func:`~repro_torch.kernels.l1.l1_distance`, which it does not call), the
+first-index argmin on the device, and the blend of the winning center row.
+The host never reads the index; the caller syncs once on the distances it
+returns. ``assign_and_lerp.launches`` counts its launches.
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._dispatch import check_f32, use_plain
-from repro_torch.kernels.l1 import l1_distance, l1_distance_plain
+from repro_torch.kernels.l1 import l1_chunks, l1_distance_plain
 
 
 def blend_plain(c: torch.Tensor, u: torch.Tensor, beta: float) -> torch.Tensor:
@@ -43,14 +43,18 @@ def assign_and_lerp(u: torch.Tensor, centers: torch.Tensor, beta: float):
         raise ValueError(f"assign_and_lerp: bad shapes u {tuple(u.shape)}, centers {(C, N)}")
     if use_plain("assign_and_lerp", u, centers):
         return assign_and_lerp_plain(u, centers, beta)
-    dists = l1_distance(u, centers)
+    if N == 0:
+        raise ValueError("assign_and_lerp kernel: rows must have at least one element")
+    chunks = l1_chunks(N)
+    buf = torch.empty((C + chunks * C,), dtype=torch.float32, device=u.device)  # dists, then scratch
+    dists = buf[:C]
     idx = torch.empty((), dtype=torch.int32, device=u.device)
     out = torch.empty((N,), dtype=torch.float32, device=u.device)
-    rc = _build.library().repro_select_lerp(
-        dists.data_ptr(), C, centers.data_ptr(), u.data_ptr(), N, float(beta), idx.data_ptr(), out.data_ptr(),
-        u.device.index or 0, _build.stream(u),
+    rc = _build.library().repro_assign_lerp(
+        u.data_ptr(), centers.data_ptr(), C, N, chunks, float(beta), buf.data_ptr() + 4 * C, buf.data_ptr(),
+        idx.data_ptr(), out.data_ptr(), u.device.index or 0, _build.stream(u),
     )
-    _build.check(rc, "select_lerp")
+    _build.check(rc, "assign_lerp")
     assign_and_lerp.launches += 1
     return dists, idx, out
 

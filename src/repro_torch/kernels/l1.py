@@ -8,6 +8,10 @@ l1_distance``), :func:`l1_distance_pairwise` (replaces
 ``(M, M)`` matrix of one set of rows against itself, ``C = M``; replaces
 ``src/repro/kernels/l1_distance.py::pairwise_l1``).
 Each wrapper counts its own launches in ``.launches``.
+
+The kernel sums in one order fixed by the element index (``csrc/l1_rows.cuh``):
+a pair of rows gets the same bits from every entry point, at any place and
+alignment in its matrix, and from the fused assign kernel.
 """
 from __future__ import annotations
 
@@ -27,14 +31,25 @@ def l1_distance_plain(u: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     return torch.sum(torch.abs(centers - u[None, :]), dim=1)
 
 
+CHUNK = 4096  # elements per chunk: kChunk in csrc/l1_rows.cuh (the kernel refuses another count)
+
+
+def l1_chunks(n: int) -> int:
+    """Chunks the kernels cut an ``n``-wide row into: a function of ``n`` alone."""
+    return -(-n // CHUNK)
+
+
 def _launch_rows(xs: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     M, N = xs.shape
     C = centers.shape[0]
-    if M > 65535:
-        raise ValueError(f"l1 kernel: at most 65535 query rows per launch, got {M}")
+    if N == 0:
+        raise ValueError("l1 kernel: rows must have at least one element")
+    chunks = l1_chunks(N)
     out = torch.empty((M, C), dtype=torch.float32, device=xs.device)
+    scratch = torch.empty((chunks, M, C), dtype=torch.float32, device=xs.device)
     rc = _build.library().repro_l1_rows(
-        xs.data_ptr(), centers.data_ptr(), out.data_ptr(), M, C, N, xs.device.index or 0, _build.stream(xs)
+        xs.data_ptr(), centers.data_ptr(), out.data_ptr(), scratch.data_ptr(), M, C, N, chunks,
+        xs.device.index or 0, _build.stream(xs),
     )
     _build.check(rc, "l1_rows")
     return out

@@ -3,8 +3,8 @@
 These tests need an NVIDIA GPU and skip elsewhere (the kernels have no CPU
 mode); they import no JAX, so they run on a machine with only the port's
 dependencies: ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
-Tolerances as in ``chip_smoke.py``: L1 and chi2 rtol 1e-5, the blend
-bitwise, the index equal, merge rtol 1e-6 / atol 1e-7, the flash forward
+Tolerances as in ``chip_smoke.py``: L1 and chi2 rtol 1e-5 (and the L1
+sums bitwise those of the numpy model of their order), the blend bitwise, the index equal, merge rtol 1e-6 / atol 1e-7, the flash forward
 1e-5 and backward 3e-4 (the backward also bitwise across repeats).
 """
 import numpy as np
@@ -66,7 +66,78 @@ def test_cuda_wrappers_count_launches(cuda_device):
     ops.assign_and_lerp(x[0], x, 0.5)
     counts = ops.launch_counts()
     assert counts["l1_distance_pairwise"] == 1 and counts["assign_and_lerp"] == 1
-    assert counts["l1_distance"] == 1  # the assign chain's distance launch
+    assert counts["l1_distance"] == 0  # the assign computes its distances in its own kernel
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    # one port kernel per assign in a trace. The profiler can lose kernels of
+    # a short session (never add any), so a session may show fewer, never
+    # more or others; one session must show all of them.
+    calls, full = 10, False
+    for _ in range(5):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.005)
+            for _ in range(calls):
+                ops.assign_and_lerp(x[0], x, 0.5)
+            torch.cuda.synchronize()
+            time.sleep(0.005)
+        kernels = [e.name for e in prof.events() if e.device_type.name == "CUDA" and "_kernel" in e.name
+                   and any(k in e.name for k in ("l1_rows", "assign_lerp", "select_lerp"))]
+        assert len(kernels) <= calls and all("assign_lerp_kernel" in k for k in kernels), kernels
+        if len(kernels) == calls:
+            full = True
+            break
+    assert full, "no profiler session recorded every assign"
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [25418, 4550, 4099, 4097, 1, 783360])
+def test_cuda_l1_bits_follow_the_fixed_order(cuda_device, n):
+    """Equal rows in different alignment classes get the same bits and the
+    tie goes to index 1; every entry point and every repeat gives the bits
+    of the numpy model of the order (``tests/test_torch_l1_order.py``)."""
+    from test_torch_l1_order import kernel_l1
+
+    rng = np.random.default_rng(n)
+    u_np = _f32(rng, n)
+    cs_np = _f32(rng, 5, n) + 5.0
+    cs_np[1] = u_np + 0.5
+    cs_np[2] = cs_np[1]
+    u, cs = torch.from_numpy(u_np).to(cuda_device), torch.from_numpy(cs_np).to(cuda_device)
+    want = np.asarray([kernel_l1(u_np, r) for r in cs_np], np.float32)
+    runs = [ops.assign_and_lerp(u, cs, 0.25) for _ in range(3)]
+    d, i, b = runs[0]
+    assert int(i) == 1
+    np.testing.assert_array_equal(d.cpu().numpy().view(np.int32), want.view(np.int32))
+    assert torch.equal(b, assign_lerp.blend_plain(cs[1], u, 0.25))
+    for r in runs[1:]:
+        assert torch.equal(_bits(r[0]), _bits(d)) and int(r[1]) == 1 and torch.equal(_bits(r[2]), _bits(b))
+    xs = torch.stack([cs[0], u])  # u at row 1: another alignment class where N % 4 != 0
+    for got in (ops.l1_distance(u, cs), ops.l1_distance_pairwise(xs, cs)[1], ops.pairwise_l1(torch.cat([xs, cs]))[1, 2:]):
+        np.testing.assert_array_equal(got.cpu().numpy().view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,n", [(33, 25418), (33, 4099), (4, 783360), (33, 783360)])
+def test_cuda_assign_many_centers_and_full_width(cuda_device, c, n):
+    rng = np.random.default_rng(c + n)
+    u = torch.from_numpy(_f32(rng, n)).to(cuda_device)
+    cs = torch.from_numpy(_f32(rng, c, n)).to(cuda_device)
+    d, i, b = ops.assign_and_lerp(u, cs, 0.3)
+    dp, _, _ = assign_lerp.assign_and_lerp_plain(u, cs, 0.3)
+    torch.testing.assert_close(d, dp, rtol=1e-5, atol=0)
+    assert int(i) == int(np.argmin(d.cpu().numpy()))
+    assert torch.equal(b, assign_lerp.blend_plain(cs[int(i)], u, 0.3))
+    again = ops.assign_and_lerp(u, cs, 0.3)
+    assert torch.equal(_bits(again[0]), _bits(d)) and torch.equal(_bits(again[2]), _bits(b))
+    torch.testing.assert_close(ops.l1_distance_pairwise(cs[:2], cs), l1.l1_distance_pairwise_plain(cs[:2], cs),
+                               rtol=1e-5, atol=0)
 
 
 FLASH_CASES = [

@@ -36,7 +36,7 @@ def _t(a):
 
 
 # ------------------------------------------------------------- family A: L1
-@pytest.mark.parametrize("n", [1, 100, 1000, 65536, 70000])
+@pytest.mark.parametrize("n", [1, 100, 1000, 4097, 4099, 65536, 70000])
 @pytest.mark.parametrize("c", [1, 2, 5])
 def test_l1_distance_matches_pallas(n, c):
     rng = np.random.default_rng(n * 7 + c)
@@ -46,7 +46,8 @@ def test_l1_distance_matches_pallas(n, c):
     np.testing.assert_allclose(got, want, rtol=1e-5)
 
 
-@pytest.mark.parametrize("m,c,n", [(1, 1, 1), (3, 5, 100), (9, 2, 700), (17, 9, 300), (8, 8, 8192)])
+@pytest.mark.parametrize("m,c,n", [(1, 1, 1), (3, 5, 100), (9, 2, 700), (17, 9, 300), (8, 8, 8192), (3, 5, 4097),
+                                   (2, 3, 4099)])
 def test_l1_pairwise_matches_pallas(m, c, n):
     rng = np.random.default_rng(m * 13 + n)
     xs, cs = _f32(rng, m, n), _f32(rng, c, n)
@@ -64,7 +65,8 @@ def test_l1_pairwise_self_diagonal_and_rows():
 
 
 # ---------------------------------------------------- family B: assign+lerp
-@pytest.mark.parametrize("c,n", [(1, 100), (5, 300), (8, 4096), (3, 70000)])
+# (4, 783360): the full-width LM delta against four centers
+@pytest.mark.parametrize("c,n", [(1, 100), (5, 300), (8, 4096), (3, 70000), (5, 4097), (2, 4099), (4, 783360)])
 def test_assign_and_lerp_matches_pallas_and_ref(c, n):
     rng = np.random.default_rng(n + c)
     u, cs = _f32(rng, n), _f32(rng, c, n)
