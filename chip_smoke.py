@@ -13,12 +13,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    kernel and of the L1 rows and fused assign kernels from ``cuobjdump
    --dump-resource-usage``, and a check of each flash kernel's SASS for
    tensor-core ``HMMA`` instructions (none, a spill at head width 64, or an
-   L1 or assign kernel that spills fail the run);
+   L1, assign or chi2 kernel that spills fail the run);
 2. kernels — every kernel wrapper against its plain PyTorch version on the
    card, at the main path's widths and at edge shapes; the L1 sums' fixed
    order at N % 4 = 0, 1, 2, 3, N = 1 and N = 783,360 (bitwise across
    repeats, entry points, places and alignments, ties to the first index, a
-   NaN row winning the argmin); the flash-attention forward and backward at
+   NaN row winning the argmin); the chi2 kernel's fixed order, g and segment
+   sums bitwise the numpy model's (``tests/test_torch_chi2_order.py``) at
+   M = 1, 20, 300, 2049, J = 2, 10, 16, 200 and S = 0, 1, 4, 300, and across
+   repeats; the flash-attention forward and backward at
    the LM paths' shapes and at the model zoo's head widths (up to 256), the
    backward also bitwise across repeats;
 3. main path — ``repro_torch.fl.experiment.run_experiment("image_recognition",
@@ -42,7 +45,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    PyTorch call computing the same function, at the shape the main path
    called it with most (the flash kernels and ``pairwise_l1`` at the
    ``tiny_lm`` and the ``llama3.2-1b`` shapes, ``l1_distance`` and
-   ``assign_and_lerp`` also at the full-width run's), beside the least time the
+   ``assign_and_lerp`` also at the full-width run's; the segmented chi2 also
+   at the 128-client fleet's refine, (128, 10) with S = 16, and at (1, 1) with
+   S = 1, the launch floor), beside the least time the
    card could take (fp32 on the CUDA cores; for the flash kernels also
    ``bound_tc_ms``, split TF32 on the tensor cores): device time per call from a ``torch.profiler`` trace
    (``ms``, ``plain_ms``, ``library_ms``; the profiler can lose a short
@@ -97,9 +102,12 @@ MLP_PATH = KERNELS.keys() - {"pairwise_l1", "flash_attention_fwd", "flash_attent
 # launch counters the LM paths must move: the flash kernels and the server's fused assign
 LM_PATH = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv", "assign_and_lerp")
 # the kernels' entry functions in src/repro_torch/csrc, as the profiler names them
-PORT_KERNEL_NAMES = ("l1_rows_kernel", "assign_lerp_kernel", "chi2_rows_kernel", "segment_sum_kernel",
-                     "merge_max_kernel", "merge_blend_kernel", "flash_fwd_kernel", "flash_dq_kernel",
-                     "flash_dkv_kernel")
+PORT_KERNEL_NAMES = ("l1_rows_kernel", "assign_lerp_kernel", "chi2_kernel", "merge_max_kernel",
+                     "merge_blend_kernel", "flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+# chi2 order checks: rows, widths (J > 32 takes the warp path) and segment counts (300 > threads)
+CHI2_ROWS, CHI2_WIDTHS, CHI2_SEGMENTS = (1, 20, 300, 2049), (2, 10, 16, 200), (0, 1, 4, 300)
+# extra segmented chi2 timing shapes: the 128-client fleet's refine, and the launch floor
+CHI2_EXTRA = {"client_fleet": (128, 10, 16), "launch_floor": (1, 1, 1)}
 # flash kernel checks: name, B, H, KV, Sq, Sk, hd, dv, options
 FLASH_CASES = (
     ("tiny_lm", 8, 4, 2, 32, 32, 16, 16, {}),
@@ -158,7 +166,7 @@ def probe():
 
 def _kernel_label(mangled: str) -> str:
     """``flash_dkv_kernel<64,3>`` from a mangled name."""
-    names = re.findall(r"(?:flash_[a-z]+|l1_rows|assign_lerp)_kernel", mangled)
+    names = re.findall(r"(?:flash_[a-z]+|l1_rows|assign_lerp|chi2)_kernel", mangled)
     args = re.findall(r"Li(\d+)E", mangled)
     return (names[-1] if names else mangled) + (f"<{','.join(args)}>" if args else "")
 
@@ -169,7 +177,7 @@ def kernel_resources() -> None:
     --dump-resource-usage``, and each flash kernel's count of ``HMMA``
     (tensor-core) instructions from ``cuobjdump -sass``. A flash kernel
     without HMMA, a flash kernel at head width 64 with a stack frame or
-    local memory (spills), or an L1 or assign kernel with either, fails."""
+    local memory (spills), or an L1, assign or chi2 kernel with either, fails."""
     from repro_torch.kernels import _build
 
     tool = _build.cuda_tool("cuobjdump")
@@ -204,16 +212,17 @@ def kernel_resources() -> None:
             check(u.get("LOCAL", 0) == 0 and u.get("STACK", 0) == 0,
                   f"{_kernel_label(n)} spills ({u.get('STACK')} B stack, {u.get('LOCAL')} B local)")
     print(f"flash kernels: {len(flash)} instantiations, every one with HMMA; none at head width 64 spills")
-    rows = sorted(n for n in usage if "l1_rows_kernel" in n or "assign_lerp_kernel" in n)
-    check(any("l1_rows_kernel" in n for n in rows) and any("assign_lerp_kernel" in n for n in rows),
-          "cuobjdump found no L1 rows or fused assign kernel in the library")
+    kinds = ("l1_rows_kernel", "assign_lerp_kernel", "chi2_kernel")
+    rows = sorted(n for n in usage if any(k in n for k in kinds))
+    check(all(any(k in n for n in rows) for k in kinds),
+          "cuobjdump found no L1 rows, fused assign or chi2 kernel in the library")
     for n in rows:
         u = usage[n]
         print(f"  {_kernel_label(n):<24} registers {u.get('REG')}, shared {u.get('SHARED')} B static, "
               f"local {u.get('LOCAL')} B, stack {u.get('STACK')} B")
         check(u.get("LOCAL", 0) == 0 and u.get("STACK", 0) == 0,
               f"{_kernel_label(n)} spills ({u.get('STACK')} B stack, {u.get('LOCAL')} B local)")
-    print("L1 and fused assign kernels: no spills")
+    print("L1, fused assign and chi2 kernels: no spills")
 
 
 # ------------------------------------------------------------------ phase 2
@@ -277,6 +286,7 @@ def kernel_phase():
     print(f"kernel phase: {n_checked} checks passed (L1/chi2 rtol 1e-5, blend bitwise, "
           "idx equal, merge rtol 1e-6 atol 1e-7, segment sums bitwise across repeats)")
     l1_order_checks()
+    chi2_order_checks()
     flash_checks()
 
 
@@ -363,6 +373,51 @@ def l1_order_checks() -> None:
     sync()
     print(f"L1 order checks: {n_checked} passed at N = {list(L1_WIDTHS)} (rtol 1e-5 atol 0, blend bitwise, "
           "idx the first-index argmin, bitwise across repeats, entry points, places and alignments; NaN wins)")
+
+
+def chi2_order_checks() -> None:
+    """The chi2 kernel's fixed order on the card (``csrc/chi2.cu``): for every
+    (M, J, S) of the CHI2_* shapes, g and the segment sums bitwise those of
+    the numpy model (``tests/test_torch_chi2_order.py``), bitwise across
+    repeats, and within rtol 1e-5 / atol 1e-6 (g) and atol 1e-5 (sums) of
+    the plain version; ``segmented_numpy`` reads both in one copy."""
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_chi2_order import feedback, kernel_chi2
+
+    from repro_torch.kernels import chi2, ops
+
+    n_checked = 0
+    for m in CHI2_ROWS:
+        for j in CHI2_WIDTHS:
+            rng = np.random.default_rng(m * 1000 + j)
+            fp, ft, ss = feedback(rng, m, j)
+            t = [torch.from_numpy(a).to(DEVICE) for a in (fp, ft, ss)]
+            want_g, _ = kernel_chi2(fp, ft, ss)
+            g = ops.chi2_feedback(*t)
+            check(np.array_equal(g.cpu().numpy().view(np.int32), want_g.view(np.int32)),
+                  f"chi2_feedback bits differ from the model at M={m} J={j}")
+            torch.testing.assert_close(g, chi2.chi2_feedback_plain(*t), rtol=1e-5, atol=1e-6)
+            for s in CHI2_SEGMENTS:
+                seg = rng.integers(-1, s, m).astype(np.int32)
+                seg_t = torch.from_numpy(seg).to(DEVICE)
+                runs = [ops.chi2_feedback_segmented(*t, seg_t, s) for _ in range(3)]
+                wg, ws = kernel_chi2(fp, ft, ss, seg, s)
+                for rg, rs in runs:
+                    check(np.array_equal(rg.cpu().numpy().view(np.int32), wg.view(np.int32))
+                          and np.array_equal(rs.cpu().numpy().view(np.int32), ws.view(np.int32)),
+                          f"chi2_feedback_segmented bits differ from the model at M={m} J={j} S={s}")
+                gp, sp = chi2.chi2_feedback_segmented_plain(*t, seg_t, s)
+                torch.testing.assert_close(runs[0][0], gp, rtol=1e-5, atol=1e-6)
+                torch.testing.assert_close(runs[0][1], sp, rtol=1e-5, atol=1e-5)
+                hg, hs = chi2.segmented_numpy(*runs[0])
+                check(hg.tobytes() == wg.tobytes() and hs.tobytes() == ws.tobytes(), "segmented_numpy")
+                n_checked += 1
+    sync()
+    print(f"chi2 order checks: {n_checked} passed at M = {list(CHI2_ROWS)}, J = {list(CHI2_WIDTHS)}, "
+          f"S = {list(CHI2_SEGMENTS)} (g and segment sums bitwise the numpy model's and across 3 repeats; "
+          "plain rtol 1e-5 atol 1e-6 / 1e-5)")
 
 
 def flash_inputs(g, B, H, KV, Sq, Sk, hd, dv):
@@ -872,7 +927,9 @@ def _server_timing(name: str, shape: tuple, launches: int, g, label: str) -> dic
 def timing(counts, shapes, full):
     """Rows for the server kernels at the main path's most frequent shapes;
     ``l1_distance`` and ``assign_and_lerp`` also at the full-width LM run's
-    assign shape, under ``"llama3.2-1b"``, with that run's launches. A row
+    assign shape, under ``"llama3.2-1b"``, with that run's launches; the
+    segmented chi2 also at CHI2_EXTRA's shapes, under their names (no
+    launches there: the main path does not call them). A row
     whose function runs inside another kernel on the path names it in
     ``fused_into`` and its source there in ``also_in``."""
     g = gen(11)
@@ -888,6 +945,9 @@ def timing(counts, shapes, full):
             row.update(fused_into=FUSED_INTO[name], also_in=ALSO_IN[name])
         if name in full_shapes:
             row["llama3.2-1b"] = _server_timing(name, full_shapes[name], full["counts"][name], g, "llama3.2-1b ")
+        if name == "chi2_feedback_segmented":
+            for label, shape in CHI2_EXTRA.items():
+                row[label] = _server_timing(name, shape, 0, g, f"{label} ")
         rows.append(row)
     return rows
 

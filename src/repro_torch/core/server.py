@@ -34,6 +34,7 @@ from repro_torch.core.plane import l1_vec
 from repro_torch.core.staleness import StalenessTracker
 from repro_torch.core.versioning import ModelRepo
 from repro_torch.kernels import ops as K
+from repro_torch.kernels.chi2 import segmented_numpy
 
 PyTree = Any
 
@@ -227,8 +228,7 @@ class EchoPFLServer:
             f_pred, f_true, s_soft, torch.from_numpy(seg_ids).to(self.device),
             num_segments=len(cid_order),
         )
-        g = g.cpu().numpy()
-        seg_sum = seg_sum.cpu().numpy()
+        g, seg_sum = segmented_numpy(g, seg_sum)  # one device-to-host copy
         counts = np.bincount(seg_ids, minlength=len(cid_order))
         self.last_cluster_feedback_mean = {
             cid: float(seg_sum[si] / counts[si])

@@ -24,24 +24,6 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Sum over a kThreads-thread block in a fixed order (warp butterflies, then
-// one warp over the per-warp partials). Result valid in every thread.
-__device__ __forceinline__ float block_sum(float v) {
-  __shared__ float part[kThreads / 32];
-  __shared__ float total;
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  v = warp_sum(v);
-  if (lane == 0) part[wid] = v;
-  __syncthreads();
-  if (wid == 0) {
-    float w = lane < kThreads / 32 ? part[lane] : 0.f;
-    w = warp_sum(w);
-    if (lane == 0) total = w;
-  }
-  __syncthreads();
-  return total;
-}
-
 __device__ __forceinline__ float block_max(float v) {
   __shared__ float part[kThreads / 32];
   __shared__ float total;
@@ -59,5 +41,11 @@ __device__ __forceinline__ float block_max(float v) {
 }
 
 inline int launch_status() { return static_cast<int>(cudaGetLastError()); }
+
+// Make `device` current only when it is not (the runtime keeps it per thread).
+inline void use_device(int device) {
+  int cur = -1;
+  if (cudaGetDevice(&cur) != cudaSuccess || cur != device) cudaSetDevice(device);
+}
 
 }  // namespace repro

@@ -177,10 +177,4 @@ inline int coresident_blocks(Kernel kernel, int device, int* cache) {
   return cache[device];
 }
 
-// Make `device` current only when it is not (the runtime keeps it per thread).
-inline void use_device(int device) {
-  int cur = -1;
-  if (cudaGetDevice(&cur) != cudaSuccess || cur != device) cudaSetDevice(device);
-}
-
 }  // namespace repro

@@ -45,8 +45,8 @@ _SIGNATURES = {
     "repro_l1_rows": ([_P] * 4 + [_I64] * 4 + [_INT, _P], _INT),
     # u, centers, C, N, chunks, beta, scratch, dists, idx, out, device, stream
     "repro_assign_lerp": ([_P, _P, _I64, _I64, _I64, ctypes.c_double] + [_P] * 4 + [_INT, _P], _INT),
-    "repro_chi2_rows": ([_P, _P, _P, _P, _I64, _I64, _INT, _P], _INT),
-    "repro_segment_sum": ([_P, _P, _I64, _I64, _P, _INT, _P], _INT),
+    # fp, ft, ss, seg, out, M, J, S, device, stream
+    "repro_chi2": ([_P] * 5 + [_I64] * 3 + [_INT, _P], _INT),
     "repro_merge_blocks": ([_I64], _I64),
     "repro_merge_attention": ([_P, _P, _P, _I64, _P, _P, _INT, _P], _INT),
     "repro_flash_fwd": ([_P] * 5 + _FLASH_ARGS, _INT),

@@ -4,7 +4,7 @@ These tests need an NVIDIA GPU and skip elsewhere (the kernels have no CPU
 mode); they import no JAX, so they run on a machine with only the port's
 dependencies: ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 Tolerances as in ``chip_smoke.py``: L1 and chi2 rtol 1e-5 (and the L1
-sums bitwise those of the numpy model of their order), the blend bitwise, the index equal, merge rtol 1e-6 / atol 1e-7, the flash forward
+and chi2 sums bitwise those of the numpy models of their orders), the blend bitwise, the index equal, merge rtol 1e-6 / atol 1e-7, the flash forward
 1e-5 and backward 3e-4 (the backward also bitwise across repeats).
 """
 import numpy as np
@@ -138,6 +138,90 @@ def test_cuda_assign_many_centers_and_full_width(cuda_device, c, n):
     assert torch.equal(_bits(again[0]), _bits(d)) and torch.equal(_bits(again[2]), _bits(b))
     torch.testing.assert_close(ops.l1_distance_pairwise(cs[:2], cs), l1.l1_distance_pairwise_plain(cs[:2], cs),
                                rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,j", [(m, j) for m in (1, 20, 300, 2049) for j in (2, 10, 16, 200)])
+def test_cuda_chi2_bits_follow_the_fixed_order(cuda_device, m, j):
+    """g and the segment sums bitwise those of the numpy model of the
+    kernel's order (``tests/test_torch_chi2_order.py``) at S = 0, 1, 4 and
+    300 (more segments than threads), across repeats, and within rtol 1e-5
+    of the plain version. M = 2049 is nine row tiles over an 8-block cluster."""
+    from test_torch_chi2_order import kernel_chi2
+
+    rng = np.random.default_rng(m * 1000 + j)
+    fp, ft, ss = _feedback(rng, m, j)
+    t = [torch.from_numpy(a).to(cuda_device) for a in (fp, ft, ss)]
+    want_g, _ = kernel_chi2(fp, ft, ss)
+    g = ops.chi2_feedback(*t)
+    np.testing.assert_array_equal(g.cpu().numpy().view(np.int32), want_g.view(np.int32))
+    torch.testing.assert_close(g, chi2.chi2_feedback_plain(*t), rtol=1e-5, atol=1e-6)
+    for s in (0, 1, 4, 300):
+        seg = rng.integers(-1, s, m).astype(np.int32)  # -1: no segment
+        seg_t = torch.from_numpy(seg).to(cuda_device)
+        runs = [ops.chi2_feedback_segmented(*t, seg_t, s) for _ in range(2)]
+        wg, ws = kernel_chi2(fp, ft, ss, seg, s)
+        for rg, rs in runs:
+            assert rg.shape == (m,) and rs.shape == (s,)
+            np.testing.assert_array_equal(rg.cpu().numpy().view(np.int32), wg.view(np.int32))
+            np.testing.assert_array_equal(rs.cpu().numpy().view(np.int32), ws.view(np.int32))
+        gp, sp = chi2.chi2_feedback_segmented_plain(*t, seg_t, s)
+        torch.testing.assert_close(runs[0][1], sp, rtol=1e-5, atol=1e-5)
+        host_g, host_s = chi2.segmented_numpy(*runs[0])
+        assert host_g.tobytes() == wg.tobytes() and host_s.tobytes() == ws.tobytes()
+
+
+@pytest.mark.cuda
+def test_cuda_chi2_is_one_launch_per_call(cuda_device):
+    """Each entry point launches exactly one kernel, ``chi2_kernel``, and
+    nothing else runs on the device (no second pass, no memset). The
+    profiler can lose kernels of a short session (never add any): a session
+    may show fewer, never more or others; one session must show all."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fp, ft, ss = (torch.from_numpy(a).to(cuda_device) for a in _feedback(np.random.default_rng(2), 20, 10))
+    seg = torch.arange(20, dtype=torch.int32, device=cuda_device) % 4
+    ops.reset_launch_counts()
+    ops.chi2_feedback(fp, ft, ss)
+    ops.chi2_feedback_segmented(fp, ft, ss, seg, 4)
+    counts = ops.launch_counts()
+    assert counts["chi2_feedback"] == 1 and counts["chi2_feedback_segmented"] == 1
+    calls, full = 5, False
+    for _ in range(5):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.005)
+            for _ in range(calls):
+                ops.chi2_feedback(fp, ft, ss)
+                ops.chi2_feedback_segmented(fp, ft, ss, seg, 4)
+            torch.cuda.synchronize()
+            time.sleep(0.005)
+        names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+        assert len(names) <= 2 * calls and all("chi2_kernel" in n for n in names), names
+        if len(names) == 2 * calls:
+            full = True
+            break
+    assert full, "no profiler session recorded every chi2 launch"
+
+
+@pytest.mark.cuda
+def test_cuda_chi2_edges(cuda_device):
+    """No rows and S > 0 writes S zeros; S past the shared memory a block
+    has raises before anything launches."""
+    z = torch.zeros(0, 10, device=cuda_device)
+    g, s = ops.chi2_feedback_segmented(z, z, z, torch.zeros(0, dtype=torch.int32, device=cuda_device), 5)
+    assert g.shape == (0,) and s.cpu().tolist() == [0.0] * 5
+    assert ops.chi2_feedback(z, z, z).shape == (0,)
+    fp, ft, ss = (torch.from_numpy(a).to(cuda_device) for a in _feedback(np.random.default_rng(3), 300, 32))
+    seg = torch.zeros(300, dtype=torch.int32, device=cuda_device)
+    s_max = (chi2.MAX_SMEM - chi2.smem_bytes(300, 32, 0)) // 4
+    g, s = ops.chi2_feedback_segmented(fp, ft, ss, seg, s_max)
+    torch.testing.assert_close(s[0], g.sum(), rtol=1e-5, atol=1e-5)
+    assert int((s[1:] != 0).sum()) == 0
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.chi2_feedback_segmented(fp, ft, ss, seg, s_max + 1)
 
 
 FLASH_CASES = [
