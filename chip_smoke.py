@@ -10,10 +10,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 1. probe — the card's name and power limit, CUDA and nvcc versions; build
    the hand-written kernels from ``src/repro_torch/csrc`` and time the build;
    the registers, shared memory and local memory (spills) of each flash
-   kernel and of the L1 rows and fused assign kernels from ``cuobjdump
-   --dump-resource-usage``, and a check of each flash kernel's SASS for
+   kernel and of the L1 rows, fused assign, chi2 and merge kernels from
+   ``cuobjdump --dump-resource-usage``, and a check of each flash kernel's SASS for
    tensor-core ``HMMA`` instructions (none, a spill at head width 64, or an
-   L1, assign or chi2 kernel that spills fail the run);
+   L1, assign, chi2 or merge kernel that spills fail the run);
 2. kernels — every kernel wrapper against its plain PyTorch version on the
    card, at the main path's widths and at edge shapes; the L1 sums' fixed
    order at N % 4 = 0, 1, 2, 3, N = 1 and N = 783,360 (bitwise across
@@ -21,7 +21,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    NaN row winning the argmin); the chi2 kernel's fixed order, g and segment
    sums bitwise the numpy model's (``tests/test_torch_chi2_order.py``) at
    M = 1, 20, 300, 2049, J = 2, 10, 16, 200 and S = 0, 1, 4, 300, and across
-   repeats; the flash-attention forward and backward at
+   repeats; the merge kernel bitwise its plain version at N = 1, 2304, 4099,
+   4550, 25,418, 783,360 and 4,000,000 (past one grid step), on NaN, inf,
+   all-negative and signed-zero inputs, in place on a plane row of odd index
+   (8-byte aligned), across repeats, one kernel per call in a profiler trace;
+   the flash-attention forward and backward at
    the LM paths' shapes and at the model zoo's head widths (up to 256), the
    backward also bitwise across repeats;
 3. main path — ``repro_torch.fl.experiment.run_experiment("image_recognition",
@@ -47,14 +51,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``tiny_lm`` and the ``llama3.2-1b`` shapes, ``l1_distance`` and
    ``assign_and_lerp`` also at the full-width run's; the segmented chi2 also
    at the 128-client fleet's refine, (128, 10) with S = 16, and at (1, 1) with
-   S = 1, the launch floor), beside the least time the
+   S = 1, the launch floor; the merge also at ``har``'s, ``tiny_lm``'s and the
+   full width's row and at N = 1), beside the least time the
    card could take (fp32 on the CUDA cores; for the flash kernels also
    ``bound_tc_ms``, split TF32 on the tensor cores): device time per call from a ``torch.profiler`` trace
    (``ms``, ``plain_ms``, ``library_ms``; the profiler can lose a short
    session's kernels, so a time counts only from two sessions that record
    the same, largest event count) and the per-call time of
    back-to-back calls between CUDA events, host overhead included
-   (``call_ms`` and its two siblings);
+   (``call_ms`` and its two siblings; the merge also in place, as the server
+   calls it);
 6. profile — short runs of the main path and of both LM paths under
    ``torch.profiler``: device busy time, the device's idle share and the
    kernels that take the time.
@@ -102,12 +108,17 @@ MLP_PATH = KERNELS.keys() - {"pairwise_l1", "flash_attention_fwd", "flash_attent
 # launch counters the LM paths must move: the flash kernels and the server's fused assign
 LM_PATH = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv", "assign_and_lerp")
 # the kernels' entry functions in src/repro_torch/csrc, as the profiler names them
-PORT_KERNEL_NAMES = ("l1_rows_kernel", "assign_lerp_kernel", "chi2_kernel", "merge_max_kernel",
-                     "merge_blend_kernel", "flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+PORT_KERNEL_NAMES = ("l1_rows_kernel", "assign_lerp_kernel", "chi2_kernel", "merge_kernel",
+                     "flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
 # chi2 order checks: rows, widths (J > 32 takes the warp path) and segment counts (300 > threads)
 CHI2_ROWS, CHI2_WIDTHS, CHI2_SEGMENTS = (1, 20, 300, 2049), (2, 10, 16, 200), (0, 1, 4, 300)
 # extra segmented chi2 timing shapes: the 128-client fleet's refine, and the launch floor
 CHI2_EXTRA = {"client_fleet": (128, 10, 16), "launch_floor": (1, 1, 1)}
+# merge checks: the paths' rows (tiny_lm, har, image_recognition, the full-width LM delta), N = 1,
+# N % 4 = 3, and 4,000,000, past what one step of the grid covers on an H100 (264 blocks x 6144)
+MERGE_WIDTHS = (1, 2304, 4099, 4550, 25418, 783360, 4_000_000)
+# extra merge timing shapes, under their labels: the other paths' rows and the launch floor
+MERGE_EXTRA = {"har": (4550,), "tiny_lm": (2304,), "llama3.2-1b": (783360,), "launch_floor": (1,)}
 # flash kernel checks: name, B, H, KV, Sq, Sk, hd, dv, options
 FLASH_CASES = (
     ("tiny_lm", 8, 4, 2, 32, 32, 16, 16, {}),
@@ -166,18 +177,19 @@ def probe():
 
 def _kernel_label(mangled: str) -> str:
     """``flash_dkv_kernel<64,3>`` from a mangled name."""
-    names = re.findall(r"(?:flash_[a-z]+|l1_rows|assign_lerp|chi2)_kernel", mangled)
+    names = re.findall(r"(?:flash_[a-z]+|l1_rows|assign_lerp|chi2|merge)_kernel", mangled)
     args = re.findall(r"Li(\d+)E", mangled)
     return (names[-1] if names else mangled) + (f"<{','.join(args)}>" if args else "")
 
 
 def kernel_resources() -> None:
     """Registers, shared memory, stack and local memory of every flash
-    kernel and of the L1 and fused assign kernels from ``cuobjdump
+    kernel and of the L1, fused assign, chi2 and merge kernels from ``cuobjdump
     --dump-resource-usage``, and each flash kernel's count of ``HMMA``
     (tensor-core) instructions from ``cuobjdump -sass``. A flash kernel
     without HMMA, a flash kernel at head width 64 with a stack frame or
-    local memory (spills), or an L1, assign or chi2 kernel with either, fails."""
+    local memory (spills), or an L1, assign, chi2 or merge kernel with
+    either, fails."""
     from repro_torch.kernels import _build
 
     tool = _build.cuda_tool("cuobjdump")
@@ -212,22 +224,22 @@ def kernel_resources() -> None:
             check(u.get("LOCAL", 0) == 0 and u.get("STACK", 0) == 0,
                   f"{_kernel_label(n)} spills ({u.get('STACK')} B stack, {u.get('LOCAL')} B local)")
     print(f"flash kernels: {len(flash)} instantiations, every one with HMMA; none at head width 64 spills")
-    kinds = ("l1_rows_kernel", "assign_lerp_kernel", "chi2_kernel")
+    kinds = ("l1_rows_kernel", "assign_lerp_kernel", "chi2_kernel", "merge_kernel")
     rows = sorted(n for n in usage if any(k in n for k in kinds))
     check(all(any(k in n for n in rows) for k in kinds),
-          "cuobjdump found no L1 rows, fused assign or chi2 kernel in the library")
+          "cuobjdump found no L1 rows, fused assign, chi2 or merge kernel in the library")
     for n in rows:
         u = usage[n]
         print(f"  {_kernel_label(n):<24} registers {u.get('REG')}, shared {u.get('SHARED')} B static, "
               f"local {u.get('LOCAL')} B, stack {u.get('STACK')} B")
         check(u.get("LOCAL", 0) == 0 and u.get("STACK", 0) == 0,
               f"{_kernel_label(n)} spills ({u.get('STACK')} B stack, {u.get('LOCAL')} B local)")
-    print("L1, fused assign and chi2 kernels: no spills")
+    print("L1, fused assign, chi2 and merge kernels: no spills")
 
 
 # ------------------------------------------------------------------ phase 2
 def kernel_phase():
-    from repro_torch.kernels import assign_lerp, chi2, l1, merge, ops
+    from repro_torch.kernels import assign_lerp, chi2, l1, ops
 
     n_checked = 0
     widths = (25418, 4550, 4099)  # image_recognition, har, and N % 4 != 0
@@ -257,10 +269,6 @@ def kernel_phase():
         d, i, b = ops.assign_and_lerp(u, cs, 0.25)
         check(int(i) == 1 and float(d[1]) == float(d[3]), f"tie n={n}: idx {int(i)}")
         check(torch.equal(b, assign_lerp.blend_plain(cs[1], u, 0.25)), "tie blend")
-        vm, va, vt = randn(g, n), randn(g, n), randn(g, n)
-        torch.testing.assert_close(ops.merge_attention(vm, va, vt),
-                                   merge.merge_attention_plain(vm, va, vt)[0], rtol=1e-6, atol=1e-7)
-        n_checked += 1
     g = gen(7)
     for m in (1, 8, 64, 300):
         for j in (6, 10):
@@ -284,9 +292,10 @@ def kernel_phase():
         n_checked += 1
     sync()
     print(f"kernel phase: {n_checked} checks passed (L1/chi2 rtol 1e-5, blend bitwise, "
-          "idx equal, merge rtol 1e-6 atol 1e-7, segment sums bitwise across repeats)")
+          "idx equal, segment sums bitwise across repeats)")
     l1_order_checks()
     chi2_order_checks()
+    merge_checks()
     flash_checks()
 
 
@@ -420,6 +429,72 @@ def chi2_order_checks() -> None:
           "plain rtol 1e-5 atol 1e-6 / 1e-5)")
 
 
+def _same_nan_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """NaN at the same places and every other element bitwise equal."""
+    nan = torch.isnan(want)
+    return bool(torch.equal(torch.isnan(got), nan)) and torch.equal(_bits(got[~nan]), _bits(want[~nan]))
+
+
+def kernels_per_call(fn, calls: int = 10, sessions: int = 5) -> Counter:
+    """The device kernels of ``calls`` calls of ``fn``, by name, from the
+    padded profiler session that records the most of them (the profiler can
+    lose a short session's kernels, never add any)."""
+    best: Counter = Counter()
+    fn()
+    for _ in range(sessions):
+        prof, _ = _device_trace(lambda: [fn() for _ in range(calls)])
+        seen = Counter(e.name for e in _device_events(prof))
+        if sum(seen.values()) > sum(best.values()):
+            best = seen
+    return best
+
+
+def merge_checks() -> None:
+    """The merge kernel (``csrc/merge.cu``) bitwise its plain version at
+    MERGE_WIDTHS on every case of ``tests/test_torch_merge.py::merge_cases``
+    (random, NaN in each input, +-inf, all-negative p, signed zeros; NaN
+    positions equal, the rest bitwise, and a NaN in p NaN everywhere), the
+    same bits over 3 repeats, in place on row 1 of a 3-row plane (only 8-byte
+    aligned where N % 4 = 2), and one ``merge_kernel`` per call in a profiler
+    trace at the paths' widths and N = 1."""
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_merge import merge_cases
+
+    from repro_torch.kernels import merge, ops
+
+    n_checked = 0
+    for n in MERGE_WIDTHS:
+        for label, rows in merge_cases(np.random.default_rng(n % 9973), n).items():
+            vm, va, vt = (torch.from_numpy(r).to(DEVICE) for r in rows)
+            want = merge.merge_attention_plain(vm, va, vt)[0]
+            runs = [ops.merge_attention(vm, va, vt) for _ in range(3)]
+            check(all(_same_nan_bits(r, want) for r in runs), f"merge n={n} {label}: not the plain version's bits")
+            if label.startswith("nan"):
+                check(bool(torch.isnan(runs[0]).all()), f"merge n={n} {label}: a NaN in p must make every output NaN")
+            n_checked += 1
+        g = gen(n % 9973)
+        plane, vt = randn(g, 3, n), randn(g, n)
+        want = merge.merge_attention_plain(plane[1], plane[2], vt)[0]
+        row = plane[1]
+        check(ops.merge_attention(row, plane[2], vt, out=row) is row and _same_nan_bits(plane[1], want),
+              f"merge n={n}: in place on a plane row (address % 16 = {row.data_ptr() % 16}) not bitwise")
+        n_checked += 1
+    per_call = {}
+    for n in (1, 2304, 4550, 25418, 783360):
+        g = gen(n)
+        vm, va, vt = randn(g, n), randn(g, n), randn(g, n)
+        seen = kernels_per_call(lambda: ops.merge_attention(vm, va, vt, out=vm))
+        check(sum(seen.values()) == 10 and all("merge_kernel" in k for k in seen),
+              f"merge n={n}: 10 calls traced as {dict(seen)}, not 10 merge kernels")
+        per_call[n] = re.search(r"merge_kernel(<[^>]*>)?", next(iter(seen))).group(0)
+    sync()
+    print(f"merge checks: {n_checked} passed at N = {list(MERGE_WIDTHS)} (bitwise the plain version on "
+          f"{len(merge_cases(np.random.default_rng(0), 8))} cases, across 3 repeats and in place on a plane row); "
+          f"one kernel per call: {per_call}")
+
+
 def flash_inputs(g, B, H, KV, Sq, Sk, hd, dv):
     return randn(g, B, H, Sq, hd), randn(g, B, KV, Sk, hd), randn(g, B, KV, Sk, dv), randn(g, B, H, Sq, dv)
 
@@ -472,7 +547,7 @@ def _record_shapes(ops):
     wrap("chi2_feedback", ops.chi2_feedback, lambda fp, ft, ss: tuple(fp.shape))
     wrap("chi2_feedback_segmented", ops.chi2_feedback_segmented,
          lambda fp, ft, ss, seg, num_segments: (fp.shape[0], fp.shape[1], num_segments))
-    wrap("merge_attention", ops.merge_attention, lambda vm, va, vt: (vm.shape[0],))
+    wrap("merge_attention", ops.merge_attention, lambda vm, va, vt, out=None: (vm.shape[0],))
 
     def restore():
         for name, fn in originals.items():
@@ -792,9 +867,10 @@ def call_ms(fn, iters: int = 200, reps: int = 5) -> float:
 
 
 def _device_events(prof):
+    """The device events of a trace, less the head sentinels of ``_device_trace``."""
     from torch.autograd import DeviceType
 
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name]
 
 
 def _device_us(prof) -> Counter:
@@ -806,17 +882,25 @@ def _device_us(prof) -> Counter:
 
 
 PROFILER_PAD_S = 0.005  # host sleep at each end of a profiled window
+# On the H100 a session can drop its first few kernel launches (2 to 6 seen, more after a long
+# run, never a later one): each session starts with this many spin kernels, which
+# _device_events leaves out, so the launches that are measured come after them.
+PROFILER_HEAD_KERNELS = 32
 trace_sessions = Counter()  # device_ms's profiler sessions: "kept" and "refused"
 
 
 def _device_trace(run):
     """``torch.profiler`` trace (CUDA activity only) of ``run()``, padded by
-    an idle host sleep at each end; returns ``(prof, run's result)``."""
+    an idle host sleep at each end and headed by PROFILER_HEAD_KERNELS spin
+    kernels; returns ``(prof, run's result)``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         time.sleep(PROFILER_PAD_S)
+        for _ in range(PROFILER_HEAD_KERNELS):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         out = run()
         torch.cuda.synchronize()
         time.sleep(PROFILER_PAD_S)
@@ -828,10 +912,12 @@ def device_ms(fn, iters: int = 100, sessions: int = 6) -> float:
     launches, from a ``torch.profiler`` trace (host overhead excluded).
 
     On the H100 the profiler now and then records only part of a short
-    session's kernels, or none. It never records more than ran, so a
-    session's event count is held to the largest seen: a time is kept once
-    two sessions record that same count, a whole number of events per call;
-    after ``sessions`` sessions without that, the run fails."""
+    session's kernels, or none; the launches it drops most often, a
+    session's first few, fall on ``_device_trace``'s head sentinels. It
+    never records more than ran, so a session's event count is held to the
+    largest seen: a time is kept once two sessions record that same count, a
+    whole number of events per call; after ``sessions`` sessions without
+    that, the run fails."""
     fn()
     by_count: dict[int, list[float]] = {}
     for _ in range(sessions):
@@ -904,6 +990,15 @@ def _server_case(name: str, shape: tuple, g):
     return fn, plain, lib, nbytes, flops, err
 
 
+def _inplace_merge_call_ms(n: int, g) -> float:
+    """Per-call time of the merge as the server calls it: in place, ``out``
+    the main row, so the wrapper allocates nothing."""
+    from repro_torch.kernels import ops
+
+    vm, va, vt = randn(g, n), randn(g, n), randn(g, n)
+    return call_ms(lambda: ops.merge_attention(vm, va, vt, out=vm))
+
+
 def _server_timing(name: str, shape: tuple, launches: int, g, label: str) -> dict:
     fn, plain, lib, nbytes, flops, err = _server_case(name, shape, g)
     bound_ms, bound_by = bound(nbytes, flops)
@@ -915,21 +1010,25 @@ def _server_timing(name: str, shape: tuple, launches: int, g, label: str) -> dic
         "library_call_ms": None if lib is None else call_ms(lib),
         "shape": list(shape),
     }
+    if name == "merge_attention":
+        row["inplace_call_ms"] = _inplace_merge_call_ms(shape[0], g)
     print(f"timing {name} at {label}{tuple(shape)}: device time kernel {row['ms']:.5f} ms, plain "
           f"{row['plain_ms']:.5f} ms, library " + ("n/a" if lib is None else f"{row['library_ms']:.5f} ms")
           + f"; bound {bound_ms:.6f} ms ({bound_by}); per call kernel {row['call_ms']:.4f} ms, plain "
           f"{row['plain_call_ms']:.4f} ms, library "
           + ("n/a" if lib is None else f"{row['library_call_ms']:.4f} ms")
+          + (f", in place {row['inplace_call_ms']:.4f} ms" if "inplace_call_ms" in row else "")
           + f"; launches {launches}; max_abs_err {err:.3g}")
     return row
 
 
-def timing(counts, shapes, full):
+def timing(counts, shapes, full, tiny):
     """Rows for the server kernels at the main path's most frequent shapes;
     ``l1_distance`` and ``assign_and_lerp`` also at the full-width LM run's
     assign shape, under ``"llama3.2-1b"``, with that run's launches; the
-    segmented chi2 also at CHI2_EXTRA's shapes, under their names (no
-    launches there: the main path does not call them). A row
+    segmented chi2 also at CHI2_EXTRA's shapes and the merge at MERGE_EXTRA's,
+    under their names (launches: the ``tiny_lm`` and full-width runs' own,
+    else none: the main path does not call them). A row
     whose function runs inside another kernel on the path names it in
     ``fused_into`` and its source there in ``also_in``."""
     g = gen(11)
@@ -948,6 +1047,10 @@ def timing(counts, shapes, full):
         if name == "chi2_feedback_segmented":
             for label, shape in CHI2_EXTRA.items():
                 row[label] = _server_timing(name, shape, 0, g, f"{label} ")
+        if name == "merge_attention":
+            runs = {"tiny_lm": tiny["counts"], "llama3.2-1b": full["counts"]}
+            for label, shape in MERGE_EXTRA.items():
+                row[label] = _server_timing(name, shape, runs.get(label, {}).get(name, 0), g, f"{label} ")
         rows.append(row)
     return rows
 
@@ -1148,7 +1251,7 @@ def main() -> int:
     full = full_width(tiny["rnn"])
     agreement()
     lm_agreement(tiny["rnn"])
-    rows = timing(counts, shapes, full) + lm_timing(tiny, full)
+    rows = timing(counts, shapes, full, tiny) + lm_timing(tiny, full)
     print(f"timing: {trace_sessions['kept']} profiler sessions kept, {trace_sessions['refused']} refused "
           f"(a partial or empty trace)")
     profiles(rnn_params, tiny["rnn"])

@@ -3,25 +3,18 @@
 
     python3 scripts/flash_timing.py [ROOT ...]
 
-For each ROOT (a checkout of this repository; default: this one), in its own
-process, builds that tree's kernels and times the flash forward, the
-backward (``D`` pre-pass, dq and dkv) and each backward kernel alone, beside
-fp32 ``scaled_dot_product_attention`` and its backward as a yardstick, at
-the LM paths' shapes (``tiny_lm``, full-width ``llama3.2-1b``) and at
-S = 2048. Device time is the summed kernel durations of a ``torch.profiler``
-trace over 100 calls (``chip_smoke.device_ms``). Give two roots in turns (``old new new old``) to
-compare trees on one card. Prints the card's name and power limit and one
-JSON line per root. Imports no JAX.
+Times the flash forward, the backward (``D`` pre-pass, dq and dkv) and each
+backward kernel alone, beside fp32 ``scaled_dot_product_attention`` and its
+backward as a yardstick, at the LM paths' shapes (``tiny_lm``, full-width
+``llama3.2-1b``) and at S = 2048. Device time per call from
+``chip_smoke.device_ms``. Roots, turns and output as in
+``scripts/timing_turns.py``.
 """
 from __future__ import annotations
 
-import json
-import subprocess
 import sys
-from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import device_ms  # noqa: E402  (profiler sessions held to a full count)
+from timing_turns import device_ms, main
 
 SHAPES = {  # label: B, H, S, hd, KV (causal, dv = hd)
     "tiny_lm": (8, 4, 32, 16, 2),
@@ -30,18 +23,15 @@ SHAPES = {  # label: B, H, S, hd, KV (causal, dv = hd)
 }
 
 
-def measure(root: str) -> dict:
-    sys.path.insert(0, str(Path(root).resolve() / "src"))
+def measure() -> dict:
     import torch
 
-    from repro_torch.common.device import resolve_device
     from repro_torch.kernels import flash_attention_bwd as FB
     from repro_torch.kernels import ops
 
-    resolve_device("cuda")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     g = torch.Generator(device="cuda").manual_seed(13)
-    out = {"root": root}
+    out = {}
     for label, (B, H, S, hd, KV) in SHAPES.items():
         q, k, v, do = (torch.randn(s, generator=g, device="cuda")
                        for s in ((B, H, S, hd), (B, KV, S, hd), (B, KV, S, hd), (B, H, S, hd)))
@@ -60,21 +50,5 @@ def measure(root: str) -> dict:
     return out
 
 
-def main() -> int:
-    if len(sys.argv) > 1 and sys.argv[1] == "--one":
-        print(json.dumps(measure(sys.argv[2])), flush=True)
-        return 0
-    roots = sys.argv[1:] or [str(Path(__file__).resolve().parents[1])]
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip(), flush=True)
-    for root in roots:
-        res = subprocess.run([sys.executable, __file__, "--one", root], capture_output=True, text=True)
-        if res.returncode != 0:
-            print(res.stderr[-3000:], file=sys.stderr)
-            return res.returncode
-        print(res.stdout.strip().splitlines()[-1], flush=True)
-    return 0
-
-
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(__file__, measure))

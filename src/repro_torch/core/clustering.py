@@ -192,10 +192,12 @@ class DynamicClustering:
         one local training pass that yields the posterior direction."""
         a, b = self.clusters[cid_a], self.clusters[cid_b]
         main, aux = (a, b) if a.size >= b.size else (b, a)
-        v_m = self.plane.row(main._row)
-        v_aux = self.plane.row(aux._row)
-        v_trained = self.plane.from_pytree(local_train_fn(main.center))
-        main.set_center_vec(K.merge_attention(v_m, v_aux, v_trained))
+        v_trained = self.plane.from_pytree(local_train_fn(main.center))  # from the pre-merge center
+        # no row copies: the kernel reads both rows in the plane and writes
+        # the merged center over the main row
+        v_m = self.plane.row_view(main._row)
+        K.merge_attention(v_m, self.plane.row_view(aux._row), v_trained, out=v_m)
+        main._center_cache = None
         main.version += 1
         for client in list(aux.members):
             self._move(client, main.cluster_id)

@@ -11,7 +11,8 @@ donated scatter (``plane.py:86-95``) becomes a write straight into the
 buffer: ``write`` copies into the row in place and ``write_rows`` is one
 in-place ``index_copy_``. Reads hand out copies (``row`` clones, ``rows``
 and ``take`` gather), so a value read before a write keeps its bits, as a
-JAX array would.
+JAX array would; ``row_view`` alone hands out the row itself, for the merge
+kernel, which writes the merged center into the main row in place.
 """
 from __future__ import annotations
 
@@ -113,9 +114,15 @@ class ParameterPlane:
 
     def row(self, row: int) -> torch.Tensor:
         """A copy of one ``(dim,)`` row."""
+        return self.row_view(row).clone()
+
+    def row_view(self, row: int) -> torch.Tensor:
+        """One ``(dim,)`` row itself, not a copy: a write through it lands in
+        the plane, and it goes stale when the plane grows. For a kernel that
+        reads and writes rows in place (the merge)."""
         if row not in self._used:
             raise KeyError(f"row {row} is not allocated")
-        return self._buf[row].clone()
+        return self._buf[row]
 
     def take(self, row_ids: Sequence[int]) -> torch.Tensor:
         """``(len(row_ids), dim)`` gather (a copy)."""
@@ -141,4 +148,6 @@ class ParameterPlane:
         return self.spec.flatten(tree).to(self.device)
 
     def to_pytree(self, row: int) -> PyTree:
-        return self.spec.unflatten(self.row(row))
+        """A tree of a copy of the row (a snapshot: later writes to the row
+        do not show in it)."""
+        return self.spec.unflatten(self.row_view(row).clone())

@@ -406,7 +406,7 @@ REPRO_API int repro_flash_dq(const float* q, const float* k, const float* v, con
                              int64_t KV, int64_t Sq, int64_t Sk, int64_t hd, int64_t dv, float scale,
                              int causal, int64_t window, float softcap, int64_t q_pos0, int device,
                              void* stream) {
-  cudaSetDevice(device);
+  repro::use_device(device);
   if (B <= 0 || H <= 0 || Sq <= 0) return repro::launch_status();
   const int vec4 = hd % 4 == 0 && dv % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
                    aligned16(dout);
@@ -430,7 +430,7 @@ REPRO_API int repro_flash_dkv(const float* q, const float* k, const float* v, co
                               int64_t H, int64_t KV, int64_t Sq, int64_t Sk, int64_t hd, int64_t dvd,
                               float scale, int causal, int64_t window, float softcap, int64_t q_pos0,
                               int device, void* stream) {
-  cudaSetDevice(device);
+  repro::use_device(device);
   if (B <= 0 || KV <= 0 || Sk <= 0) return repro::launch_status();
   const int vec4 = hd % 4 == 0 && dvd % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
                    aligned16(dout);

@@ -47,8 +47,8 @@ _SIGNATURES = {
     "repro_assign_lerp": ([_P, _P, _I64, _I64, _I64, ctypes.c_double] + [_P] * 4 + [_INT, _P], _INT),
     # fp, ft, ss, seg, out, M, J, S, device, stream
     "repro_chi2": ([_P] * 5 + [_I64] * 3 + [_INT, _P], _INT),
-    "repro_merge_blocks": ([_I64], _I64),
-    "repro_merge_attention": ([_P, _P, _P, _I64, _P, _P, _INT, _P], _INT),
+    # vm, va, vt, N, out, device, stream
+    "repro_merge_attention": ([_P, _P, _P, _I64, _P, _INT, _P], _INT),
     "repro_flash_fwd": ([_P] * 5 + _FLASH_ARGS, _INT),
     "repro_flash_dq": ([_P] * 7 + _FLASH_ARGS, _INT),
     "repro_flash_dkv": ([_P] * 8 + _FLASH_ARGS, _INT),

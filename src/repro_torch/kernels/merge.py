@@ -1,7 +1,13 @@
 """Family D: cluster-merge attention (paper Algorithm 1, lines 2-6),
-kernels in ``csrc/merge.cu``; replaces ``src/repro/kernels/merge_attention.py``.
-``merge_attention.launches`` counts calls (each runs the max pass and the
-blend pass)."""
+kernel in ``csrc/merge.cu``; replaces ``src/repro/kernels/merge_attention.py``.
+
+:func:`merge_attention` is one ctypes call and one kernel launch (one
+block for short rows, else a cooperative grid that keeps its elements in
+registers while the max crosses the blocks). It allocates only the output,
+and only when ``out`` is None; ``out`` may be ``v_main`` itself, which the
+server passes to merge a plane row in place. ``merge_attention.launches``
+counts its launches.
+"""
 from __future__ import annotations
 
 import torch
@@ -13,27 +19,33 @@ from repro_torch.kernels._dispatch import check_f32, use_plain
 def merge_attention_plain(v_main: torch.Tensor, v_aux: torch.Tensor, v_trained: torch.Tensor):
     """Returns (merged, alpha): alpha = relu(p) / max(max p, 1e-12) with
     p = (v_aux - v_main)(v_trained - v_main); merged = alpha v_aux +
-    (1 - alpha) v_main, each product rounded before the sum."""
+    (1 - alpha) v_main, each product rounded before the sum. As
+    ``jnp.max`` and ``jnp.maximum`` in the reference, both maxima propagate
+    NaN and relu(-0) is +0."""
     p = (v_aux - v_main) * (v_trained - v_main)
     denom = torch.clamp_min(torch.max(p), 1e-12)
-    alpha = torch.clamp_min(p, 0.0) / denom
+    alpha = torch.where(p <= 0, 0.0, p) / denom
     merged = torch.add(torch.mul(alpha, v_aux), torch.mul(1.0 - alpha, v_main))
     return merged, alpha
 
 
-def merge_attention(v_main: torch.Tensor, v_aux: torch.Tensor, v_trained: torch.Tensor) -> torch.Tensor:
-    """Three (N,) vectors -> the merged (N,) center."""
+def merge_attention(v_main: torch.Tensor, v_aux: torch.Tensor, v_trained: torch.Tensor,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+    """Three (N,) vectors -> the merged (N,) center, written into ``out``
+    when it is given: ``v_main`` itself (an in-place merge), nothing else."""
     check_f32("merge_attention", ("v_main", v_main, 1), ("v_aux", v_aux, 1), ("v_trained", v_trained, 1))
     if not (v_main.shape == v_aux.shape == v_trained.shape) or v_main.numel() == 0:
         raise ValueError("merge_attention: three non-empty vectors of one length expected")
+    if out is not None and out is not v_main:
+        raise ValueError("merge_attention: out must be v_main itself (an in-place merge) or None")
     if use_plain("merge_attention", v_main, v_aux, v_trained):
-        return merge_attention_plain(v_main, v_aux, v_trained)[0]
+        merged = merge_attention_plain(v_main, v_aux, v_trained)[0]
+        return merged if out is None else out.copy_(merged)
     lib = _build.library()
-    n = v_main.shape[0]
-    partial = torch.empty((lib.repro_merge_blocks(n),), dtype=torch.float32, device=v_main.device)
-    out = torch.empty_like(v_main)
+    if out is None:
+        out = torch.empty_like(v_main)
     rc = lib.repro_merge_attention(
-        v_main.data_ptr(), v_aux.data_ptr(), v_trained.data_ptr(), n, partial.data_ptr(), out.data_ptr(),
+        v_main.data_ptr(), v_aux.data_ptr(), v_trained.data_ptr(), v_main.shape[0], out.data_ptr(),
         v_main.device.index or 0, _build.stream(v_main),
     )
     _build.check(rc, "merge_attention")

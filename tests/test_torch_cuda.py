@@ -4,8 +4,10 @@ These tests need an NVIDIA GPU and skip elsewhere (the kernels have no CPU
 mode); they import no JAX, so they run on a machine with only the port's
 dependencies: ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 Tolerances as in ``chip_smoke.py``: L1 and chi2 rtol 1e-5 (and the L1
-and chi2 sums bitwise those of the numpy models of their orders), the blend bitwise, the index equal, merge rtol 1e-6 / atol 1e-7, the flash forward
-1e-5 and backward 3e-4 (the backward also bitwise across repeats).
+and chi2 sums bitwise those of the numpy models of their orders), the blend
+bitwise, the index equal, the merge bitwise its plain version (NaN at the
+same places), the flash forward 1e-5 and backward 3e-4 (the backward also
+bitwise across repeats).
 """
 import numpy as np
 import pytest
@@ -48,14 +50,36 @@ def test_cuda_kernels_match_plain(cuda_device, n):
     xs = torch.from_numpy(_f32(rng, 8, n)).to(dev)
     torch.testing.assert_close(ops.l1_distance_pairwise(xs, cs),
                                l1.l1_distance_pairwise_plain(xs, cs), rtol=1e-5, atol=0)
-    torch.testing.assert_close(ops.merge_attention(u, cs[0], cs[1]),
-                               merge.merge_attention_plain(u, cs[0], cs[1])[0], rtol=1e-6, atol=1e-7)
+    assert torch.equal(_bits(ops.merge_attention(u, cs[0], cs[1])),
+                       _bits(merge.merge_attention_plain(u, cs[0], cs[1])[0]))
     fp, ft, ss = (torch.from_numpy(a).to(dev) for a in _feedback(rng, 64, 10))
     seg = torch.from_numpy(np.arange(64, dtype=np.int32) % 4).to(dev)
     g, s = ops.chi2_feedback_segmented(fp, ft, ss, seg, 4)
     gp, sp = chi2.chi2_feedback_segmented_plain(fp, ft, ss, seg, 4)
     torch.testing.assert_close(g, gp, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(s, sp, rtol=1e-5, atol=1e-5)
+
+
+def _traced_kernels(run):
+    """Names of the device kernels ``run()`` launches, from one padded
+    profiler session. The session starts with 32 spin kernels, left out of
+    the names: on the H100 the profiler can drop a session's first few
+    launches (``chip_smoke._device_trace``). It can still lose kernels
+    (never add any), so a caller retries until one session shows all."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.005)
+        for _ in range(32):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        run()
+        torch.cuda.synchronize()
+        time.sleep(0.005)
+    return [e.name for e in prof.events() if e.device_type.name == "CUDA" and "spin_kernel" not in e.name]
 
 
 @pytest.mark.cuda
@@ -67,24 +91,13 @@ def test_cuda_wrappers_count_launches(cuda_device):
     counts = ops.launch_counts()
     assert counts["l1_distance_pairwise"] == 1 and counts["assign_and_lerp"] == 1
     assert counts["l1_distance"] == 0  # the assign computes its distances in its own kernel
-    import time
-
-    from torch.profiler import ProfilerActivity, profile
-
     # one port kernel per assign in a trace. The profiler can lose kernels of
     # a short session (never add any), so a session may show fewer, never
     # more or others; one session must show all of them.
     calls, full = 10, False
     for _ in range(5):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.005)
-            for _ in range(calls):
-                ops.assign_and_lerp(x[0], x, 0.5)
-            torch.cuda.synchronize()
-            time.sleep(0.005)
-        kernels = [e.name for e in prof.events() if e.device_type.name == "CUDA" and "_kernel" in e.name
-                   and any(k in e.name for k in ("l1_rows", "assign_lerp", "select_lerp"))]
+        kernels = [k for k in _traced_kernels(lambda: [ops.assign_and_lerp(x[0], x, 0.5) for _ in range(calls)])
+                   if "_kernel" in k and any(n in k for n in ("l1_rows", "assign_lerp", "select_lerp"))]
         assert len(kernels) <= calls and all("assign_lerp_kernel" in k for k in kernels), kernels
         if len(kernels) == calls:
             full = True
@@ -177,10 +190,6 @@ def test_cuda_chi2_is_one_launch_per_call(cuda_device):
     nothing else runs on the device (no second pass, no memset). The
     profiler can lose kernels of a short session (never add any): a session
     may show fewer, never more or others; one session must show all."""
-    import time
-
-    from torch.profiler import ProfilerActivity, profile
-
     fp, ft, ss = (torch.from_numpy(a).to(cuda_device) for a in _feedback(np.random.default_rng(2), 20, 10))
     seg = torch.arange(20, dtype=torch.int32, device=cuda_device) % 4
     ops.reset_launch_counts()
@@ -188,17 +197,14 @@ def test_cuda_chi2_is_one_launch_per_call(cuda_device):
     ops.chi2_feedback_segmented(fp, ft, ss, seg, 4)
     counts = ops.launch_counts()
     assert counts["chi2_feedback"] == 1 and counts["chi2_feedback_segmented"] == 1
+    def run():
+        for _ in range(calls):
+            ops.chi2_feedback(fp, ft, ss)
+            ops.chi2_feedback_segmented(fp, ft, ss, seg, 4)
+
     calls, full = 5, False
     for _ in range(5):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.005)
-            for _ in range(calls):
-                ops.chi2_feedback(fp, ft, ss)
-                ops.chi2_feedback_segmented(fp, ft, ss, seg, 4)
-            torch.cuda.synchronize()
-            time.sleep(0.005)
-        names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+        names = _traced_kernels(run)
         assert len(names) <= 2 * calls and all("chi2_kernel" in n for n in names), names
         if len(names) == 2 * calls:
             full = True
@@ -232,6 +238,58 @@ FLASH_CASES = [
     (1, 4, 2, 65, 65, 64, 64, {}),  # one row past a 64-row tile
     (2, 4, 2, 70, 70, 12, 12, {}),  # head width not a multiple of 4: 4-byte copies
 ]
+
+
+def _same_nan_bits(got, want):
+    nan = torch.isnan(want)
+    return bool(torch.equal(torch.isnan(got), nan)) and torch.equal(_bits(got[~nan]), _bits(want[~nan]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2304, 4099, 4550, 25418, 783360, 4_000_000])
+def test_cuda_merge_is_the_plain_version_bit_for_bit(cuda_device, n):
+    """On every case of ``merge_cases`` (NaN in each input, +-inf,
+    all-negative p, signed zeros): NaN at the plain version's places and
+    every other element bitwise, over 3 repeats; a NaN in p makes every
+    output NaN. N = 4,000,000 is past one step of the grid on an H100. In
+    place on row 1 of a 3-row plane (8-byte aligned where N % 4 = 2), the
+    same bits."""
+    from test_torch_merge import merge_cases
+
+    for label, rows in merge_cases(np.random.default_rng(n), n).items():
+        vm, va, vt = (torch.from_numpy(r).to(cuda_device) for r in rows)
+        want = merge.merge_attention_plain(vm, va, vt)[0]
+        for _ in range(3):
+            assert _same_nan_bits(ops.merge_attention(vm, va, vt), want), label
+        if label.startswith("nan"):
+            assert bool(torch.isnan(want).all())
+    rng = np.random.default_rng(n + 1)
+    plane, vt = torch.from_numpy(_f32(rng, 3, n)).to(cuda_device), torch.from_numpy(_f32(rng, n)).to(cuda_device)
+    want = merge.merge_attention_plain(plane[1], plane[2], vt)[0]
+    row = plane[1]
+    assert ops.merge_attention(row, plane[2], vt, out=row) is row
+    assert torch.equal(_bits(plane[1]), _bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2304, 25418, 783360])
+def test_cuda_merge_is_one_launch_per_call(cuda_device, n):
+    """One ``merge_kernel`` per call and nothing else on the device; the
+    profiler can lose kernels of a short session (never add any), so one
+    session of five must show all."""
+    rng = np.random.default_rng(n)
+    vm, va, vt = (torch.from_numpy(_f32(rng, n)).to(cuda_device) for _ in range(3))
+    ops.reset_launch_counts()
+    ops.merge_attention(vm, va, vt, out=vm)
+    assert ops.launch_counts()["merge_attention"] == 1
+    calls, full = 10, False
+    for _ in range(5):
+        names = _traced_kernels(lambda: [ops.merge_attention(vm, va, vt, out=vm) for _ in range(calls)])
+        assert len(names) <= calls and all("merge_kernel" in k for k in names), names
+        if len(names) == calls:
+            full = True
+            break
+    assert full, "no profiler session recorded every merge"
 
 
 @pytest.mark.cuda

@@ -71,3 +71,18 @@ def test_run_experiment_on_cuda_without_a_card_raises():
     finally:
         sim.Simulator.run = orig
     assert not calls
+
+
+@pytest.mark.parametrize("path", sorted((PKG / "csrc").glob("*.cu*")), ids=lambda p: p.name)
+def test_only_use_device_sets_the_device(path):
+    """Every C entry point makes its device current through
+    ``common.cuh::use_device``, which calls ``cudaSetDevice`` only when the
+    device is not current already: no source calls it anywhere else."""
+    import re
+
+    code = re.sub(r"//[^\n]*", "", path.read_text())
+    if path.name == "common.cuh":
+        body = re.search(r"inline void use_device\(int device\) \{.*?\n\}", code, re.S)
+        assert body and "cudaSetDevice" in body.group(0)
+        code = code.replace(body.group(0), "")
+    assert "cudaSetDevice" not in code, f"{path.name} calls cudaSetDevice outside use_device"

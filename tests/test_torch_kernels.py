@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ops as jax_ops
 from repro.kernels import ref
 from repro.kernels.assign_lerp import assign_and_lerp as pallas_assign_and_lerp
 from repro.kernels.chi2_feedback import chi2_feedback as pallas_chi2
@@ -152,8 +153,9 @@ def test_merge_attention_matches_pallas(n):
     rng = np.random.default_rng(n)
     vm, va, vt = _f32(rng, n), _f32(rng, n), _f32(rng, n)
     got = merge.merge_attention(_t(vm), _t(va), _t(vt)).numpy()
-    want = np.asarray(pallas_merge(jnp.asarray(vm), jnp.asarray(va), jnp.asarray(vt), interpret=True))
-    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    args = (jnp.asarray(vm), jnp.asarray(va), jnp.asarray(vt))
+    np.testing.assert_allclose(got, np.asarray(pallas_merge(*args, interpret=True)), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got, np.asarray(jax_ops.merge_attention(*args)), rtol=1e-6, atol=1e-6)
     _, alpha = merge.merge_attention_plain(_t(vm), _t(va), _t(vt))
     assert (alpha >= 0).all() and (alpha <= 1 + 1e-6).all()
 
