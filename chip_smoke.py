@@ -10,10 +10,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 1. probe — the card's name and power limit, CUDA and nvcc versions; build
    the hand-written kernels from ``src/repro_torch/csrc`` and time the build;
    the registers, shared memory and local memory (spills) of each flash
-   kernel and of the L1 rows, fused assign, chi2 and merge kernels from
+   kernel and of the L1 rows, fused assign, ingest chain, chi2 and merge kernels from
    ``cuobjdump --dump-resource-usage``, and a check of each flash kernel's SASS for
    tensor-core ``HMMA`` instructions (none, a spill at head width 64, or an
-   L1, assign, chi2 or merge kernel that spills fail the run);
+   L1, assign, chain, chi2 or merge kernel that spills fail the run);
 2. kernels — every kernel wrapper against its plain PyTorch version on the
    card, at the main path's widths and at edge shapes; the L1 sums' fixed
    order at N % 4 = 0, 1, 2, 3, N = 1 and N = 783,360 (bitwise across
@@ -25,15 +25,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    4550, 25,418, 783,360 and 4,000,000 (past one grid step), on NaN, inf,
    all-negative and signed-zero inputs, in place on a plane row of odd index
    (8-byte aligned), across repeats, one kernel per call in a profiler trace;
-   the flash-attention forward and backward at
-   the LM paths' shapes and at the model zoo's head widths (up to 256), the
-   backward also bitwise across repeats;
+   the coalesced ingest chain (``csrc/ingest_chain.cu``) at (S, C, N) = (1, 1,
+   1), (8, 3, 4099), (13, 4, 4550), (32, 4, 25,418), (4, 2, 783,360) and
+   (40, 16, 25,418), with vetoes, forced ids and a NaN upload: cids, blended
+   rows and the carried matrix bitwise the plain version's, distances and
+   statistics bitwise the numpy model of the L1 order
+   (``tests/test_torch_l1_order.py::kernel_chain``), bitwise across repeats,
+   one kernel per call in a profiler trace; the flash-attention forward and
+   backward at the LM paths' shapes and at the model zoo's head widths (up
+   to 256), the backward also bitwise across repeats;
 3. main path — ``repro_torch.fl.experiment.run_experiment("image_recognition",
    "echopfl", num_clients=20, max_time=1500, seed=0)`` on the card and, only
    if that run makes no merge, the same run with ``hm=1.0``; launch counts
-   are zeroed just before and read just after, and every kernel must launch
-   (``l1_distance``'s sums run inside the fused assign kernel there, so its
-   own wrapper must not); host time is summed per layer;
+   are zeroed just before and read just after, and every kernel of the
+   per-event path must launch (``l1_distance`` exactly twice an upload and
+   once more a broadcast decision: the predictor's L1 statistics, ``l1_vec``
+   on the card); host time is summed per layer;
+3d. coalesced path — the same model coalesced: 128 clients, a 45 s window,
+   ``refine_every=32``, 800 uploads, seed 0, the broadcast RNN of phase 3
+   handed over; uploads per wall second, the arrival batches, the segments
+   and the launch counts; ``ingest_chain`` must launch on segments longer
+   than 1 and every kernel of the per-event path too;
 3b. LM path — ``repro_torch.fl.lm_task.run_lm_experiment("echopfl",
    num_clients=8, max_time=900, eval_interval=120, seed=0)`` on ``tiny_lm``:
    its own launch counts (the flash kernels and the server's assign chain
@@ -44,7 +56,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``(4, 32, 256, 64)``, wall time per upload, peak device memory;
 4. agreement — a small ``har`` run and the ``tiny_lm`` LM run on the card
    against the same runs on the CPU, where every wrapper takes its plain
-   version;
+   version; the ``har`` run also coalesced at a 45 s window, card against
+   CPU, and at a 1e-9 s window against the per-event run on the card
+   (identical events, assignments and centers);
 5. timing — each kernel, its plain version and (where one exists) a single
    PyTorch call computing the same function, at the shape the main path
    called it with most (the flash kernels and ``pairwise_l1`` at the
@@ -52,7 +66,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``assign_and_lerp`` also at the full-width run's; the segmented chi2 also
    at the 128-client fleet's refine, (128, 10) with S = 16, and at (1, 1) with
    S = 1, the launch floor; the merge also at ``har``'s, ``tiny_lm``'s and the
-   full width's row and at N = 1), beside the least time the
+   full width's row and at N = 1; the ingest chain at phase 3d's most
+   frequent segment shape and at (32, 4, 25,418), beside the per-event
+   device work for the same uploads), beside the least time the
    card could take (fp32 on the CUDA cores; for the flash kernels also
    ``bound_tc_ms``, split TF32 on the tensor cores): device time per call from a ``torch.profiler`` trace
    (``ms``, ``plain_ms``, ``library_ms``; the profiler can lose a short
@@ -61,9 +77,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    back-to-back calls between CUDA events, host overhead included
    (``call_ms`` and its two siblings; the merge also in place, as the server
    calls it);
-6. profile — short runs of the main path and of both LM paths under
-   ``torch.profiler``: device busy time, the device's idle share and the
-   kernels that take the time.
+6. profile — short runs of the main path, of the coalesced path and of
+   both LM paths under ``torch.profiler``: device busy time, the device's
+   idle share and the kernels that take the time.
 
 The last lines are one JSON object with the kernel table, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -92,6 +108,8 @@ KERNELS = {  # row name -> (CUDA source, the TPU kernel's pallas_call it replace
     "l1_distance": ("src/repro_torch/csrc/l1.cu", "src/repro/kernels/l1_distance.py:51"),
     "l1_distance_pairwise": ("src/repro_torch/csrc/l1.cu", "src/repro/kernels/l1_pairwise.py:57"),
     "assign_and_lerp": ("src/repro_torch/csrc/assign_lerp.cu", "src/repro/kernels/assign_lerp.py:63"),
+    # not a pallas_call: ops.ingest_chain, a lax.scan around l1_distance.py:51
+    "ingest_chain": ("src/repro_torch/csrc/ingest_chain.cu", "src/repro/kernels/ops.py:445"),
     "chi2_feedback": ("src/repro_torch/csrc/chi2.cu", "src/repro/kernels/chi2_feedback.py:50"),
     "chi2_feedback_segmented": ("src/repro_torch/csrc/chi2.cu", "src/repro/kernels/chi2_feedback.py:111"),
     "merge_attention": ("src/repro_torch/csrc/merge.cu", "src/repro/kernels/merge_attention.py:68"),
@@ -99,16 +117,19 @@ KERNELS = {  # row name -> (CUDA source, the TPU kernel's pallas_call it replace
     "flash_attention_fwd": ("src/repro_torch/csrc/flash_fwd.cu", "src/repro/kernels/flash_attention.py:127"),
     "flash_attention_bwd": ("src/repro_torch/csrc/flash_bwd.cu", "src/repro/kernels/flash_attention_bwd.py:176"),
 }
-# rows whose function runs on the main path inside another wrapper's kernel: l1_distance's
-# sums are the first phase of the fused assign kernel, so its own wrapper launches nothing there
 L1_WIDTHS = (25418, 4550, 4099, 783360, 1, 4097)  # N % 4 = 2, 2, 3, 0, 1, 1
-FUSED_INTO = {"l1_distance": "assign_and_lerp"}
-ALSO_IN = {"l1_distance": "src/repro_torch/csrc/assign_lerp.cu"}  # where a fused row's function also runs
-MLP_PATH = KERNELS.keys() - {"pairwise_l1", "flash_attention_fwd", "flash_attention_bwd"}
+# where a row's function also runs: the L1 sums are the first phase of the fused assign and of the chain
+ALSO_IN = {"l1_distance": "src/repro_torch/csrc/assign_lerp.cu, src/repro_torch/csrc/ingest_chain.cu"}
+# the per-event MLP path's kernels; the coalesced path (phase 3d) runs them and the chain
+MLP_PATH = KERNELS.keys() - {"pairwise_l1", "flash_attention_fwd", "flash_attention_bwd", "ingest_chain"}
+COALESCED_PATH = MLP_PATH | {"ingest_chain"}
+# ingest chain checks: (S, C, N); the phase 3d settings
+CHAIN_SHAPES = ((1, 1, 1), (8, 3, 4099), (13, 4, 4550), (32, 4, 25418), (4, 2, 783360), (40, 16, 25418))
+COALESCED = dict(num_clients=128, coalesce_window=45.0, refine_every=32, max_uploads=800, max_time=1e9, seed=0)
 # launch counters the LM paths must move: the flash kernels and the server's fused assign
 LM_PATH = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv", "assign_and_lerp")
 # the kernels' entry functions in src/repro_torch/csrc, as the profiler names them
-PORT_KERNEL_NAMES = ("l1_rows_kernel", "assign_lerp_kernel", "chi2_kernel", "merge_kernel",
+PORT_KERNEL_NAMES = ("l1_rows_kernel", "assign_lerp_kernel", "ingest_chain_kernel", "chi2_kernel", "merge_kernel",
                      "flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
 # chi2 order checks: rows, widths (J > 32 takes the warp path) and segment counts (300 > threads)
 CHI2_ROWS, CHI2_WIDTHS, CHI2_SEGMENTS = (1, 20, 300, 2049), (2, 10, 16, 200), (0, 1, 4, 300)
@@ -177,19 +198,19 @@ def probe():
 
 def _kernel_label(mangled: str) -> str:
     """``flash_dkv_kernel<64,3>`` from a mangled name."""
-    names = re.findall(r"(?:flash_[a-z]+|l1_rows|assign_lerp|chi2|merge)_kernel", mangled)
+    names = re.findall(r"(?:flash_[a-z]+|l1_rows|assign_lerp|ingest_chain|chi2|merge)_kernel", mangled)
     args = re.findall(r"Li(\d+)E", mangled)
     return (names[-1] if names else mangled) + (f"<{','.join(args)}>" if args else "")
 
 
 def kernel_resources() -> None:
     """Registers, shared memory, stack and local memory of every flash
-    kernel and of the L1, fused assign, chi2 and merge kernels from ``cuobjdump
-    --dump-resource-usage``, and each flash kernel's count of ``HMMA``
-    (tensor-core) instructions from ``cuobjdump -sass``. A flash kernel
-    without HMMA, a flash kernel at head width 64 with a stack frame or
-    local memory (spills), or an L1, assign, chi2 or merge kernel with
-    either, fails."""
+    kernel and of the L1, fused assign, ingest chain, chi2 and merge kernels
+    from ``cuobjdump --dump-resource-usage``, and each flash kernel's count
+    of ``HMMA`` (tensor-core) instructions from ``cuobjdump -sass``. A flash
+    kernel without HMMA, a flash kernel at head width 64 with a stack frame
+    or local memory (spills), or an L1, assign, chain, chi2 or merge kernel
+    with either, fails."""
     from repro_torch.kernels import _build
 
     tool = _build.cuda_tool("cuobjdump")
@@ -224,17 +245,17 @@ def kernel_resources() -> None:
             check(u.get("LOCAL", 0) == 0 and u.get("STACK", 0) == 0,
                   f"{_kernel_label(n)} spills ({u.get('STACK')} B stack, {u.get('LOCAL')} B local)")
     print(f"flash kernels: {len(flash)} instantiations, every one with HMMA; none at head width 64 spills")
-    kinds = ("l1_rows_kernel", "assign_lerp_kernel", "chi2_kernel", "merge_kernel")
+    kinds = ("l1_rows_kernel", "assign_lerp_kernel", "ingest_chain_kernel", "chi2_kernel", "merge_kernel")
     rows = sorted(n for n in usage if any(k in n for k in kinds))
     check(all(any(k in n for n in rows) for k in kinds),
-          "cuobjdump found no L1 rows, fused assign, chi2 or merge kernel in the library")
+          "cuobjdump found no L1 rows, fused assign, ingest chain, chi2 or merge kernel in the library")
     for n in rows:
         u = usage[n]
         print(f"  {_kernel_label(n):<24} registers {u.get('REG')}, shared {u.get('SHARED')} B static, "
               f"local {u.get('LOCAL')} B, stack {u.get('STACK')} B")
         check(u.get("LOCAL", 0) == 0 and u.get("STACK", 0) == 0,
               f"{_kernel_label(n)} spills ({u.get('STACK')} B stack, {u.get('LOCAL')} B local)")
-    print("L1, fused assign, chi2 and merge kernels: no spills")
+    print("L1, fused assign, ingest chain, chi2 and merge kernels: no spills")
 
 
 # ------------------------------------------------------------------ phase 2
@@ -294,6 +315,7 @@ def kernel_phase():
     print(f"kernel phase: {n_checked} checks passed (L1/chi2 rtol 1e-5, blend bitwise, "
           "idx equal, segment sums bitwise across repeats)")
     l1_order_checks()
+    ingest_chain_checks()
     chi2_order_checks()
     merge_checks()
     flash_checks()
@@ -382,6 +404,93 @@ def l1_order_checks() -> None:
     sync()
     print(f"L1 order checks: {n_checked} passed at N = {list(L1_WIDTHS)} (rtol 1e-5 atol 0, blend bitwise, "
           "idx the first-index argmin, bitwise across repeats, entry points, places and alignments; NaN wins)")
+
+
+def chain_inputs(s: int, c: int, n: int, seed: int, nan_step: int | None = None):
+    """Numpy inputs of one ingest chain: centers, their anchors, S uploads,
+    prev and forced ids. A third of the uploads lie near a random center
+    (switches and repeated winners), a third midway between the client's
+    previous center and another (vetoes), a third are noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((c, n)).astype(np.float32)
+    bcast = (centers + 0.3 * rng.standard_normal((c, n))).astype(np.float32)
+    U = rng.standard_normal((s, n)).astype(np.float32)
+    prev = [int(p) if rng.uniform() < 0.7 else -1 for p in rng.integers(0, c, s)]
+    forced = [int(p) if rng.uniform() < 0.2 else -1 for p in rng.integers(0, c, s)]
+    prev[0] = forced[0] = -1
+    kind, pick = rng.integers(0, 3, s), rng.integers(0, c, s)
+    for j in range(s):
+        if kind[j] == 0:
+            U[j] = centers[pick[j]] + 0.2 * U[j]
+        elif kind[j] == 1 and prev[j] >= 0:
+            U[j] = 0.5 * (centers[prev[j]] + centers[pick[j]]) + 0.05 * U[j]
+    if nan_step is not None:
+        U[nan_step, n // 3] = np.nan
+    return U, centers, bcast, prev, forced
+
+
+def ingest_chain_checks() -> None:
+    """The ingest chain kernel (``csrc/ingest_chain.cu``) at CHAIN_SHAPES, on
+    random inputs and (S >= 4) with a NaN upload mid-segment: cids equal to
+    the plain version's (run on the CPU) and the numpy model's
+    (``tests/test_torch_l1_order.py::kernel_chain``); the blended rows and the
+    carried matrix bitwise the plain version's; the distances and the three
+    statistics bitwise the model's (NaN at the same places); everything
+    bitwise over 3 repeats; ``l1_vec`` on the card bitwise the chain's
+    statistic of the same rows; one ``ingest_chain_kernel`` per call in a
+    profiler trace."""
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_l1_order import kernel_chain
+
+    from repro_torch.core.plane import l1_vec
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ingest_chain import ingest_chain_plain
+
+    n_checked, steps, vetoes, pinned = 0, 0, 0, 0
+    for s, c, n in CHAIN_SHAPES:
+        for nan_step in (None, s // 2) if s >= 4 else (None,):
+            U, centers, bcast, prev, forced = chain_inputs(s, c, n, s * 1000 + c * 10 + n % 97, nan_step)
+            args = [torch.from_numpy(a).to(DEVICE) for a in (U, centers, bcast)]
+            runs = [ops.ingest_chain(*args, prev, forced, beta=0.25) for _ in range(3)]
+            got = runs[0]
+            plain = ingest_chain_plain(*(torch.from_numpy(a) for a in (U, centers, bcast)), prev, forced, 0.25)
+            m_cids, m_blended, m_dists, m_stats, m_carried = kernel_chain(U, centers, bcast, prev, forced, 0.25)
+            label = f"ingest chain (S, C, N) = {(s, c, n)}" + ("" if nan_step is None else f", NaN at step {nan_step}")
+            cids = got.cids.cpu()
+            check(torch.equal(cids, plain.cids) and np.array_equal(cids.numpy(), m_cids), f"{label}: cids differ")
+            check(_same_nan_bits(got.blended.cpu(), plain.blended), f"{label}: blended rows not the plain version's")
+            check(_same_nan_bits(got.carried.cpu(), plain.carried), f"{label}: carried matrix not the plain version's")
+            check(_same_nan_bits(got.dists.cpu(), torch.from_numpy(m_dists)), f"{label}: distances not the model's")
+            check(_same_nan_bits(got.stats.cpu(), torch.from_numpy(m_stats)), f"{label}: statistics not the model's")
+            check(all(torch.equal(r.cids, got.cids) and _same_bits(r.buf, got.buf) and _same_bits(r.carried, got.carried)
+                      for r in runs[1:]), f"{label}: not bitwise across repeats")
+            if nan_step is None:
+                j0 = int(cids[0])
+                check(_same_bits(l1_vec(got.blended[0], args[1][j0]), got.stats[0, 0]),
+                      f"{label}: l1_vec on the card differs from the chain's change")
+            amin = np.argmin(m_dists, axis=1)
+            steps += s
+            vetoes += int(sum(1 for j in range(s) if forced[j] < 0 and cids[j] != amin[j]))
+            pinned += int(sum(1 for f in forced if f >= 0))
+            n_checked += 1
+    per_call = {}
+    for s, c, n in ((8, 3, 4099), (32, 4, 25418)):
+        U, centers, bcast, prev, forced = chain_inputs(s, c, n, 7)
+        args = [torch.from_numpy(a).to(DEVICE) for a in (U, centers, bcast)]
+        seen = kernels_per_call(lambda: ops.ingest_chain(*args, prev, forced, beta=0.25))
+        check(sum(v for k, v in seen.items() if "ingest_chain_kernel" in k) == 10
+              and not any("_kernel" in k and "ingest_chain_kernel" not in k for k in seen),
+              f"ingest chain {(s, c, n)}: 10 calls traced as {dict(seen)}, not 10 chain kernels")
+        per_call[(s, c, n)] = dict(seen)
+    sync()
+    print(f"ingest chain checks: {n_checked} passed at (S, C, N) = {list(CHAIN_SHAPES)}, {steps} steps with "
+          f"{vetoes} vetoes and {pinned} forced ids (cids equal; blended rows and carried matrix bitwise the plain "
+          f"version's; distances and statistics bitwise the L1 order model's; bitwise across 3 repeats); "
+          f"device events of 10 calls: {per_call}")
 
 
 def chi2_order_checks() -> None:
@@ -552,7 +661,8 @@ def _record_shapes(ops):
     def restore():
         for name, fn in originals.items():
             setattr(ops, name, fn)
-        shapes["l1_distance"] = Counter({(1, c, n): k for (c, n), k in shapes["assign_and_lerp"].items()})
+        # l1_vec: one upload-sized row against one
+        shapes["l1_distance"] = Counter({(1, 1, n): k for (_, n), k in shapes["assign_and_lerp"].items()})
 
     return shapes, restore
 
@@ -587,6 +697,10 @@ def _host_timers():
     wrap(ClientFleet, "train_client", "client: train_client")
     wrap(Simulator, "_evaluate", "client: evaluate_fleet")
     wrap(Simulator, "_set_model", "client: install downlink")
+    wrap(ClientFleet, "train_rows", "client: train_rows (a window)")
+    wrap(ClientFleet, "set_models", "client: set_models (a window)")
+    wrap(server_mod.EchoPFLServer, "handle_uploads", "server: handle_uploads (a window)")
+    wrap(server_mod.EchoPFLServer, "_plan_predictor_window", "server:   predictor plan and chains")
     wrap(server_mod.EchoPFLServer, "handle_upload", "server: handle_upload")
     wrap(DynamicClustering, "assign", "server:   assign (reads the distances)")
     wrap(BroadcastPredictor, "learn", "server:   predictor learn")
@@ -642,12 +756,24 @@ def main_path():
     uploads = sum(rep.extra["uploads"] for _, _, rep, _ in runs)
     print(f"main path wall time {wall:.2f} s, {uploads} uploads, {uploads / wall:.2f} uploads/s; "
           f"launches {json.dumps(counts)}")
-    for name in MLP_PATH - FUSED_INTO.keys():
+    for name in MLP_PATH:
         check(counts[name] > 0, f"kernel {name} never launched on the main path")
-    for name, host in FUSED_INTO.items():
-        check(counts[name] == 0, f"{name} launched on its own on the main path: it runs inside {host}")
+    check_l1_vec_launches(counts, [(strat, rep) for _, strat, rep, _ in runs], "main path")
+    check(counts["ingest_chain"] == 0, "the per-event path launched the ingest chain")
     rnn = {k: v.cpu().numpy() for k, v in runs[0][1]._rnn_init.items()}  # pretrained broadcast RNN
     return counts, shapes, wall, rnn
+
+
+def check_l1_vec_launches(counts, runs, label: str) -> None:
+    """On the card the predictor's L1 statistics (``l1_vec``) are
+    ``l1_distance`` launches: two an upload (change, gap before) and one more
+    a broadcast decision (gap after, when the cluster has other members),
+    on the per-event path; the Eq. 1 assign stays in ``assign_and_lerp``."""
+    want = sum(2 * rep.extra["uploads"] + strat._decisions for strat, rep in runs)
+    check(counts["l1_distance"] == want,
+          f"{label}: l1_distance launched {counts['l1_distance']} times, not 2 an upload and 1 a decision ({want})")
+    check(0 < counts["assign_and_lerp"] <= sum(rep.extra["uploads"] for _, rep in runs),
+          f"{label}: {counts['assign_and_lerp']} fused assigns")
 
 
 # ----------------------------------------------------------------- phase 3b
@@ -742,7 +868,7 @@ def lm_run(label: str, expect_shape=None, **kw):
     print(f"{label}: flash shapes (B, H, Sq, hd, KV, Sk, dv) {dict(shapes)}; launches {json.dumps(counts)}")
     for name in LM_PATH:
         check(counts[name] > 0, f"{label}: kernel {name} never launched")
-    check(counts["l1_distance"] == 0, f"{label}: l1_distance launched on its own: it runs inside assign_and_lerp")
+    check_l1_vec_launches(counts, [(strat, rep)], label)
     check(counts["flash_attention_dq"] == counts["flash_attention_dkv"], f"{label}: dq and dkv launches differ")
     width = sum(t.numel() for t in tree_leaves(task.init_params(torch.Generator().manual_seed(0))))
     for c in strat.clustering.clusters.values():
@@ -789,8 +915,76 @@ def full_width(rnn_params: dict):
     return out
 
 
+# ----------------------------------------------------------------- phase 3d
+def coalesced_path(rnn_params: dict):
+    """The main path's model coalesced (COALESCED: 128 clients, 45 s
+    windows, refine_every 32, 800 uploads), the broadcast RNN of phase 3
+    handed over so that its pretraining stays outside. Launch counts are
+    zeroed just before and read just after; the segments' (S, C, N) are
+    recorded as they go into ``ingest_chain``."""
+    from repro_torch.fl.experiment import run_experiment
+    from repro_torch.fl.simulator import Simulator
+    from repro_torch.kernels import ops
+
+    segs: Counter = Counter()
+    sims: list = []
+    fn, run = ops.ingest_chain, Simulator.run_async
+
+    def rec(U, centers, *a, **kw):
+        segs[(U.shape[0], centers.shape[0], U.shape[1])] += 1
+        return fn(U, centers, *a, **kw)
+
+    def rec_run(self, **kw):
+        sims.append(self)
+        return run(self, **kw)
+
+    spent, restore_timers = _host_timers()
+    ops.ingest_chain, Simulator.run_async = rec, rec_run
+    sync()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        _, _, strat, rep = run_experiment("image_recognition", "echopfl", device=DEVICE, rnn_params=rnn_params,
+                                          **COALESCED)
+        sync()
+    finally:
+        ops.ingest_chain, Simulator.run_async = fn, run
+        restore_timers()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for bucket in sorted(spent):
+        print(f"  host time {bucket:<40} {spent[bucket]:8.3f} s ({100 * spent[bucket] / wall:5.1f}%)")
+    uploads = rep.extra["uploads"]
+    arrivals = sims[0].coalesced_groups["upload_done"]
+    sizes = [s for (s, _, _), k in segs.items() for _ in range(k)]
+    kinds = Counter(e["kind"] for e in strat.events)
+    print(f"coalesced path (image_recognition, {COALESCED}): uploads {uploads}, wall {wall:.2f} s, "
+          f"{uploads / wall:.2f} uploads/s; arrival batches {len(arrivals)}, mean {statistics.mean(arrivals):.2f}, "
+          f"max {max(arrivals)}; segments {len(sizes)}, mean {statistics.mean(sizes):.2f}, max {max(sizes)}, "
+          f"uploads in segments {sum(sizes)}; (S, C, N) most frequent {segs.most_common(3)}; up {rep.up_events} "
+          f"events / {rep.up_bytes} B, down {rep.down_events} events / {rep.down_bytes} B, events {dict(kinds)}, "
+          f"clusters {strat.stats()['clusters']}, merges {strat.clustering.merges}, final_acc {rep.final_acc:.4f}; "
+          f"launches {json.dumps(counts)}")
+    check(uploads == COALESCED["max_uploads"], f"coalesced path: {uploads} uploads")
+    check(counts["ingest_chain"] == len(sizes) > 0 and max(sizes) > 1,
+          f"coalesced path: ingest_chain launched {counts['ingest_chain']} times, segments {sorted(set(sizes))}")
+    for name in COALESCED_PATH:
+        check(counts[name] > 0, f"coalesced path: kernel {name} never launched")
+    for c in strat.clustering.clusters.values():
+        v = c.center_vec
+        check(v.shape == (25418,) and v.device.type == DEVICE and bool(torch.isfinite(v).all()),
+              "coalesced path: centers must be finite (25418,) rows on the card")
+    check(rep.final_acc > 0.5, f"coalesced path did not learn: final_acc {rep.final_acc}")
+    return dict(counts=counts, segs=segs, wall=wall, uploads=uploads, arrivals=arrivals)
+
+
 # ------------------------------------------------------------------ phase 4
 def agreement():
+    """``har`` (8 clients, 900 s) on the card against the CPU, per event and
+    coalesced at a 45 s window: identical ledgers, server events and
+    assignments, accuracy curves within 0.02; and at a 1e-9 s window on the
+    card against the per-event run on the card: identical events,
+    assignments and centers (bit for bit)."""
     from repro_torch.configs.paper_tasks import PAPER_TASKS
     from repro_torch.core.broadcast import pretrain_rnn
     from repro_torch.fl.experiment import run_experiment
@@ -799,20 +993,34 @@ def agreement():
     init = init_mlp(PAPER_TASKS["har"], torch.Generator().manual_seed(0))
     rnn = pretrain_rnn(0, device="cpu")
     out = {}
-    for dev in ("cpu", DEVICE):
-        _, _, strat, rep = run_experiment("har", "echopfl", num_clients=8, max_time=900, seed=0,
-                                          device=dev, init_params=[{k: v.numpy() for k, v in l.items()} for l in init],
-                                          rnn_params={k: v.numpy() for k, v in rnn.items()})
-        out[dev] = (strat, rep)
-    (sc, rc), (sg, rg) = out["cpu"], out[DEVICE]
-    for name in ("up_events", "down_events", "up_bytes", "down_bytes"):
-        check(getattr(rc, name) == getattr(rg, name), f"agreement: {name} {getattr(rc, name)} != {getattr(rg, name)}")
-    check(sc.events == sg.events, "agreement: server event sequences differ")
-    check(sc.clustering.assignment == sg.clustering.assignment, "agreement: assignments differ")
-    gap = max(abs(a - b) for (_, a), (_, b) in zip(rc.curve, rg.curve))
-    check(gap <= 0.02, f"agreement: accuracy curves differ by {gap}")
-    print(f"agreement (har, 8 clients, 900 s, card vs CPU plain versions): ledger and "
-          f"{len(sg.events)} events identical, accuracy gap {gap:.4f}")
+    for dev, window in (("cpu", 0.0), (DEVICE, 0.0), ("cpu", 45.0), (DEVICE, 45.0), (DEVICE, 1e-9)):
+        t0 = time.perf_counter()
+        _, _, strat, rep = run_experiment("har", "echopfl", num_clients=8, max_time=900, seed=0, device=dev,
+                                          init_params=[{k: v.numpy() for k, v in l.items()} for l in init],
+                                          rnn_params={k: v.numpy() for k, v in rnn.items()}, coalesce_window=window)
+        out[dev, window] = (strat, rep, time.perf_counter() - t0)
+    for window in (0.0, 45.0):
+        (sc, rc, tc), (sg, rg, tg) = out["cpu", window], out[DEVICE, window]
+        label = f"agreement (window {window} s)"
+        for name in ("up_events", "down_events", "up_bytes", "down_bytes"):
+            check(getattr(rc, name) == getattr(rg, name), f"{label}: {name} {getattr(rc, name)} != {getattr(rg, name)}")
+        check(sc.events == sg.events, f"{label}: server event sequences differ")
+        check(sc.clustering.assignment == sg.clustering.assignment, f"{label}: assignments differ")
+        gap = max(abs(a - b) for (_, a), (_, b) in zip(rc.curve, rg.curve))
+        check(gap <= 0.02, f"{label}: accuracy curves differ by {gap}")
+        print(f"{label} (har, 8 clients, 900 s, card vs CPU plain versions): ledger and {len(sg.events)} events "
+              f"identical, {rg.extra['uploads']} uploads, accuracy gap {gap:.4f}; wall CPU {tc:.2f} s, card {tg:.2f} s")
+    (se, re_, _), (sz, rz, _) = out[DEVICE, 0.0], out[DEVICE, 1e-9]
+    check(se.events == sz.events and se.clustering.assignment == sz.clustering.assignment,
+          "agreement: the 1e-9 s window and the per-event run differ on the card")
+    check(re_.curve == rz.curve and (re_.up_bytes, re_.down_bytes) == (rz.up_bytes, rz.down_bytes),
+          "agreement: the 1e-9 s window's report differs from the per-event run's on the card")
+    check(sorted(se.clustering.clusters) == sorted(sz.clustering.clusters)
+          and all(_same_bits(c.center_vec, sz.clustering.clusters[cid].center_vec)
+                  for cid, c in se.clustering.clusters.items()),
+          "agreement: the 1e-9 s window's centers differ from the per-event run's on the card")
+    print("agreement (har, card): the 1e-9 s window equals the per-event run (events, assignments, curve, bytes, "
+          "centers bit for bit)")
 
 
 def lm_agreement(rnn_params: dict):
@@ -1022,26 +1230,78 @@ def _server_timing(name: str, shape: tuple, launches: int, g, label: str) -> dic
     return row
 
 
+def _chain_timing(shape: tuple, launches: int, label: str) -> dict:
+    """The ingest chain at one (S, C, N) on fresh inputs: the kernel, the
+    plain version on the card, and the per-event device work for the same S
+    uploads (S fused assigns and 3 S ``l1_distance``, as ``handle_upload``
+    launches them). ``bound_ms``: each input read and each output written
+    once; ``bound_step_ms``: a step's own traffic, S (C + 6) N floats."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ingest_chain import ingest_chain_plain
+    from repro_torch.kernels.l1 import l1_distance
+
+    S, C, N = shape
+    U, centers, bcast, prev, forced = chain_inputs(S, C, N, S * 31 + C)
+    Ud, Cd, Bd = (torch.from_numpy(a).to(DEVICE) for a in (U, centers, bcast))
+    fn = lambda: ops.ingest_chain(Ud, Cd, Bd, prev, forced, beta=0.25)  # noqa: E731
+    plain = lambda: ingest_chain_plain(Ud, Cd, Bd, prev, forced, 0.25)  # noqa: E731
+
+    def per_event():
+        for j in range(S):
+            ops.assign_and_lerp(Ud[j], Cd, 0.25)
+            for _ in range(3):
+                l1_distance(Ud[j], Cd[:1])
+
+    a, b = fn(), plain()
+    err = max((a.stats - b.stats).abs().max().item(), (a.blended - b.blended).abs().max().item())
+    nbytes = 4 * (2 * S * N + 3 * C * N + S * C + 4 * S + 2 * S)
+    bound_ms, bound_by = bound(nbytes, S * (3 * C + 12) * N)
+    row = {
+        "launches": launches, "max_abs_err": err,
+        "ms": device_ms(fn), "plain_ms": device_ms(plain, iters=10), "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None, "bound_step_ms": S * (C + 6) * N * 4 / HBM_BYTES_PER_S * 1e3,
+        "per_event_ms": device_ms(per_event, iters=10),
+        "call_ms": call_ms(fn, 50, 3), "plain_call_ms": call_ms(plain, 5, 3), "per_event_call_ms": call_ms(per_event, 10, 3),
+        "shape": list(shape),
+    }
+    print(f"timing ingest_chain at {label}{shape}: device time kernel {row['ms']:.5f} ms, plain {row['plain_ms']:.5f} ms, "
+          f"per-event work {row['per_event_ms']:.5f} ms; bound {bound_ms:.6f} ms ({bound_by}), a step's own traffic "
+          f"{row['bound_step_ms']:.6f} ms; per call kernel {row['call_ms']:.4f} ms, plain {row['plain_call_ms']:.4f} ms, "
+          f"per-event {row['per_event_call_ms']:.4f} ms; launches {launches}; max_abs_err {err:.3g}")
+    return row
+
+
+def chain_row(coal) -> dict:
+    """The ingest chain's row: at phase 3d's most frequent segment shape,
+    with (32, 4, 25418) beside it under ``"s32_c4"``."""
+    source, replaces = KERNELS["ingest_chain"]
+    shape = coal["segs"].most_common(1)[0][0]
+    row = {"name": "ingest_chain", "route": "cuda", "source": source, "replaces": replaces,
+           "note": "not a pallas_call: ops.ingest_chain, a lax.scan around src/repro/kernels/l1_distance.py:51",
+           **_chain_timing(shape, coal["counts"]["ingest_chain"], "phase 3d's most frequent shape ")}
+    row["s32_c4"] = _chain_timing((32, 4, 25418), coal["segs"][(32, 4, 25418)], "")
+    return row
+
+
 def timing(counts, shapes, full, tiny):
     """Rows for the server kernels at the main path's most frequent shapes;
     ``l1_distance`` and ``assign_and_lerp`` also at the full-width LM run's
-    assign shape, under ``"llama3.2-1b"``, with that run's launches; the
+    shapes, under ``"llama3.2-1b"``, with that run's launches; the
     segmented chi2 also at CHI2_EXTRA's shapes and the merge at MERGE_EXTRA's,
     under their names (launches: the ``tiny_lm`` and full-width runs' own,
-    else none: the main path does not call them). A row
-    whose function runs inside another kernel on the path names it in
-    ``fused_into`` and its source there in ``also_in``."""
+    else none: the main path does not call them). A row whose sums also run
+    inside other kernels names their sources in ``also_in``."""
     g = gen(11)
     rows = []
     full_assign = full["server_shapes"]["assign_and_lerp"].most_common(1)[0][0]
-    full_shapes = {"assign_and_lerp": full_assign, "l1_distance": (1, *full_assign)}
+    full_shapes = {"assign_and_lerp": full_assign, "l1_distance": (1, 1, full_assign[1])}
     for name, (source, replaces) in KERNELS.items():
         if name not in MLP_PATH:
             continue
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                **_server_timing(name, shapes[name].most_common(1)[0][0], counts[name], g, "")}
-        if name in FUSED_INTO:
-            row.update(fused_into=FUSED_INTO[name], also_in=ALSO_IN[name])
+        if name in ALSO_IN:
+            row["also_in"] = ALSO_IN[name]
         if name in full_shapes:
             row["llama3.2-1b"] = _server_timing(name, full_shapes[name], full["counts"][name], g, "llama3.2-1b ")
         if name == "chi2_feedback_segmented":
@@ -1197,7 +1457,8 @@ def profile_window(label: str, run) -> None:
     seen = Counter(e.name for e in _device_events(prof))
     print("  kernels in the trace / launched: " + ", ".join(
         f"{kernel} {sum(v for k, v in seen.items() if kernel in k)}/{launched[wrapper]}"
-        for kernel, wrapper in (("assign_lerp_kernel", "assign_and_lerp"), ("flash_fwd_kernel", "flash_attention_fwd"))))
+        for kernel, wrapper in (("assign_lerp_kernel", "assign_and_lerp"), ("ingest_chain_kernel", "ingest_chain"),
+                            ("flash_fwd_kernel", "flash_attention_fwd"))))
     for name, us in per.most_common(12):
         print(f"  device time {us / 1e3:10.3f} ms ({100 * us / 1e6 / busy:5.1f}%)  {name[:110]}")
 
@@ -1205,7 +1466,8 @@ def profile_window(label: str, run) -> None:
 def profiles(rnn_params: dict, lm_rnn_params: dict) -> None:
     """Steady-state windows, the broadcast RNN handed over so that its
     pretraining stays outside: the MLP main path (a 300 s image_recognition
-    run), the tiny_lm LM run and the full-width llama3.2-1b LM run."""
+    run), the coalesced path (its first 300 uploads), the tiny_lm LM run and
+    the full-width llama3.2-1b LM run."""
     from repro_torch.configs import get_config
     from repro_torch.fl.experiment import run_experiment
     from repro_torch.fl.lm_task import FrozenBase, LMTask, run_lm_experiment
@@ -1214,6 +1476,11 @@ def profiles(rnn_params: dict, lm_rnn_params: dict) -> None:
     def mlp():
         rep = run_experiment("image_recognition", "echopfl", num_clients=20, max_time=300, seed=0, device=DEVICE,
                              rnn_params=rnn_params)[3]
+        return rep.extra["uploads"]
+
+    def coalesced():
+        rep = run_experiment("image_recognition", "echopfl", device=DEVICE, rnn_params=rnn_params,
+                             **dict(COALESCED, max_uploads=300))[3]
         return rep.extra["uploads"]
 
     def tiny():
@@ -1230,6 +1497,7 @@ def profiles(rnn_params: dict, lm_rnn_params: dict) -> None:
         return rep.extra["uploads"]
 
     profile_window("image_recognition, 20 clients, 300 s", mlp)
+    profile_window("image_recognition coalesced, 128 clients, 45 s windows, 300 uploads", coalesced)
     profile_window("tiny_lm LM run, 8 clients, 900 s", tiny)
     profile_window("llama3.2-1b LM run, 4 clients, 720 s", full)
     torch.cuda.empty_cache()
@@ -1247,11 +1515,12 @@ def main() -> int:
     smi = probe()
     kernel_phase()
     counts, shapes, _, rnn_params = main_path()
+    coal = coalesced_path(rnn_params)
     tiny = lm_path()
     full = full_width(tiny["rnn"])
     agreement()
     lm_agreement(tiny["rnn"])
-    rows = timing(counts, shapes, full, tiny) + lm_timing(tiny, full)
+    rows = timing(counts, shapes, full, tiny) + [chain_row(coal)] + lm_timing(tiny, full)
     print(f"timing: {trace_sessions['kept']} profiler sessions kept, {trace_sessions['refused']} refused "
           f"(a partial or empty trace)")
     profiles(rnn_params, tiny["rnn"])

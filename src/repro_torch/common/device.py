@@ -7,6 +7,7 @@ matrix products and convolutions.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -25,3 +26,15 @@ def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def to_device(array, device: torch.device, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """A numpy array as a tensor on ``device``. To a card it goes from pinned
+    host memory without blocking, so staging a kernel's small operands does
+    not wait for the work already queued on the stream."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if dtype is not None:
+        t = t.to(dtype)
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

@@ -55,11 +55,14 @@ def rnn_logits(params: dict, seq: torch.Tensor) -> torch.Tensor:
     return h @ params["w_out"] + params["b_out"]
 
 
-def _rnn_sgd(params: dict, seq: torch.Tensor, label: int, lr: float) -> tuple[dict, torch.Tensor]:
-    """One SGD step on -log softmax(logits)[label]; returns fresh params."""
+def _rnn_sgd(params: dict, seq: torch.Tensor, label: int | torch.Tensor, lr: float) -> tuple[dict, torch.Tensor]:
+    """One SGD step on -log softmax(logits)[label]; returns fresh params.
+    ``label`` is an int or a (1,) int64 device tensor (read without a host
+    sync); both give the same gradient bits."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     with torch.enable_grad():
-        loss = -torch.log_softmax(rnn_logits(leaves, seq), dim=-1)[label]
+        logp = torch.log_softmax(rnn_logits(leaves, seq), dim=-1)
+        loss = -(logp[label] if isinstance(label, int) else logp.index_select(0, label)[0])
         grads = torch.autograd.grad(loss, list(leaves.values()))
     new = {k: (v - lr * g).detach() for (k, v), g in zip(leaves.items(), grads)}
     return new, loss.detach()
@@ -68,6 +71,20 @@ def _rnn_sgd(params: dict, seq: torch.Tensor, label: int, lr: float) -> tuple[di
 def _rnn_want(params: dict, seq: torch.Tensor) -> torch.Tensor:
     """Forward + first-index argmax decision (a device bool)."""
     return torch.argmax(rnn_logits(params, seq)) == 1
+
+
+def rnn_chain_step(params: dict, pre: torch.Tensor, post: torch.Tensor, label: torch.Tensor,
+                   learn_gate: bool, decide_gate: bool, lr: float) -> tuple[dict, torch.Tensor | None]:
+    """One upload's predictor work in a coalesced window (the step of
+    :func:`repro_torch.kernels.ops.predictor_chain`): the SGD step on the
+    pre-observe window when ``learn_gate``, then the broadcast decision on
+    the post-observe window when ``decide_gate`` (a device bool, else
+    None). The gates are host booleans, so a skipped body costs nothing;
+    ``label`` is a (1,) device tensor. The same arithmetic as a serial
+    :meth:`BroadcastPredictor.learn` then :meth:`BroadcastPredictor.decide`."""
+    if learn_gate:
+        params, _ = _rnn_sgd(params, pre, label, lr)
+    return params, (_rnn_want(params, post) if decide_gate else None)
 
 
 def build_seq(records: list, k: int) -> np.ndarray:

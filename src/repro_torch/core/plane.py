@@ -21,6 +21,7 @@ from typing import Any, Sequence
 import torch
 
 from repro_torch.common.pytrees import flatten_spec
+from repro_torch.kernels.l1 import l1_distance
 
 PyTree = Any
 
@@ -32,8 +33,18 @@ def lerp_vec(a: torch.Tensor, b: torch.Tensor, t: float) -> torch.Tensor:
     return torch.add(torch.mul(a, 1.0 - t), torch.mul(b, t))
 
 
-def l1_vec(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def l1_vec_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.sum(torch.abs(a - b))
+
+
+def l1_vec(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum |a - b| as a 0-d tensor. On the card it is one ``l1_distance``
+    launch, so its bits are those of the L1 kernels' fixed order
+    (``csrc/l1_rows.cuh``), which the coalesced ingest chain reproduces; on
+    the CPU the plain sum."""
+    if a.device.type == "cuda":
+        return l1_distance(a, b[None])[0]
+    return l1_vec_plain(a, b)
 
 
 class ParameterPlane:

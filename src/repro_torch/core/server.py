@@ -1,4 +1,4 @@
-"""The EchoPFL server, per-event path (counterpart of ``repro.core.server``).
+"""The EchoPFL server (counterpart of ``repro.core.server``).
 
 Per arriving update:
   1. assign/confirm cluster (on-arrival L1 clustering, Eq. 1 — the fused
@@ -13,6 +13,13 @@ Per arriving update:
      feedback for every member (segmented kernel), reassignment and dissolve
      probes (chi2 kernel), expansion, and merging by Algorithm 1 (pairwise
      L1 + merge-attention kernels).
+
+:meth:`EchoPFLServer.handle_uploads` ingests a coalesced window: segments
+of consecutive distinct clients go through one ``ingest_chain`` launch
+each (steps 1 and 3 and the predictor's statistics), the host replays the
+bookkeeping, and the predictor's learn/decide work of each refinement
+sub-window runs as one ``predictor_chain`` per touched cluster with one
+decision sync. The result is that of sequential ``handle_upload`` calls.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ import torch
 from repro_torch.common.device import resolve_device
 from repro_torch.core.broadcast import (
     BroadcastPredictor,
+    build_seq,
     predictor_for_expansion,
     predictor_for_merge,
     pretrain_rnn,
@@ -37,6 +45,16 @@ from repro_torch.kernels import ops as K
 from repro_torch.kernels.chi2 import segmented_numpy
 
 PyTree = Any
+
+
+@dataclasses.dataclass
+class _PredictorPlan:
+    """Resolved predictor work for one refinement sub-window: per-step
+    broadcast outcomes and the chain's final RNN weights, written back at
+    the sub-window's end (before any refine can inherit them)."""
+
+    wants: dict  # step index -> planned decide() outcome
+    new_params: dict  # cid -> the chain's final RNN params (device)
 
 
 @dataclasses.dataclass
@@ -64,6 +82,9 @@ class EchoPFLServer:
         feedback_fn: Callable[[Any, PyTree], tuple[np.ndarray, np.ndarray, np.ndarray]] | None = None,
         local_train_fn: Callable[[PyTree], PyTree] | None = None,
         rnn_params: dict | None = None,
+        enable_clustering: bool = True,
+        enable_broadcast: bool = True,
+        predictor_batch: bool = True,
         seed: int = 0,
         device: str | torch.device = "cuda",
     ):
@@ -81,6 +102,11 @@ class EchoPFLServer:
         # (F_pred, F_true, S_soft); the simulator's fleet installs one
         self.feedback_batch_fn: Callable[[list], tuple] | None = None
         self.local_train_fn = local_train_fn
+        self.enable_clustering = enable_clustering
+        self.enable_broadcast = enable_broadcast
+        # coalesced windows batch the predictor's learn/decide work into one
+        # chain per touched cluster (False: per-upload serial calls)
+        self.predictor_batch = predictor_batch
         self._uploads = 0
         self._decisions = 0
         self._rnn_broadcasts = 0
@@ -88,7 +114,9 @@ class EchoPFLServer:
         self._upload_rows: dict[Any, int] = {}  # client -> plane row of its last upload
         self.last_cluster_feedback_mean: dict[int, float] = {}
         self._rng = np.random.default_rng(seed)
-        if rnn_params is not None:
+        if not enable_broadcast:
+            self._rnn_init = None
+        elif rnn_params is not None:
             self._rnn_init = {k: torch.tensor(np.asarray(v), dtype=torch.float32).to(self.device)
                               for k, v in rnn_params.items()}
         else:
@@ -120,8 +148,14 @@ class EchoPFLServer:
         self._uploads += 1
         out: list[Downlink] = []
 
-        # 1. cluster assignment
-        cid, _created = self.clustering.assign(client_id, params)
+        # 1. cluster assignment (or the single global "cluster" in ablation)
+        if self.enable_clustering:
+            cid, _created = self.clustering.assign(client_id, params)
+        else:
+            if not self.clustering.clusters:
+                self.clustering._new_cluster(self.init_params)
+            cid = 0
+            self.clustering._move(client_id, 0)
         cluster = self.clustering.clusters[cid]
         plane = self.clustering.plane
         row = self._upload_rows.get(client_id)
@@ -134,20 +168,12 @@ class EchoPFLServer:
             branch = self.repo.branch(f"cluster/{cid}", cluster.center_vec)
 
         # 2. staleness bookkeeping (all updates included, none dropped)
-        base_cluster, base_ver = self.client_versions.get(client_id, (cid, 0))
-        if base_cluster == cid:
-            staleness = max(0, cluster.version - base_ver)
-        elif base_cluster in self.clustering.clusters:
-            # reassigned client: measured against the branch it trained from
-            staleness = max(0, self.clustering.clusters[base_cluster].version - base_ver)
-        else:
-            # base branch merged away; the merge broadcast refreshed members
-            staleness = max(0, cluster.version - cluster.last_broadcast_version)
-        self.staleness.record(staleness)
+        staleness = self._staleness(client_id, cid, cluster)
 
         # 3. aggregate = CI push into the branch
-        pred = self._predictor(cid)
-        prev_center = cluster.center_vec  # the pre-update center feeds the predictor
+        pred = self._predictor(cid) if self.enable_broadcast else None
+        if pred is not None:  # the pre-update center only feeds the predictor
+            prev_center = cluster.center_vec
 
         def merge_fn(head):
             self.clustering.aggregate(cid, params)
@@ -155,19 +181,20 @@ class EchoPFLServer:
         branch.push(client_id, merge_fn, f"upload from {client_id} (staleness {staleness})")
 
         # 4. Top-K change record + online fine-tune on the ground truth (Eq. 4)
-        change = float(l1_vec(cluster.center_vec, prev_center))
-        gap_before = float(l1_vec(prev_center, cluster.broadcast_vec))
-        label = 1 if change > gap_before else 0
-        if pred.records:
-            pred.learn(label)
-        pred.observe(change)
+        if pred is not None:
+            change = float(l1_vec(cluster.center_vec, prev_center))
+            gap_before = float(l1_vec(prev_center, cluster.broadcast_vec))
+            label = 1 if change > gap_before else 0
+            if pred.records:
+                pred.learn(label)
+            pred.observe(change)
 
         # 5. unicast fresh center to the uploader
         out.append(Downlink(client_id, cluster.center, cluster.version, cid, "unicast"))
         self.client_versions[client_id] = (cid, cluster.version)
 
         # 6. on-demand broadcast to the rest of the cluster
-        if cluster.size > 1:
+        if pred is not None and cluster.size > 1:
             gap = float(l1_vec(cluster.center_vec, cluster.broadcast_vec))
             self._decisions += 1
             if pred.decide(gap):
@@ -178,6 +205,369 @@ class EchoPFLServer:
         if self._uploads % self.refine_every == 0:
             out.extend(self._refine())
         return out
+
+    def _staleness(self, client_id, cid: int, cluster) -> int:
+        """Record and return the upload's staleness (never decayed or dropped)."""
+        base_cluster, base_ver = self.client_versions.get(client_id, (cid, 0))
+        if base_cluster == cid:
+            staleness = max(0, cluster.version - base_ver)
+        elif base_cluster in self.clustering.clusters:
+            # reassigned client: measured against the branch it trained from
+            staleness = max(0, self.clustering.clusters[base_cluster].version - base_ver)
+        else:
+            # base branch merged away; the merge broadcast refreshed members
+            staleness = max(0, cluster.version - cluster.last_broadcast_version)
+        self.staleness.record(staleness)
+        return staleness
+
+    # ------------------------------------------------------- batched ingest
+    def handle_uploads(self, batch: list[tuple]) -> list[list[Downlink]]:
+        """Batched ingest of a coalesced window: ``batch`` holds
+        ``handle_upload`` argument tuples ``(client_id, params, base_version,
+        n_samples, t)`` in event order; returns one downlink list per upload,
+        what sequential ``handle_upload`` calls would return.
+
+        Uploads go in segments of consecutive distinct clients, each one
+        ``ingest_chain`` launch (:meth:`_handle_upload_segment`). The seeding
+        phase, the clustering ablation, a repeated client and a segment of
+        one upload take the per-upload path."""
+        out: list[list[Downlink]] = []
+        i, n = 0, len(batch)
+        while i < n:
+            cl = self.clustering
+            if cl.plane is None or not self.enable_clustering or len(cl.clusters) < cl.num_initial:
+                out.append(self.handle_upload(*batch[i]))
+                i += 1
+                continue
+            seen: set = set()
+            j = i
+            while j < n and batch[j][0] not in seen:
+                seen.add(batch[j][0])
+                j += 1
+            if j - i < 2:
+                out.append(self.handle_upload(*batch[i]))
+                i += 1
+                continue
+            seg_out, consumed = self._handle_upload_segment(batch[i:j])
+            out.extend(seg_out)
+            i += consumed
+        return out
+
+    def _prev_forced(self, seg: list[tuple], start: int, pos: dict) -> tuple[list[int], list[int]]:
+        """Each upload's previous cluster and, for a partial-finetune member,
+        the cluster it is pinned to, as indices into ``pos`` (-1: none)."""
+        cl = self.clustering
+        prev_idx, forced_idx = [], []
+        for item in seg[start:]:
+            prev = cl.assignment.get(item[0])
+            alive = prev is not None and prev in cl.clusters
+            pinned = alive and item[0] in cl.clusters[prev].partial_finetune
+            prev_idx.append(pos[prev] if alive else -1)
+            forced_idx.append(pos[prev] if pinned else -1)
+        return prev_idx, forced_idx
+
+    def _handle_upload_segment(self, seg: list[tuple]) -> tuple[list[list[Downlink]], int]:
+        """One segment of :meth:`handle_uploads`: one ``ingest_chain`` launch,
+        one host copy of its cids, statistics and blended rows, then the
+        per-upload bookkeeping replayed from them. The launch spans refine
+        boundaries speculatively: a refine that changed the cluster set or an
+        upload's prev/forced index stops the replay, and the caller
+        relaunches the rest from live state. Returns ``(downlink lists,
+        uploads consumed)``."""
+        cl = self.clustering
+        plane = cl.plane
+        cid_order = sorted(cl.clusters)
+        pos = {c: k for k, c in enumerate(cid_order)}
+        S = len(seg)
+
+        U = torch.stack([plane.from_pytree(item[1]) for item in seg])  # one flatten per upload
+        prev_idx, forced_idx = self._prev_forced(seg, 0, pos)
+
+        res = K.ingest_chain(
+            U, plane.rows([cl.clusters[c]._row for c in cid_order]),
+            plane.rows([cl.clusters[c]._bcast_row for c in cid_order]),
+            prev_idx, forced_idx, beta=cl.mix_rate,
+        )
+        cids_np, blended, stats = res.host()  # the segment's one host sync
+        change_np, gb_np, ga_np = stats[:, 0], stats[:, 1], stats[:, 2]
+        blended.flags.writeable = False
+
+        step_cids = [cid_order[int(cids_np[j])] for j in range(S)]
+        out: list[list[Downlink]] = []
+        last_vec: dict[int, np.ndarray] = {}  # cid -> live center row (host)
+        bcast_np: dict[int, np.ndarray] = {}  # cid -> anchor moved mid-segment (host)
+        batch_pred = self.enable_broadcast and self.predictor_batch
+        j0 = 0
+        while j0 < S:
+            # predictor sub-window: up to and including the next refine
+            # boundary, whose predictor maintenance must see the weights as
+            # of refine time
+            j1 = min(S, j0 + self.refine_every - (self._uploads % self.refine_every))
+            # the sub-window's upload rows in one write: a refine, which
+            # reads them, only comes at its end
+            rows = []
+            for item in seg[j0:j1]:
+                row = self._upload_rows.get(item[0])
+                if row is None:
+                    row = self._upload_rows[item[0]] = plane.alloc()
+                rows.append(row)
+            plane.write_rows(rows, U[j0:j1])
+            plan = (
+                self._plan_predictor_window(seg, j0, j1, step_cids, forced_idx, change_np, gb_np, ga_np,
+                                            blended, bcast_np, last_vec)
+                if batch_pred else None
+            )
+            for j in range(j0, j1):
+                client_id = seg[j][0]
+                self._uploads += 1
+                msgs: list[Downlink] = []
+                cid = step_cids[j]
+                cluster = cl.clusters[cid]
+                if forced_idx[j] < 0:  # partial-finetune members stay put
+                    cl._move(client_id, cid)
+                try:
+                    branch = self.repo.branch(f"cluster/{cid}")
+                except KeyError:
+                    branch = self.repo.branch(f"cluster/{cid}", cluster.center_vec)
+                staleness = self._staleness(client_id, cid, cluster)
+                pred = self._predictor(cid) if self.enable_broadcast else None
+                new_vec = blended[j]
+
+                def merge_fn(head, cluster=cluster, vec=res.blended[j]):
+                    cluster.set_center_vec(vec)
+                    cluster.version += 1
+                    return cluster.center_vec
+
+                branch.push(client_id, merge_fn, f"upload from {client_id} (staleness {staleness})")
+
+                if pred is not None:
+                    change = float(change_np[j])
+                    if plan is None:
+                        b_moved = bcast_np.get(cid)
+                        if b_moved is not None:
+                            # a broadcast in this segment moved the anchor:
+                            # the launch's gap is stale; both rows are host rows
+                            gap_before = float(np.abs(last_vec[cid] - b_moved).sum(dtype=np.float32))
+                        else:
+                            gap_before = float(gb_np[j])
+                        if pred.records:
+                            pred.learn(1 if change > gap_before else 0)
+                    # with a plan the chain already took the SGD steps
+                    pred.observe(change)
+
+                # unicast payload: a device view of the launch's blended row
+                msgs.append(Downlink(client_id, plane.spec.unflatten(res.blended[j]), cluster.version, cid,
+                                     "unicast"))
+                self.client_versions[client_id] = (cid, cluster.version)
+
+                if pred is not None and cluster.size > 1:
+                    self._decisions += 1
+                    if plan is None:
+                        b_moved = bcast_np.get(cid)
+                        if b_moved is not None:
+                            gap = float(np.abs(new_vec - b_moved).sum(dtype=np.float32))
+                        else:
+                            gap = float(ga_np[j])
+                        want = pred.decide(gap)
+                    else:
+                        # BroadcastPredictor.decide with the planned outcome
+                        pred.decisions += 1
+                        if not pred.active:
+                            pred.active = True
+                            want = False
+                        else:
+                            want = plan.wants[j]
+                        if want:
+                            pred.broadcasts += 1
+                    if want:
+                        self._rnn_broadcasts += 1
+                        msgs.extend(self._broadcast(cluster, exclude={client_id}))
+                        bcast_np[cid] = new_vec  # the anchor is now this row
+                last_vec[cid] = new_vec
+
+                if j == j1 - 1 and plan is not None:
+                    # the chain's final weights, before a refine inherits them
+                    for wcid, wparams in plan.new_params.items():
+                        self.predictors[wcid].params = wparams
+                if self._uploads % self.refine_every == 0:
+                    msgs.extend(self._refine())
+                    out.append(msgs)
+                    if j + 1 < S and not self._segment_continuation_valid(
+                        seg, j + 1, cid_order, prev_idx, forced_idx
+                    ):
+                        cl._pending = None
+                        return out, j + 1
+                else:
+                    out.append(msgs)
+            j0 = j1
+        cl._pending = None  # the segment never uses the assign-time cache
+        return out, S
+
+    def _segment_continuation_valid(self, seg: list[tuple], start: int, cid_order: list, prev_idx: list,
+                                    forced_idx: list) -> bool:
+        """After a mid-segment refine: does the launch still hold for the
+        uploads from ``start`` on? It fixed the cluster set (expansion,
+        merge and dissolve change it) and each upload's prev/forced index
+        (feedback reassignment and lifted pins change those)."""
+        if sorted(self.clustering.clusters) != cid_order:
+            return False
+        prev_now, forced_now = self._prev_forced(seg, start, {c: k for k, c in enumerate(cid_order)})
+        return prev_now == prev_idx[start:] and forced_now == forced_idx[start:]
+
+    def _plan_predictor_window(self, seg, j0, j1, step_cids, forced_idx, change_np, gb_np, ga_np, blended,
+                               bcast_np, last_vec) -> _PredictorPlan:
+        """One refinement sub-window's predictor work as one
+        ``predictor_chain`` per touched cluster and one decision sync.
+
+        A structure pass replays membership and record evolution on the
+        host without touching live state: the gates (learn: records
+        nonempty; decide: cluster size > 1, by kind) do not depend on
+        decisions. Only the Eq. 4 labels and the cold-start fallback
+        decisions depend on the broadcast anchor, which within a window is
+        the window-start anchor or the blended row of an earlier fired step
+        of the same cluster; so each is tabulated for every "last fired
+        position" in host float64/float32 arithmetic, and the chain gathers
+        from the tables on the device. ``resolve`` replays the host
+        bookkeeping under the synced RNN decisions."""
+        cl = self.clustering
+
+        # ---- structure pass: decision-independent step data
+        sim_size: dict[int, int] = {}
+        sim_assign: dict[Any, int] = {}
+        pstate: dict[int, dict] = {}  # cid -> simulated predictor state
+
+        def size_of(c):
+            return sim_size.get(c, cl.clusters[c].size)
+
+        def pred_of(c):
+            ps = pstate.get(c)
+            if ps is None:
+                live = self.predictors.get(c)
+                if live is not None:
+                    ps = {"records": list(live.records), "scale": live.scale, "active": live.active,
+                          "k": live.k, "params": live.params}
+                else:  # _predictor() creates at first touch, k from the live size
+                    ps = {"records": [], "scale": 1.0, "active": True, "k": max(self.top_k, size_of(c)),
+                          "params": self._rnn_init}
+                pstate[c] = ps
+            return ps
+
+        steps = []
+        for j in range(j0, j1):
+            client = seg[j][0]
+            cid = step_cids[j]
+            if forced_idx[j] < 0:  # mirror cl._move's size effects
+                prev = sim_assign.get(client, cl.assignment.get(client))
+                if prev != cid:
+                    if prev is not None and prev in cl.clusters:
+                        sim_size[prev] = size_of(prev) - 1
+                    sim_size[cid] = size_of(cid) + 1
+                sim_assign[client] = cid
+            ps = pred_of(cid)
+            change = float(change_np[j])
+            learn_gate = len(ps["records"]) > 0
+            seq_pre = build_seq(ps["records"], ps["k"]) if learn_gate else None
+            ps["records"].append(change)  # observe(), host-exact
+            ps["records"] = ps["records"][-max(ps["k"], 1):]
+            ps["scale"] = 0.9 * ps["scale"] + 0.1 * max(abs(change), 1e-12)
+            kind, seq_post = "none", None
+            if size_of(cid) > 1:
+                if not ps["active"]:
+                    kind = "inactive"
+                    ps["active"] = True
+                elif len(ps["records"]) < 2:
+                    kind = "fallback"
+                else:
+                    kind = "rnn"
+                    seq_post = build_seq(ps["records"], ps["k"])
+            steps.append({"j": j, "cid": cid, "change": change, "learn": learn_gate, "seq_pre": seq_pre,
+                          "kind": kind, "seq_post": seq_post, "scale": ps["scale"]})
+
+        # ---- labels and decisions under a set of RNN outcomes
+        def resolve(rnn_wants: dict) -> dict:
+            anchors = dict(bcast_np)
+            lastv = dict(last_vec)
+            wants: dict[int, bool] = {}
+            for st in steps:
+                j, cid = st["j"], st["cid"]
+                a = anchors.get(cid)
+                want = False
+                if st["kind"] == "fallback":
+                    gap = float(ga_np[j]) if a is None else float(np.abs(blended[j] - a).sum(dtype=np.float32))
+                    want = gap > 1.0 * st["scale"]  # decide()'s fallback rule
+                elif st["kind"] == "rnn":
+                    want = bool(rnn_wants.get(j, False))
+                wants[j] = want
+                if want:
+                    anchors[cid] = blended[j]
+                lastv[cid] = blended[j]
+            return wants
+
+        # ---- one chain per cluster that learns or decides by the RNN
+        chains: dict[int, list] = {}
+        for st in steps:
+            if st["learn"] or st["kind"] in ("rnn", "fallback"):
+                chains.setdefault(st["cid"], []).append(st)
+        launch_cids = [c for c in sorted(chains) if any(st["learn"] or st["kind"] == "rnn" for st in chains[c])]
+        if not launch_cids:  # no device work this window
+            return _PredictorPlan(wants=resolve({}), new_params={})
+
+        # the last-upload row each step sees before it runs (moves at every
+        # step of its cluster, in a chain or not)
+        lastv_sim = dict(last_vec)
+        lastv_before: dict[int, Any] = {}
+        for st in steps:
+            lastv_before[st["j"]] = lastv_sim.get(st["cid"])
+            lastv_sim[st["cid"]] = blended[st["j"]]
+
+        wants_dev: dict[int, torch.Tensor] = {}
+        finals: dict[int, dict] = {}
+        for c in launch_cids:
+            sub = chains[c]
+            k, L = pred_of(c)["k"], len(sub)
+            pre = np.zeros((L, k, 1), np.float32)
+            post = np.zeros((L, k, 1), np.float32)
+            lab_t = np.zeros((L, L + 1), np.int64)
+            fb_t = np.zeros((L, L + 1), bool)
+            lgate, dgate, fgate = np.zeros(L, bool), np.zeros(L, bool), np.zeros(L, bool)
+            anchor0 = bcast_np.get(c)
+            for p, st in enumerate(sub):
+                j = st["j"]
+                lv = lastv_before[j]
+                # anchors live when step p runs: column 0 the window-start
+                # anchor, column q + 1 chain step q fired last
+                cand = [(0, anchor0)] + [(q + 1, blended[sub[q]["j"]]) for q in range(p)
+                                         if sub[q]["kind"] in ("rnn", "fallback")]
+                if st["learn"]:
+                    pre[p] = st["seq_pre"]
+                    lgate[p] = True
+                    for col, a in cand:
+                        gb = float(gb_np[j]) if a is None else float(np.abs(lv - a).sum(dtype=np.float32))
+                        lab_t[p, col] = 1 if st["change"] > gb else 0
+                if st["kind"] == "rnn":
+                    post[p] = st["seq_post"]
+                    dgate[p] = True
+                elif st["kind"] == "fallback":
+                    fgate[p] = True
+                    for col, a in cand:
+                        ga = float(ga_np[j]) if a is None else float(np.abs(blended[j] - a).sum(dtype=np.float32))
+                        fb_t[p, col] = ga > 1.0 * st["scale"]
+            finals[c], w = K.predictor_chain(pred_of(c)["params"], pre, post, lab_t, fb_t, lgate, dgate, fgate,
+                                             1e-2)
+            if dgate.any():
+                wants_dev[c] = w
+
+        used: dict[int, bool] = {}
+        if wants_dev:
+            w_host = torch.cat(list(wants_dev.values())).cpu().numpy()  # the window's one decision sync
+            o = 0
+            for c, w in wants_dev.items():
+                for p, st in enumerate(chains[c]):
+                    if st["kind"] == "rnn":
+                        used[st["j"]] = bool(w_host[o + p])
+                o += len(w)
+        new_params = {c: finals[c] for c in launch_cids if any(st["learn"] for st in chains[c])}
+        return _PredictorPlan(wants=resolve(used), new_params=new_params)
 
     def _broadcast(self, cluster, exclude: set = frozenset()) -> list[Downlink]:
         cluster.snapshot_broadcast()
@@ -281,6 +671,8 @@ class EchoPFLServer:
 
     def _refine(self) -> list[Downlink]:
         out: list[Downlink] = []
+        if not self.enable_clustering:
+            return out
         self._refine_round += 1
         if self._refine_round % 5 == 0:  # decay peel counts
             self.clustering.peel_counts = {

@@ -2,7 +2,9 @@
 (counterpart of ``repro.fl.experiment``, EchoPFL only).
 
 ``run_experiment(task, "echopfl", ...)`` is the port's end-to-end entry
-point. It runs on ``device="cuda"`` unless the caller asks for the CPU.
+point: the per-event loop, or with ``coalesce_window=`` seconds the
+coalesced one. It runs on ``device="cuda"`` unless the caller asks for the
+CPU.
 ``init_params=`` (MLP weights) and ``rnn_params=`` (pretrained broadcast
 RNN) hand over weights made elsewhere — e.g. the reference's, which torch
 cannot draw itself — instead of drawing them from ``seed``.
@@ -82,7 +84,11 @@ def build_strategy(
     mix_rate: float = 0.25,
     rnn_params: dict | None = None,
     device: str | torch.device = "cuda",
+    **server_kw,
 ):
+    """The EchoPFL server over ``clients``; ``server_kw`` goes to
+    :class:`EchoPFLServer` (``refine_every``, ``enable_clustering``,
+    ``enable_broadcast``, ``predictor_batch``, ...)."""
     if name != "echopfl":
         raise NotImplementedError(f"repro_torch: strategy {name!r} is not ported yet")
     by_id = {c.client_id: c for c in clients}
@@ -106,6 +112,7 @@ def build_strategy(
         rnn_params=rnn_params,
         seed=seed,
         device=device,
+        **server_kw,
     )
 
 
@@ -127,9 +134,13 @@ def run_experiment(
     device: str | torch.device = "cuda",
     init_params: PyTree | None = None,
     rnn_params: dict | None = None,
+    coalesce_window: float = 0.0,
+    max_uploads: int | None = None,
     **strategy_kw,
 ):
-    """Returns (task, clients, strategy, report)."""
+    """Returns (task, clients, strategy, report). ``coalesce_window`` > 0
+    runs the coalesced loop (seconds of virtual time a window);
+    ``max_uploads`` stops the run at that many ingested uploads."""
     dev = resolve_device(device)
     task, clients, init_params = build_clients(
         task_name, num_clients, seed=seed, latent_clusters=latent_clusters,
@@ -144,9 +155,9 @@ def run_experiment(
     sim = Simulator(
         clients, strategy,
         network=network or NetworkModel(),
-        eval_interval=eval_interval, target_acc=target_acc, seed=seed,
+        eval_interval=eval_interval, target_acc=target_acc, seed=seed, coalesce_window=coalesce_window,
     )
-    report = sim.run(max_time=max_time)
+    report = sim.run(max_time=max_time, max_uploads=max_uploads)
     report.extra["task"] = task_name
     report.extra["latent_clusters"] = {c.client_id: c.data.latent_cluster for c in clients}
     return task, clients, strategy, report

@@ -4,11 +4,12 @@ compute (counterpart of ``repro.fl.fleet`` without the mesh).
 Every client's current model is a row of a second
 :class:`~repro_torch.core.plane.ParameterPlane`; per-client train/test data
 pads once into ``(clients, n, ...)`` device tensors with validity masks.
-Three batched calls replace per-client loops:
+Batched calls replace per-client loops:
 
 * :meth:`ClientFleet.train_client` — the async path's single-client local
   round, trained from (and written back to) the client's model row, padded
-  like every cohort to a power of two (padded rows train 0 epochs);
+  like every cohort to a power of two (padded rows train 0 epochs), and
+  :meth:`ClientFleet.train_rows`, a coalesced window's rounds in one batch;
 * :meth:`ClientFleet.evaluate_fleet` — masked accuracy for the whole fleet;
 * :meth:`ClientFleet.feedback_many` — batched (member, center) probes
   emitting the (F_pred, F_true, S_soft) rows the server's chi2 kernels take.
@@ -74,6 +75,21 @@ class ClientFleet:
         self.plane.write(self._model_row[i], self._vec_of(params))
         self._has_model[i] = True
 
+    def set_models(self, cids: Sequence[Any], params_list: Sequence[PyTree]) -> None:
+        """Install a window's downlinks in one ``write_rows``: a broadcast's
+        fan-out hands every member the same center object, which costs one
+        flatten. A client listed twice keeps its last model, as sequential
+        :meth:`set_model` calls leave it."""
+        latest: dict[int, PyTree] = {}
+        for cid, p in zip(cids, params_list):
+            latest[self.index[cid]] = p
+        rows, vecs = [], []
+        for i, p in latest.items():
+            rows.append(self._model_row[i])
+            vecs.append(self._vec_of(p))
+            self._has_model[i] = True
+        self.plane.write_rows(rows, torch.stack(vecs))
+
     def model_vec(self, cid) -> torch.Tensor:
         i = self.index[cid]
         if not self._has_model[i]:
@@ -120,6 +136,20 @@ class ClientFleet:
         self.plane.write(self._model_row[i], vec)
         self._has_model[i] = True
         return self.spec.unflatten(vec), losses[0]
+
+    def train_rows(self, cids: Sequence[Any]) -> tuple[list[PyTree], torch.Tensor]:
+        """The local rounds of a window's distinct clients in one padded
+        batch: each trains from (and writes back) its own model row, the
+        rows gathered on the device. Returns the trained trees (views of
+        one device matrix) and the (S,) losses."""
+        idx = np.asarray([self.index[c] for c in cids])
+        for c in cids:
+            if not self._has_model[self.index[c]]:
+                raise ValueError(f"client {c} has no model set")
+        rows = [self._model_row[i] for i in idx]
+        vecs, losses = self._train(idx, self.plane.take(rows), *self._train_specs(cids))
+        self.plane.write_rows(rows, vecs)
+        return [self.spec.unflatten(v) for v in vecs], losses
 
     # ---------------------------------------------------------- evaluation
     def evaluate_fleet(self, params_list: Sequence[PyTree | None]) -> np.ndarray:

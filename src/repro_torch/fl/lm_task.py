@@ -390,11 +390,12 @@ def run_lm_experiment(
     base_params: PyTree | None = None,
     init_params: PyTree | None = None,
     rnn_params: dict | None = None,
+    coalesce_window: float = 0.0,
     **strategy_kw,
 ):
-    """End-to-end LM personalization run on the per-event asynchronous
-    loop: returns (task, clients, strategy, report) like
-    :func:`repro_torch.fl.experiment.run_experiment`."""
+    """End-to-end LM personalization run on the asynchronous loop, per event
+    or with ``coalesce_window`` > 0 coalesced: returns (task, clients,
+    strategy, report) like :func:`repro_torch.fl.experiment.run_experiment`."""
     from repro_torch.fl.experiment import build_strategy
     from repro_torch.fl.network import NetworkModel
     from repro_torch.fl.simulator import Simulator
@@ -409,7 +410,7 @@ def run_lm_experiment(
     strategy = build_strategy(strategy_name, init_delta, clients, seed=seed, rnn_params=rnn_params,
                               device=dev, **strategy_kw)
     sim = Simulator(clients, strategy, network=network or NetworkModel(), eval_interval=eval_interval,
-                    seed=seed)
+                    seed=seed, coalesce_window=coalesce_window)
     report = sim.run(max_time=max_time)
     report.extra["task"] = "lm"
     report.extra["latent_clusters"] = {c.client_id: c.data.latent_cluster for c in clients}

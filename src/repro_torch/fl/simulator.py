@@ -1,12 +1,13 @@
-"""Event-driven federated-learning simulator, per-event asynchronous loop
+"""Event-driven federated-learning simulator, asynchronous loops
 (counterpart of ``repro.fl.simulator``).
 
 Replays the paper's setup in virtual time: heterogeneous devices, an
-asymmetric up/down network, and the EchoPFL strategy on an event heap. The
-client side runs on the batched :class:`~repro_torch.fl.fleet.ClientFleet`.
-Faults, the ingest guard, compressed uplinks, churn, coalescing windows and
-the synchronous loop are not part of this port yet; :meth:`Simulator.run`
-raises for them.
+asymmetric up/down network, and the EchoPFL strategy on an event heap,
+one event at a time or, with a coalescing window, one window of events at
+a time. The client side runs on the batched
+:class:`~repro_torch.fl.fleet.ClientFleet`. Faults, the ingest guard,
+compressed uplinks, churn and the synchronous loop are not part of this
+port yet; :meth:`Simulator.run` raises for a synchronous strategy.
 """
 from __future__ import annotations
 
@@ -80,6 +81,7 @@ class Simulator:
         self.curve: list[tuple[float, float]] = []
         self._counter = itertools.count()
         self.coalesce_window = float(coalesce_window)
+        self.coalesced_groups: dict[str, list[int]] = {}  # kind -> window group sizes
         self._fleet = None  # built lazily from the first initial model
         self._last_accs: dict = {}
 
@@ -166,10 +168,13 @@ class Simulator:
             c.base_version = 0
             push(dl + c.compute_time(), "upload_start", cid)
 
-    def run_async(self, *, max_time: float = 3600.0) -> SimReport:
-        """Per-event loop for an asynchronous strategy (EchoPFL)."""
+    def run_async(self, *, max_time: float = 3600.0, max_uploads: int | None = None) -> SimReport:
+        """Event loop for an asynchronous strategy (EchoPFL): one event at a
+        time, or with ``coalesce_window > 0`` one window of events at a time
+        (:meth:`_run_async_coalesced`). ``max_uploads`` stops the run at that
+        many ingested uploads."""
         if self.coalesce_window > 0:
-            raise NotImplementedError("repro_torch: coalescing windows are not ported yet")
+            return self._run_async_coalesced(self.coalesce_window, max_time=max_time, max_uploads=max_uploads)
         strat = self.strategy
         events: list = []  # (time, seq, kind, payload)
 
@@ -190,13 +195,8 @@ class Simulator:
                 next_eval += self.eval_interval
 
             if kind == "upload_start":  # local training finished; uplink begins
-                cid = payload
-                c = self.clients[cid]
-                new_params, _ = self._fleet.train_client(cid)
-                c.model = new_params
-                nbytes = model_bytes(new_params)
-                dur = self.net.upload(nbytes, t)
-                push(t + dur, "upload_done", (cid, new_params, c.base_version))
+                new_params, _ = self._fleet.train_client(payload)
+                self._send_upload(push, t, payload, new_params)
             elif kind == "upload_done":
                 cid, params, base_version = payload
                 uploads += 1
@@ -206,22 +206,165 @@ class Simulator:
                     push(t + dur, "downlink", dl)
                 # the client starts its next local round at once
                 push(t + c.compute_time(), "upload_start", cid)
+                if max_uploads and uploads >= max_uploads:
+                    break
             elif kind == "downlink":
-                dl = payload
-                c = self.clients[dl.client_id]
-                self._set_model(c, dl.params)
-                c.base_version = dl.version
-                c.cluster_id = dl.cluster_id
-                if dl.cluster_id in strat.clustering.clusters:
-                    c.partial_finetune = (
-                        dl.client_id in strat.clustering.clusters[dl.cluster_id].partial_finetune
-                    )
+                self._install(payload)
 
         extra = strat.stats()
         extra["uploads"] = uploads
         return self._report(t, extra)
 
-    def run(self, *, max_time: float = 3600.0) -> SimReport:
+    def _send_upload(self, push, t: float, cid, new_params: PyTree) -> None:
+        """The client keeps its trained model and sends it: bill the uplink
+        and schedule the arrival."""
+        c = self.clients[cid]
+        c.model = new_params
+        dur = self.net.upload(model_bytes(new_params), t)
+        push(t + dur, "upload_done", (cid, new_params, c.base_version))
+
+    def _install(self, dl, *, row_written: bool = False) -> None:
+        """A downlink's protocol state on its client (and the model in its
+        fleet row, unless a batched write already put it there)."""
+        c = self.clients[dl.client_id]
+        if row_written:
+            c.model = dl.params
+        else:
+            self._set_model(c, dl.params)
+        c.base_version = dl.version
+        c.cluster_id = dl.cluster_id
+        clusters = self.strategy.clustering.clusters
+        if dl.cluster_id in clusters:
+            c.partial_finetune = dl.client_id in clusters[dl.cluster_id].partial_finetune
+
+    # ------------------------------------------------- coalesced async run
+    def _run_async_coalesced(self, window: float, *, max_time: float, max_uploads: int | None) -> SimReport:
+        """Event-coalesced loop: the events whose virtual times fall in one
+        ``window`` are popped together, bucketed by kind and processed as
+        batches, in the causal order of one server tick: downlinks (one
+        batched row write), finished local rounds (one batched training
+        call), arrivals (one :meth:`EchoPFLServer.handle_uploads`). Each
+        event keeps its own time for billing and scheduling, events in a
+        bucket go in event order, and a window never crosses an evaluation,
+        the horizon or the upload cap. Messages made inside a window
+        deliver in a later one, when their own times pop. With one event a
+        window this is the per-event loop, bit for bit. Compute times are
+        drawn at collection time, in global event order, so the device RNG
+        stream is the per-event loop's."""
+        strat = self.strategy
+        events: list = []  # (time, seq, kind, payload)
+
+        def push(t, kind, payload):
+            heapq.heappush(events, (t, next(self._counter), kind, payload))
+
+        self._init_async_events(push)
+        self.coalesced_groups = {}
+
+        def stash(kn, pn):
+            # an arrival draws its client's next compute time now, in event order
+            return self.clients[pn[0]].compute_time() if kn == "upload_done" else None
+
+        next_eval = self.eval_interval
+        uploads = 0
+        t = 0.0
+        while events:
+            t0, _, kind, payload = heapq.heappop(events)
+            if t0 > max_time:
+                t = max_time
+                break
+            t = t0
+            while t >= next_eval:
+                self._evaluate(next_eval)
+                next_eval += self.eval_interval
+
+            buckets: dict[str, list] = {"downlink": [], "upload_start": [], "upload_done": []}
+            buckets[kind].append((t0, payload, stash(kind, payload)))
+            limit = t0 + window
+            cap = max_uploads - uploads if max_uploads else None
+            arrivals = 1 if kind == "upload_done" else 0
+            while events and (cap is None or arrivals < cap):
+                tn, _, kn, pn = events[0]
+                if tn >= limit or tn >= next_eval or tn > max_time:
+                    break
+                heapq.heappop(events)
+                buckets[kn].append((tn, pn, stash(kn, pn)))
+                t = tn
+                arrivals += kn == "upload_done"
+            for kn, group in buckets.items():
+                if group:
+                    self.coalesced_groups.setdefault(kn, []).append(len(group))
+
+            if buckets["downlink"]:
+                self._coalesced_downlinks(buckets["downlink"])
+            if buckets["upload_start"]:
+                self._coalesced_upload_starts(buckets["upload_start"], push)
+            if buckets["upload_done"]:
+                uploads += self._coalesced_upload_dones(buckets["upload_done"], push)
+                if max_uploads and uploads >= max_uploads:
+                    break
+
+        extra = strat.stats()
+        extra["uploads"] = uploads
+        extra["coalesce_window"] = window
+        return self._report(t, extra)
+
+    def _coalesced_upload_starts(self, group, push) -> None:
+        """One batched training call for a window's finished local rounds;
+        billing and scheduling per event, in order, so the heap's sequence
+        numbers match the per-event loop's push for push."""
+        cids = [cid for _, cid, _ in group]
+        if len(cids) > 1:
+            outs, _ = self._fleet.train_rows(cids)
+            trained = dict(zip(cids, outs))
+        else:
+            trained = {cids[0]: self._fleet.train_client(cids[0])[0]}
+        for ti, cid, _ in group:
+            self._send_upload(push, ti, cid, trained[cid])
+
+    def _coalesced_upload_dones(self, group, push) -> int:
+        """One batched ingest for a window's arrivals. The downlinks of one
+        ingest all carry a whole model, so each run of them that shares a
+        payload object is billed in one call and shipped as one batch event;
+        the next local round is scheduled with the compute time drawn at
+        collection."""
+        strat = self.strategy
+        batch = [(cid, params, bv, self.clients[cid].data.n, ti) for ti, (cid, params, bv), _ in group]
+        if len(batch) > 1:
+            downlinks_per = strat.handle_uploads(batch)
+        else:
+            downlinks_per = [strat.handle_upload(*batch[0])]
+        for (ti, (cid, _, _), next_compute), dls in zip(group, downlinks_per):
+            run: list = []
+            run_obj, run_nb = None, 0
+            for dl in dls:
+                if run and dl.params is not run_obj:  # a broadcast fans out one object
+                    nb = model_bytes(dl.params)
+                    if nb != run_nb:
+                        push(ti + self.net.download_bulk(run_nb, len(run), ti), "downlink", run)
+                        run = []
+                    run_obj, run_nb = dl.params, nb
+                elif not run:
+                    run_obj, run_nb = dl.params, model_bytes(dl.params)
+                run.append(dl)
+            if run:
+                push(ti + self.net.download_bulk(run_nb, len(run), ti), "downlink", run)
+            push(ti + next_compute, "upload_start", cid)
+        return len(batch)
+
+    def _coalesced_downlinks(self, group) -> None:
+        """A window's downlinks (single :class:`Downlink`s or whole fan-out
+        batches): the fleet's model rows in one write, each client's protocol
+        state in delivery order."""
+        flat: list = []
+        for _, payload, _ in group:
+            flat.extend(payload) if isinstance(payload, list) else flat.append(payload)
+        batched = len(flat) > 1
+        if batched:
+            self._fleet.set_models([dl.client_id for dl in flat], [dl.params for dl in flat])
+        for dl in flat:
+            self._install(dl, row_written=batched)
+
+    def run(self, *, max_time: float = 3600.0, max_uploads: int | None = None) -> SimReport:
         if getattr(self.strategy, "is_synchronous", False):
             raise NotImplementedError("repro_torch: synchronous strategies are not ported yet")
-        return self.run_async(max_time=max_time)
+        return self.run_async(max_time=max_time, max_uploads=max_uploads)

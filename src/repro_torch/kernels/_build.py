@@ -25,7 +25,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("l1.cu", "assign_lerp.cu", "chi2.cu", "merge.cu", "flash_fwd.cu", "flash_bwd.cu")
+SOURCES = ("l1.cu", "assign_lerp.cu", "ingest_chain.cu", "chi2.cu", "merge.cu", "flash_fwd.cu", "flash_bwd.cu")
 HEADERS = ("common.cuh", "l1_rows.cuh", "flash_common.cuh", "mma_tf32.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
@@ -45,6 +45,9 @@ _SIGNATURES = {
     "repro_l1_rows": ([_P] * 4 + [_I64] * 4 + [_INT, _P], _INT),
     # u, centers, C, N, chunks, beta, scratch, dists, idx, out, device, stream
     "repro_assign_lerp": ([_P, _P, _I64, _I64, _I64, ctypes.c_double] + [_P] * 4 + [_INT, _P], _INT),
+    # U, carried, bcast, prev_forced, S, C, N, chunks, beta, margin, scratch, stat_part, dists, cids,
+    # stats, blended, device, stream
+    "repro_ingest_chain": ([_P] * 4 + [_I64] * 4 + [ctypes.c_double] * 2 + [_P] * 6 + [_INT, _P], _INT),
     # fp, ft, ss, seg, out, M, J, S, device, stream
     "repro_chi2": ([_P] * 5 + [_I64] * 3 + [_INT, _P], _INT),
     # vm, va, vt, N, out, device, stream

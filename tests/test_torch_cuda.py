@@ -7,7 +7,9 @@ Tolerances as in ``chip_smoke.py``: L1 and chi2 rtol 1e-5 (and the L1
 and chi2 sums bitwise those of the numpy models of their orders), the blend
 bitwise, the index equal, the merge bitwise its plain version (NaN at the
 same places), the flash forward 1e-5 and backward 3e-4 (the backward also
-bitwise across repeats).
+bitwise across repeats); the ingest chain's cids, blended rows and carried
+matrix bitwise its plain version's and its distances and statistics
+bitwise the numpy model of the L1 order (``kernel_chain``).
 """
 import numpy as np
 import pytest
@@ -325,3 +327,73 @@ def test_cuda_flash_wrappers_count_launches(cuda_device):
     assert counts["flash_attention_fwd"] == 1
     assert counts["flash_attention_dq"] == counts["flash_attention_dkv"] == 1
     assert counts["pairwise_l1"] == 1
+
+
+CHAIN_SHAPES = [(1, 1, 1), (8, 3, 4099), (13, 4, 4550), (32, 4, 25418), (4, 2, 783360), (40, 16, 25418)]
+
+
+def _chain_inputs(s, c, n, nan_step=None):
+    rng = np.random.default_rng(s * 1000 + c * 10 + n % 97)
+    centers = _f32(rng, c, n)
+    bcast = (centers + 0.3 * _f32(rng, c, n)).astype(np.float32)
+    U = _f32(rng, s, n)
+    prev = [int(p) if rng.uniform() < 0.7 else -1 for p in rng.integers(0, c, s)]
+    forced = [int(p) if rng.uniform() < 0.2 else -1 for p in rng.integers(0, c, s)]
+    prev[0] = forced[0] = -1
+    kind, pick = rng.integers(0, 3, s), rng.integers(0, c, s)
+    for j in range(s):  # near a center; midway between the previous one and another (vetoes); noise
+        if kind[j] == 0:
+            U[j] = centers[pick[j]] + 0.2 * U[j]
+        elif kind[j] == 1 and prev[j] >= 0:
+            U[j] = 0.5 * (centers[prev[j]] + centers[pick[j]]) + 0.05 * U[j]
+    if nan_step is not None:
+        U[nan_step, n // 3] = np.nan
+    return U, centers, bcast, prev, forced
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,with_nan", [(sh, nan) for sh in CHAIN_SHAPES for nan in (False, True)
+                                            if not nan or sh[0] >= 4], ids=str)
+def test_cuda_ingest_chain_bits(cuda_device, shape, with_nan):
+    """The chain kernel against its plain version (on the CPU): cids equal,
+    blended rows and carried matrix bitwise; against the numpy model of the
+    L1 order (``tests/test_torch_l1_order.py::kernel_chain``): cids equal,
+    distances and statistics bitwise (NaN at the same places); bitwise over
+    3 repeats; one launch counted a call."""
+    from test_torch_l1_order import kernel_chain
+
+    from repro_torch.kernels.ingest_chain import ingest_chain_plain
+
+    s, c, n = shape
+    U, centers, bcast, prev, forced = _chain_inputs(s, c, n, s // 2 if with_nan else None)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (U, centers, bcast)]
+    ops.reset_launch_counts()
+    runs = [ops.ingest_chain(*args, prev, forced, beta=0.25) for _ in range(3)]
+    assert ops.launch_counts()["ingest_chain"] == 3
+    got = runs[0]
+    plain = ingest_chain_plain(*(torch.from_numpy(a) for a in (U, centers, bcast)), prev, forced, 0.25)
+    m_cids, _, m_dists, m_stats, _ = kernel_chain(U, centers, bcast, prev, forced, 0.25)
+    assert torch.equal(got.cids.cpu(), plain.cids) and np.array_equal(got.cids.cpu().numpy(), m_cids)
+    assert _same_nan_bits(got.blended.cpu(), plain.blended)
+    assert _same_nan_bits(got.carried.cpu(), plain.carried)
+    assert _same_nan_bits(got.dists.cpu(), torch.from_numpy(m_dists))
+    assert _same_nan_bits(got.stats.cpu(), torch.from_numpy(m_stats))
+    for r in runs[1:]:
+        assert torch.equal(_bits(r.buf), _bits(got.buf)) and torch.equal(_bits(r.carried), _bits(got.carried))
+
+
+@pytest.mark.cuda
+def test_cuda_l1_vec_is_the_chain_order(cuda_device):
+    """On the card ``l1_vec`` is one ``l1_distance`` launch: the bits of the
+    numpy model of the L1 order, which the chain's statistics share."""
+    from test_torch_l1_order import kernel_l1
+
+    from repro_torch.core.plane import l1_vec
+
+    rng = np.random.default_rng(3)
+    for n in (1, 4099, 25418):
+        a, b = _f32(rng, n), _f32(rng, n)
+        ops.reset_launch_counts()
+        got = l1_vec(torch.from_numpy(a).to(cuda_device), torch.from_numpy(b).to(cuda_device))
+        assert ops.launch_counts()["l1_distance"] == 1
+        assert got.cpu().numpy().tobytes() == kernel_l1(a, b).tobytes()

@@ -21,7 +21,9 @@ themselves):
   the kernel source's.
 
 ``tests/test_torch_cuda.py`` holds the kernels' distances on the card to
-:func:`kernel_l1` bit for bit.
+:func:`kernel_l1` bit for bit, and the coalesced ingest chain
+(``csrc/ingest_chain.cu``) to :func:`kernel_chain`, which strings those
+sums into the chain's steps.
 """
 import re
 from pathlib import Path
@@ -65,6 +67,37 @@ def kernel_l1(x: np.ndarray, c: np.ndarray) -> np.float32:
     for row in lanes.reshape(-1, 32):  # lane l: chunks l, l + 32, ... in order
         per_lane = per_lane + row
     return butterfly(per_lane)
+
+
+def kernel_chain(U, centers, bcast, prev_idx, forced_idx, beta: float, margin: float = 0.1):
+    """The ingest chain in numpy, with every sum in :func:`kernel_l1`'s
+    order: per step the distances to the carried rows, the first-index
+    argmin (a NaN wins), the veto ``d[amin] > fl(fl(1 - margin) d[prev])``,
+    the forced index, the two-op blend and the three statistics. Returns
+    ``(cids, blended, dists, stats, carried)``; ``stats[j]`` is (change,
+    gap_before, gap_after)."""
+    U, cmat, bcast = (np.asarray(a, np.float32) for a in (U, centers, bcast))
+    cmat = cmat.copy()
+    S, C = U.shape[0], cmat.shape[0]
+    omb, b, omm = np.float32(1.0 - beta), np.float32(beta), np.float32(1.0 - margin)
+    cids = np.zeros(S, np.int32)
+    blended = np.zeros_like(U)
+    dists = np.zeros((S, C), np.float32)
+    stats = np.zeros((S, 3), np.float32)
+    for j in range(S):
+        d = np.asarray([kernel_l1(U[j], r) for r in cmat], np.float32)
+        amin = int(np.argmin(d))
+        cid = amin
+        if forced_idx[j] >= 0:
+            cid = forced_idx[j]
+        elif prev_idx[j] >= 0 and prev_idx[j] != amin and d[amin] > omm * d[prev_idx[j]]:
+            cid = prev_idx[j]
+        old = cmat[cid].copy()
+        new = omb * old + b * U[j]
+        cids[j], blended[j], dists[j] = cid, new, d
+        stats[j] = (kernel_l1(new, old), kernel_l1(old, bcast[cid]), kernel_l1(new, bcast[cid]))
+        cmat[cid] = new
+    return cids, blended, dists, stats, cmat
 
 
 def old_kernel_l1(buf: np.ndarray, offset: int, n: int) -> np.float32:
