@@ -15,9 +15,13 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.common.device import to_device
+
 PyTree = Any
 HIDDEN = 128
 NUM_LAYERS = 2
+LEARN_LR = 1e-2  # the online fine-tune's SGD step (Eq. 4)
+FALLBACK_THRESHOLD = 1.0  # cold start: broadcast iff the gap exceeds this times the change scale
 
 
 # ---------------------------------------------------------------- RNN model
@@ -76,15 +80,52 @@ def _rnn_want(params: dict, seq: torch.Tensor) -> torch.Tensor:
 def rnn_chain_step(params: dict, pre: torch.Tensor, post: torch.Tensor, label: torch.Tensor,
                    learn_gate: bool, decide_gate: bool, lr: float) -> tuple[dict, torch.Tensor | None]:
     """One upload's predictor work in a coalesced window (the step of
-    :func:`repro_torch.kernels.ops.predictor_chain`): the SGD step on the
-    pre-observe window when ``learn_gate``, then the broadcast decision on
-    the post-observe window when ``decide_gate`` (a device bool, else
-    None). The gates are host booleans, so a skipped body costs nothing;
-    ``label`` is a (1,) device tensor. The same arithmetic as a serial
-    :meth:`BroadcastPredictor.learn` then :meth:`BroadcastPredictor.decide`."""
+    :func:`predictor_chain`): the SGD step on the pre-observe window when
+    ``learn_gate``, then the broadcast decision on the post-observe window
+    when ``decide_gate`` (a device bool, else None). The gates are host
+    booleans, so a skipped body costs nothing; ``label`` is a (1,) device
+    tensor. The same arithmetic as a serial :meth:`BroadcastPredictor.learn`
+    then :meth:`BroadcastPredictor.decide`."""
     if learn_gate:
         params, _ = _rnn_sgd(params, pre, label, lr)
     return params, (_rnn_want(params, post) if decide_gate else None)
+
+
+def predictor_chain(params: dict, pre, post, lab_table, fb_table, learn_gate, decide_gate, fb_gate,
+                    lr: float = LEARN_LR) -> tuple[dict, torch.Tensor]:
+    """The broadcast predictor's learn/decide steps of one cluster over a
+    coalesced window, in order, with no host sync (counterpart of the
+    reference's ``ops.predictor_chain``; plain PyTorch, not a kernel).
+
+    ``pre``/``post`` (S, k, 1) are the record windows before and after each
+    step's observe, at the cluster's own ``k`` (the reference front-pads to
+    a power of two only for its compile cache). ``lab_table`` (S, S + 1)
+    ints and ``fb_table`` (S, S + 1) bools hold each step's Eq. 4 label and
+    cold-start fallback decision for every "last fired position": column 0
+    the window-start anchor, column q + 1 step q fired last. The chain
+    carries the RNN weights and the fired position ``fire`` as a device
+    int, gathers each step's label and fallback decision from the tables on
+    the device, and moves ``fire`` where a step wants a broadcast. The
+    three gates are host booleans. Returns (final params, wants (S,) device
+    bools), the weights and decisions of the serial learn/decide path."""
+    dev = _device_of(params)
+    pre_d = to_device(np.asarray(pre, np.float32), dev)
+    post_d = to_device(np.asarray(post, np.float32), dev)
+    lab_d = to_device(np.asarray(lab_table, np.int64), dev)
+    fb_d = to_device(np.asarray(fb_table, np.bool_), dev)
+    fire = torch.zeros(1, dtype=torch.long, device=dev)
+    no = torch.zeros((), dtype=torch.bool, device=dev)
+    wants = []
+    for p in range(len(learn_gate)):
+        params, want = rnn_chain_step(params, pre_d[p], post_d[p], lab_d[p].index_select(0, fire),
+                                      bool(learn_gate[p]), bool(decide_gate[p]), lr)
+        if fb_gate[p]:
+            want = fb_d[p].index_select(0, fire)[0]
+        elif want is None:
+            want = no
+        fire = torch.where(want, p + 1, fire)
+        wants.append(want)
+    return params, torch.stack(wants)
 
 
 def build_seq(records: list, k: int) -> np.ndarray:
@@ -112,6 +153,12 @@ class BroadcastPredictor:
     decisions: int = 0
     broadcasts: int = 0
 
+    def shadow(self) -> "BroadcastPredictor":
+        """A copy whose records, scale and decision state can advance
+        without touching this predictor (the coalesced planner's structure
+        pass); the weights are shared, not copied."""
+        return dataclasses.replace(self, records=list(self.records))
+
     def observe(self, change: float) -> None:
         self.records.append(float(change))
         self.records = self.records[-max(self.k, 1):]
@@ -120,21 +167,44 @@ class BroadcastPredictor:
     def _seq(self) -> torch.Tensor:
         return torch.from_numpy(build_seq(self.records, self.k)).to(_device_of(self.params))
 
-    def decide(self, accumulated_gap: float, fallback_threshold: float = 1.0) -> bool:
-        """RNN decision; when inactive (fresh expansion) never broadcast."""
+    def decision_kind(self) -> str:
+        """Count a decision and name its rule: ``"inactive"`` (a fresh
+        expansion: no broadcast, and the predictor resumes after it),
+        ``"fallback"`` (cold start, fewer than two records) or ``"rnn"``."""
         self.decisions += 1
         if not self.active:
             self.active = True  # one suppressed decision, then resume
-            return False
-        if len(self.records) < 2:  # cold start: rule-based fallback
-            want = accumulated_gap > fallback_threshold * self.scale
-        else:
-            want = bool(_rnn_want(self.params, self._seq()))
+            return "inactive"
+        return "fallback" if len(self.records) < 2 else "rnn"
+
+    @staticmethod
+    def fallback_wants(accumulated_gap: float, scale: float, threshold: float = FALLBACK_THRESHOLD) -> bool:
+        """The cold-start rule: broadcast iff the gap exceeds the scaled threshold."""
+        return accumulated_gap > threshold * scale
+
+    def record_decision(self, want: bool) -> bool:
+        """Count a broadcast where ``want``; returns ``want``."""
         if want:
             self.broadcasts += 1
         return want
 
-    def learn(self, label: int, lr: float = 1e-2) -> torch.Tensor:
+    def decide(self, accumulated_gap: float, fallback_threshold: float = FALLBACK_THRESHOLD) -> bool:
+        """RNN decision; when inactive (fresh expansion) never broadcast."""
+        kind = self.decision_kind()
+        if kind == "inactive":
+            return False
+        if kind == "fallback":
+            want = self.fallback_wants(accumulated_gap, self.scale, fallback_threshold)
+        else:
+            want = bool(_rnn_want(self.params, self._seq()))
+        return self.record_decision(want)
+
+    def apply_decision(self, want: bool) -> bool:
+        """:meth:`decide` with its outcome already known (the coalesced
+        planner's; an inactive predictor's outcome is no broadcast)."""
+        return self.record_decision(self.decision_kind() != "inactive" and want)
+
+    def learn(self, label: int, lr: float = LEARN_LR) -> torch.Tensor:
         """Online fine-tune on the realized ground truth (Eq. 4); returns the
         loss as a device scalar (no host read)."""
         self.params, loss = _rnn_sgd(self.params, self._seq(), label, lr)

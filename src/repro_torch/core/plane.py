@@ -33,10 +33,6 @@ def lerp_vec(a: torch.Tensor, b: torch.Tensor, t: float) -> torch.Tensor:
     return torch.add(torch.mul(a, 1.0 - t), torch.mul(b, t))
 
 
-def l1_vec_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.sum(torch.abs(a - b))
-
-
 def l1_vec(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """sum |a - b| as a 0-d tensor. On the card it is one ``l1_distance``
     launch, so its bits are those of the L1 kernels' fixed order
@@ -44,7 +40,7 @@ def l1_vec(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     the CPU the plain sum."""
     if a.device.type == "cuda":
         return l1_distance(a, b[None])[0]
-    return l1_vec_plain(a, b)
+    return torch.sum(torch.abs(a - b))
 
 
 class ParameterPlane:

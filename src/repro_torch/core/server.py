@@ -33,6 +33,7 @@ from repro_torch.common.device import resolve_device
 from repro_torch.core.broadcast import (
     BroadcastPredictor,
     build_seq,
+    predictor_chain,
     predictor_for_expansion,
     predictor_for_merge,
     pretrain_rnn,
@@ -84,7 +85,6 @@ class EchoPFLServer:
         rnn_params: dict | None = None,
         enable_clustering: bool = True,
         enable_broadcast: bool = True,
-        predictor_batch: bool = True,
         seed: int = 0,
         device: str | torch.device = "cuda",
     ):
@@ -104,9 +104,6 @@ class EchoPFLServer:
         self.local_train_fn = local_train_fn
         self.enable_clustering = enable_clustering
         self.enable_broadcast = enable_broadcast
-        # coalesced windows batch the predictor's learn/decide work into one
-        # chain per touched cluster (False: per-upload serial calls)
-        self.predictor_batch = predictor_batch
         self._uploads = 0
         self._decisions = 0
         self._rnn_broadcasts = 0
@@ -296,7 +293,6 @@ class EchoPFLServer:
         out: list[list[Downlink]] = []
         last_vec: dict[int, np.ndarray] = {}  # cid -> live center row (host)
         bcast_np: dict[int, np.ndarray] = {}  # cid -> anchor moved mid-segment (host)
-        batch_pred = self.enable_broadcast and self.predictor_batch
         j0 = 0
         while j0 < S:
             # predictor sub-window: up to and including the next refine
@@ -315,7 +311,7 @@ class EchoPFLServer:
             plan = (
                 self._plan_predictor_window(seg, j0, j1, step_cids, forced_idx, change_np, gb_np, ga_np,
                                             blended, bcast_np, last_vec)
-                if batch_pred else None
+                if self.enable_broadcast else None
             )
             for j in range(j0, j1):
                 client_id = seg[j][0]
@@ -340,20 +336,8 @@ class EchoPFLServer:
 
                 branch.push(client_id, merge_fn, f"upload from {client_id} (staleness {staleness})")
 
-                if pred is not None:
-                    change = float(change_np[j])
-                    if plan is None:
-                        b_moved = bcast_np.get(cid)
-                        if b_moved is not None:
-                            # a broadcast in this segment moved the anchor:
-                            # the launch's gap is stale; both rows are host rows
-                            gap_before = float(np.abs(last_vec[cid] - b_moved).sum(dtype=np.float32))
-                        else:
-                            gap_before = float(gb_np[j])
-                        if pred.records:
-                            pred.learn(1 if change > gap_before else 0)
-                    # with a plan the chain already took the SGD steps
-                    pred.observe(change)
+                if pred is not None:  # the plan's chain already took the SGD steps
+                    pred.observe(float(change_np[j]))
 
                 # unicast payload: a device view of the launch's blended row
                 msgs.append(Downlink(client_id, plane.spec.unflatten(res.blended[j]), cluster.version, cid,
@@ -362,24 +346,7 @@ class EchoPFLServer:
 
                 if pred is not None and cluster.size > 1:
                     self._decisions += 1
-                    if plan is None:
-                        b_moved = bcast_np.get(cid)
-                        if b_moved is not None:
-                            gap = float(np.abs(new_vec - b_moved).sum(dtype=np.float32))
-                        else:
-                            gap = float(ga_np[j])
-                        want = pred.decide(gap)
-                    else:
-                        # BroadcastPredictor.decide with the planned outcome
-                        pred.decisions += 1
-                        if not pred.active:
-                            pred.active = True
-                            want = False
-                        else:
-                            want = plan.wants[j]
-                        if want:
-                            pred.broadcasts += 1
-                    if want:
+                    if pred.apply_decision(plan.wants[j]):
                         self._rnn_broadcasts += 1
                         msgs.extend(self._broadcast(cluster, exclude={client_id}))
                         bcast_np[cid] = new_vec  # the anchor is now this row
@@ -434,22 +401,18 @@ class EchoPFLServer:
         # ---- structure pass: decision-independent step data
         sim_size: dict[int, int] = {}
         sim_assign: dict[Any, int] = {}
-        pstate: dict[int, dict] = {}  # cid -> simulated predictor state
+        shadows: dict[int, BroadcastPredictor] = {}  # cid -> predictor state advanced by the pass
 
         def size_of(c):
             return sim_size.get(c, cl.clusters[c].size)
 
         def pred_of(c):
-            ps = pstate.get(c)
+            ps = shadows.get(c)
             if ps is None:
                 live = self.predictors.get(c)
-                if live is not None:
-                    ps = {"records": list(live.records), "scale": live.scale, "active": live.active,
-                          "k": live.k, "params": live.params}
-                else:  # _predictor() creates at first touch, k from the live size
-                    ps = {"records": [], "scale": 1.0, "active": True, "k": max(self.top_k, size_of(c)),
-                          "params": self._rnn_init}
-                pstate[c] = ps
+                # _predictor() creates one at first touch, k from the live size
+                ps = shadows[c] = (live.shadow() if live is not None else
+                                   BroadcastPredictor(params=self._rnn_init, k=max(self.top_k, size_of(c))))
             return ps
 
         steps = []
@@ -465,28 +428,17 @@ class EchoPFLServer:
                 sim_assign[client] = cid
             ps = pred_of(cid)
             change = float(change_np[j])
-            learn_gate = len(ps["records"]) > 0
-            seq_pre = build_seq(ps["records"], ps["k"]) if learn_gate else None
-            ps["records"].append(change)  # observe(), host-exact
-            ps["records"] = ps["records"][-max(ps["k"], 1):]
-            ps["scale"] = 0.9 * ps["scale"] + 0.1 * max(abs(change), 1e-12)
-            kind, seq_post = "none", None
-            if size_of(cid) > 1:
-                if not ps["active"]:
-                    kind = "inactive"
-                    ps["active"] = True
-                elif len(ps["records"]) < 2:
-                    kind = "fallback"
-                else:
-                    kind = "rnn"
-                    seq_post = build_seq(ps["records"], ps["k"])
+            learn_gate = len(ps.records) > 0
+            seq_pre = build_seq(ps.records, ps.k) if learn_gate else None
+            ps.observe(change)
+            kind = ps.decision_kind() if size_of(cid) > 1 else "none"
+            seq_post = build_seq(ps.records, ps.k) if kind == "rnn" else None
             steps.append({"j": j, "cid": cid, "change": change, "learn": learn_gate, "seq_pre": seq_pre,
-                          "kind": kind, "seq_post": seq_post, "scale": ps["scale"]})
+                          "kind": kind, "seq_post": seq_post, "scale": ps.scale})
 
         # ---- labels and decisions under a set of RNN outcomes
         def resolve(rnn_wants: dict) -> dict:
             anchors = dict(bcast_np)
-            lastv = dict(last_vec)
             wants: dict[int, bool] = {}
             for st in steps:
                 j, cid = st["j"], st["cid"]
@@ -494,13 +446,12 @@ class EchoPFLServer:
                 want = False
                 if st["kind"] == "fallback":
                     gap = float(ga_np[j]) if a is None else float(np.abs(blended[j] - a).sum(dtype=np.float32))
-                    want = gap > 1.0 * st["scale"]  # decide()'s fallback rule
+                    want = BroadcastPredictor.fallback_wants(gap, st["scale"])
                 elif st["kind"] == "rnn":
                     want = bool(rnn_wants.get(j, False))
                 wants[j] = want
                 if want:
                     anchors[cid] = blended[j]
-                lastv[cid] = blended[j]
             return wants
 
         # ---- one chain per cluster that learns or decides by the RNN
@@ -524,7 +475,7 @@ class EchoPFLServer:
         finals: dict[int, dict] = {}
         for c in launch_cids:
             sub = chains[c]
-            k, L = pred_of(c)["k"], len(sub)
+            k, L = pred_of(c).k, len(sub)
             pre = np.zeros((L, k, 1), np.float32)
             post = np.zeros((L, k, 1), np.float32)
             lab_t = np.zeros((L, L + 1), np.int64)
@@ -551,9 +502,8 @@ class EchoPFLServer:
                     fgate[p] = True
                     for col, a in cand:
                         ga = float(ga_np[j]) if a is None else float(np.abs(blended[j] - a).sum(dtype=np.float32))
-                        fb_t[p, col] = ga > 1.0 * st["scale"]
-            finals[c], w = K.predictor_chain(pred_of(c)["params"], pre, post, lab_t, fb_t, lgate, dgate, fgate,
-                                             1e-2)
+                        fb_t[p, col] = BroadcastPredictor.fallback_wants(ga, st["scale"])
+            finals[c], w = predictor_chain(pred_of(c).params, pre, post, lab_t, fb_t, lgate, dgate, fgate)
             if dgate.any():
                 wants_dev[c] = w
 

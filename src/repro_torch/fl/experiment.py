@@ -88,7 +88,7 @@ def build_strategy(
 ):
     """The EchoPFL server over ``clients``; ``server_kw`` goes to
     :class:`EchoPFLServer` (``refine_every``, ``enable_clustering``,
-    ``enable_broadcast``, ``predictor_batch``, ...)."""
+    ``enable_broadcast``, ...)."""
     if name != "echopfl":
         raise NotImplementedError(f"repro_torch: strategy {name!r} is not ported yet")
     by_id = {c.client_id: c for c in clients}

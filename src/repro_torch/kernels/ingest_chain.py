@@ -28,7 +28,6 @@ import numpy as np
 import torch
 
 from repro_torch.common.device import to_device
-from repro_torch.core.plane import l1_vec_plain
 from repro_torch.kernels import _build
 from repro_torch.kernels._dispatch import check_f32, use_plain
 from repro_torch.kernels.assign_lerp import assign_and_lerp_plain, blend_plain
@@ -73,8 +72,8 @@ def ingest_chain_plain(U, centers, bcast, prev_idx: Sequence[int], forced_idx: S
                        switch_margin: float = 0.1) -> ChainOut:
     """S sequential port steps: ``assign_and_lerp_plain``, the veto in fp32
     numpy (as ``DynamicClustering.assign`` takes it), ``blend_plain`` and
-    the plain sum of ``l1_vec`` (what ``l1_vec`` is on the CPU; on the card
-    this version stays plain PyTorch)."""
+    the plain sum ``torch.sum(torch.abs(a - b))`` (what ``l1_vec`` is on the
+    CPU; on the card this version stays plain PyTorch)."""
     S, N = U.shape
     C = centers.shape[0]
     out = _alloc(S, C, N, centers.clone())
@@ -91,9 +90,9 @@ def ingest_chain_plain(U, centers, bcast, prev_idx: Sequence[int], forced_idx: S
             cid = int(prev_idx[j])
         c_old = cmat[cid].clone()
         c_new = blend_plain(c_old, U[j], beta)
-        out.stats[j, 0] = l1_vec_plain(c_new, c_old)
-        out.stats[j, 1] = l1_vec_plain(c_old, bcast[cid])
-        out.stats[j, 2] = l1_vec_plain(c_new, bcast[cid])
+        out.stats[j, 0] = torch.sum(torch.abs(c_new - c_old))
+        out.stats[j, 1] = torch.sum(torch.abs(c_old - bcast[cid]))
+        out.stats[j, 2] = torch.sum(torch.abs(c_new - bcast[cid]))
         out.dists[j] = dists
         out.cids[j] = cid
         out.blended[j] = c_new

@@ -6,11 +6,8 @@ CUDA tensors launch the hand-written kernel or raise.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from repro_torch.common.device import to_device
-from repro_torch.core.broadcast import rnn_chain_step
 from repro_torch.kernels.assign_lerp import assign_and_lerp
 from repro_torch.kernels.chi2 import chi2_feedback, chi2_feedback_segmented
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_with_lse
@@ -67,43 +64,6 @@ def attention(q, k, v, *, causal=True, scale=None, window=None, softcap=None, q_
     return _Attention.apply(q, k, v, causal, scale, window, softcap, q_pos0)
 
 
-def predictor_chain(params: dict, pre, post, lab_table, fb_table, learn_gate, decide_gate, fb_gate,
-                    lr: float) -> tuple[dict, torch.Tensor]:
-    """The broadcast predictor's learn/decide steps of one cluster over a
-    coalesced window, in order, with no host sync (counterpart of the
-    reference's ``ops.predictor_chain``; plain PyTorch, not a kernel).
-
-    ``pre``/``post`` (S, k, 1) are the record windows before and after each
-    step's observe, at the cluster's own ``k`` (the reference front-pads to
-    a power of two only for its compile cache). ``lab_table`` (S, S + 1)
-    ints and ``fb_table`` (S, S + 1) bools hold each step's Eq. 4 label and
-    cold-start fallback decision for every "last fired position": column 0
-    the window-start anchor, column q + 1 step q fired last. The chain
-    carries the RNN weights and the fired position ``fire`` as a device
-    int, gathers each step's label and fallback decision from the tables on
-    the device, and moves ``fire`` where a step wants a broadcast. The
-    three gates are host booleans. Returns (final params, wants (S,) device
-    bools), the weights and decisions of the serial learn/decide path."""
-    dev = next(iter(params.values())).device
-    pre_d = to_device(np.asarray(pre, np.float32), dev)
-    post_d = to_device(np.asarray(post, np.float32), dev)
-    lab_d = to_device(np.asarray(lab_table, np.int64), dev)
-    fb_d = to_device(np.asarray(fb_table, np.bool_), dev)
-    fire = torch.zeros(1, dtype=torch.long, device=dev)
-    no = torch.zeros((), dtype=torch.bool, device=dev)
-    wants = []
-    for p in range(len(learn_gate)):
-        params, want = rnn_chain_step(params, pre_d[p], post_d[p], lab_d[p].index_select(0, fire),
-                                      bool(learn_gate[p]), bool(decide_gate[p]), lr)
-        if fb_gate[p]:
-            want = fb_d[p].index_select(0, fire)[0]
-        elif want is None:
-            want = no
-        fire = torch.where(want, p + 1, fire)
-        wants.append(want)
-    return params, torch.stack(wants)
-
-
 def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
@@ -116,5 +76,5 @@ def reset_launch_counts() -> None:
 __all__ = [
     "assign_and_lerp", "attention", "chi2_feedback", "chi2_feedback_segmented", "flash_attention",
     "flash_attention_bwd", "flash_attention_with_lse", "ingest_chain", "l1_distance", "l1_distance_pairwise",
-    "launch_counts", "merge_attention", "pairwise_l1", "predictor_chain", "reset_launch_counts",
+    "launch_counts", "merge_attention", "pairwise_l1", "reset_launch_counts",
 ]

@@ -7,8 +7,8 @@ and the simulator's coalescing window.
   put a refine boundary mid-batch; also a duplicate client that splits a
   segment, partial-finetune pins, frequent refines that invalidate the
   speculative launch, broadcast and clustering disabled, minimal windows,
-  and the predictor batched or not (the counterpart of the reference's
-  ``TestHandleUploadsSequentialEquivalence``).
+  and an expansion seeded in mid-segment (the counterpart of the
+  reference's ``TestHandleUploadsSequentialEquivalence``).
 - The coalesced loop at a window of 1e-9 s equals the per-event loop: the
   whole report.
 - At a 45 s window the port equals the reference's coalesced run on
@@ -205,17 +205,111 @@ def test_minimal_window_pairs_bitwise(rnn_np, segments):
     assert set(segments) == {2}
 
 
-@pytest.mark.parametrize("batch", [True, False])
-def test_predictor_batched_or_serial_is_sequential(rnn_np, batch):
-    """``predictor_batch`` on: one chain per cluster and window; off: the
-    serial learn/decide calls. Both replay sequential ingest bit for bit,
-    final RNN weights included."""
+@pytest.mark.parametrize("seed", [0, 5])
+def test_predictor_batched_or_serial_is_sequential(rnn_np, seed):
+    """The predictor's work, one chain per cluster and refinement
+    sub-window, replays the serial learn/decide calls of sequential ingest
+    bit for bit, final RNN weights included."""
     clients, init, sA = _server(rnn_np)
-    _, _, sB = _server(rnn_np, predictor_batch=batch)
-    stream = _noisy_stream(clients, init)
+    _, _, sB = _server(rnn_np)
+    stream = _noisy_stream(clients, init, seed=seed)
     outA = [sA.handle_upload(*u) for u in stream]
     outB = _batched(sB, stream, 6)
     _assert_servers_equal(sA, sB, outA, outB)
+
+
+# ------------------------------------------- a refine that expands mid-segment
+def _expansion_stream(seed=7, n_clients=6, rounds=2, dim=(16, 8)):
+    """Two rounds of distinct clients: a window of the second round is one
+    segment whose refine (every 8 uploads) comes before client 4's upload."""
+    rng = np.random.default_rng(seed)
+    init = [{"w": rng.standard_normal(dim).astype(np.float32), "b": np.zeros(dim[1], np.float32)}]
+    stream = []
+    for r in range(rounds):
+        for c in range(n_clients):
+            up = [{k: v + np.float32(0.1) * rng.standard_normal(v.shape).astype(np.float32)
+                   for k, v in init[0].items()}]
+            stream.append((c, up, 0, 48, float(r)))
+    return init, stream
+
+
+def _feedback(client_id, center):
+    """Every client fits its center but client 4, the refine's one poor fit."""
+    f_true = np.full(4, 0.25, np.float32)
+    f_pred = np.asarray([0.7, 0.1, 0.1, 0.1], np.float32) if client_id == 4 else f_true
+    return f_pred, f_true, np.asarray([0.1, 0.4, 0.2, 0.3], np.float32)
+
+
+def _record_seeds(server):
+    """The flat rows that expansions seed new clusters from."""
+    seeds = []
+    cl = server.clustering
+    expand, new_cluster = cl.expand, cl._new_cluster
+
+    def rec_new(center):
+        seeds.append(np.asarray(center.cpu() if isinstance(center, torch.Tensor) else center))
+        return new_cluster(center)
+
+    def rec_expand(*a, **kw):
+        cl._new_cluster = rec_new
+        try:
+            return expand(*a, **kw)
+        finally:
+            cl._new_cluster = new_cluster
+
+    cl.expand = rec_expand
+    return seeds
+
+
+def _flat(upload):
+    return np.concatenate([upload[0]["b"], upload[0]["w"].reshape(-1)])
+
+
+def test_mid_segment_expansion_seeds_from_sequential_rows(rnn_np, segments):
+    """A refine inside a segment expands client 4 out of its cluster. Its
+    new center is seeded from client 4's last upload row. Sequential ingest
+    has written the first round's upload there; the port's segment writes
+    each refinement sub-window's rows at its start and equals sequential
+    ingest bit for bit. The reference's segment writes every row before its
+    replay, so its seed is the second round's upload, which arrives after
+    the refine."""
+    from repro.core.server import EchoPFLServer as JaxServer
+
+    init, stream = _expansion_stream()
+    flat0, flat1 = _flat(stream[4][1]), _flat(stream[10][1])
+    kw = dict(num_initial_clusters=1, refine_every=8, feedback_fn=_feedback)
+
+    def port():
+        to_t = lambda tree: [{k: torch.from_numpy(v) for k, v in layer.items()} for layer in tree]  # noqa: E731
+        srv = server_mod.EchoPFLServer(to_t(init), rnn_params=rnn_np, device="cpu", **kw)
+        return srv, _record_seeds(srv), [(c, to_t(u), *rest) for c, u, *rest in stream]
+
+    sA, seedsA, st = port()
+    sB, seedsB, _ = port()
+    outA = [sA.handle_upload(*u) for u in st]
+    outB = sB.handle_uploads(st[:6]) + sB.handle_uploads(st[6:])
+    _assert_servers_equal(sA, sB, outA, outB)
+    assert [e["kind"] for e in sA.events if e["kind"] != "broadcast"] == ["expand"]
+    assert 6 in segments  # the second round went in as one segment, then relaunched
+    assert len(seedsA) == len(seedsB) == 1
+    np.testing.assert_array_equal(seedsB[0].view(np.int32), seedsA[0].view(np.int32))
+    np.testing.assert_array_equal(seedsA[0], flat0)
+
+    def ref():
+        to_j = lambda tree: [{k: jax.numpy.asarray(v) for k, v in layer.items()} for layer in tree]  # noqa: E731
+        srv = JaxServer(to_j(init), enable_broadcast=False, **kw)
+        return srv, _record_seeds(srv), [(c, to_j(u), *rest) for c, u, *rest in stream]
+
+    jA, jseedsA, jst = ref()
+    jB, jseedsB, _ = ref()
+    for u in jst:
+        jA.handle_upload(*u)
+    jB.handle_uploads(jst[:6])
+    jB.handle_uploads(jst[6:])
+    assert [e["kind"] for e in jB.events] == [e["kind"] for e in jA.events] == ["expand"]
+    np.testing.assert_array_equal(jseedsA[0], flat0)  # sequential: the first round's upload
+    np.testing.assert_array_equal(jseedsB[0], flat1)  # the reference's segment: the second round's
+    assert not np.array_equal(flat0, flat1)
 
 
 # ---------------------------------------------------------------- simulator

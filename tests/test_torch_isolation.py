@@ -55,6 +55,14 @@ def test_no_jax_or_reference_import_statement(path):
         assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {name}"
 
 
+@pytest.mark.parametrize("path", sorted((PKG / "kernels").glob("*.py")), ids=lambda p: p.name)
+def test_kernels_import_no_higher_layer(path):
+    """The kernel layer sits below the protocol: it imports nothing from
+    ``repro_torch.core`` or ``repro_torch.fl``."""
+    for name in _imports(path):
+        assert not name.startswith(("repro_torch.core", "repro_torch.fl")), f"{path.name}: imports {name}"
+
+
 def test_run_experiment_on_cuda_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("this host has a GPU")

@@ -1,5 +1,5 @@
-"""The broadcast predictor's chain (``kernels/ops.py::predictor_chain``) on
-the CPU.
+"""The broadcast predictor's chain (``core/broadcast.py::predictor_chain``)
+on the CPU.
 
 One chain walks one cluster's learn/decide steps of a coalesced window,
 carrying the RNN weights and the last fired position on the device; labels
@@ -24,8 +24,7 @@ import torch
 
 from repro.core.broadcast import init_rnn as jax_init_rnn
 from repro.kernels import ops as jax_ops
-from repro_torch.core.broadcast import BroadcastPredictor, _rnn_sgd, _rnn_want, build_seq
-from repro_torch.kernels import ops
+from repro_torch.core.broadcast import BroadcastPredictor, _rnn_sgd, _rnn_want, build_seq, predictor_chain
 
 LR = 1e-2
 
@@ -85,7 +84,7 @@ def _same_bits(a: dict, b: dict) -> bool:
 def test_chain_is_the_serial_path_bit_for_bit(k, seed):
     params = _torch(_weights(seed))
     args = _window(k, 9, seed)
-    got, wants = ops.predictor_chain(params, *args, LR)
+    got, wants = predictor_chain(params, *args, LR)
     want_params, want = _serial(params, *args)
     assert wants.dtype == torch.bool and wants.tolist() == want
     assert _same_bits(got, want_params)
@@ -98,12 +97,32 @@ def test_one_step_chain_is_learn_then_decide():
     pred = BroadcastPredictor(params=params, k=10, records=[0.5, 1.25, 0.75])
     pre = build_seq(pred.records, 10)
     post = build_seq(pred.records + [2.0], 10)
-    got, wants = ops.predictor_chain(params, pre[None], post[None], np.ones((1, 2), np.int64),
+    got, wants = predictor_chain(params, pre[None], post[None], np.ones((1, 2), np.int64),
                                      np.zeros((1, 2), bool), [True], [True], [False], LR)
     pred.learn(1)
     pred.observe(2.0)
     assert _same_bits(got, pred.params)
     assert bool(wants[0]) == pred.decide(accumulated_gap=0.0)
+
+
+@pytest.mark.parametrize("gap", [0.0, 2.0])
+@pytest.mark.parametrize("state", ["inactive", "fallback", "rnn"])
+def test_planned_decision_is_decide(state, gap):
+    """The coalesced planner's rules are the predictor's own: a shadow's
+    ``decision_kind`` names the rule ``decide`` takes, and
+    ``apply_decision`` with ``decide``'s outcome leaves the predictor as
+    ``decide`` does. A shadow's records are its own."""
+    records = {"inactive": [0.5, 1.0], "fallback": [0.5], "rnn": [0.5, 1.25, 0.75]}[state]
+    a = BroadcastPredictor(params=_torch(_weights(3)), k=10, records=list(records), active=state != "inactive")
+    b = a.shadow()
+    assert b.shadow().decision_kind() == state and b.decisions == 0
+    want = a.decide(accumulated_gap=gap)
+    if state == "fallback":
+        assert want == BroadcastPredictor.fallback_wants(gap, a.scale) == (gap > 1.0)
+    assert b.apply_decision(want) == want
+    assert (a.decisions, a.broadcasts, a.active, a.records) == (b.decisions, b.broadcasts, b.active, b.records)
+    b.observe(3.0)
+    assert a.records == records and b.records == records + [3.0]
 
 
 def test_chain_reads_nothing_back_while_it_runs(monkeypatch):
@@ -115,7 +134,7 @@ def test_chain_reads_nothing_back_while_it_runs(monkeypatch):
 
     for name in ("item", "tolist", "__bool__", "__int__", "__index__", "numpy"):
         monkeypatch.setattr(torch.Tensor, name, refuse)
-    ops.predictor_chain(params, *args, LR)
+    predictor_chain(params, *args, LR)
 
 
 @pytest.mark.parametrize("k", [10, 16])
@@ -123,7 +142,7 @@ def test_chain_reads_nothing_back_while_it_runs(monkeypatch):
 def test_chain_matches_the_reference(k, seed):
     w = _weights(seed)
     pre, post, lab, fb, learn, decide, fallback = _window(k, 8, seed + 10)
-    got, wants = ops.predictor_chain(_torch(w), pre, post, lab, fb, learn, decide, fallback, LR)
+    got, wants = predictor_chain(_torch(w), pre, post, lab, fb, learn, decide, fallback, LR)
     r_params, r_wants = jax_ops.predictor_chain(
         {k_: jax.numpy.asarray(v) for k_, v in w.items()}, pre, post, lab.astype(np.int32), fb,
         learn, decide, fallback, 0, LR,
