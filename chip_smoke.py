@@ -11,9 +11,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the hand-written kernels from ``src/repro_torch/csrc`` and time the build;
    the registers, shared memory and local memory (spills) of each flash
    kernel and of the L1 rows, fused assign, ingest chain, chi2 and merge kernels from
-   ``cuobjdump --dump-resource-usage``, and a check of each flash kernel's SASS for
-   tensor-core ``HMMA`` instructions (none, a spill at head width 64, or an
-   L1, assign, chain, chi2 or merge kernel that spills fail the run);
+   ``cuobjdump --dump-resource-usage``, the ingest chain's launch plan (grid,
+   dynamic shared memory, rows on chip) at the paths' shapes, and a check of
+   each flash kernel's SASS for tensor-core ``HMMA`` instructions (none, a
+   spill at head width 64, or an L1, assign, chain, chi2 or merge kernel that
+   spills fail the run);
 2. kernels — every kernel wrapper against its plain PyTorch version on the
    card, at the main path's widths and at edge shapes; the L1 sums' fixed
    order at N % 4 = 0, 1, 2, 3, N = 1 and N = 783,360 (bitwise across
@@ -26,12 +28,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    all-negative and signed-zero inputs, in place on a plane row of odd index
    (8-byte aligned), across repeats, one kernel per call in a profiler trace;
    the coalesced ingest chain (``csrc/ingest_chain.cu``) at (S, C, N) = (1, 1,
-   1), (8, 3, 4099), (13, 4, 4550), (32, 4, 25,418), (4, 2, 783,360) and
-   (40, 16, 25,418), with vetoes, forced ids and a NaN upload: cids, blended
+   1), (8, 3, 4099), (13, 4, 4550), (32, 4, 25,418), (4, 2, 783,360),
+   (40, 16, 25,418), (25, 4, 25,418), (16, 2, 2304), (12, 5, 8193) and
+   (3, 1024, 4099), with vetoes, forced ids and a NaN upload: cids, blended
    rows and the carried matrix bitwise the plain version's, distances and
    statistics bitwise the numpy model of the L1 order
    (``tests/test_torch_l1_order.py::kernel_chain``), bitwise across repeats,
-   one kernel per call in a profiler trace; the flash-attention forward and
+   the centers only read, one kernel per call in a profiler trace at every
+   shape and no device-to-device copy; the flash-attention forward and
    backward at the LM paths' shapes and at the model zoo's head widths (up
    to 256), the backward also bitwise across repeats;
 3. main path — ``repro_torch.fl.experiment.run_experiment("image_recognition",
@@ -123,8 +127,11 @@ ALSO_IN = {"l1_distance": "src/repro_torch/csrc/assign_lerp.cu, src/repro_torch/
 # the per-event MLP path's kernels; the coalesced path (phase 3d) runs them and the chain
 MLP_PATH = KERNELS.keys() - {"pairwise_l1", "flash_attention_fwd", "flash_attention_bwd", "ingest_chain"}
 COALESCED_PATH = MLP_PATH | {"ingest_chain"}
-# ingest chain checks: (S, C, N); the phase 3d settings
-CHAIN_SHAPES = ((1, 1, 1), (8, 3, 4099), (13, 4, 4550), (32, 4, 25418), (4, 2, 783360), (40, 16, 25418))
+# ingest chain checks: (S, C, N), with phase 3d's most frequent segment (25, 4, 25418), tiny_lm's one-chunk
+# row (16, 2, 2304), a partial tile across three chunks, the last ragged (12, 5, 8193), and the center limit
+# (3, 1024, 4099), whose rows stay in the output matrix; then the phase 3d settings
+CHAIN_SHAPES = ((1, 1, 1), (8, 3, 4099), (13, 4, 4550), (32, 4, 25418), (4, 2, 783360), (40, 16, 25418),
+                (25, 4, 25418), (16, 2, 2304), (12, 5, 8193), (3, 1024, 4099))
 COALESCED = dict(num_clients=128, coalesce_window=45.0, refine_every=32, max_uploads=800, max_time=1e9, seed=0)
 # launch counters the LM paths must move: the flash kernels and the server's fused assign
 LM_PATH = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv", "assign_and_lerp")
@@ -256,6 +263,12 @@ def kernel_resources() -> None:
         check(u.get("LOCAL", 0) == 0 and u.get("STACK", 0) == 0,
               f"{_kernel_label(n)} spills ({u.get('STACK')} B stack, {u.get('LOCAL')} B local)")
     print("L1, fused assign, ingest chain, chi2 and merge kernels: no spills")
+    from repro_torch.kernels.ingest_chain import chain_plan
+
+    for c, n in dict.fromkeys((c, n) for _, c, n in CHAIN_SHAPES):
+        plan = chain_plan(c, n)
+        print(f"  ingest_chain_kernel launch at (C, N) = {(c, n)}: {plan['blocks']} blocks, dynamic shared "
+              f"{plan['smem']} B a block, rows {'on chip' if plan['on_chip'] else 'in the output matrix'}")
 
 
 # ------------------------------------------------------------------ phase 2
@@ -438,9 +451,10 @@ def ingest_chain_checks() -> None:
     (``tests/test_torch_l1_order.py::kernel_chain``); the blended rows and the
     carried matrix bitwise the plain version's; the distances and the three
     statistics bitwise the model's (NaN at the same places); everything
-    bitwise over 3 repeats; ``l1_vec`` on the card bitwise the chain's
-    statistic of the same rows; one ``ingest_chain_kernel`` per call in a
-    profiler trace."""
+    bitwise over 3 repeats; the centers unchanged; ``l1_vec`` on the card
+    bitwise the chain's statistic of the same rows; at every shape one
+    ``ingest_chain_kernel`` per call in a profiler trace, beside the index
+    table's host-to-device copy and nothing else (no device-to-device copy)."""
     import numpy as np
 
     sys.path.insert(0, str(ROOT / "tests"))
@@ -468,6 +482,7 @@ def ingest_chain_checks() -> None:
             check(_same_nan_bits(got.stats.cpu(), torch.from_numpy(m_stats)), f"{label}: statistics not the model's")
             check(all(torch.equal(r.cids, got.cids) and _same_bits(r.buf, got.buf) and _same_bits(r.carried, got.carried)
                       for r in runs[1:]), f"{label}: not bitwise across repeats")
+            check(torch.equal(args[1].cpu(), torch.from_numpy(centers)), f"{label}: the centers were written")
             if nan_step is None:
                 j0 = int(cids[0])
                 check(_same_bits(l1_vec(got.blended[0], args[1][j0]), got.stats[0, 0]),
@@ -478,19 +493,19 @@ def ingest_chain_checks() -> None:
             pinned += int(sum(1 for f in forced if f >= 0))
             n_checked += 1
     per_call = {}
-    for s, c, n in ((8, 3, 4099), (32, 4, 25418)):
+    for s, c, n in CHAIN_SHAPES:  # the one host-to-device copy is the index table
         U, centers, bcast, prev, forced = chain_inputs(s, c, n, 7)
         args = [torch.from_numpy(a).to(DEVICE) for a in (U, centers, bcast)]
         seen = kernels_per_call(lambda: ops.ingest_chain(*args, prev, forced, beta=0.25))
         check(sum(v for k, v in seen.items() if "ingest_chain_kernel" in k) == 10
-              and not any("_kernel" in k and "ingest_chain_kernel" not in k for k in seen),
-              f"ingest chain {(s, c, n)}: 10 calls traced as {dict(seen)}, not 10 chain kernels")
+              and not any("ingest_chain_kernel" not in k and "HtoD" not in k for k in seen),
+              f"ingest chain {(s, c, n)}: 10 calls traced as {dict(seen)}, not 10 chain kernels and index copies")
         per_call[(s, c, n)] = dict(seen)
     sync()
     print(f"ingest chain checks: {n_checked} passed at (S, C, N) = {list(CHAIN_SHAPES)}, {steps} steps with "
           f"{vetoes} vetoes and {pinned} forced ids (cids equal; blended rows and carried matrix bitwise the plain "
-          f"version's; distances and statistics bitwise the L1 order model's; bitwise across 3 repeats); "
-          f"device events of 10 calls: {per_call}")
+          f"version's; distances and statistics bitwise the L1 order model's; bitwise across 3 repeats; centers "
+          f"unchanged); device events of 10 calls (no other kernel, no device-to-device copy): {per_call}")
 
 
 def chi2_order_checks() -> None:

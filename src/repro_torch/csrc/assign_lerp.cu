@@ -160,7 +160,7 @@ REPRO_API int repro_assign_lerp(const float* u, const float* centers, int64_t c_
   // then one rounding to fp32 (src/repro/kernels/assign_lerp.py:36).
   float omb = static_cast<float>(1.0 - beta);
   float b = static_cast<float>(beta);
-  const int cap = repro::coresident_blocks(assign_lerp_kernel, device, coresident);
+  const int cap = repro::coresident_blocks(assign_lerp_kernel, device, coresident, 0);
   int64_t blocks = chunks * ((c_rows + repro::kTileC - 1) / repro::kTileC);
   if (blocks > cap) blocks = cap;
   void* args[] = {&u, &centers, &c_rows, &n, &chunks, &omb, &b, &scratch, &dists, &idx_out, &out};

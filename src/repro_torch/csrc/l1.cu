@@ -65,7 +65,7 @@ int launch_chunked(const float* x, const float* c, float* out, float* scratch, i
   static int coresident[64];
   int64_t chunks = repro::l1_chunks(n);
   const int64_t items = chunks * ((c_rows + TC - 1) / TC) * ((m + TM - 1) / TM);
-  const int cap = repro::coresident_blocks(l1_rows_kernel<TM, TC, false>, device, coresident);
+  const int cap = repro::coresident_blocks(l1_rows_kernel<TM, TC, false>, device, coresident, 0);
   const int64_t outs_blocks = (m * c_rows + repro::kWarps - 1) / repro::kWarps;
   int64_t blocks = items > outs_blocks ? items : outs_blocks;
   if (blocks > cap) blocks = cap;

@@ -164,14 +164,17 @@ __device__ __forceinline__ float sum_chunks(const float* p, int64_t chunks, int6
   return warp_sum(a);
 }
 
-// Blocks of `kernel` that fit on the device at once (a cooperative launch
-// may not ask for more), queried once per device and kernel.
+// Blocks of `kernel` that fit on the device at once with `smem` bytes of
+// dynamic shared memory each (a cooperative launch may not ask for more),
+// queried once per device, kernel and size (one cache each); 0 if the
+// query fails.
 template <typename Kernel>
-inline int coresident_blocks(Kernel kernel, int device, int* cache) {
+inline int coresident_blocks(Kernel kernel, int device, int* cache, size_t smem) {
   if (cache[device] == 0) {
     int per_sm = 0, sms = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+      return 0;
     cache[device] = per_sm * sms;
   }
   return cache[device];

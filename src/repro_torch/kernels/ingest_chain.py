@@ -106,7 +106,7 @@ def ingest_chain(U: torch.Tensor, centers: torch.Tensor, bcast: torch.Tensor, pr
     """U (S, N) uploads, centers and bcast (C, N) the segment-start centers
     and anchors, ``prev_idx``/``forced_idx`` (S,) ints (-1: none) -> the
     segment's :class:`ChainOut`. ``centers`` is not written: the chain
-    carries its own copy."""
+    returns the carried matrix in a buffer of its own."""
     if with_stats:
         raise NotImplementedError("repro_torch: ingest_chain(with_stats=True) waits for the ingest guard")
     check_f32("ingest_chain", ("U", U, 2), ("centers", centers, 2), ("bcast", bcast, 2))
@@ -124,14 +124,15 @@ def ingest_chain(U: torch.Tensor, centers: torch.Tensor, bcast: torch.Tensor, pr
     if N == 0 or C > MAX_CENTERS:
         raise ValueError(f"ingest_chain kernel: needs N >= 1 and C <= {MAX_CENTERS}, got N {N}, C {C}")
     dev = U.device
-    out = _alloc(S, C, N, centers.clone())
+    out = _alloc(S, C, N, torch.empty((C, N), dtype=torch.float32, device=dev))  # the kernel writes every element
     chunks = l1_chunks(N)
-    scratch = torch.empty(chunks * C + S * chunks * 3, dtype=torch.float32, device=dev)
+    scratch = torch.empty(2 * chunks * C + S * chunks * 3, dtype=torch.float32, device=dev)
     idx = to_device(np.asarray([*prev_idx, *forced_idx], np.int32), dev)
     rc = _build.library().repro_ingest_chain(
-        U.data_ptr(), out.carried.data_ptr(), bcast.data_ptr(), idx.data_ptr(), S, C, N, chunks, float(beta),
-        float(switch_margin), scratch.data_ptr(), scratch.data_ptr() + 4 * chunks * C, out.dists.data_ptr(),
-        out.cids.data_ptr(), out.stats.data_ptr(), out.blended.data_ptr(), dev.index or 0, _build.stream(U),
+        U.data_ptr(), centers.data_ptr(), bcast.data_ptr(), idx.data_ptr(), S, C, N, chunks, float(beta),
+        float(switch_margin), scratch.data_ptr(), scratch.data_ptr() + 4 * 2 * chunks * C, out.dists.data_ptr(),
+        out.cids.data_ptr(), out.stats.data_ptr(), out.blended.data_ptr(), out.carried.data_ptr(), dev.index or 0,
+        _build.stream(U),
     )
     _build.check(rc, "ingest_chain")
     ingest_chain.launches += 1
@@ -139,3 +140,16 @@ def ingest_chain(U: torch.Tensor, centers: torch.Tensor, bcast: torch.Tensor, pr
 
 
 ingest_chain.launches = 0
+
+
+def chain_plan(C: int, N: int, device: torch.device | str = "cuda") -> dict:
+    """The launch :func:`ingest_chain` makes on the card for C centers of
+    width N: ``blocks`` (one owner a work item of a 4096-element chunk and
+    four rows, where they fit at once), ``smem`` (dynamic shared memory
+    bytes a block) and ``on_chip`` (the carried rows held in shared memory,
+    or else in the output matrix)."""
+    dev = torch.device(device)
+    plan = np.zeros(3, np.int64)
+    rc = _build.library().repro_ingest_chain_plan(C, N, dev.index or 0, plan.ctypes.data)
+    _build.check(rc, "ingest_chain plan")
+    return {"blocks": int(plan[0]), "smem": int(plan[1]), "on_chip": bool(plan[2])}

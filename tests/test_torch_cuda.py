@@ -329,7 +329,11 @@ def test_cuda_flash_wrappers_count_launches(cuda_device):
     assert counts["pairwise_l1"] == 1
 
 
-CHAIN_SHAPES = [(1, 1, 1), (8, 3, 4099), (13, 4, 4550), (32, 4, 25418), (4, 2, 783360), (40, 16, 25418)]
+# (S, C, N): phase 3d's most frequent segment (25, 4, 25418), tiny_lm's one-chunk row (16, 2, 2304), a
+# partial tile across three chunks, the last ragged (12, 5, 8193), and the center limit (3, 1024, 4099),
+# whose 512 items are more than the blocks that fit with rows on chip: the rows stay in `carried`
+CHAIN_SHAPES = [(1, 1, 1), (8, 3, 4099), (13, 4, 4550), (32, 4, 25418), (4, 2, 783360), (40, 16, 25418),
+                (25, 4, 25418), (16, 2, 2304), (12, 5, 8193), (3, 1024, 4099)]
 
 
 def _chain_inputs(s, c, n, nan_step=None):
@@ -359,17 +363,23 @@ def test_cuda_ingest_chain_bits(cuda_device, shape, with_nan):
     blended rows and carried matrix bitwise; against the numpy model of the
     L1 order (``tests/test_torch_l1_order.py::kernel_chain``): cids equal,
     distances and statistics bitwise (NaN at the same places); bitwise over
-    3 repeats; one launch counted a call."""
+    3 repeats; the centers unchanged; one launch counted a call."""
+    s, c, n = shape
+    U, centers, bcast, prev, forced = _chain_inputs(s, c, n, s // 2 if with_nan else None)
+    ops.reset_launch_counts()
+    _chain_against_plain_and_model(cuda_device, U, centers, bcast, prev, forced)
+    assert ops.launch_counts()["ingest_chain"] == 3
+
+
+def _chain_against_plain_and_model(dev, U, centers, bcast, prev, forced):
+    """Run the chain kernel 3 times and hold it to its plain version and to
+    ``kernel_chain`` bit for bit; returns the cids."""
     from test_torch_l1_order import kernel_chain
 
     from repro_torch.kernels.ingest_chain import ingest_chain_plain
 
-    s, c, n = shape
-    U, centers, bcast, prev, forced = _chain_inputs(s, c, n, s // 2 if with_nan else None)
-    args = [torch.from_numpy(a).to(cuda_device) for a in (U, centers, bcast)]
-    ops.reset_launch_counts()
+    args = [torch.from_numpy(a).to(dev) for a in (U, centers, bcast)]
     runs = [ops.ingest_chain(*args, prev, forced, beta=0.25) for _ in range(3)]
-    assert ops.launch_counts()["ingest_chain"] == 3
     got = runs[0]
     plain = ingest_chain_plain(*(torch.from_numpy(a) for a in (U, centers, bcast)), prev, forced, 0.25)
     m_cids, _, m_dists, m_stats, _ = kernel_chain(U, centers, bcast, prev, forced, 0.25)
@@ -380,6 +390,86 @@ def test_cuda_ingest_chain_bits(cuda_device, shape, with_nan):
     assert _same_nan_bits(got.stats.cpu(), torch.from_numpy(m_stats))
     for r in runs[1:]:
         assert torch.equal(_bits(r.buf), _bits(got.buf)) and torch.equal(_bits(r.carried), _bits(got.carried))
+    assert torch.equal(args[1].cpu(), torch.from_numpy(centers))  # the centers are only read
+    return got.cids.cpu().numpy()
+
+
+# (S, C, N): rows on chip; and four rows over 192 chunks (192 items, more than the 132 blocks that
+# hold four rows on chip on an H100), kept in `carried`
+CHAIN_OWNER_SHAPES = [(32, 4, 25418), (12, 5, 8193), (8, 4, 783360)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CHAIN_OWNER_SHAPES, ids=str)
+def test_cuda_ingest_chain_every_upload_to_one_row(cuda_device, shape):
+    """Every upload lies near center 2 and wins it: each step's owners read
+    what they blended the step before (a read after their own write across
+    steps, with no barrier between)."""
+    s, c, n = shape
+    rng = np.random.default_rng(s + c + n)
+    centers = 3.0 * _f32(rng, c, n)
+    bcast = (centers + 0.3 * _f32(rng, c, n)).astype(np.float32)
+    U = (centers[2] + 0.1 * _f32(rng, s, n)).astype(np.float32)
+    cids = _chain_against_plain_and_model(cuda_device, U, centers, bcast, [-1] * s, [-1] * s)
+    assert (cids == 2).all(), cids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CHAIN_OWNER_SHAPES, ids=str)
+def test_cuda_ingest_chain_forced_ids_walk_every_row(cuda_device, shape):
+    """Forced ids take rows 0, 1, ..., C - 1 in turn and around again, so
+    every tile's owners blend in turn."""
+    s, c, n = shape
+    rng = np.random.default_rng(s * c + n)
+    centers = _f32(rng, c, n)
+    bcast = (centers + 0.3 * _f32(rng, c, n)).astype(np.float32)
+    U = _f32(rng, s, n)
+    forced = [j % c for j in range(s)]
+    cids = _chain_against_plain_and_model(cuda_device, U, centers, bcast, [-1] * s, forced)
+    assert list(cids) == forced
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,n,on_chip", [(4, 25418, True), (2, 2304, True), (5, 8193, True), (2, 783360, True),
+                                         (4, 783360, False), (1024, 4099, False)])
+def test_cuda_ingest_chain_plan(cuda_device, c, n, on_chip):
+    """Rows go on chip when every (chunk, four-row tile) item gets a block of
+    its own: one block an item, each with its rows, anchors and two upload
+    buffers (a chunk each) in dynamic shared memory; else the grid is at most
+    the blocks that fit at once, with none. On an H100 (132 SMs) four rows on
+    chip fit one block an SM, two rows two."""
+    from repro_torch.kernels.ingest_chain import chain_plan
+
+    items = -(-n // 4096) * -(-c // 4)
+    plan = chain_plan(c, n, cuda_device)
+    assert plan["on_chip"] == on_chip, plan
+    if on_chip:
+        assert plan["blocks"] == items and plan["smem"] == (2 * min(c, 4) + 2) * 4096 * 4, plan
+    else:
+        assert 0 < plan["blocks"] <= items and plan["smem"] == 0, plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CHAIN_SHAPES, ids=str)
+def test_cuda_ingest_chain_is_one_kernel_per_call(cuda_device, shape):
+    """A call runs one ``ingest_chain_kernel`` on the device and no other
+    kernel and no device-to-device copy (the carried matrix is the kernel's
+    own output, not a clone of the centers); the one host-to-device copy is
+    the index table. The profiler can lose kernels of a short session (never
+    add any); one session must show every launch."""
+    s, c, n = shape
+    U, centers, bcast, prev, forced = _chain_inputs(s, c, n)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (U, centers, bcast)]
+    calls, full = 4, False
+    for _ in range(5):
+        names = _traced_kernels(lambda: [ops.ingest_chain(*args, prev, forced, beta=0.25) for _ in range(calls)])
+        chains = [k for k in names if "ingest_chain_kernel" in k]
+        others = [k for k in names if k not in chains and "HtoD" not in k]
+        assert len(chains) <= calls and not others, names
+        if len(chains) == calls:
+            full = True
+            break
+    assert full, "no profiler session recorded every chain launch"
 
 
 @pytest.mark.cuda

@@ -14,10 +14,14 @@ held to three things on the same numpy-seeded inputs:
 - the numpy model of the card kernel's order (``kernel_chain``): identical
   cids, blended rows bit for bit, distances and statistics within rtol 1e-5.
 
-Cases: N = 256 and 4,099, C = 1, 3, 4, S = 1, 8, 13, with first uploads
-(prev -1), vetoed switches, forced (pinned) ids, repeated winners, and an
-upload holding a NaN.
+Cases: N = 256, 4,099 and 8,193 (three chunks of the card kernel, the
+last one ragged), C = 1, 3, 4, 5 and 9 (a partial tile of four rows), S = 1,
+8, 13, with first uploads (prev -1), vetoed switches, forced (pinned) ids,
+repeated winners, and an upload holding a NaN. ``ingest_chain`` never
+writes ``centers``: the carried matrix comes back in a buffer of its own.
 """
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,7 +35,7 @@ from repro_torch.kernels.ingest_chain import ingest_chain_plain
 from test_torch_l1_order import kernel_chain
 
 BETA, MARGIN = 0.25, 0.1
-CASES = [(n, c, s) for n in (256, 4099) for c in (1, 3, 4) for s in (1, 8, 13)]
+CASES = [(n, c, s) for n in (256, 4099, 8193) for c in (1, 3, 4, 5, 9) for s in (1, 8, 13)]
 
 
 def _inputs(n, c, s, seed=0, nan_step=None):
@@ -217,6 +221,42 @@ def test_chain_leaves_its_inputs_and_counts_no_launch_on_the_cpu():
     ops.ingest_chain(torch.from_numpy(U), c_t, torch.from_numpy(bcast), prev, forced, beta=BETA)
     assert np.array_equal(c_t.numpy(), centers)
     assert ops.launch_counts()["ingest_chain"] == 0
+
+
+@pytest.mark.parametrize("n,c,s", [(64, 3, 5), (8193, 5, 12)])
+def test_chain_returns_the_carried_matrix_in_a_buffer_of_its_own(n, c, s):
+    """``centers`` is only read: its values stay, and no output shares its
+    storage (the card kernel writes the carried matrix into a buffer of its
+    own, never into the gathered centers)."""
+    U, centers, bcast, prev, forced = _inputs(n, c, s, seed=6)
+    c_t = torch.from_numpy(centers.copy())
+    out = ops.ingest_chain(torch.from_numpy(U), c_t, torch.from_numpy(bcast), prev, forced, beta=BETA)
+    assert np.array_equal(c_t.numpy(), centers)
+    storage = c_t.untyped_storage().data_ptr()
+    assert all(t.untyped_storage().data_ptr() != storage for t in (out.carried, out.buf))
+    assert out.carried.shape == (c, n) and not np.array_equal(out.carried.numpy(), centers)
+
+
+def _block(text: str, head: str) -> str:
+    """The braced block that follows ``head`` in C++ source."""
+    start = text.index("{", text.index(head))
+    depth = 0
+    for i in range(start, len(text)):
+        depth += {"{": 1, "}": -1}.get(text[i], 0)
+        if depth == 0:
+            return text[start:i + 1]
+    raise ValueError(f"unbalanced braces after {head!r}")
+
+
+def test_the_kernel_has_one_grid_barrier_a_step():
+    """``ingest_chain_kernel`` syncs the grid once inside its step loop
+    (after the distance partials) and once after it (before the
+    statistics): S + 1 barriers a launch."""
+    src = (Path(__file__).resolve().parents[1] / "src/repro_torch/csrc/ingest_chain.cu").read_text()
+    kernel = _block(src, "ingest_chain_kernel(")
+    loop = _block(kernel, "for (int64_t j = 0; j < steps; ++j)")
+    assert loop.count("grid.sync()") == 1
+    assert kernel.count("grid.sync()") == 2
 
 
 def test_chain_rejects_what_it_does_not_take():

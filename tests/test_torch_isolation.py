@@ -47,7 +47,12 @@ def _imports(path: Path):
             yield node.module
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+# the scripts that run on the card: the timing loops and the chain's phase timeline
+CARD_SCRIPTS = sorted((ROOT / "scripts").glob("*_timing.py")) + [ROOT / "scripts" / n
+                                                                 for n in ("timing_turns.py", "chain_phases.py")]
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + CARD_SCRIPTS,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import_statement(path):
     for name in _imports(path):
