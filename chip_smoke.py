@@ -58,15 +58,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 3c. full width — the same run over a ``llama3.2-1b`` base drawn on the card
    (4 clients, seq_len 256, one local epoch, 720 s): flash kernels at
    ``(4, 32, 256, 64)``, wall time per upload, peak device memory;
+3e. the paper's comparison — the reference's Tab. 1 bench at one task and
+   seed: all seven strategies on ``image_recognition`` (20 clients, 1800 s,
+   at most 40 rounds, seed 0; EchoPFL with phase 3's broadcast RNN handed
+   over; FedAsyn and FedSEA also at a 45 s window): final accuracy, the
+   slowest and fastest device class's, time to target, ``summary()``,
+   ``bytes_until`` the time to target, wall time, uploads or rounds per wall
+   second, host time per layer; every run finite with non-zero bytes, and
+   the MLP baselines launch none of the port's kernels;
+3f. full width on the synchronous loop — ``run_lm_experiment("fedavg")``
+   over the ``llama3.2-1b`` base (4 clients, seq_len 256, 4 train / 2 test
+   sequences, one local epoch, 3 rounds): one cohort of 4 clients a round,
+   so flash at ``(16, 32, 256, 64)``; dq and dkv launch in pairs, every
+   client's training NLL falls from its first upload to its last, peak
+   device memory;
 4. agreement — a small ``har`` run and the ``tiny_lm`` LM run on the card
    against the same runs on the CPU, where every wrapper takes its plain
    version; the ``har`` run also coalesced at a 45 s window, card against
    CPU, and at a 1e-9 s window against the per-event run on the card
-   (identical events, assignments and centers);
+   (identical events, assignments and centers); ``har`` FedAvg (5 rounds)
+   and FedAsyn (900 s, per event and at a 45 s window), card against CPU:
+   identical ledgers and stats, accuracy curves within 0.02;
 5. timing — each kernel, its plain version and (where one exists) a single
    PyTorch call computing the same function, at the shape the main path
    called it with most (the flash kernels and ``pairwise_l1`` at the
-   ``tiny_lm`` and the ``llama3.2-1b`` shapes, ``l1_distance`` and
+   ``tiny_lm`` and the ``llama3.2-1b`` shapes, the flash kernels also at
+   phase 3f's cohort shape, ``l1_distance`` and
    ``assign_and_lerp`` also at the full-width run's; the segmented chi2 also
    at the 128-client fleet's refine, (128, 10) with S = 16, and at (1, 1) with
    S = 1, the launch floor; the merge also at ``har``'s, ``tiny_lm``'s and the
@@ -81,9 +98,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    back-to-back calls between CUDA events, host overhead included
    (``call_ms`` and its two siblings; the merge also in place, as the server
    calls it);
-6. profile — short runs of the main path, of the coalesced path and of
-   both LM paths under ``torch.profiler``: device busy time, the device's
-   idle share and the kernels that take the time.
+6. profile — short runs of the main path, of the coalesced path, of
+   both LM paths and of phase 3f's full-width FedAvg run under
+   ``torch.profiler``: device busy time, the device's idle share and the
+   kernels that take the time.
 
 The last lines are one JSON object with the kernel table, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -112,8 +130,8 @@ KERNELS = {  # row name -> (CUDA source, the TPU kernel's pallas_call it replace
     "l1_distance": ("src/repro_torch/csrc/l1.cu", "src/repro/kernels/l1_distance.py:51"),
     "l1_distance_pairwise": ("src/repro_torch/csrc/l1.cu", "src/repro/kernels/l1_pairwise.py:57"),
     "assign_and_lerp": ("src/repro_torch/csrc/assign_lerp.cu", "src/repro/kernels/assign_lerp.py:63"),
-    # not a pallas_call: ops.ingest_chain, a lax.scan around l1_distance.py:51
-    "ingest_chain": ("src/repro_torch/csrc/ingest_chain.cu", "src/repro/kernels/ops.py:445"),
+    # not a pallas_call: ops.ingest_chain (jit body _ingest_chain_jit, ops.py:446), a lax.scan around l1_distance.py:51
+    "ingest_chain": ("src/repro_torch/csrc/ingest_chain.cu", "src/repro/kernels/ops.py:501"),
     "chi2_feedback": ("src/repro_torch/csrc/chi2.cu", "src/repro/kernels/chi2_feedback.py:50"),
     "chi2_feedback_segmented": ("src/repro_torch/csrc/chi2.cu", "src/repro/kernels/chi2_feedback.py:111"),
     "merge_attention": ("src/repro_torch/csrc/merge.cu", "src/repro/kernels/merge_attention.py:68"),
@@ -151,6 +169,7 @@ MERGE_EXTRA = {"har": (4550,), "tiny_lm": (2304,), "llama3.2-1b": (783360,), "la
 FLASH_CASES = (
     ("tiny_lm", 8, 4, 2, 32, 32, 16, 16, {}),
     ("llama3.2-1b", 4, 32, 8, 256, 256, 64, 64, {}),
+    ("llama3.2-1b cohort", 16, 32, 8, 256, 256, 64, 64, {}),
     ("llama3.2-1b S=2048", 1, 32, 8, 2048, 2048, 64, 64, {}),
     ("gemma2-2b heads", 1, 8, 4, 512, 512, 256, 256, dict(window=128, softcap=50.0, scale=256 ** -0.5)),
     ("MLA", 1, 16, 16, 256, 256, 192, 128, {}),
@@ -162,6 +181,15 @@ FLASH_CASES = (
     ("one row past a tile", 1, 4, 2, 65, 65, 64, 64, {}),
     ("hd 12: 4-byte copies", 2, 4, 2, 70, 70, 12, 12, {}),
 )
+
+
+# phase 3e: the reference's Tab. 1 bench (benchmarks/bench_accuracy_time.py) at one task and seed
+STRATEGIES = ("fedavg", "oort", "fedasyn", "fedsea", "clusterfl", "echopfl", "standalone")
+PAPER_RUN = dict(num_clients=20, max_time=1800, rounds=40, seed=0)
+SPEED_ORDER = ("D5", "D1", "D2", "D3", "D4")  # slowest -> fastest device class
+# phase 3f: FedAvg over the llama3.2-1b base, one cohort of 4 clients (an attention batch of 16) a round
+FULL_SYNC = dict(num_clients=4, seq_len=256, n_train=4, n_test=2, local_epochs=1, rounds=3, eval_interval=240, seed=0)
+COHORT_FLASH = (16, 32, 256, 64, 8, 256, 64)  # (B, H, Sq, hd, KV, Sk, dv) of phase 3f's training launches
 
 
 def check(cond: bool, msg: str) -> None:
@@ -721,6 +749,15 @@ def _host_timers():
     wrap(BroadcastPredictor, "learn", "server:   predictor learn")
     wrap(BroadcastPredictor, "decide", "server:   predictor decide")
     wrap(server_mod.EchoPFLServer, "_refine", "server:   _refine")
+    wrap(ClientFleet, "train_cohort", "client: train_cohort (a round)")
+    from repro_torch import baselines
+
+    for cls, attrs in ((baselines.FedAvg, ("finish_round",)), (baselines.Oort, ("select", "finish_round")),
+                       (baselines.ClusterFL, ("finish_round",)), (baselines.Standalone, ("finish_round",)),
+                       (baselines.FedAsyn, ("handle_upload", "handle_uploads")),
+                       (baselines.FedSEA, ("handle_upload", "on_tick"))):
+        for attr in attrs:
+            wrap(cls, attr, f"server: {cls.__name__}.{attr}")
 
     def restore():
         for owner, attr, fn in reversed(originals):
@@ -905,18 +942,24 @@ def lm_path():
 
 
 # ----------------------------------------------------------------- phase 3c
-def full_width(rnn_params: dict):
-    """The LM run over a ``llama3.2-1b`` base (1.24 B parameters, drawn on
-    the card from a seeded generator): 4 clients, seq_len 256, 4 training
-    and 2 test sequences each, one local epoch, 720 s of virtual time (so
-    that the slowest device class trains at least twice)."""
+def full_width_task():
+    """The LM task over a ``llama3.2-1b`` base (1.24 B parameters) drawn on
+    the card from a seeded generator."""
     from repro_torch.configs import get_config
     from repro_torch.fl.lm_task import FrozenBase, LMTask
     from repro_torch.models.model import init_params
 
     cfg = get_config("llama3.2-1b")
+    return LMTask(base=FrozenBase(init_params(cfg, gen(0))), cfg=cfg)
+
+
+def full_width(rnn_params: dict):
+    """The LM run over a ``llama3.2-1b`` base (1.24 B parameters, drawn on
+    the card from a seeded generator): 4 clients, seq_len 256, 4 training
+    and 2 test sequences each, one local epoch, 720 s of virtual time (so
+    that the slowest device class trains at least twice)."""
     t0 = time.perf_counter()
-    task = LMTask(base=FrozenBase(init_params(cfg, gen(0))), cfg=cfg)
+    task = full_width_task()
     sync()
     print(f"full width: llama3.2-1b base drawn on the card in {time.perf_counter() - t0:.2f} s")
     out = lm_run("full width (llama3.2-1b, 4 clients, seq 256, 720 s)", expect_shape=(4, 32, 256, 64),
@@ -993,6 +1036,152 @@ def coalesced_path(rnn_params: dict):
     return dict(counts=counts, segs=segs, wall=wall, uploads=uploads, arrivals=arrivals)
 
 
+# ----------------------------------------------------------------- phase 3e
+def per_class_accuracy(rep) -> dict[str, float]:
+    """Mean accuracy per device class."""
+    by_class: dict[str, list[float]] = {}
+    for cid, acc in rep.per_client_acc.items():
+        by_class.setdefault(rep.per_client_class[cid], []).append(acc)
+    return {k: statistics.mean(v) for k, v in sorted(by_class.items())}
+
+
+def paper_comparison(rnn_params: dict) -> list[dict]:
+    """The reference's Tab. 1 bench at one task and seed on the card: the
+    seven strategies on ``image_recognition`` (PAPER_RUN), FedAsyn and
+    FedSEA also at a 45 s window, EchoPFL with phase 3's broadcast RNN
+    handed over. Each run's launch counts are zeroed just before it and
+    read just after: the MLP baselines must launch none of the port's
+    kernels, EchoPFL its per-event path's."""
+    from repro_torch.fl.experiment import run_experiment
+    from repro_torch.kernels import ops
+
+    out = []
+    for name in STRATEGIES:
+        for window in ((0.0, 45.0) if name in ("fedasyn", "fedsea") else (0.0,)):
+            kw = dict(rnn_params=rnn_params) if name == "echopfl" else {}
+            spent, restore_timers = _host_timers()
+            sync()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            try:
+                _, _, strat, rep = run_experiment("image_recognition", name, device=DEVICE, coalesce_window=window,
+                                                  **PAPER_RUN, **kw)
+                sync()
+            finally:
+                restore_timers()
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            label = name + (f" at {window:g} s" if window else "")
+            pc = per_class_accuracy(rep)
+            present = [c for c in SPEED_ORDER if c in pc]
+            horizon = rep.time_to_target if rep.time_to_target is not None else rep.duration
+            up_b, down_b = rep.bytes_until(horizon)
+            steps = rep.extra["rounds"] if strat.is_synchronous else rep.extra["uploads"]
+            unit = "rounds" if strat.is_synchronous else "uploads"
+            row = dict(strategy=label, final_acc=rep.final_acc, acc_slowest=pc[present[0]],
+                       acc_fastest=pc[present[-1]], time_to_target=rep.time_to_target, duration=rep.duration,
+                       bytes_until_target=[up_b, down_b], wall_s=wall, **{unit: steps},
+                       per_wall_s=steps / wall, stats=strat.stats(), summary=rep.summary())
+            print(f"paper comparison {label}: final_acc {rep.final_acc:.4f}, slowest class {present[0]} "
+                  f"{row['acc_slowest']:.4f}, fastest class {present[-1]} {row['acc_fastest']:.4f}, time to target "
+                  f"{rep.time_to_target}, duration {rep.duration:.1f} s, bytes until target (up, down) {up_b}, "
+                  f"{down_b}; {steps} {unit} in {wall:.2f} s wall, {steps / wall:.2f} {unit}/s; stats "
+                  f"{json.dumps(strat.stats())}; summary {json.dumps(rep.summary())}")
+            for bucket in sorted(spent):
+                print(f"  host time {bucket:<40} {spent[bucket]:8.3f} s ({100 * spent[bucket] / wall:5.1f}%)")
+            check(all(0.0 <= a <= 1.0 for _, a in rep.curve) and 0.0 <= rep.final_acc <= 1.0,
+                  f"paper comparison {label}: accuracy not finite in [0, 1]")
+            check(rep.up_bytes > 0 and rep.down_bytes > 0 and up_b > 0, f"paper comparison {label}: no bytes")
+            check(steps > 0, f"paper comparison {label}: no {unit}")
+            if name == "echopfl":
+                check(counts["assign_and_lerp"] > 0, f"paper comparison {label}: the fused assign never launched")
+            else:
+                check(not any(counts.values()), f"paper comparison {label}: an MLP baseline launched {counts}")
+            out.append(row)
+    return out
+
+
+# ----------------------------------------------------------------- phase 3f
+def _record_cohorts():
+    """Keep each client's first and last trained delta of a synchronous
+    run, and count its cohort trainings."""
+    from repro_torch.fl.fleet import ClientFleet
+
+    first, last, rounds = {}, {}, Counter()
+    fn = ClientFleet.train_cohort
+
+    def rec(self, cids, params_list):
+        trained, losses = fn(self, cids, params_list)
+        for cid, params in zip(cids, trained):
+            first.setdefault(int(cid), params)
+            last[int(cid)] = params
+            rounds[int(cid)] += 1
+        return trained, losses
+
+    ClientFleet.train_cohort = rec
+
+    def restore():
+        ClientFleet.train_cohort = fn
+
+    return first, last, rounds, restore
+
+
+def full_width_sync():
+    """FedAvg over a ``llama3.2-1b`` base drawn on the card (FULL_SYNC): a
+    round trains its cohort of 4 clients × 4 sequences as one attention
+    batch of 16. Launch counts are zeroed just before the run and read just
+    after."""
+    from repro_torch.fl.lm_task import run_lm_experiment
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    task = full_width_task()
+    sync()
+    print(f"full width FedAvg: llama3.2-1b base drawn on the card in {time.perf_counter() - t0:.2f} s")
+    shapes, restore_shapes = _record_flash_shapes(ops)
+    first, last, rounds, restore_cohorts = _record_cohorts()
+    spent, restore_timers = _host_timers()
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        _, clients, strat, rep = run_lm_experiment("fedavg", device=DEVICE, task=task, **FULL_SYNC)
+        sync()
+    finally:
+        restore_timers()
+        restore_cohorts()
+        restore_shapes()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for bucket in sorted(spent):
+        print(f"  host time {bucket:<40} {spent[bucket]:8.3f} s ({100 * spent[bucket] / wall:5.1f}%)")
+    nll0, nll1 = upload_nll(task, clients, first), upload_nll(task, clients, last)
+    n_rounds = rep.extra["rounds"]
+    print(f"full width FedAvg (llama3.2-1b, {FULL_SYNC}): {n_rounds} rounds, {rep.up_events} uploads / "
+          f"{rep.up_bytes} B up, {rep.down_events} events / {rep.down_bytes} B down, wall {wall:.2f} s "
+          f"({wall / n_rounds:.3f} s a round, {rep.up_events / wall:.2f} uploads/s), peak device memory "
+          f"{peak / 2**30:.2f} GiB; cohorts per client {dict(sorted(rounds.items()))}; training NLL first upload "
+          f"{nll0.tolist()} -> last {nll1.tolist()}; accuracy curve {[(t, round(a, 4)) for t, a in rep.curve]}")
+    print(f"full width FedAvg: flash shapes (B, H, Sq, hd, KV, Sk, dv) {dict(shapes)}; launches {json.dumps(counts)}")
+    for name in LM_PATH[:3]:
+        check(counts[name] > 0, f"full width FedAvg: kernel {name} never launched")
+    check(counts["flash_attention_dq"] == counts["flash_attention_dkv"], "full width FedAvg: dq and dkv launches differ")
+    check(shapes[COHORT_FLASH] > 0, f"full width FedAvg: no flash launch at {COHORT_FLASH}")
+    check(n_rounds == FULL_SYNC["rounds"] and all(rounds[c.client_id] == n_rounds for c in clients),
+          f"full width FedAvg: {n_rounds} rounds, cohorts {dict(rounds)}")
+    check(bool((nll1 < nll0).all()), "full width FedAvg: training NLL did not fall for every client")
+    width = strat.spec.dim  # 783,360 floats: the LoRA/head delta over llama3.2-1b
+    check(rep.up_bytes == rep.up_events * width * 4, "full width FedAvg: uploads not billed at the delta's size")
+    v = strat._vec
+    check(v.shape == (width,) and v.device.type == DEVICE and bool(torch.isfinite(v).all()),
+          f"full width FedAvg: the global delta must be a finite ({width},) row on the card")
+    del task, strat, clients
+    torch.cuda.empty_cache()
+    return dict(counts=counts, shapes=shapes, wall=wall, peak=peak, rounds=n_rounds)
+
+
 # ------------------------------------------------------------------ phase 4
 def agreement():
     """``har`` (8 clients, 900 s) on the card against the CPU, per event and
@@ -1036,6 +1225,35 @@ def agreement():
           "agreement: the 1e-9 s window's centers differ from the per-event run's on the card")
     print("agreement (har, card): the 1e-9 s window equals the per-event run (events, assignments, curve, bytes, "
           "centers bit for bit)")
+
+
+def baseline_agreement():
+    """``har`` (8 clients) FedAvg at 5 rounds and FedAsyn at 900 s, per
+    event and at a 45 s window, on the card against the CPU: identical
+    ledgers and stats, accuracy curves within 0.02."""
+    from repro_torch.configs.paper_tasks import PAPER_TASKS
+    from repro_torch.fl.experiment import run_experiment
+    from repro_torch.models.mlp import init_mlp
+
+    init = init_mlp(PAPER_TASKS["har"], torch.Generator().manual_seed(0))
+    init_np = [{k: v.numpy() for k, v in layer.items()} for layer in init]
+    for name, kw in (("fedavg", dict(rounds=5)), ("fedasyn", dict(max_time=900)),
+                     ("fedasyn", dict(max_time=900, coalesce_window=45.0))):
+        out = {}
+        for dev in ("cpu", DEVICE):
+            t0 = time.perf_counter()
+            _, _, strat, rep = run_experiment("har", name, num_clients=8, seed=0, device=dev, init_params=init_np, **kw)
+            out[dev] = (strat, rep, time.perf_counter() - t0)
+        (sc, rc, tc), (sg, rg, tg) = out["cpu"], out[DEVICE]
+        label = f"agreement {name} {kw}"
+        for field in ("up_events", "down_events", "up_bytes", "down_bytes", "duration", "up_series", "down_series"):
+            check(getattr(rc, field) == getattr(rg, field), f"{label}: {field} differs card vs CPU")
+        check(sc.stats() == sg.stats(), f"{label}: stats {sc.stats()} != {sg.stats()}")
+        check([t for t, _ in rc.curve] == [t for t, _ in rg.curve], f"{label}: evaluation times differ")
+        gap = max(abs(a - b) for (_, a), (_, b) in zip(rc.curve, rg.curve))
+        check(gap <= 0.02, f"{label}: accuracy curves differ by {gap}")
+        print(f"{label} (har, 8 clients, card vs CPU): ledger and stats identical ({json.dumps(sg.stats())}), "
+              f"accuracy gap {gap:.4f}, final {rg.final_acc:.4f}; wall CPU {tc:.2f} s, card {tg:.2f} s")
 
 
 def lm_agreement(rnn_params: dict):
@@ -1292,7 +1510,8 @@ def chain_row(coal) -> dict:
     source, replaces = KERNELS["ingest_chain"]
     shape = coal["segs"].most_common(1)[0][0]
     row = {"name": "ingest_chain", "route": "cuda", "source": source, "replaces": replaces,
-           "note": "not a pallas_call: ops.ingest_chain, a lax.scan around src/repro/kernels/l1_distance.py:51",
+           "note": "not a pallas_call: ops.ingest_chain (jit body _ingest_chain_jit, src/repro/kernels/ops.py:446), "
+                   "a lax.scan around src/repro/kernels/l1_distance.py:51",
            **_chain_timing(shape, coal["counts"]["ingest_chain"], "phase 3d's most frequent shape ")}
     row["s32_c4"] = _chain_timing((32, 4, 25418), coal["segs"][(32, 4, 25418)], "")
     return row
@@ -1405,10 +1624,13 @@ def bound_pair(nbytes: float, flops: float, split_tf32: bool = False) -> dict:
     return out
 
 
-def lm_timing(tiny, full) -> list[dict]:
+def lm_timing(tiny, full, cohort) -> list[dict]:
     """Rows for the flash kernels and ``pairwise_l1``: the numbers at the
     full-width ``llama3.2-1b`` shape, with the ``tiny_lm`` shape's beside
-    them under ``"tiny_lm"``; ``launches`` are the full-width run's."""
+    them under ``"tiny_lm"`` and, for the flash kernels, phase 3f's cohort
+    shape under ``"llama3.2-1b cohort"`` (``launches`` there: the FedAvg
+    run's, ``launches_at_shape``: its forward launches at that shape);
+    ``launches`` are the full-width run's."""
     g = gen(13)
     tiny_shape = tiny["shapes"].most_common(1)[0][0]
     full_shape = full["shapes"].most_common(1)[0][0]
@@ -1418,6 +1640,7 @@ def lm_timing(tiny, full) -> list[dict]:
         m = 8 if label == "tiny_lm" else 4  # delta rows: one per client of the run
         per_shape[label]["pairwise_l1"] = pairwise_timings(m, width, g)
         per_shape[label]["shapes"] = {"flash": list(shape), "pairwise_l1": [m, width]}
+    per_shape["cohort"] = lm_kernel_timings(COHORT_FLASH, g)
     rows = []
     # launch counter of each row (dq and dkv launch in pairs, checked in lm_run)
     counter = {"pairwise_l1": "pairwise_l1", "flash_attention_fwd": "flash_attention_fwd",
@@ -1431,7 +1654,13 @@ def lm_timing(tiny, full) -> list[dict]:
                "launches": full["counts"][counter[name]], **per_shape["llama3.2-1b"][name],
                "shape": per_shape["llama3.2-1b"]["shapes"][key], "tiny_lm": small}
         rows.append(row)
-        for label, r in (("llama3.2-1b", row), ("tiny_lm", small)):
+        shown = [("llama3.2-1b", row), ("tiny_lm", small)]
+        if key == "flash":
+            row["llama3.2-1b cohort"] = dict(per_shape["cohort"][name], shape=list(COHORT_FLASH),
+                                             launches=cohort["counts"][counter[name]],
+                                             launches_at_shape=cohort["shapes"][COHORT_FLASH])
+            shown.append(("llama3.2-1b cohort", row["llama3.2-1b cohort"]))
+        for label, r in shown:
             tc = f", split-TF32 tensor-core bound {r['bound_tc_ms']:.6f} ms" if "bound_tc_ms" in r else ""
             print(f"timing {name} at {label} {tuple(r['shape'])}: device time kernel {r['ms']:.5f} ms, plain "
                   f"{r['plain_ms']:.5f} ms, library {r['library_ms']:.5f} ms; bound {r['bound_ms']:.6f} ms "
@@ -1481,12 +1710,11 @@ def profile_window(label: str, run) -> None:
 def profiles(rnn_params: dict, lm_rnn_params: dict) -> None:
     """Steady-state windows, the broadcast RNN handed over so that its
     pretraining stays outside: the MLP main path (a 300 s image_recognition
-    run), the coalesced path (its first 300 uploads), the tiny_lm LM run and
-    the full-width llama3.2-1b LM run."""
-    from repro_torch.configs import get_config
+    run), the coalesced path (its first 300 uploads), the tiny_lm LM run,
+    the full-width llama3.2-1b LM run and phase 3f's full-width FedAvg run
+    (the base drawn once, before the windows)."""
     from repro_torch.fl.experiment import run_experiment
-    from repro_torch.fl.lm_task import FrozenBase, LMTask, run_lm_experiment
-    from repro_torch.models.model import init_params
+    from repro_torch.fl.lm_task import run_lm_experiment
 
     def mlp():
         rep = run_experiment("image_recognition", "echopfl", num_clients=20, max_time=300, seed=0, device=DEVICE,
@@ -1504,17 +1732,21 @@ def profiles(rnn_params: dict, lm_rnn_params: dict) -> None:
         return rep.extra["uploads"]
 
     def full():
-        cfg = get_config("llama3.2-1b")
-        task = LMTask(base=FrozenBase(init_params(cfg, gen(0))), cfg=cfg)
         rep = run_lm_experiment("echopfl", num_clients=4, max_time=720, eval_interval=240, seq_len=256, n_train=4,
                                 n_test=2, local_epochs=1, seed=0, device=DEVICE, task=task,
                                 rnn_params=lm_rnn_params)[3]
         return rep.extra["uploads"]
 
+    def full_sync():
+        return run_lm_experiment("fedavg", device=DEVICE, task=task, **FULL_SYNC)[3].up_events
+
     profile_window("image_recognition, 20 clients, 300 s", mlp)
     profile_window("image_recognition coalesced, 128 clients, 45 s windows, 300 uploads", coalesced)
     profile_window("tiny_lm LM run, 8 clients, 900 s", tiny)
+    task = full_width_task()  # the base is drawn outside the windows
     profile_window("llama3.2-1b LM run, 4 clients, 720 s", full)
+    profile_window("llama3.2-1b FedAvg, 4 clients, 3 rounds (cohorts of 16 sequences)", full_sync)
+    del task
     torch.cuda.empty_cache()
 
 
@@ -1533,13 +1765,17 @@ def main() -> int:
     coal = coalesced_path(rnn_params)
     tiny = lm_path()
     full = full_width(tiny["rnn"])
+    paper = paper_comparison(rnn_params)
+    cohort = full_width_sync()
     agreement()
+    baseline_agreement()
     lm_agreement(tiny["rnn"])
-    rows = timing(counts, shapes, full, tiny) + [chain_row(coal)] + lm_timing(tiny, full)
+    rows = timing(counts, shapes, full, tiny) + [chain_row(coal)] + lm_timing(tiny, full, cohort)
     print(f"timing: {trace_sessions['kept']} profiler sessions kept, {trace_sessions['refused']} refused "
           f"(a partial or empty trace)")
     profiles(rnn_params, tiny["rnn"])
     print(f"total {time.perf_counter() - t0:.1f} s")
+    print("paper comparison: " + json.dumps(paper))
     print(json.dumps({"kernels": rows}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

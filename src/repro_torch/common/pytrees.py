@@ -70,6 +70,16 @@ def tree_lerp(a: PyTree, b: PyTree, t: float) -> PyTree:
     return tree_map(lambda x, y: torch.mul(x, 1.0 - t) + torch.mul(y, t), a, b)
 
 
+def tree_weighted_mean(trees: list[PyTree], weights) -> PyTree:
+    """Weighted average of trees (the baselines' aggregation), in the
+    reference's op order, one op at a time: ``w / w.sum()`` in fp32 (the
+    sum of integer sample counts is exact), then ``0 + w0·l0 + w1·l1 + ...``
+    leafwise. The integer 0 it starts from turns a -0 sum into +0."""
+    w = torch.tensor(weights, dtype=torch.float32)
+    w = w / torch.sum(w)
+    return tree_map(lambda *leaves: sum(wi * leaf for wi, leaf in zip(w, leaves)), *trees)
+
+
 class FlattenSpec:
     """Flatten/unflatten plan for one tree structure.
 

@@ -64,7 +64,7 @@ class Downlink:
     params: PyTree
     version: int
     cluster_id: int
-    reason: str  # "unicast" | "broadcast"
+    reason: str  # "unicast" | "broadcast" | "local" (Standalone)
 
 
 class EchoPFLServer:

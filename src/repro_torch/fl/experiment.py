@@ -1,10 +1,11 @@
 """Experiment wiring: task + device fleet + strategy -> Simulator
-(counterpart of ``repro.fl.experiment``, EchoPFL only).
+(counterpart of ``repro.fl.experiment``).
 
-``run_experiment(task, "echopfl", ...)`` is the port's end-to-end entry
-point: the per-event loop, or with ``coalesce_window=`` seconds the
-coalesced one. It runs on ``device="cuda"`` unless the caller asks for the
-CPU.
+``run_experiment(task, strategy, ...)`` is the port's end-to-end entry
+point for EchoPFL and the six baselines: the synchronous strategies run
+``rounds`` round barriers, the asynchronous ones the per-event loop, or
+with ``coalesce_window=`` seconds the coalesced one. It runs on
+``device="cuda"`` unless the caller asks for the CPU.
 ``init_params=`` (MLP weights) and ``rnn_params=`` (pretrained broadcast
 RNN) hand over weights made elsewhere — e.g. the reference's, which torch
 cannot draw itself — instead of drawing them from ``seed``.
@@ -16,6 +17,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.baselines import ClusterFL, FedAsyn, FedAvg, FedSEA, Oort, Standalone
 from repro_torch.common.device import resolve_device
 from repro_torch.configs.paper_tasks import PAPER_TASKS
 from repro_torch.core.client import SimClient
@@ -84,13 +86,32 @@ def build_strategy(
     mix_rate: float = 0.25,
     rnn_params: dict | None = None,
     device: str | torch.device = "cuda",
+    sync_interval: float = 120.0,
     **server_kw,
 ):
-    """The EchoPFL server over ``clients``; ``server_kw`` goes to
-    :class:`EchoPFLServer` (``refine_every``, ``enable_clustering``,
-    ``enable_broadcast``, ...)."""
+    """The strategy ``name`` over ``clients``: ``echopfl`` (``server_kw``
+    goes to :class:`EchoPFLServer`: ``refine_every``, ``enable_clustering``,
+    ``enable_broadcast``, ...; the baselines take none of it) or one of
+    ``fedavg``, ``fedasyn``, ``fedsea``, ``clusterfl``, ``oort``,
+    ``standalone``. Oort's latency hints are three ``round_time_fn()``
+    draws a client, in list order, here at build time, as the reference
+    draws them. An unknown name raises ``KeyError``."""
+    sizes = {c.client_id: c.data.n for c in clients}
+    if name == "fedavg":
+        return FedAvg(init_params, sizes)
+    if name == "fedasyn":
+        return FedAsyn(init_params)
+    if name == "fedsea":
+        return FedSEA(init_params, sync_interval=sync_interval)
+    if name == "clusterfl":
+        return ClusterFL(init_params, sizes, num_clusters=max(num_clusters, 4), seed=seed)
+    if name == "oort":
+        hints = {c.client_id: np.mean([c.round_time_fn() for _ in range(3)]) for c in clients}
+        return Oort(init_params, sizes, hints, seed=seed)
+    if name == "standalone":
+        return Standalone(init_params)
     if name != "echopfl":
-        raise NotImplementedError(f"repro_torch: strategy {name!r} is not ported yet")
+        raise KeyError(name)
     by_id = {c.client_id: c for c in clients}
 
     def feedback_fn(client_id, center):
@@ -123,6 +144,7 @@ def run_experiment(
     num_clients: int = 20,
     seed: int = 0,
     max_time: float = 3600.0,
+    rounds: int = 40,
     target_acc: float = 0.85,
     eval_interval: float = 60.0,
     network: NetworkModel | None = None,
@@ -138,9 +160,11 @@ def run_experiment(
     max_uploads: int | None = None,
     **strategy_kw,
 ):
-    """Returns (task, clients, strategy, report). ``coalesce_window`` > 0
-    runs the coalesced loop (seconds of virtual time a window);
-    ``max_uploads`` stops the run at that many ingested uploads."""
+    """Returns (task, clients, strategy, report). A synchronous strategy
+    runs at most ``rounds`` rounds and stops past ``max_time``; an
+    asynchronous one runs to ``max_time``, coalesced with
+    ``coalesce_window`` > 0 (seconds of virtual time a window), and
+    ``max_uploads`` stops it at that many ingested uploads."""
     dev = resolve_device(device)
     task, clients, init_params = build_clients(
         task_name, num_clients, seed=seed, latent_clusters=latent_clusters,
@@ -157,7 +181,7 @@ def run_experiment(
         network=network or NetworkModel(),
         eval_interval=eval_interval, target_acc=target_acc, seed=seed, coalesce_window=coalesce_window,
     )
-    report = sim.run(max_time=max_time, max_uploads=max_uploads)
+    report = sim.run(max_time=max_time, rounds=rounds, max_uploads=max_uploads)
     report.extra["task"] = task_name
     report.extra["latent_clusters"] = {c.client_id: c.data.latent_cluster for c in clients}
     return task, clients, strategy, report

@@ -8,8 +8,10 @@ Batched calls replace per-client loops:
 
 * :meth:`ClientFleet.train_client` — the async path's single-client local
   round, trained from (and written back to) the client's model row, padded
-  like every cohort to a power of two (padded rows train 0 epochs), and
+  like every cohort to a power of two (padded rows train 0 epochs);
   :meth:`ClientFleet.train_rows`, a coalesced window's rounds in one batch;
+  :meth:`ClientFleet.train_cohort`, a synchronous round's cohort in one
+  batch, from the models the strategy hands out;
 * :meth:`ClientFleet.evaluate_fleet` — masked accuracy for the whole fleet;
 * :meth:`ClientFleet.feedback_many` — batched (member, center) probes
   emitting the (F_pred, F_true, S_soft) rows the server's chi2 kernels take.
@@ -136,6 +138,18 @@ class ClientFleet:
         self.plane.write(self._model_row[i], vec)
         self._has_model[i] = True
         return self.spec.unflatten(vec), losses[0]
+
+    def train_cohort(self, cids: Sequence[Any],
+                     params_list: Sequence[PyTree | None]) -> tuple[list[PyTree], torch.Tensor]:
+        """A synchronous round's cohort in one padded batch: client
+        ``cids[i]`` trains from ``params_list[i]``, or from its own model row
+        where that is ``None``. Writes no model row (the round's downlinks
+        do). Returns the trained trees (views of one device matrix) and the
+        (S,) losses."""
+        idx = np.asarray([self.index[c] for c in cids])
+        mat = torch.stack([self.model_vec(c) if p is None else self._vec_of(p) for c, p in zip(cids, params_list)])
+        vecs, losses = self._train(idx, mat, *self._train_specs(cids))
+        return [self.spec.unflatten(v) for v in vecs], losses
 
     def train_rows(self, cids: Sequence[Any]) -> tuple[list[PyTree], torch.Tensor]:
         """The local rounds of a window's distinct clients in one padded

@@ -377,6 +377,7 @@ def run_lm_experiment(
     num_clients: int = 8,
     seed: int = 0,
     max_time: float = 1800.0,
+    rounds: int = 5,
     eval_interval: float = 120.0,
     network=None,
     local_epochs: int = 2,
@@ -393,8 +394,9 @@ def run_lm_experiment(
     coalesce_window: float = 0.0,
     **strategy_kw,
 ):
-    """End-to-end LM personalization run on the asynchronous loop, per event
-    or with ``coalesce_window`` > 0 coalesced: returns (task, clients,
+    """End-to-end LM personalization run: a synchronous strategy runs
+    ``rounds`` round barriers, an asynchronous one the event loop, per event
+    or with ``coalesce_window`` > 0 coalesced. Returns (task, clients,
     strategy, report) like :func:`repro_torch.fl.experiment.run_experiment`."""
     from repro_torch.fl.experiment import build_strategy
     from repro_torch.fl.network import NetworkModel
@@ -411,7 +413,7 @@ def run_lm_experiment(
                               device=dev, **strategy_kw)
     sim = Simulator(clients, strategy, network=network or NetworkModel(), eval_interval=eval_interval,
                     seed=seed, coalesce_window=coalesce_window)
-    report = sim.run(max_time=max_time)
+    report = sim.run(max_time=max_time, rounds=rounds)
     report.extra["task"] = "lm"
     report.extra["latent_clusters"] = {c.client_id: c.data.latent_cluster for c in clients}
     return task, clients, strategy, report

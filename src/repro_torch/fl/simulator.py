@@ -1,13 +1,15 @@
-"""Event-driven federated-learning simulator, asynchronous loops
-(counterpart of ``repro.fl.simulator``).
+"""Event-driven federated-learning simulator (counterpart of
+``repro.fl.simulator``).
 
 Replays the paper's setup in virtual time: heterogeneous devices, an
-asymmetric up/down network, and the EchoPFL strategy on an event heap,
-one event at a time or, with a coalescing window, one window of events at
-a time. The client side runs on the batched
+asymmetric up/down network, and a coordination strategy — EchoPFL or one
+of the baselines. Asynchronous strategies (EchoPFL, FedAsyn, FedSEA with
+its periodic ticks) run on an event heap, one event at a time or, with a
+coalescing window, one window of events at a time; synchronous ones
+(FedAvg, Oort, ClusterFL with per-cluster barriers, Standalone) run round
+barriers. The client side runs on the batched
 :class:`~repro_torch.fl.fleet.ClientFleet`. Faults, the ingest guard,
-compressed uplinks, churn and the synchronous loop are not part of this
-port yet; :meth:`Simulator.run` raises for a synchronous strategy.
+compressed uplinks and churn are not part of this port yet.
 """
 from __future__ import annotations
 
@@ -45,6 +47,33 @@ class SimReport:
     down_series: dict = dataclasses.field(default_factory=dict)
     up_raw_bytes: int = 0
     up_retry_bytes: int = 0
+
+    def bytes_until(self, t: float) -> tuple[float, float]:
+        """(up, down) bytes in the series' bins up to time t (the paper's
+        communication-to-convergence metric)."""
+        last = int(t // 60)
+        up = sum(v for b, v in self.up_series.items() if b <= last)
+        down = sum(v for b, v in self.down_series.items() if b <= last)
+        return up, down
+
+    def summary(self) -> dict:
+        out = {
+            "strategy": self.strategy,
+            "final_acc": round(self.final_acc, 4),
+            "time_to_target_min": None if self.time_to_target is None else round(self.time_to_target / 60, 2),
+            "duration_min": round(self.duration / 60, 2),
+            "up_MB": round(self.up_bytes / 1e6, 2),
+            "down_MB": round(self.down_bytes / 1e6, 2),
+            "total_MB": round((self.up_bytes + self.down_bytes) / 1e6, 2),
+            "peak_down_MB_per_min": round(self.peak_down / 1e6, 2),
+            "peak_up_MB_per_min": round(self.peak_up / 1e6, 2),
+        }
+        if self.up_raw_bytes and self.up_raw_bytes != self.up_bytes:
+            out["up_raw_MB"] = round(self.up_raw_bytes / 1e6, 2)
+            out["uplink_ratio"] = round(self.up_bytes / self.up_raw_bytes, 4)
+        if self.up_retry_bytes:
+            out["up_retry_MB"] = round(self.up_retry_bytes / 1e6, 2)
+        return out
 
 
 def model_bytes(params: PyTree) -> int:
@@ -156,7 +185,8 @@ class Simulator:
 
     # ------------------------------------------------------------ async run
     def _init_async_events(self, push) -> None:
-        """Initial broadcast of the seed model + the first local rounds."""
+        """Initial broadcast of the seed model, the first local rounds and
+        the strategy's first tick (FedSEA's synchronization points)."""
         strat = self.strategy
         init = strat.initial_models(sorted(self.clients))
         nbytes = model_bytes(next(iter(init.values())))
@@ -167,12 +197,14 @@ class Simulator:
             self._set_model(c, params)
             c.base_version = 0
             push(dl + c.compute_time(), "upload_start", cid)
+        if getattr(strat, "tick_interval", None):
+            push(strat.tick_interval, "tick", None)
 
     def run_async(self, *, max_time: float = 3600.0, max_uploads: int | None = None) -> SimReport:
-        """Event loop for an asynchronous strategy (EchoPFL): one event at a
-        time, or with ``coalesce_window > 0`` one window of events at a time
-        (:meth:`_run_async_coalesced`). ``max_uploads`` stops the run at that
-        many ingested uploads."""
+        """Event loop for an asynchronous strategy (EchoPFL, FedAsyn,
+        FedSEA): one event at a time, or with ``coalesce_window > 0`` one
+        window of events at a time (:meth:`_run_async_coalesced`).
+        ``max_uploads`` stops the run at that many ingested uploads."""
         if self.coalesce_window > 0:
             return self._run_async_coalesced(self.coalesce_window, max_time=max_time, max_uploads=max_uploads)
         strat = self.strategy
@@ -210,10 +242,21 @@ class Simulator:
                     break
             elif kind == "downlink":
                 self._install(payload)
+            elif kind == "tick":  # the strategy's periodic hook (FedSEA's synchronization points)
+                self._tick(push, t)
 
-        extra = strat.stats()
+        extra = strat.stats() if hasattr(strat, "stats") else {}
         extra["uploads"] = uploads
         return self._report(t, extra)
+
+    def _tick(self, push, t: float) -> None:
+        """A strategy tick: bill and ship its downlinks one by one, then
+        schedule the next tick."""
+        strat = self.strategy
+        for dl in strat.on_tick(t):
+            push(t + self.net.download(model_bytes(dl.params), t), "downlink", dl)
+        if strat.tick_interval:
+            push(t + strat.tick_interval, "tick", None)
 
     def _send_upload(self, push, t: float, cid, new_params: PyTree) -> None:
         """The client keeps its trained model and sends it: bill the uplink
@@ -233,9 +276,9 @@ class Simulator:
             self._set_model(c, dl.params)
         c.base_version = dl.version
         c.cluster_id = dl.cluster_id
-        clusters = self.strategy.clustering.clusters
-        if dl.cluster_id in clusters:
-            c.partial_finetune = dl.client_id in clusters[dl.cluster_id].partial_finetune
+        clustering = getattr(self.strategy, "clustering", None)
+        if clustering is not None and dl.cluster_id in clustering.clusters:
+            c.partial_finetune = dl.client_id in clustering.clusters[dl.cluster_id].partial_finetune
 
     # ------------------------------------------------- coalesced async run
     def _run_async_coalesced(self, window: float, *, max_time: float, max_uploads: int | None) -> SimReport:
@@ -246,11 +289,14 @@ class Simulator:
         call), arrivals (one :meth:`EchoPFLServer.handle_uploads`). Each
         event keeps its own time for billing and scheduling, events in a
         bucket go in event order, and a window never crosses an evaluation,
-        the horizon or the upload cap. Messages made inside a window
-        deliver in a later one, when their own times pop. With one event a
-        window this is the per-event loop, bit for bit. Compute times are
-        drawn at collection time, in global event order, so the device RNG
-        stream is the per-event loop's."""
+        a strategy tick (handled alone), the horizon or the upload cap.
+        Messages made inside a window deliver in a later one, when their own
+        times pop. With one event a window this is the per-event loop, bit
+        for bit. Compute times are drawn at collection time, in global event
+        order, as the reference draws them; an arrival made inside its own
+        window draws in the next one, after the window's later arrivals, so
+        there the device RNG stream and the virtual times differ from the
+        per-event loop's, in the reference as here."""
         strat = self.strategy
         events: list = []  # (time, seq, kind, payload)
 
@@ -276,6 +322,9 @@ class Simulator:
             while t >= next_eval:
                 self._evaluate(next_eval)
                 next_eval += self.eval_interval
+            if kind == "tick":
+                self._tick(push, t)
+                continue
 
             buckets: dict[str, list] = {"downlink": [], "upload_start": [], "upload_done": []}
             buckets[kind].append((t0, payload, stash(kind, payload)))
@@ -284,7 +333,7 @@ class Simulator:
             arrivals = 1 if kind == "upload_done" else 0
             while events and (cap is None or arrivals < cap):
                 tn, _, kn, pn = events[0]
-                if tn >= limit or tn >= next_eval or tn > max_time:
+                if kn == "tick" or tn >= limit or tn >= next_eval or tn > max_time:
                     break
                 heapq.heappop(events)
                 buckets[kn].append((tn, pn, stash(kn, pn)))
@@ -303,7 +352,7 @@ class Simulator:
                 if max_uploads and uploads >= max_uploads:
                     break
 
-        extra = strat.stats()
+        extra = strat.stats() if hasattr(strat, "stats") else {}
         extra["uploads"] = uploads
         extra["coalesce_window"] = window
         return self._report(t, extra)
@@ -322,17 +371,18 @@ class Simulator:
             self._send_upload(push, ti, cid, trained[cid])
 
     def _coalesced_upload_dones(self, group, push) -> int:
-        """One batched ingest for a window's arrivals. The downlinks of one
-        ingest all carry a whole model, so each run of them that shares a
+        """One batched ingest for a window's arrivals (``handle_uploads``
+        where the strategy has it, else one ``handle_upload`` an arrival, in
+        order). The downlinks of one ingest all carry a whole model, so each run of them that shares a
         payload object is billed in one call and shipped as one batch event;
         the next local round is scheduled with the compute time drawn at
         collection."""
         strat = self.strategy
         batch = [(cid, params, bv, self.clients[cid].data.n, ti) for ti, (cid, params, bv), _ in group]
-        if len(batch) > 1:
+        if len(batch) > 1 and hasattr(strat, "handle_uploads"):
             downlinks_per = strat.handle_uploads(batch)
         else:
-            downlinks_per = [strat.handle_upload(*batch[0])]
+            downlinks_per = [strat.handle_upload(*b) for b in batch]
         for (ti, (cid, _, _), next_compute), dls in zip(group, downlinks_per):
             run: list = []
             run_obj, run_nb = None, 0
@@ -364,7 +414,62 @@ class Simulator:
         for dl in flat:
             self._install(dl, row_written=batched)
 
-    def run(self, *, max_time: float = 3600.0, max_uploads: int | None = None) -> SimReport:
+    # ------------------------------------------------------------- sync run
+    def run_sync(self, *, rounds: int = 50, max_time: float | None = None) -> SimReport:
+        """Round-barrier loop for a synchronous strategy (FedAvg, Oort,
+        ClusterFL with per-cluster barriers, Standalone). Each group's cohort
+        trains in one :meth:`ClientFleet.train_cohort` call; compute-time
+        draws, billing and installs go per client in cohort order, as in the
+        reference."""
+        strat = self.strategy
+        init = strat.initial_models(sorted(self.clients))
+        nbytes = model_bytes(next(iter(init.values())))
+        self._ensure_fleet(next(iter(init.values())))
+        t = 0.0
+        for cid, params in init.items():
+            self._set_model(self.clients[cid], params)
+        t += nbytes / self.net.downstream_bps
+        self.net.download(nbytes * len(init), 0.0)
+
+        next_eval = self.eval_interval
+        groups_time = {g: t for g in strat.groups(sorted(self.clients))}
+        rounds_done = 0
+        for rnd in range(rounds):
+            # each group (one global group, or one a cluster) runs its own barrier
+            for group_id, members in strat.groups(sorted(self.clients)).items():
+                t0 = groups_time.get(group_id, t)
+                selected = strat.select(group_id, members, rnd)
+                if not selected:
+                    continue
+                trained, _ = self._fleet.train_cohort(selected, [strat.model_for(cid) for cid in selected])
+                finish_times, uploads = {}, {}
+                for cid, params in zip(selected, trained):
+                    dur = self.clients[cid].compute_time()
+                    up_dur = self.net.upload(model_bytes(params), t0 + dur)
+                    finish_times[cid] = t0 + dur + up_dur
+                    uploads[cid] = params
+                barrier = max(finish_times.values())
+                dl_time = 0.0
+                for dl in strat.finish_round(group_id, uploads, barrier):
+                    dl_time = max(dl_time, self.net.download(model_bytes(dl.params), barrier))
+                    c = self.clients[dl.client_id]
+                    self._set_model(c, dl.params)
+                    c.base_version = dl.version
+                groups_time[group_id] = barrier + dl_time
+            t = max(groups_time.values())
+            rounds_done = rnd + 1
+            while t >= next_eval:
+                self._evaluate(next_eval)
+                next_eval += self.eval_interval
+            if max_time and t > max_time:
+                break
+        extra = strat.stats() if hasattr(strat, "stats") else {}
+        extra["rounds"] = rounds_done
+        return self._report(t, extra)
+
+    def run(self, **kw) -> SimReport:
+        """The synchronous loop (``rounds``, ``max_time``) for a synchronous
+        strategy, else the asynchronous one (``max_time``, ``max_uploads``)."""
         if getattr(self.strategy, "is_synchronous", False):
-            raise NotImplementedError("repro_torch: synchronous strategies are not ported yet")
-        return self.run_async(max_time=max_time, max_uploads=max_uploads)
+            return self.run_sync(**{k: v for k, v in kw.items() if k in ("rounds", "max_time")})
+        return self.run_async(**{k: v for k, v in kw.items() if k in ("max_time", "max_uploads")})

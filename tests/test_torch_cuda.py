@@ -9,7 +9,9 @@ bitwise, the index equal, the merge bitwise its plain version (NaN at the
 same places), the flash forward 1e-5 and backward 3e-4 (the backward also
 bitwise across repeats); the ingest chain's cids, blended rows and carried
 matrix bitwise its plain version's and its distances and statistics
-bitwise the numpy model of the L1 order (``kernel_chain``).
+bitwise the numpy model of the L1 order (``kernel_chain``). The ``har``
+FedAvg and FedAsyn runs on the card against the same runs on the CPU:
+identical ledgers and stats, accuracy curves within 0.02.
 """
 import numpy as np
 import pytest
@@ -235,6 +237,7 @@ def test_cuda_chi2_edges(cuda_device):
 FLASH_CASES = [
     # B, H, KV, Sq, Sk, hd, dv, options
     (8, 4, 2, 32, 32, 16, 16, {}),  # tiny_lm training shape
+    (16, 32, 8, 256, 256, 64, 64, {}),  # llama3.2-1b: a FedAvg cohort of 4 clients x 4 sequences
     (1, 8, 4, 100, 100, 64, 48, dict(window=32, softcap=30.0)),  # ragged, GQA, dv != hd
     (1, 8, 2, 300, 300, 128, 128, {}),  # head width 128 (llama3-405b, command-r)
     (1, 4, 2, 65, 65, 64, 64, {}),  # one row past a 64-row tile
@@ -487,3 +490,32 @@ def test_cuda_l1_vec_is_the_chain_order(cuda_device):
         got = l1_vec(torch.from_numpy(a).to(cuda_device), torch.from_numpy(b).to(cuda_device))
         assert ops.launch_counts()["l1_distance"] == 1
         assert got.cpu().numpy().tobytes() == kernel_l1(a, b).tobytes()
+
+
+def _har_baseline_run(name: str, device, **kw):
+    from repro_torch.configs.paper_tasks import PAPER_TASKS
+    from repro_torch.fl.experiment import run_experiment
+    from repro_torch.models.mlp import init_mlp
+
+    init = init_mlp(PAPER_TASKS["har"], torch.Generator().manual_seed(0))
+    init_np = [{k: v.numpy() for k, v in layer.items()} for layer in init]
+    return run_experiment("har", name, num_clients=8, seed=0, device=device, init_params=init_np, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw", [("fedavg", dict(rounds=5)), ("fedasyn", dict(max_time=900)),
+                                     ("fedasyn", dict(max_time=900, coalesce_window=45.0))], ids=str)
+def test_cuda_har_baseline_matches_the_cpu(cuda_device, name, kw):
+    """A ``har`` baseline run on the card against the same run on the CPU:
+    identical ledgers and stats, accuracy curves within 0.02; an MLP
+    baseline launches none of the port's kernels."""
+    _, _, sc, rc = _har_baseline_run(name, "cpu", **kw)
+    ops.reset_launch_counts()
+    _, _, sg, rg = _har_baseline_run(name, cuda_device, **kw)
+    assert not any(ops.launch_counts().values()), ops.launch_counts()
+    for field in ("up_events", "down_events", "up_bytes", "down_bytes", "duration", "up_series", "down_series"):
+        assert getattr(rc, field) == getattr(rg, field), field
+    assert sc.stats() == sg.stats() and rc.summary()["total_MB"] == rg.summary()["total_MB"]
+    assert [t for t, _ in rc.curve] == [t for t, _ in rg.curve]
+    np.testing.assert_allclose([a for _, a in rg.curve], [a for _, a in rc.curve], atol=0.02, rtol=0)
+    assert sg._vec.device.type == "cuda" and bool(torch.isfinite(sg._vec).all())

@@ -12,6 +12,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
+BASELINES = ("fedavg", "fedasyn", "fedsea", "clusterfl", "oort", "standalone")
 
 
 def _modules():
@@ -35,7 +36,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert len(mods) >= 25
+    assert len(mods) >= 32
+    baselines = {m for m in mods if m.startswith("repro_torch.baselines")}
+    assert baselines >= {"repro_torch.baselines", *(f"repro_torch.baselines.{n}" for n in BASELINES)}
 
 
 def _imports(path: Path):
@@ -47,9 +50,9 @@ def _imports(path: Path):
             yield node.module
 
 
-# the scripts that run on the card: the timing loops and the chain's phase timeline
-CARD_SCRIPTS = sorted((ROOT / "scripts").glob("*_timing.py")) + [ROOT / "scripts" / n
-                                                                 for n in ("timing_turns.py", "chain_phases.py")]
+# the scripts that run on the card: the timing loops, the chain's phase timeline, the baselines' card-vs-CPU drift
+CARD_SCRIPTS = sorted((ROOT / "scripts").glob("*_timing.py")) + [
+    ROOT / "scripts" / n for n in ("timing_turns.py", "chain_phases.py", "sync_drift.py")]
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + CARD_SCRIPTS,
@@ -84,6 +87,36 @@ def test_run_experiment_on_cuda_without_a_card_raises():
     finally:
         sim.Simulator.run = orig
     assert not calls
+
+
+@pytest.mark.parametrize("name", BASELINES)
+def test_baseline_run_on_the_default_device_without_a_card_raises(name):
+    """A baseline's run, like EchoPFL's, goes to the card unless the caller
+    asks for the CPU: with no card it raises before the simulator runs."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU")
+    import repro_torch.fl.simulator as sim
+    from repro_torch.fl.experiment import run_experiment
+
+    calls = []
+    orig = sim.Simulator.run
+    sim.Simulator.run = lambda self, **kw: calls.append(kw)  # would mean it ran
+    try:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            run_experiment("har", name, num_clients=4, max_time=60, rounds=1)
+    finally:
+        sim.Simulator.run = orig
+    assert not calls
+
+
+def test_build_strategy_raises_key_error_for_an_unknown_name():
+    from repro_torch.fl.experiment import build_clients, build_strategy
+
+    _, clients, init = build_clients("har", 2, device="cpu")
+    for name in ("fedprox", "", "EchoPFL"):
+        with pytest.raises(KeyError):
+            build_strategy(name, init, clients, device="cpu")
+    assert {build_strategy(n, init, clients, device="cpu").name for n in BASELINES} == set(BASELINES)
 
 
 @pytest.mark.parametrize("path", sorted((PKG / "csrc").glob("*.cu*")), ids=lambda p: p.name)
