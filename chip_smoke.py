@@ -10,12 +10,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 1. probe — the card's name and power limit, CUDA and nvcc versions; build
    the hand-written kernels from ``src/repro_torch/csrc`` and time the build;
    the registers, shared memory and local memory (spills) of each flash
-   kernel and of the L1 rows, fused assign, ingest chain, chi2 and merge kernels from
+   kernel and of the L1 rows, fused assign, ingest chain, chi2, merge and uplink encode kernels from
    ``cuobjdump --dump-resource-usage``, the ingest chain's launch plan (grid,
    dynamic shared memory, rows on chip) at the paths' shapes, and a check of
    each flash kernel's SASS for tensor-core ``HMMA`` instructions (none, a
-   spill at head width 64, or an L1, assign, chain, chi2 or merge kernel that
-   spills fail the run);
+   spill at head width 64, or an L1, assign, chain, chi2, merge or encode
+   kernel that spills fail the run);
 2. kernels — every kernel wrapper against its plain PyTorch version on the
    card, at the main path's widths and at edge shapes; the L1 sums' fixed
    order at N % 4 = 0, 1, 2, 3, N = 1 and N = 783,360 (bitwise across
@@ -35,7 +35,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    statistics bitwise the numpy model of the L1 order
    (``tests/test_torch_l1_order.py::kernel_chain``), bitwise across repeats,
    the centers only read, one kernel per call in a profiler trace at every
-   shape and no device-to-device copy; the flash-attention forward and
+   shape and no device-to-device copy; the uplink encodes
+   (``csrc/uplink.cu``) bitwise their plain versions at (B, n) = 1, 3, 32 x
+   4,550, 25,418, 2,304 and 783,360 (k = round(0.1 n), chunk 512) and at
+   n = 1, n % chunk = 1 and k = n, on random, tie, signed-zero, NaN and
+   inf rows: reconstruction, anchor and residual rows and the rows they
+   must not touch, across 3 repeats, one kernel per call in a profiler
+   trace; the flash-attention forward and
    backward at the LM paths' shapes and at the model zoo's head widths (up
    to 256), the backward also bitwise across repeats;
 3. main path — ``repro_torch.fl.experiment.run_experiment("image_recognition",
@@ -72,13 +78,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    so flash at ``(16, 32, 256, 64)``; dq and dkv launch in pairs, every
    client's training NLL falls from its first upload to its last, peak
    device memory;
+3g. the paper's comm sweep — the reference's
+   ``benchmarks/bench_comm_cost.py::run_compress`` at one task and seed:
+   ``har``, 20 clients, 3,600 s, 45 s windows, EchoPFL (phase 3's RNN)
+   and FedAsyn, each with no codec, ``topk`` and ``int8``: up/down/total MB,
+   ``uplink_ratio``, payload bytes, codec and kernel launches, the cohorts,
+   final and tail accuracy, uploads per wall second; a compressed arm bills
+   ``up_events x payload_bytes`` and launches its kernel ``codec.launches``
+   times, and the uplink's ledger (FedAsyn's downlink too) equals
+   ``BENCH_comm_compress.json``'s; then phase 3's per-event
+   ``image_recognition`` run (300 s) with each codec: the encode at
+   (1, 25,418) once an upload; then phase 3c's full-width run with
+   ``uplink="topk"``: the encode at (1, 783,360) once an upload;
 4. agreement — a small ``har`` run and the ``tiny_lm`` LM run on the card
    against the same runs on the CPU, where every wrapper takes its plain
    version; the ``har`` run also coalesced at a 45 s window, card against
    CPU, and at a 1e-9 s window against the per-event run on the card
    (identical events, assignments and centers); ``har`` FedAvg (5 rounds)
    and FedAsyn (900 s, per event and at a 45 s window), card against CPU:
-   identical ledgers and stats, accuracy curves within 0.02;
+   identical ledgers and stats, accuracy curves within 0.02; compressed
+   ``har``: EchoPFL with ``topk`` and ``int8`` per event and at 45 s, FedAvg
+   with ``int8`` (5 rounds), card against CPU: identical ledgers,
+   ``extra["uplink"]``, events and assignments, curves within 0.02;
 5. timing — each kernel, its plain version and (where one exists) a single
    PyTorch call computing the same function, at the shape the main path
    called it with most (the flash kernels and ``pairwise_l1`` at the
@@ -89,7 +110,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    S = 1, the launch floor; the merge also at ``har``'s, ``tiny_lm``'s and the
    full width's row and at N = 1; the ingest chain at phase 3d's most
    frequent segment shape and at (32, 4, 25,418), beside the per-event
-   device work for the same uploads), beside the least time the
+   device work for the same uploads; the uplink encodes at phase 3g's most
+   frequent cohort, at (1, 25,418) and at (1, 783,360), the top-k beside
+   ``torch.topk`` on |c|), beside the least time the
    card could take (fp32 on the CUDA cores; for the flash kernels also
    ``bound_tc_ms``, split TF32 on the tensor cores): device time per call from a ``torch.profiler`` trace
    (``ms``, ``plain_ms``, ``library_ms``; the profiler can lose a short
@@ -99,7 +122,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (``call_ms`` and its two siblings; the merge also in place, as the server
    calls it);
 6. profile — short runs of the main path, of the coalesced path, of
-   both LM paths and of phase 3f's full-width FedAvg run under
+   both LM paths, of phase 3f's full-width FedAvg run and of phase 3g's
+   EchoPFL top-k arm (its first 1,200 s) under
    ``torch.profiler``: device busy time, the device's idle share and the
    kernels that take the time.
 
@@ -135,6 +159,9 @@ KERNELS = {  # row name -> (CUDA source, the TPU kernel's pallas_call it replace
     "chi2_feedback": ("src/repro_torch/csrc/chi2.cu", "src/repro/kernels/chi2_feedback.py:50"),
     "chi2_feedback_segmented": ("src/repro_torch/csrc/chi2.cu", "src/repro/kernels/chi2_feedback.py:111"),
     "merge_attention": ("src/repro_torch/csrc/merge.cu", "src/repro/kernels/merge_attention.py:68"),
+    # not pallas_calls: the jitted cohort encodes of the compressed uplink
+    "uplink_int8_encode": ("src/repro_torch/csrc/uplink.cu", "src/repro/fl/uplink.py:141"),
+    "uplink_topk_encode": ("src/repro_torch/csrc/uplink.cu", "src/repro/fl/uplink.py:131"),
     "pairwise_l1": ("src/repro_torch/csrc/l1.cu", "src/repro/kernels/l1_distance.py:65"),
     "flash_attention_fwd": ("src/repro_torch/csrc/flash_fwd.cu", "src/repro/kernels/flash_attention.py:127"),
     "flash_attention_bwd": ("src/repro_torch/csrc/flash_bwd.cu", "src/repro/kernels/flash_attention_bwd.py:176"),
@@ -142,8 +169,11 @@ KERNELS = {  # row name -> (CUDA source, the TPU kernel's pallas_call it replace
 L1_WIDTHS = (25418, 4550, 4099, 783360, 1, 4097)  # N % 4 = 2, 2, 3, 0, 1, 1
 # where a row's function also runs: the L1 sums are the first phase of the fused assign and of the chain
 ALSO_IN = {"l1_distance": "src/repro_torch/csrc/assign_lerp.cu, src/repro_torch/csrc/ingest_chain.cu"}
+# the compressed uplink's encodes (phase 3g), launched only by a run with uplink= set
+UPLINK_KERNELS = ("uplink_int8_encode", "uplink_topk_encode")
 # the per-event MLP path's kernels; the coalesced path (phase 3d) runs them and the chain
-MLP_PATH = KERNELS.keys() - {"pairwise_l1", "flash_attention_fwd", "flash_attention_bwd", "ingest_chain"}
+MLP_PATH = KERNELS.keys() - {"pairwise_l1", "flash_attention_fwd", "flash_attention_bwd", "ingest_chain",
+                             *UPLINK_KERNELS}
 COALESCED_PATH = MLP_PATH | {"ingest_chain"}
 # ingest chain checks: (S, C, N), with phase 3d's most frequent segment (25, 4, 25418), tiny_lm's one-chunk
 # row (16, 2, 2304), a partial tile across three chunks, the last ragged (12, 5, 8193), and the center limit
@@ -155,7 +185,8 @@ COALESCED = dict(num_clients=128, coalesce_window=45.0, refine_every=32, max_upl
 LM_PATH = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv", "assign_and_lerp")
 # the kernels' entry functions in src/repro_torch/csrc, as the profiler names them
 PORT_KERNEL_NAMES = ("l1_rows_kernel", "assign_lerp_kernel", "ingest_chain_kernel", "chi2_kernel", "merge_kernel",
-                     "flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+                     "uplink_int8_kernel", "uplink_topk_kernel", "uplink_topk_split_kernel", "flash_fwd_kernel",
+                     "flash_dq_kernel", "flash_dkv_kernel")
 # chi2 order checks: rows, widths (J > 32 takes the warp path) and segment counts (300 > threads)
 CHI2_ROWS, CHI2_WIDTHS, CHI2_SEGMENTS = (1, 20, 300, 2049), (2, 10, 16, 200), (0, 1, 4, 300)
 # extra segmented chi2 timing shapes: the 128-client fleet's refine, and the launch floor
@@ -190,6 +221,15 @@ SPEED_ORDER = ("D5", "D1", "D2", "D3", "D4")  # slowest -> fastest device class
 # phase 3f: FedAvg over the llama3.2-1b base, one cohort of 4 clients (an attention batch of 16) a round
 FULL_SYNC = dict(num_clients=4, seq_len=256, n_train=4, n_test=2, local_epochs=1, rounds=3, eval_interval=240, seed=0)
 COHORT_FLASH = (16, 32, 256, 64, 8, 256, 64)  # (B, H, Sq, hd, KV, Sk, dv) of phase 3f's training launches
+# uplink encode checks, (B, n, chunk, k): the paths' rows (har, image_recognition, tiny_lm, the full-width
+# delta) with k = round(0.1 n) at B = 1, 3, 32; then n = 1, n % chunk = 1 and k = n
+UPLINK_SHAPES = tuple((b, n, 512, round(0.1 * n)) for n in (4550, 25418, 2304, 783360) for b in (1, 3, 32)) + (
+    (2, 1, 1, 1), (3, 513, 512, 51), (2, 4097, 4096, 4097),
+    # about the top-k split's edges: one row too short to split, split rows, more rows than the card holds split
+    (1, 8191, 512, 819), (3, 8192, 512, 819), (600, 8192, 512, 819))
+UPLINK_KINDS = ("random", "ties", "zeros", "nan", "inf")
+# phase 3g: the reference's comm sweep (benchmarks/bench_comm_cost.py::run_compress) at one task and seed
+COMM_SWEEP = dict(num_clients=20, max_time=3600.0, coalesce_window=45.0, eval_interval=120.0, seed=0)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -233,7 +273,8 @@ def probe():
 
 def _kernel_label(mangled: str) -> str:
     """``flash_dkv_kernel<64,3>`` from a mangled name."""
-    names = re.findall(r"(?:flash_[a-z]+|l1_rows|assign_lerp|ingest_chain|chi2|merge)_kernel", mangled)
+    names = re.findall(r"(?:flash_[a-z]+|l1_rows|assign_lerp|ingest_chain|chi2|merge|uplink_int8|uplink_topk_split"
+                       r"|uplink_topk)_kernel", mangled)
     args = re.findall(r"Li(\d+)E", mangled)
     return (names[-1] if names else mangled) + (f"<{','.join(args)}>" if args else "")
 
@@ -280,23 +321,33 @@ def kernel_resources() -> None:
             check(u.get("LOCAL", 0) == 0 and u.get("STACK", 0) == 0,
                   f"{_kernel_label(n)} spills ({u.get('STACK')} B stack, {u.get('LOCAL')} B local)")
     print(f"flash kernels: {len(flash)} instantiations, every one with HMMA; none at head width 64 spills")
-    kinds = ("l1_rows_kernel", "assign_lerp_kernel", "ingest_chain_kernel", "chi2_kernel", "merge_kernel")
+    kinds = ("l1_rows_kernel", "assign_lerp_kernel", "ingest_chain_kernel", "chi2_kernel", "merge_kernel",
+             "uplink_int8_kernel", "uplink_topk_kernel", "uplink_topk_split_kernel")
     rows = sorted(n for n in usage if any(k in n for k in kinds))
     check(all(any(k in n for n in rows) for k in kinds),
-          "cuobjdump found no L1 rows, fused assign, ingest chain, chi2 or merge kernel in the library")
+          "cuobjdump found no L1 rows, fused assign, ingest chain, chi2, merge or uplink kernel in the library")
     for n in rows:
         u = usage[n]
         print(f"  {_kernel_label(n):<24} registers {u.get('REG')}, shared {u.get('SHARED')} B static, "
               f"local {u.get('LOCAL')} B, stack {u.get('STACK')} B")
         check(u.get("LOCAL", 0) == 0 and u.get("STACK", 0) == 0,
               f"{_kernel_label(n)} spills ({u.get('STACK')} B stack, {u.get('LOCAL')} B local)")
-    print("L1, fused assign, ingest chain, chi2 and merge kernels: no spills")
+    print("L1, fused assign, ingest chain, chi2, merge and uplink encode kernels: no spills")
     from repro_torch.kernels.ingest_chain import chain_plan
 
     for c, n in dict.fromkeys((c, n) for _, c, n in CHAIN_SHAPES):
         plan = chain_plan(c, n)
         print(f"  ingest_chain_kernel launch at (C, N) = {(c, n)}: {plan['blocks']} blocks, dynamic shared "
               f"{plan['smem']} B a block, rows {'on chip' if plan['on_chip'] else 'in the output matrix'}")
+    from repro_torch.kernels.uplink import topk_plan
+
+    for b, n, _, _ in UPLINK_SHAPES:
+        plan = topk_plan(b, n)
+        print(f"  uplink top-k launch at (B, n) = {(b, n)}: " + (
+            f"uplink_topk_split_kernel, {plan['parts']} blocks a row, {plan['ws']} ints of scratch" if plan["parts"]
+            else "uplink_topk_kernel, one block a row"))
+    check(topk_plan(1, 783360)["parts"] > 1 and topk_plan(1, 8191)["parts"] == 0,
+          "the full-width row must split over blocks and a row under 8,192 floats not")
 
 
 # ------------------------------------------------------------------ phase 2
@@ -359,6 +410,7 @@ def kernel_phase():
     ingest_chain_checks()
     chi2_order_checks()
     merge_checks()
+    uplink_checks()
     flash_checks()
 
 
@@ -647,6 +699,71 @@ def merge_checks() -> None:
           f"one kernel per call: {per_call}")
 
 
+def uplink_case(kind: str, shape: tuple):
+    """Card tensors for one encode check: the plane (anchors and residuals
+    at permuted rows, two rows no encode may touch), the anchor and residual
+    row ids and the trained rows, from ``tests/test_torch_uplink.py``'s
+    seeded ``encode_inputs`` and ``encode_plane``."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_uplink import encode_inputs, encode_plane
+
+    b, n, _, k = shape
+    A, R, mat = encode_inputs(kind, b, n, b * n + k)
+    plane, a_rows, r_rows = encode_plane(A, R, b)
+    return [t.to(DEVICE) for t in (plane, a_rows, r_rows, torch.from_numpy(mat))]
+
+
+def uplink_checks() -> None:
+    """The two encode kernels (``csrc/uplink.cu``) bitwise their plain
+    versions on the card at UPLINK_SHAPES on every UPLINK_KINDS case
+    (random, ties across the k-th place, signed zeros, NaN, inf; NaN at the
+    same places): the reconstruction and the whole plane after the call (the
+    anchor and residual rows written, the rows not to touch), the trained
+    rows only read, the same bits over 3 repeats from the same plane; and one
+    kernel per call in a profiler trace at the paths' rows."""
+    from repro_torch.kernels import ops, uplink
+    from repro_torch.kernels.uplink import topk_plan
+
+    n_checked = 0
+    for shape in UPLINK_SHAPES:
+        _, _, chunk, k = shape
+        for kind in UPLINK_KINDS:
+            plane, a_rows, r_rows, mat = uplink_case(kind, shape)
+            mat0 = mat.clone()
+            for name, kernel, plain in (
+                    ("int8", lambda p: ops.uplink_int8_encode(p, a_rows, mat, chunk),
+                     lambda p: uplink.uplink_int8_encode_plain(p, a_rows, mat, chunk)),
+                    ("topk", lambda p: ops.uplink_topk_encode(p, a_rows, r_rows, mat, k),
+                     lambda p: uplink.uplink_topk_encode_plain(p, a_rows, r_rows, mat, k))):
+                want_plane = plane.clone()
+                want = plain(want_plane)
+                for _ in range(3):
+                    got_plane = plane.clone()
+                    got = kernel(got_plane)
+                    check(_same_nan_bits(got, want), f"uplink {name} {shape} {kind}: reconstruction not bitwise")
+                    check(_same_nan_bits(got_plane, want_plane), f"uplink {name} {shape} {kind}: plane rows differ")
+                check(_same_nan_bits(mat, mat0), f"uplink {name} {shape} {kind}: the trained rows were written")
+                n_checked += 1
+            del plane, mat, mat0
+    per_call = {}
+    for shape in ((1, 4550, 512, 455), (3, 25418, 512, 2542), (1, 783360, 512, 78336)):
+        _, _, chunk, k = shape
+        plane, a_rows, r_rows, mat = uplink_case("random", shape)
+        topk = "uplink_topk_split_kernel" if topk_plan(*shape[:2])["parts"] else "uplink_topk_kernel"
+        for kernel, fn in (("uplink_int8_kernel", lambda: ops.uplink_int8_encode(plane, a_rows, mat, chunk)),
+                           (topk, lambda: ops.uplink_topk_encode(plane, a_rows, r_rows, mat, k))):
+            seen = kernels_per_call(fn)
+            check(sum(seen.values()) == 10 and all(kernel in x for x in seen),
+                  f"uplink {shape}: 10 calls traced as {dict(seen)}, not 10 {kernel}")
+            per_call[kernel, shape[:2]] = sum(seen.values()) // 10
+    torch.cuda.empty_cache()
+    sync()
+    traced = ", ".join(f"{kernel} at {bn}: {v}" for (kernel, bn), v in per_call.items())
+    print(f"uplink encode checks: {n_checked} passed at (B, n, chunk, k) = {list(UPLINK_SHAPES)} on "
+          f"{list(UPLINK_KINDS)} rows (bitwise the plain version with NaN at the same places: reconstruction, anchor "
+          f"and residual rows, untouched rows; 3 repeats; the trained rows only read); kernels per call: {traced}")
+
+
 def flash_inputs(g, B, H, KV, Sq, Sk, hd, dv):
     return randn(g, B, H, Sq, hd), randn(g, B, KV, Sk, hd), randn(g, B, KV, Sk, dv), randn(g, B, H, Sq, dv)
 
@@ -750,6 +867,9 @@ def _host_timers():
     wrap(BroadcastPredictor, "decide", "server:   predictor decide")
     wrap(server_mod.EchoPFLServer, "_refine", "server:   _refine")
     wrap(ClientFleet, "train_cohort", "client: train_cohort (a round)")
+    from repro_torch.fl.uplink import UplinkCodec
+
+    wrap(UplinkCodec, "encode_vecs", "client: uplink encode (a cohort)")
     from repro_torch import baselines
 
     for cls, attrs in ((baselines.FedAvg, ("finish_round",)), (baselines.Oort, ("select", "finish_round")),
@@ -880,11 +1000,12 @@ def upload_nll(task, clients, by_cid) -> torch.Tensor:
         return task._nll(stacked, fd.train["tokens"], fd.train["labels"], fd.train["mask"])
 
 
-def lm_run(label: str, expect_shape=None, **kw):
+def lm_run(label: str, expect_shape=None, nll_must_fall: bool = True, **kw):
     """One EchoPFL LM run on the card with its own launch counts, host
     timers and upload recorder; checks the LM path's kernels launched,
-    centers are finite rows of the delta's width on the card, and every
-    client's last upload has a lower training NLL than its first."""
+    centers are finite rows of the delta's width on the card, and (unless
+    ``nll_must_fall`` is off) every client's last upload has a lower
+    training NLL than its first."""
     from repro_torch.common.pytrees import tree_leaves
     from repro_torch.fl.lm_task import run_lm_experiment
     from repro_torch.kernels import ops
@@ -928,7 +1049,8 @@ def lm_run(label: str, expect_shape=None, **kw):
         check(v.shape == (width,) and v.device.type == DEVICE and bool(torch.isfinite(v).all()),
               f"{label}: centers must be finite ({width},) rows on the card")
     check(all(rounds[c.client_id] >= 2 for c in clients), f"{label}: a client trained fewer than 2 rounds")
-    check(bool((nll1 < nll0).all()), f"{label}: training NLL did not fall for every client")
+    if nll_must_fall:
+        check(bool((nll1 < nll0).all()), f"{label}: training NLL did not fall for every client")
     if expect_shape is not None:
         check(any(s[:4] == expect_shape for s in shapes), f"{label}: no flash launch at {expect_shape}")
     return dict(counts=counts, shapes=shapes, server_shapes=server_shapes, wall=wall, uploads=uploads, peak=peak,
@@ -1111,12 +1233,12 @@ def _record_cohorts():
     fn = ClientFleet.train_cohort
 
     def rec(self, cids, params_list):
-        trained, losses = fn(self, cids, params_list)
+        trained, losses, vecs = fn(self, cids, params_list)
         for cid, params in zip(cids, trained):
             first.setdefault(int(cid), params)
             last[int(cid)] = params
             rounds[int(cid)] += 1
-        return trained, losses
+        return trained, losses, vecs
 
     ClientFleet.train_cohort = rec
 
@@ -1182,6 +1304,184 @@ def full_width_sync():
     return dict(counts=counts, shapes=shapes, wall=wall, peak=peak, rounds=n_rounds)
 
 
+# ----------------------------------------------------------------- phase 3g
+def _record_encodes():
+    """Count the (B, n) cohorts the codec hands each encode wrapper (the
+    codec looks the names up in ``repro_torch.fl.uplink`` at call time)."""
+    from repro_torch.fl import uplink as codec_mod
+
+    shapes = {name: Counter() for name in UPLINK_KERNELS}
+    originals = {name: getattr(codec_mod, name) for name in UPLINK_KERNELS}
+
+    def wrap(name):
+        fn = originals[name]
+
+        def rec(plane, rows, *args):
+            shapes[name][tuple(args[-2].shape)] += 1  # mat, then k or chunk
+            return fn(plane, rows, *args)
+        return rec
+
+    for name in UPLINK_KERNELS:
+        setattr(codec_mod, name, wrap(name))
+
+    def restore():
+        for name, fn in originals.items():
+            setattr(codec_mod, name, fn)
+
+    return shapes, restore
+
+
+def comm_sweep(rnn_params: dict) -> list[dict]:
+    """The reference's comm sweep (``benchmarks/bench_comm_cost.py::
+    run_compress``) on the card at one task and seed: ``har``, 20 clients,
+    3,600 s, 45 s windows, EchoPFL (phase 3's broadcast RNN handed over)
+    and FedAsyn, each with no codec, ``topk`` and ``int8``. Launch counts are
+    zeroed just before each run and read just after: a compressed arm bills
+    ``up_events x payload_bytes`` exactly and launches its encode kernel
+    ``codec.launches`` times; an uncompressed arm launches neither. The
+    uplink's events, bytes, payload size and codec launches (and FedAsyn's
+    downlink bytes) must equal the reference's ``BENCH_comm_compress.json``,
+    whose rows are printed beside."""
+    from repro_torch.fl.experiment import run_experiment
+    from repro_torch.kernels import ops
+
+    bench_rows = json.loads((ROOT / "BENCH_comm_compress.json").read_text())["rows"]
+    bench = {(r["strategy"], r["uplink"]): r for r in bench_rows}
+    rows = []
+    for name in ("echopfl", "fedasyn"):
+        for uplink in (None, "topk", "int8"):
+            kw = dict(rnn_params=rnn_params) if name == "echopfl" else {}
+            shapes, restore = _record_encodes()
+            spent, restore_timers = _host_timers()
+            sync()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            try:
+                _, _, strat, rep = run_experiment("har", name, device=DEVICE, uplink=uplink, **COMM_SWEEP, **kw)
+                sync()
+            finally:
+                restore_timers()
+                restore()
+            wall = time.perf_counter() - t0
+            for bucket in sorted(spent):
+                print(f"  host time {bucket:<40} {spent[bucket]:8.3f} s ({100 * spent[bucket] / wall:5.1f}%)")
+            counts = ops.launch_counts()
+            up = rep.extra.get("uplink") or {}
+            mode = uplink or "none"
+            accs = [a for _, a in rep.curve]
+            row = dict(strategy=name, uplink=mode, up_MB=rep.up_bytes / 1e6, down_MB=rep.down_bytes / 1e6,
+                       total_MB=(rep.up_bytes + rep.down_bytes) / 1e6, up_events=rep.up_events,
+                       down_events=rep.down_events, uplink_ratio=rep.summary().get("uplink_ratio"),
+                       payload_bytes=up.get("payload_bytes"), codec_launches=up.get("launches"),
+                       kernel_launches={k: counts[k] for k in UPLINK_KERNELS}, final_acc=rep.final_acc,
+                       tail_acc=statistics.mean(accs[-5:]), uploads_per_wall_s=rep.up_events / wall, wall_s=wall,
+                       cohorts={k: {str(sh): c for sh, c in v.most_common()} for k, v in shapes.items() if v},
+                       top_cohort={k: list(v.most_common(1)[0][0]) for k, v in shapes.items() if v})
+            ref = bench[(name, mode)]
+            print(f"comm sweep {name} {mode}: up {row['up_MB']:.6f} MB ({rep.up_events} events), down "
+                  f"{row['down_MB']:.6f} MB ({rep.down_events} events), total {row['total_MB']:.6f} MB, uplink_ratio "
+                  f"{row['uplink_ratio']}, payload_bytes {row['payload_bytes']}, codec launches "
+                  f"{row['codec_launches']}, "
+                  f"kernel launches {row['kernel_launches']}, cohorts (B, n) {row['cohorts']}; final_acc "
+                  f"{rep.final_acc:.4f}, tail_acc {row['tail_acc']:.4f}; {row['uploads_per_wall_s']:.2f} uploads per "
+                  f"wall s ({wall:.2f} s); BENCH_comm_compress.json (the reference, another machine): up "
+                  f"{ref.get('up_MB')} MB ({ref.get('up_events')} events), down {ref.get('down_MB')} MB, final_acc "
+                  f"{ref.get('final_acc')}")
+            check(all(0.0 <= a <= 1.0 for a in accs), f"comm sweep {name} {mode}: accuracy not finite in [0, 1]")
+            check(rep.up_events > 0 and rep.down_bytes > 0, f"comm sweep {name} {mode}: no traffic")
+            if uplink is None:
+                check(not up and not any(row["kernel_launches"].values()) and rep.up_raw_bytes == rep.up_bytes,
+                      f"comm sweep {name}: an uncompressed run encoded")
+            else:
+                check(rep.up_bytes == rep.up_events * up["payload_bytes"],
+                      f"comm sweep {name} {mode}: up_bytes {rep.up_bytes} != {rep.up_events} x {up['payload_bytes']}")
+                check(counts[f"uplink_{mode}_encode"] == up["launches"] > 0
+                      and counts[f"uplink_{'int8' if mode == 'topk' else 'topk'}_encode"] == 0,
+                      f"comm sweep {name} {mode}: kernel launches {row['kernel_launches']}, codec {up['launches']}")
+                check(up["launches"] < rep.up_events, f"comm sweep {name} {mode}: no window encoded a cohort")
+            # the uplink's ledger depends on the draws and the wire sizes alone, not on the weights; so does
+            # FedAsyn's downlink (one unicast an upload), while EchoPFL's follows its broadcast decisions
+            mine = [row["up_events"], round(row["up_MB"], 6), row["payload_bytes"], row["codec_launches"]]
+            theirs = [ref["up_events"], round(ref["up_MB"], 6), ref["payload_bytes"], ref["codec_launches"]]
+            if name == "fedasyn":
+                mine, theirs = mine + [round(row["down_MB"], 6)], theirs + [round(ref["down_MB"], 6)]
+            check(mine == theirs, f"comm sweep {name} {mode}: {mine} differs from BENCH_comm_compress.json's {theirs}")
+            rows.append(row)
+    return rows
+
+
+def per_event_encodes(rnn_params: dict) -> dict:
+    """Phase 3's per-event ``image_recognition`` EchoPFL run (20 clients,
+    300 s, phase 3's RNN handed over) under each codec: every upload is one
+    encode at (1, 25,418). Launch counts are zeroed just before each run and
+    read just after; returns each kernel's launches at that shape."""
+    from repro_torch.fl.experiment import run_experiment
+    from repro_torch.kernels import ops
+
+    out = {}
+    for name in UPLINK_KERNELS:
+        mode = name.split("_")[1]
+        shapes, restore = _record_encodes()
+        sync()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            rep = run_experiment("image_recognition", "echopfl", num_clients=20, max_time=300, seed=0, device=DEVICE,
+                                 rnn_params=rnn_params, uplink=mode)[3]
+            sync()
+        finally:
+            restore()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        up = rep.extra["uplink"]
+        print(f"per-event image_recognition {mode}: {rep.up_events} uploads, up {rep.up_bytes} B, payload_bytes "
+              f"{up['payload_bytes']}, codec launches {up['launches']}, kernel launches "
+              f"{ {k: counts[k] for k in UPLINK_KERNELS} }, cohorts (B, n) {dict(shapes[name])}, final_acc "
+              f"{rep.final_acc:.4f}, wall {wall:.2f} s")
+        check(dict(shapes[name]) == {(1, 25418): counts[name]} and counts[name] == up["launches"] == rep.up_events > 0
+              and sum(counts[k] for k in UPLINK_KERNELS) == counts[name],
+              f"per-event image_recognition {mode}: encodes {dict(shapes[name])}, launches {counts[name]}, codec "
+              f"{up['launches']}, uploads {rep.up_events}")
+        check(rep.up_bytes == rep.up_events * up["payload_bytes"],
+              f"per-event image_recognition {mode}: up_bytes {rep.up_bytes} != {rep.up_events} x {up['payload_bytes']}")
+        check(all(0.0 <= a <= 1.0 for _, a in rep.curve), f"per-event image_recognition {mode}: accuracy range")
+        out[name] = counts[name]
+    return out
+
+
+def full_width_topk(rnn_params: dict) -> dict:
+    """Phase 3c's full-width LM run (``llama3.2-1b`` base, 4 clients, seq
+    256, 720 s) with ``uplink="topk"``: the topk encode must launch at (B,
+    783,360), once an upload (the per-event loop), and every check of
+    ``lm_run`` holds but the falling NLL. The server blends only the sent
+    tenth of each delta, and each unicast back resets the client's anchor
+    and drops its residual, so a client's delta need not improve on its own
+    data within 720 s; its NLLs are printed."""
+    task = full_width_task()
+    sync()
+    shapes, restore = _record_encodes()
+    try:
+        out = lm_run("full width top-k (llama3.2-1b, 4 clients, seq 256, 720 s, uplink topk)",
+                     expect_shape=(4, 32, 256, 64), num_clients=4, max_time=720, eval_interval=240, seq_len=256,
+                     n_train=4, n_test=2, local_epochs=1, task=task, rnn_params=rnn_params, uplink="topk",
+                     nll_must_fall=False)
+    finally:
+        restore()
+    out.pop("strat")  # holds the clients, and through them the base
+    rep = out.pop("rep")
+    up = rep.extra["uplink"]
+    topk = shapes["uplink_topk_encode"]
+    print(f"full width top-k: payload_bytes {up['payload_bytes']}, codec launches {up['launches']}, encode cohorts "
+          f"(B, n) {dict(topk)}, up {rep.up_bytes} B for {rep.up_events} uploads (dense {rep.up_raw_bytes} B), "
+          f"{out['wall'] / out['uploads']:.3f} s wall per upload, peak {out['peak'] / 2**30:.2f} GiB")
+    check(out["counts"]["uplink_topk_encode"] == up["launches"] == rep.up_events > 0
+          and all(n == 783360 for _, n in topk), f"full width top-k: encodes {dict(topk)}, launches {out['counts']}")
+    check(rep.up_bytes == rep.up_events * 78336 * 8, "full width top-k: uploads not billed at k = 78,336 pairs")
+    del task
+    torch.cuda.empty_cache()
+    return dict(out, encodes=topk)
+
+
 # ------------------------------------------------------------------ phase 4
 def agreement():
     """``har`` (8 clients, 900 s) on the card against the CPU, per event and
@@ -1225,6 +1525,54 @@ def agreement():
           "agreement: the 1e-9 s window's centers differ from the per-event run's on the card")
     print("agreement (har, card): the 1e-9 s window equals the per-event run (events, assignments, curve, bytes, "
           "centers bit for bit)")
+    return [{k: v.numpy() for k, v in layer.items()} for layer in init], {k: v.numpy() for k, v in rnn.items()}
+
+
+def compressed_agreement(init_np: list, rnn_np: dict) -> None:
+    """Compressed ``har`` runs (8 clients) on the card against the CPU, where
+    the encodes take their plain versions: EchoPFL with ``topk`` and with
+    ``int8``, per event and at a 45 s window (900 s), and FedAvg with
+    ``int8`` (5 rounds). Identical ledgers (dense-equivalent bytes too),
+    ``extra["uplink"]``, stats, server events and assignments; accuracy
+    curves within 0.02; on the card the encode kernel launched
+    ``codec.launches`` times."""
+    from repro_torch.fl.experiment import run_experiment
+    from repro_torch.kernels import ops
+
+    cases = [("echopfl", dict(max_time=900, uplink=m, coalesce_window=w))
+             for m in ("topk", "int8") for w in (0.0, 45.0)]
+    for name, kw in cases + [("fedavg", dict(rounds=5, uplink="int8"))]:
+        out = {}
+        for dev in ("cpu", DEVICE):
+            extra = dict(rnn_params=rnn_np) if name == "echopfl" else {}
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            _, _, strat, rep = run_experiment("har", name, num_clients=8, seed=0, device=dev, init_params=init_np,
+                                              **kw, **extra)
+            out[dev] = (strat, rep, time.perf_counter() - t0, ops.launch_counts())
+        (sc, rc, tc, _), (sg, rg, tg, counts) = out["cpu"], out[DEVICE]
+        label = f"compressed agreement {name} {kw}"
+        for field in ("up_events", "down_events", "up_bytes", "down_bytes", "up_raw_bytes", "duration", "up_series",
+                      "down_series"):
+            check(getattr(rc, field) == getattr(rg, field), f"{label}: {field} differs card vs CPU")
+        check(rc.extra["uplink"] == rg.extra["uplink"], f"{label}: {rc.extra['uplink']} != {rg.extra['uplink']}")
+        check(counts[f"uplink_{kw['uplink']}_encode"] == rg.extra["uplink"]["launches"] > 0,
+              f"{label}: encode kernel launches {counts}, codec {rg.extra['uplink']}")
+        if name == "echopfl":
+            check(sc.events == sg.events and sc.clustering.assignment == sg.clustering.assignment,
+                  f"{label}: server events or assignments differ")
+            same_stats = {k: v for k, v in sc.stats().items() if k != "cluster_feedback_mean"} == {
+                k: v for k, v in sg.stats().items() if k != "cluster_feedback_mean"}
+        else:
+            same_stats = sc.stats() == sg.stats()
+        check(same_stats, f"{label}: stats differ card vs CPU")
+        check([t for t, _ in rc.curve] == [t for t, _ in rg.curve], f"{label}: evaluation times differ")
+        gap = max(abs(a - b) for (_, a), (_, b) in zip(rc.curve, rg.curve))
+        check(gap <= 0.02, f"{label}: accuracy curves differ by {gap}")
+        print(f"{label} (har, 8 clients, card vs CPU plain versions): ledger, {rg.extra['uplink']}, stats"
+              + (f" and {len(sg.events)} events" if name == "echopfl" else "") + f" identical, "
+              f"{rg.up_events} uploads, accuracy gap {gap:.4f}, final {rg.final_acc:.4f}; wall CPU {tc:.2f} s, "
+              f"card {tg:.2f} s")
 
 
 def baseline_agreement():
@@ -1517,6 +1865,81 @@ def chain_row(coal) -> dict:
     return row
 
 
+def _uplink_timing(name: str, shape: tuple, launches: int, label: str) -> dict:
+    """One encode kernel at (B, n) on fresh seeded inputs (k = round(0.1 n),
+    chunk 512, the codec's defaults): device and per-call time of the
+    kernel and the plain version; the bound counts 16 B an element for int8
+    (mat and the anchor read, rec and the anchor written) and for top-k
+    20 B an element (mat, the anchor and the residual read, rec and the
+    residual written) plus 4 B for each anchor element whose bits the
+    encode changes (the sent ones, and unsent -0 anchors made +0), counted
+    on this call's data; ``library_ms`` for top-k is ``torch.topk`` on |c|
+    at the same shape, a yardstick the port never calls (it breaks ties
+    otherwise), for int8 none."""
+    from repro_torch.kernels import ops, uplink
+
+    b, n = shape
+    k, chunk = round(0.1 * n), min(512, n)
+    plane, a_rows, r_rows, mat = uplink_case("random", (b, n, chunk, k))
+    if name == "uplink_int8_encode":
+        fn = lambda: ops.uplink_int8_encode(plane, a_rows, mat, chunk)  # noqa: E731
+        plain = lambda: uplink.uplink_int8_encode_plain(plane, a_rows, mat, chunk)  # noqa: E731
+        lib, nbytes, flops = None, 16 * b * n, 8 * b * n
+    else:
+        fn = lambda: ops.uplink_topk_encode(plane, a_rows, r_rows, mat, k)  # noqa: E731
+        plain = lambda: uplink.uplink_topk_encode_plain(plane, a_rows, r_rows, mat, k)  # noqa: E731
+        mag = (mat - plane[a_rows] + plane[r_rows]).abs()
+        lib, flops = (lambda: torch.topk(mag, k, dim=1)), 12 * b * n
+    p0 = plane.clone()
+    got = fn()
+    p1, plane[:] = plane.clone(), p0
+    if name == "uplink_topk_encode":
+        changed = int((_bits(p1[a_rows]) != _bits(p0[a_rows])).sum())
+        nbytes = 20 * b * n + 4 * changed
+    want = plain()
+    err = 0.0 if _same_nan_bits(got, want) and _same_nan_bits(p1, plane) else float((got - want).abs().max())
+    bound_ms, bound_by = bound(nbytes, flops)
+    iters = 20 if b * n > 4_000_000 else 100
+    row = {
+        "launches": launches, "max_abs_err": err,
+        "ms": device_ms(fn, iters), "plain_ms": device_ms(plain, iters), "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None if lib is None else device_ms(lib, iters),
+        "call_ms": call_ms(fn, iters, 3), "plain_call_ms": call_ms(plain, iters, 3),
+        "library_call_ms": None if lib is None else call_ms(lib, iters, 3), "shape": [b, n],
+    }
+    print(f"timing {name} at {label}{(b, n)}: device time kernel {row['ms']:.5f} ms, plain {row['plain_ms']:.5f} ms, "
+          f"library " + ("n/a" if lib is None else f"{row['library_ms']:.5f} ms (torch.topk)")
+          + f"; bound {bound_ms:.6f} ms ({bound_by}); per call kernel {row['call_ms']:.4f} ms, plain "
+          f"{row['plain_call_ms']:.4f} ms, library " + ("n/a" if lib is None else f"{row['library_call_ms']:.4f} ms")
+          + f"; launches {launches}; max_abs_err {err:.3g}")
+    del plane, mat
+    return row
+
+
+def uplink_rows(sweep: list[dict], per_event: dict, full_topk: dict) -> list[dict]:
+    """The encode kernels' rows: at the most frequent cohort shape of phase
+    3g's EchoPFL arm of their mode (``launches``: the kernel's launches over
+    phase 3g's comm sweep), with B = 1 at image_recognition's row (25,418;
+    launches: phase 3g's per-event image_recognition run of that mode) and
+    the full-width delta (1, 783,360; launches: the full-width top-k run's)
+    beside them."""
+    rows = []
+    for name in UPLINK_KERNELS:
+        mode = name.split("_")[1]
+        arm = next(r for r in sweep if r["strategy"] == "echopfl" and r["uplink"] == mode)
+        shape = tuple(arm["top_cohort"][name])
+        launches = sum(r["kernel_launches"][name] for r in sweep)
+        source, replaces = KERNELS[name]
+        row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "note": f"not a pallas_call: the jitted cohort encode {replaces}",
+               **_uplink_timing(name, shape, launches, "phase 3g's most frequent cohort ")}
+        row["image_recognition B=1"] = _uplink_timing(name, (1, 25418), per_event[name], "image_recognition ")
+        row["llama3.2-1b"] = _uplink_timing(name, (1, 783360), full_topk["counts"][name], "llama3.2-1b ")
+        rows.append(row)
+    torch.cuda.empty_cache()
+    return rows
+
+
 def timing(counts, shapes, full, tiny):
     """Rows for the server kernels at the main path's most frequent shapes;
     ``l1_distance`` and ``assign_and_lerp`` also at the full-width LM run's
@@ -1702,7 +2125,8 @@ def profile_window(label: str, run) -> None:
     print("  kernels in the trace / launched: " + ", ".join(
         f"{kernel} {sum(v for k, v in seen.items() if kernel in k)}/{launched[wrapper]}"
         for kernel, wrapper in (("assign_lerp_kernel", "assign_and_lerp"), ("ingest_chain_kernel", "ingest_chain"),
-                            ("flash_fwd_kernel", "flash_attention_fwd"))))
+                                ("uplink_topk", "uplink_topk_encode"),
+                                ("flash_fwd_kernel", "flash_attention_fwd"))))
     for name, us in per.most_common(12):
         print(f"  device time {us / 1e3:10.3f} ms ({100 * us / 1e6 / busy:5.1f}%)  {name[:110]}")
 
@@ -1712,7 +2136,8 @@ def profiles(rnn_params: dict, lm_rnn_params: dict) -> None:
     pretraining stays outside: the MLP main path (a 300 s image_recognition
     run), the coalesced path (its first 300 uploads), the tiny_lm LM run,
     the full-width llama3.2-1b LM run and phase 3f's full-width FedAvg run
-    (the base drawn once, before the windows)."""
+    (the base drawn once, before the windows), and phase 3g's EchoPFL top-k
+    arm for its first 1,200 s."""
     from repro_torch.fl.experiment import run_experiment
     from repro_torch.fl.lm_task import run_lm_experiment
 
@@ -1740,8 +2165,13 @@ def profiles(rnn_params: dict, lm_rnn_params: dict) -> None:
     def full_sync():
         return run_lm_experiment("fedavg", device=DEVICE, task=task, **FULL_SYNC)[3].up_events
 
+    def comm_topk():
+        return run_experiment("har", "echopfl", device=DEVICE, rnn_params=rnn_params, uplink="topk",
+                              **dict(COMM_SWEEP, max_time=1200.0))[3].up_events
+
     profile_window("image_recognition, 20 clients, 300 s", mlp)
     profile_window("image_recognition coalesced, 128 clients, 45 s windows, 300 uploads", coalesced)
+    profile_window("har comm sweep EchoPFL top-k, 20 clients, 45 s windows, 1200 s", comm_topk)
     profile_window("tiny_lm LM run, 8 clients, 900 s", tiny)
     task = full_width_task()  # the base is drawn outside the windows
     profile_window("llama3.2-1b LM run, 4 clients, 720 s", full)
@@ -1767,15 +2197,21 @@ def main() -> int:
     full = full_width(tiny["rnn"])
     paper = paper_comparison(rnn_params)
     cohort = full_width_sync()
-    agreement()
+    sweep = comm_sweep(rnn_params)
+    per_event = per_event_encodes(rnn_params)
+    full_topk = full_width_topk(tiny["rnn"])
+    init_np, rnn_np = agreement()
+    compressed_agreement(init_np, rnn_np)
     baseline_agreement()
     lm_agreement(tiny["rnn"])
-    rows = timing(counts, shapes, full, tiny) + [chain_row(coal)] + lm_timing(tiny, full, cohort)
+    rows = (timing(counts, shapes, full, tiny) + [chain_row(coal)] + uplink_rows(sweep, per_event, full_topk)
+            + lm_timing(tiny, full, cohort))
     print(f"timing: {trace_sessions['kept']} profiler sessions kept, {trace_sessions['refused']} refused "
           f"(a partial or empty trace)")
     profiles(rnn_params, tiny["rnn"])
     print(f"total {time.perf_counter() - t0:.1f} s")
     print("paper comparison: " + json.dumps(paper))
+    print("comm sweep: " + json.dumps(sweep))
     print(json.dumps({"kernels": rows}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

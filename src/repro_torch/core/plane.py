@@ -3,7 +3,8 @@
 One preallocated ``(capacity, dim)`` fp32 buffer on the device whose rows
 are cluster centers, last-broadcast anchors and per-client last uploads,
 addressed through an explicit free list; a second, independent plane holds
-the client fleet's model rows. Counterpart of ``repro.core.plane`` without
+the client fleet's model rows, and under a compressed uplink a third each
+client's anchor (and EF residual). Counterpart of ``repro.core.plane`` without
 the mesh placement.
 
 PyTorch tensors are mutable, so the reference's staged write-back with a
@@ -12,7 +13,9 @@ buffer: ``write`` copies into the row in place and ``write_rows`` is one
 in-place ``index_copy_``. Reads hand out copies (``row`` clones, ``rows``
 and ``take`` gather), so a value read before a write keeps its bits, as a
 JAX array would; ``row_view`` alone hands out the row itself, for the merge
-kernel, which writes the merged center into the main row in place.
+kernel, which writes the merged center into the main row in place, and
+``storage`` the whole store, for the uplink encodes, which advance a
+cohort's anchor and residual rows in place.
 """
 from __future__ import annotations
 
@@ -83,6 +86,18 @@ class ParameterPlane:
             self.write(row, value)
         return row
 
+    def alloc_many(self, n: int) -> list[int]:
+        """Claim ``n`` zeroed rows at once (the uplink codec's anchor and
+        residual rows, one a client)."""
+        if n <= 0:
+            return []
+        while len(self._free) < n:
+            self._grow()
+        rows = [self._free.pop() for _ in range(n)]
+        self._used.update(rows)
+        self._buf.index_fill_(0, self.index(rows), 0.0)
+        return rows
+
     def free(self, row: int) -> None:
         if row not in self._used:
             raise KeyError(f"row {row} is not allocated")
@@ -109,15 +124,26 @@ class ParameterPlane:
         ids = [int(r) for r in row_ids]
         if len(set(ids)) != len(ids):
             raise ValueError("write_rows: duplicate row ids in one batch")
-        for r in ids:
-            if r not in self._used:
-                raise KeyError(f"row {r} is not allocated")
+        index = self.index(ids)
         matrix = matrix.to(device=self.device, dtype=torch.float32)
         if tuple(matrix.shape) != (len(ids), self.dim):
             raise ValueError(f"expected ({len(ids)}, {self.dim}) matrix, got {tuple(matrix.shape)}")
         if ids:
-            index = torch.tensor(ids, dtype=torch.long, device=self.device)
             self._buf.index_copy_(0, index, matrix)
+
+    @property
+    def storage(self) -> torch.Tensor:
+        """The ``(capacity, dim)`` row store itself, for a kernel that reads
+        and writes rows by id in place (the uplink encodes); it goes stale
+        when the plane grows."""
+        return self._buf
+
+    def index(self, row_ids: Sequence[int]) -> torch.Tensor:
+        """The allocated rows ``row_ids`` as an int64 tensor on the plane's device."""
+        for r in row_ids:
+            if r not in self._used:
+                raise KeyError(f"row {r} is not allocated")
+        return torch.tensor(list(row_ids), dtype=torch.int64, device=self.device)
 
     def row(self, row: int) -> torch.Tensor:
         """A copy of one ``(dim,)`` row."""

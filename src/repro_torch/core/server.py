@@ -101,6 +101,8 @@ class EchoPFLServer:
         # optional batched probe: [(member, center), ...] -> stacked
         # (F_pred, F_true, S_soft); the simulator's fleet installs one
         self.feedback_batch_fn: Callable[[list], tuple] | None = None
+        # the simulator's uplink codec (anchors and EF residuals), when the run compresses
+        self.uplink_codec = None
         self.local_train_fn = local_train_fn
         self.enable_clustering = enable_clustering
         self.enable_broadcast = enable_broadcast
@@ -131,6 +133,12 @@ class EchoPFLServer:
         if cid is None:
             return self.init_params
         return self.clustering.clusters[cid].center
+
+    def attach_uplink_codec(self, codec) -> None:
+        """Adopt the simulator's uplink codec. Without checkpoints in the
+        port this only keeps it; its rows will ride ``state_dict`` when
+        checkpoints come."""
+        self.uplink_codec = codec
 
     def _predictor(self, cluster_id: int) -> BroadcastPredictor:
         if cluster_id not in self.predictors:

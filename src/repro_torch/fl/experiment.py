@@ -4,7 +4,8 @@
 ``run_experiment(task, strategy, ...)`` is the port's end-to-end entry
 point for EchoPFL and the six baselines: the synchronous strategies run
 ``rounds`` round barriers, the asynchronous ones the per-event loop, or
-with ``coalesce_window=`` seconds the coalesced one. It runs on
+with ``coalesce_window=`` seconds the coalesced one; ``uplink=`` compresses
+the uploads (``"topk"``, ``"int8"`` or an ``UplinkConfig``). It runs on
 ``device="cuda"`` unless the caller asks for the CPU.
 ``init_params=`` (MLP weights) and ``rnn_params=`` (pretrained broadcast
 RNN) hand over weights made elsewhere — e.g. the reference's, which torch
@@ -158,13 +159,16 @@ def run_experiment(
     rnn_params: dict | None = None,
     coalesce_window: float = 0.0,
     max_uploads: int | None = None,
+    uplink: Any = None,
     **strategy_kw,
 ):
     """Returns (task, clients, strategy, report). A synchronous strategy
     runs at most ``rounds`` rounds and stops past ``max_time``; an
     asynchronous one runs to ``max_time``, coalesced with
     ``coalesce_window`` > 0 (seconds of virtual time a window), and
-    ``max_uploads`` stops it at that many ingested uploads."""
+    ``max_uploads`` stops it at that many ingested uploads. ``uplink``: no
+    codec (``None``, ``"none"``), ``"topk"``, ``"int8"`` or an
+    :class:`~repro_torch.fl.uplink.UplinkConfig`."""
     dev = resolve_device(device)
     task, clients, init_params = build_clients(
         task_name, num_clients, seed=seed, latent_clusters=latent_clusters,
@@ -180,6 +184,7 @@ def run_experiment(
         clients, strategy,
         network=network or NetworkModel(),
         eval_interval=eval_interval, target_acc=target_acc, seed=seed, coalesce_window=coalesce_window,
+        uplink=uplink,
     )
     report = sim.run(max_time=max_time, rounds=rounds, max_uploads=max_uploads)
     report.extra["task"] = task_name

@@ -139,23 +139,23 @@ class ClientFleet:
         self._has_model[i] = True
         return self.spec.unflatten(vec), losses[0]
 
-    def train_cohort(self, cids: Sequence[Any],
-                     params_list: Sequence[PyTree | None]) -> tuple[list[PyTree], torch.Tensor]:
+    def train_cohort(self, cids: Sequence[Any], params_list: Sequence[PyTree | None]
+                     ) -> tuple[list[PyTree], torch.Tensor, torch.Tensor]:
         """A synchronous round's cohort in one padded batch: client
         ``cids[i]`` trains from ``params_list[i]``, or from its own model row
         where that is ``None``. Writes no model row (the round's downlinks
-        do). Returns the trained trees (views of one device matrix) and the
-        (S,) losses."""
+        do). Returns the trained trees, the (S,) losses and the (S, dim)
+        device matrix the trees are views of (for the uplink codec)."""
         idx = np.asarray([self.index[c] for c in cids])
         mat = torch.stack([self.model_vec(c) if p is None else self._vec_of(p) for c, p in zip(cids, params_list)])
         vecs, losses = self._train(idx, mat, *self._train_specs(cids))
-        return [self.spec.unflatten(v) for v in vecs], losses
+        return [self.spec.unflatten(v) for v in vecs], losses, vecs
 
-    def train_rows(self, cids: Sequence[Any]) -> tuple[list[PyTree], torch.Tensor]:
+    def train_rows(self, cids: Sequence[Any]) -> tuple[list[PyTree], torch.Tensor, torch.Tensor]:
         """The local rounds of a window's distinct clients in one padded
         batch: each trains from (and writes back) its own model row, the
-        rows gathered on the device. Returns the trained trees (views of
-        one device matrix) and the (S,) losses."""
+        rows gathered on the device. Returns the trained trees, the (S,)
+        losses and the (S, dim) device matrix the trees are views of."""
         idx = np.asarray([self.index[c] for c in cids])
         for c in cids:
             if not self._has_model[self.index[c]]:
@@ -163,7 +163,7 @@ class ClientFleet:
         rows = [self._model_row[i] for i in idx]
         vecs, losses = self._train(idx, self.plane.take(rows), *self._train_specs(cids))
         self.plane.write_rows(rows, vecs)
-        return [self.spec.unflatten(v) for v in vecs], losses
+        return [self.spec.unflatten(v) for v in vecs], losses, vecs
 
     # ---------------------------------------------------------- evaluation
     def evaluate_fleet(self, params_list: Sequence[PyTree | None]) -> np.ndarray:

@@ -392,11 +392,13 @@ def run_lm_experiment(
     init_params: PyTree | None = None,
     rnn_params: dict | None = None,
     coalesce_window: float = 0.0,
+    uplink=None,
     **strategy_kw,
 ):
     """End-to-end LM personalization run: a synchronous strategy runs
     ``rounds`` round barriers, an asynchronous one the event loop, per event
-    or with ``coalesce_window`` > 0 coalesced. Returns (task, clients,
+    or with ``coalesce_window`` > 0 coalesced; ``uplink`` compresses the
+    uploaded deltas (as in ``run_experiment``). Returns (task, clients,
     strategy, report) like :func:`repro_torch.fl.experiment.run_experiment`."""
     from repro_torch.fl.experiment import build_strategy
     from repro_torch.fl.network import NetworkModel
@@ -412,7 +414,7 @@ def run_lm_experiment(
     strategy = build_strategy(strategy_name, init_delta, clients, seed=seed, rnn_params=rnn_params,
                               device=dev, **strategy_kw)
     sim = Simulator(clients, strategy, network=network or NetworkModel(), eval_interval=eval_interval,
-                    seed=seed, coalesce_window=coalesce_window)
+                    seed=seed, coalesce_window=coalesce_window, uplink=uplink)
     report = sim.run(max_time=max_time, rounds=rounds)
     report.extra["task"] = "lm"
     report.extra["latent_clusters"] = {c.client_id: c.data.latent_cluster for c in clients}

@@ -8,8 +8,11 @@ its periodic ticks) run on an event heap, one event at a time or, with a
 coalescing window, one window of events at a time; synchronous ones
 (FedAvg, Oort, ClusterFL with per-cluster barriers, Standalone) run round
 barriers. The client side runs on the batched
-:class:`~repro_torch.fl.fleet.ClientFleet`. Faults, the ingest guard,
-compressed uplinks and churn are not part of this port yet.
+:class:`~repro_torch.fl.fleet.ClientFleet`. With ``uplink=`` the uploads
+are compressed (:mod:`repro_torch.fl.uplink`): the server ingests each
+upload's reconstruction and the network bills its payload's exact size,
+while the client keeps its own trained model. Faults, the ingest guard and
+churn are not part of this port yet.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import numpy as np
 from repro_torch.common.pytrees import tree_leaves
 from repro_torch.core.client import SimClient
 from repro_torch.fl.network import NetworkModel
+from repro_torch.fl.uplink import UplinkCodec, resolve_uplink
 
 PyTree = Any
 
@@ -100,10 +104,14 @@ class Simulator:
         target_acc: float = 0.85,
         seed: int = 0,
         coalesce_window: float = 0.0,
+        uplink: Any = None,
     ):
         self.clients = {c.client_id: c for c in clients}
         self.strategy = strategy
         self.net = network or NetworkModel()
+        # uplink compression: the config now, the codec with the fleet (it needs the model template)
+        self.uplink = resolve_uplink(uplink)
+        self._codec: UplinkCodec | None = None
         self.eval_interval = eval_interval
         self.target_acc = target_acc
         self.rng = np.random.default_rng(seed)
@@ -117,14 +125,21 @@ class Simulator:
     # -------------------------------------------------------- fleet engine
     def _ensure_fleet(self, template: PyTree) -> None:
         """Build the batched client engine once the model structure is
-        known and hand the strategy its batched feedback probe (replacing a
-        hook a previous simulator's fleet installed)."""
+        known, and the uplink codec when the run compresses (a strategy that
+        takes it adopts it); hand the strategy its batched feedback probe
+        (replacing a hook a previous simulator's fleet installed)."""
         strat = self.strategy
+        device = tree_leaves(template)[0].device
         if self._fleet is None:
             from repro_torch.fl.fleet import ClientFleet
 
-            device = tree_leaves(template)[0].device
             self._fleet = ClientFleet(list(self.clients.values()), template, device=device)
+        if self.uplink.mode != "none":
+            if self._codec is None:
+                self._codec = UplinkCodec(template, list(self.clients), self.uplink, device=device)
+            attach = getattr(strat, "attach_uplink_codec", None)
+            if attach is not None and getattr(strat, "uplink_codec", None) is not self._codec:
+                attach(self._codec)
         current = getattr(strat, "feedback_batch_fn", "missing")
         if current == "missing":
             return
@@ -140,8 +155,11 @@ class Simulator:
             strat.feedback_batch_fn = hook
 
     def _set_model(self, c: SimClient, params: PyTree) -> None:
-        """Install a downlinked model on a client (mirrored into its fleet row)."""
+        """Install a downlinked model on a client (mirrored into its fleet
+        row, and into its uplink anchor: both sides know what was sent)."""
         c.model = params
+        if self._codec is not None:
+            self._codec.install(c.client_id, params)
         if self._fleet is not None:
             self._fleet.set_model(c.client_id, params)
 
@@ -156,6 +174,9 @@ class Simulator:
         return mean
 
     def _report(self, t_end: float, extra: dict) -> SimReport:
+        if self._codec is not None:
+            extra["uplink"] = {"mode": self._codec.mode, "payload_bytes": self._codec.nbytes,
+                               "launches": self._codec.launches}
         self._evaluate(t_end)
         target_t = None
         for t, acc in self.curve:
@@ -191,6 +212,8 @@ class Simulator:
         init = strat.initial_models(sorted(self.clients))
         nbytes = model_bytes(next(iter(init.values())))
         self._ensure_fleet(next(iter(init.values())))
+        if self._codec is not None:
+            self._codec.seed(init)  # both sides saw this broadcast: the first anchors
         for cid, params in init.items():
             dl = self.net.download(nbytes, 0.0)
             c = self.clients[cid]
@@ -228,7 +251,8 @@ class Simulator:
 
             if kind == "upload_start":  # local training finished; uplink begins
                 new_params, _ = self._fleet.train_client(payload)
-                self._send_upload(push, t, payload, new_params)
+                self.clients[payload].model = new_params
+                self._send_upload(push, t, payload, *self._encode_upload(payload, new_params))
             elif kind == "upload_done":
                 cid, params, base_version = payload
                 uploads += 1
@@ -258,20 +282,34 @@ class Simulator:
         if strat.tick_interval:
             push(t + strat.tick_interval, "tick", None)
 
-    def _send_upload(self, push, t: float, cid, new_params: PyTree) -> None:
-        """The client keeps its trained model and sends it: bill the uplink
-        and schedule the arrival."""
-        c = self.clients[cid]
-        c.model = new_params
-        dur = self.net.upload(model_bytes(new_params), t)
-        push(t + dur, "upload_done", (cid, new_params, c.base_version))
+    def _billing(self, params: PyTree) -> tuple[int, int | None]:
+        """The wire bytes of one upload of ``params`` and, under a codec,
+        its dense size (else None)."""
+        raw = model_bytes(params)
+        return (raw, None) if self._codec is None else (self._codec.nbytes, raw)
+
+    def _encode_upload(self, cid, new_params: PyTree) -> tuple[PyTree, int, int | None]:
+        """One trained model through the uplink codec: what the server
+        ingests (the reconstruction, or with no codec the model itself) and
+        its billing."""
+        up = new_params if self._codec is None else self._codec.encode(cid, new_params)[0]
+        return (up, *self._billing(new_params))
+
+    def _send_upload(self, push, t: float, cid, up_params: PyTree, nbytes: int, raw: int | None) -> None:
+        """Bill one upload of ``nbytes`` on the wire (``raw``: its dense
+        size, under a codec) and schedule its arrival."""
+        dur = self.net.upload(nbytes, t, raw_nbytes=raw)
+        push(t + dur, "upload_done", (cid, up_params, self.clients[cid].base_version))
 
     def _install(self, dl, *, row_written: bool = False) -> None:
         """A downlink's protocol state on its client (and the model in its
-        fleet row, unless a batched write already put it there)."""
+        fleet row, unless a batched write already put it there; the uplink
+        anchor either way)."""
         c = self.clients[dl.client_id]
         if row_written:
             c.model = dl.params
+            if self._codec is not None:
+                self._codec.install(dl.client_id, dl.params)
         else:
             self._set_model(c, dl.params)
         c.base_version = dl.version
@@ -358,17 +396,20 @@ class Simulator:
         return self._report(t, extra)
 
     def _coalesced_upload_starts(self, group, push) -> None:
-        """One batched training call for a window's finished local rounds;
-        billing and scheduling per event, in order, so the heap's sequence
-        numbers match the per-event loop's push for push."""
+        """One batched training call for a window's finished local rounds,
+        and under a codec one encode of the trained matrix; billing and
+        scheduling per event, in order, so the heap's sequence numbers match
+        the per-event loop's push for push."""
         cids = [cid for _, cid, _ in group]
         if len(cids) > 1:
-            outs, _ = self._fleet.train_rows(cids)
-            trained = dict(zip(cids, outs))
+            trained, _, vecs = self._fleet.train_rows(cids)
+            sent = trained if self._codec is None else self._codec.encode_rows(cids, vecs)[0]
         else:
-            trained = {cids[0]: self._fleet.train_client(cids[0])[0]}
-        for ti, cid, _ in group:
-            self._send_upload(push, ti, cid, trained[cid])
+            trained = [self._fleet.train_client(cids[0])[0]]
+            sent = trained if self._codec is None else [self._codec.encode(cids[0], trained[0])[0]]
+        for (ti, cid, _), new_params, up in zip(group, trained, sent):
+            self.clients[cid].model = new_params
+            self._send_upload(push, ti, cid, up, *self._billing(new_params))
 
     def _coalesced_upload_dones(self, group, push) -> int:
         """One batched ingest for a window's arrivals (``handle_uploads``
@@ -420,12 +461,14 @@ class Simulator:
         ClusterFL with per-cluster barriers, Standalone). Each group's cohort
         trains in one :meth:`ClientFleet.train_cohort` call; compute-time
         draws, billing and installs go per client in cohort order, as in the
-        reference."""
+        reference. Under a codec a cohort's uploads are one encode."""
         strat = self.strategy
         init = strat.initial_models(sorted(self.clients))
         nbytes = model_bytes(next(iter(init.values())))
         self._ensure_fleet(next(iter(init.values())))
         t = 0.0
+        if self._codec is not None:
+            self._codec.seed(init)
         for cid, params in init.items():
             self._set_model(self.clients[cid], params)
         t += nbytes / self.net.downstream_bps
@@ -441,13 +484,16 @@ class Simulator:
                 selected = strat.select(group_id, members, rnd)
                 if not selected:
                     continue
-                trained, _ = self._fleet.train_cohort(selected, [strat.model_for(cid) for cid in selected])
+                starts = [strat.model_for(cid) for cid in selected]
+                trained, _, vecs = self._fleet.train_cohort(selected, starts)
+                sent = trained if self._codec is None else self._codec.encode_rows(selected, vecs)[0]
                 finish_times, uploads = {}, {}
-                for cid, params in zip(selected, trained):
+                for cid, params, up in zip(selected, trained, sent):
                     dur = self.clients[cid].compute_time()
-                    up_dur = self.net.upload(model_bytes(params), t0 + dur)
+                    nbytes_up, raw = self._billing(params)
+                    up_dur = self.net.upload(nbytes_up, t0 + dur, raw_nbytes=raw)
                     finish_times[cid] = t0 + dur + up_dur
-                    uploads[cid] = params
+                    uploads[cid] = up
                 barrier = max(finish_times.values())
                 dl_time = 0.0
                 for dl in strat.finish_round(group_id, uploads, barrier):

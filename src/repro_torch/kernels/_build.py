@@ -25,7 +25,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("l1.cu", "assign_lerp.cu", "ingest_chain.cu", "chi2.cu", "merge.cu", "flash_fwd.cu", "flash_bwd.cu")
+SOURCES = ("l1.cu", "assign_lerp.cu", "ingest_chain.cu", "chi2.cu", "merge.cu", "uplink.cu", "flash_fwd.cu",
+           "flash_bwd.cu")
 HEADERS = ("common.cuh", "l1_rows.cuh", "flash_common.cuh", "mma_tf32.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
@@ -54,6 +55,12 @@ _SIGNATURES = {
     "repro_chi2": ([_P] * 5 + [_I64] * 3 + [_INT, _P], _INT),
     # vm, va, vt, N, out, device, stream
     "repro_merge_attention": ([_P, _P, _P, _I64, _P, _INT, _P], _INT),
+    # plane, anchor_rows, mat, rec, B, n, chunk, device, stream
+    "repro_uplink_int8": ([_P] * 4 + [_I64] * 3 + [_INT, _P], _INT),
+    # plane, anchor_rows, resid_rows, mat, rec, ws, B, n, k, ws_ints, device, stream
+    "repro_uplink_topk": ([_P] * 6 + [_I64] * 4 + [_INT, _P], _INT),
+    # B, n, device, plan (2 int64: blocks a row, scratch ints)
+    "repro_uplink_topk_plan": ([_I64, _I64, _INT, _P], _INT),
     "repro_flash_fwd": ([_P] * 5 + _FLASH_ARGS, _INT),
     "repro_flash_dq": ([_P] * 7 + _FLASH_ARGS, _INT),
     "repro_flash_dkv": ([_P] * 8 + _FLASH_ARGS, _INT),

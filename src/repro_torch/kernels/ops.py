@@ -19,6 +19,7 @@ from repro_torch.kernels.flash_attention_bwd import (
 from repro_torch.kernels.ingest_chain import ingest_chain
 from repro_torch.kernels.l1 import l1_distance, l1_distance_pairwise, pairwise_l1
 from repro_torch.kernels.merge import merge_attention
+from repro_torch.kernels.uplink import uplink_int8_encode, uplink_topk_encode
 
 # every wrapper that launches a kernel, by the name its launch count goes under
 WRAPPERS = {
@@ -29,6 +30,8 @@ WRAPPERS = {
     "chi2_feedback": chi2_feedback,
     "chi2_feedback_segmented": chi2_feedback_segmented,
     "merge_attention": merge_attention,
+    "uplink_int8_encode": uplink_int8_encode,
+    "uplink_topk_encode": uplink_topk_encode,
     "pairwise_l1": pairwise_l1,
     "flash_attention_fwd": flash_attention_with_lse,
     "flash_attention_dq": flash_attention_dq,
@@ -76,5 +79,6 @@ def reset_launch_counts() -> None:
 __all__ = [
     "assign_and_lerp", "attention", "chi2_feedback", "chi2_feedback_segmented", "flash_attention",
     "flash_attention_bwd", "flash_attention_with_lse", "ingest_chain", "l1_distance", "l1_distance_pairwise",
-    "launch_counts", "merge_attention", "pairwise_l1", "reset_launch_counts",
+    "launch_counts", "merge_attention", "pairwise_l1", "reset_launch_counts", "uplink_int8_encode",
+    "uplink_topk_encode",
 ]

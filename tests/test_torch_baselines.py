@@ -40,6 +40,7 @@ from repro_torch.core.client import SimClient
 from repro_torch.data.synthetic import make_task
 from repro_torch.fl.fleet import ClientFleet
 from repro_torch.interop import tree_from_numpy
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse: this module's tests on one thread)
 
 DIMS = (40, 24, 6)
 
@@ -299,9 +300,11 @@ def test_train_cohort_is_train_client_bit_for_bit():
     cids = [3, 0, 1]  # a cohort of 3 pads to 4; client 1 trains its head only
     handed = [shared, None, shared]  # None: the client's own row
     rows_before = cohort.plane.take([cohort._model_row[i] for i in range(5)]).clone()
-    got, losses = cohort.train_cohort(cids, handed)
+    got, losses, vecs = cohort.train_cohort(cids, handed)
     assert torch.equal(cohort.plane.take([cohort._model_row[i] for i in range(5)]), rows_before)  # no row written
-    assert len(got) == 3 and losses.shape == (3,)
+    assert len(got) == 3 and losses.shape == (3,) and vecs.shape == (3, cohort.spec.dim)
+    for g, v in zip(got, vecs):  # the trees are the matrix's rows
+        np.testing.assert_array_equal(_bits(_vec(g)), _bits(v.numpy()))
     for cid, p, g in zip(cids, handed, got):
         if p is not None:
             one.set_model(cid, p)

@@ -31,6 +31,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import chi2
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse: this module's tests on one thread)
 
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
 THREADS, CLUSTER, MAX_THREAD_J = 256, 8, 32

@@ -35,6 +35,7 @@ from repro_torch.common.pytrees import tree_leaves
 from repro_torch.core import server as server_mod
 from repro_torch.fl.experiment import build_clients, build_strategy, run_experiment
 from repro_torch.fl.lm_task import run_lm_experiment
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse: this module's tests on one thread)
 
 
 @pytest.fixture(scope="module")

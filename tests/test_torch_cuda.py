@@ -11,7 +11,10 @@ bitwise across repeats); the ingest chain's cids, blended rows and carried
 matrix bitwise its plain version's and its distances and statistics
 bitwise the numpy model of the L1 order (``kernel_chain``). The ``har``
 FedAvg and FedAsyn runs on the card against the same runs on the CPU:
-identical ledgers and stats, accuracy curves within 0.02.
+identical ledgers and stats, accuracy curves within 0.02. The uplink
+encodes bitwise their plain versions (NaN at the same places) at the paths'
+widths, B = 1, 3 and 32, on tie, signed-zero, NaN and inf rows, one kernel
+a call, one a codec cohort; compressed ``har`` runs card against CPU.
 """
 import numpy as np
 import pytest
@@ -519,3 +522,135 @@ def test_cuda_har_baseline_matches_the_cpu(cuda_device, name, kw):
     assert [t for t, _ in rc.curve] == [t for t, _ in rg.curve]
     np.testing.assert_allclose([a for _, a in rg.curve], [a for _, a in rc.curve], atol=0.02, rtol=0)
     assert sg._vec.device.type == "cuda" and bool(torch.isfinite(sg._vec).all())
+
+
+# the uplink encodes: (B, n, chunk, k) at the paths' widths (har, image_recognition, tiny_lm, the
+# full-width delta) with k = round(0.1 n), B = 1, 3, 32; then n = 1, n % chunk = 1 and k = n; then
+# about the top-k split's edges: a row too short to split, split rows, more rows than the card holds split
+UPLINK_SHAPES = [(b, n, 512, round(0.1 * n)) for n in (4550, 25418, 2304, 783360) for b in (1, 3, 32)] + [
+    (2, 1, 1, 1), (3, 513, 512, 51), (2, 4097, 4096, 4097),
+    (1, 8191, 512, 819), (3, 8192, 512, 819), (600, 8192, 512, 819)]
+
+
+def _encode_case(kind, shape, device):
+    from test_torch_uplink import encode_inputs, encode_plane
+
+    b, n, chunk, k = shape
+    A, R, mat = encode_inputs(kind, b, n, b * n + k)
+    plane, a_rows, r_rows = encode_plane(A, R, b)
+    return [t.to(device) for t in (plane, a_rows, r_rows, torch.from_numpy(mat))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "ties", "zeros", "nan", "inf"])
+@pytest.mark.parametrize("shape", UPLINK_SHAPES, ids=str)
+def test_cuda_uplink_encodes_are_the_plain_versions_bit_for_bit(cuda_device, kind, shape):
+    """Each encode kernel against its plain version on the same card inputs:
+    the reconstruction and the whole plane after the call (the anchor and
+    residual rows it writes, the rows it must not touch) with NaN at the
+    same places and every other element bitwise; the trained rows only
+    read; the same bits over 3 repeats from the same plane."""
+    from repro_torch.kernels import uplink
+
+    _, _, chunk, k = shape
+    plane, a_rows, r_rows, mat = _encode_case(kind, shape, cuda_device)
+    mat0 = mat.clone()
+    cases = (("int8", lambda p: uplink.uplink_int8_encode(p, a_rows, mat, chunk),
+              lambda p: uplink.uplink_int8_encode_plain(p, a_rows, mat, chunk)),
+             ("topk", lambda p: uplink.uplink_topk_encode(p, a_rows, r_rows, mat, k),
+              lambda p: uplink.uplink_topk_encode_plain(p, a_rows, r_rows, mat, k)))
+    for name, kernel, plain in cases:
+        want_plane = plane.clone()
+        want = plain(want_plane)
+        for _ in range(3):
+            got_plane = plane.clone()
+            got = kernel(got_plane)
+            torch.cuda.synchronize()
+            assert _same_nan_bits(got, want), f"{name}: reconstruction"
+            assert _same_nan_bits(got_plane, want_plane), f"{name}: plane rows"
+        assert _same_nan_bits(mat, mat0), f"{name}: the trained rows were written"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 25418, 512, 2542), (3, 4550, 512, 455), (1, 783360, 512, 78336)], ids=str)
+def test_cuda_uplink_encodes_are_one_launch_per_call(cuda_device, shape):
+    from repro_torch.kernels import uplink
+
+    _, _, chunk, k = shape
+    plane, a_rows, r_rows, mat = _encode_case("random", shape, cuda_device)
+    topk = "uplink_topk_split_kernel" if uplink.topk_plan(*shape[:2], cuda_device)["parts"] else "uplink_topk_kernel"
+    for kernel, fn in (("uplink_int8_kernel", lambda: ops.uplink_int8_encode(plane, a_rows, mat, chunk)),
+                       (topk, lambda: ops.uplink_topk_encode(plane, a_rows, r_rows, mat, k))):
+        ops.reset_launch_counts()
+        fn()
+        counts = ops.launch_counts()
+        assert counts["uplink_int8_encode"] + counts["uplink_topk_encode"] == 1
+        assert uplink.uplink_int8_encode.launches + uplink.uplink_topk_encode.launches == 1
+        calls, full = 10, False
+        for _ in range(5):
+            names = _traced_kernels(lambda: [fn() for _ in range(calls)])
+            assert len(names) <= calls and all(kernel in x for x in names), names
+            if len(names) == calls:
+                full = True
+                break
+        assert full, f"no profiler session recorded every {kernel}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["topk", "int8"])
+def test_cuda_codec_launches_its_kernel_once_a_cohort(cuda_device, mode):
+    """The codec on the card: one kernel launch a cohort, whatever B, and
+    its reconstructions those of the same codec on the CPU."""
+    from repro_torch.fl.uplink import UplinkCodec, UplinkConfig
+
+    rng = np.random.default_rng(3)
+    template = {"w": _f32(rng, 40, 30), "b": _f32(rng, 30)}
+    codecs = {dev: UplinkCodec({k: torch.from_numpy(v).to(dev) for k, v in template.items()}, list(range(6)),
+                               UplinkConfig(mode=mode, chunk=64), device=dev) for dev in ("cpu", cuda_device)}
+    for dev, codec in codecs.items():
+        codec.seed({c: {k: torch.from_numpy(v).to(dev) for k, v in template.items()} for c in range(6)})
+    ops.reset_launch_counts()
+    for cohort in ([0], [1, 2, 3], [4, 5, 0]):
+        mat = _f32(rng, len(cohort), codecs["cpu"].dim)
+        got = codecs[cuda_device].encode_vecs(cohort, torch.from_numpy(mat).to(cuda_device))
+        want = codecs["cpu"].encode_vecs(cohort, torch.from_numpy(mat))
+        assert torch.equal(_bits(got.cpu()), _bits(want))
+    assert codecs[cuda_device].launches == 3 == ops.launch_counts()[f"uplink_{mode}_encode"]
+
+
+@pytest.fixture(scope="module")
+def cpu_rnn():
+    """The broadcast RNN pretrained on the CPU, for the card tests that run
+    EchoPFL; a module fixture is set up before ``cuda_device``, so it skips
+    by itself."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from repro_torch.core.broadcast import pretrain_rnn
+
+    return {k: v.numpy() for k, v in pretrain_rnn(0, device="cpu").items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw", [("echopfl", dict(max_time=900, uplink="topk")),
+                                     ("echopfl", dict(max_time=900, uplink="int8", coalesce_window=45.0)),
+                                     ("fedavg", dict(rounds=5, uplink="int8"))], ids=str)
+def test_cuda_har_compressed_matches_the_cpu(cuda_device, cpu_rnn, name, kw):
+    """A compressed ``har`` run on the card against the same run on the
+    CPU: identical ledgers, stats and decisions, accuracy curves within
+    0.02; the codec's kernel launched exactly ``codec.launches`` times."""
+    extra = dict(rnn_params=cpu_rnn) if name == "echopfl" else {}
+    _, _, sc, rc = _har_baseline_run(name, "cpu", **kw, **extra)
+    ops.reset_launch_counts()
+    _, _, sg, rg = _har_baseline_run(name, cuda_device, **kw, **extra)
+    mode = kw["uplink"]
+    assert ops.launch_counts()[f"uplink_{mode}_encode"] == rg.extra["uplink"]["launches"] > 0
+    for field in ("up_events", "down_events", "up_bytes", "down_bytes", "up_raw_bytes", "duration", "up_series",
+                  "down_series"):
+        assert getattr(rc, field) == getattr(rg, field), field
+    assert rc.extra["uplink"] == rg.extra["uplink"] and rc.summary()["total_MB"] == rg.summary()["total_MB"]
+    if name == "echopfl":
+        assert sc.events == sg.events and sc.clustering.assignment == sg.clustering.assignment
+    else:
+        assert sc.stats() == sg.stats()
+    assert [t for t, _ in rc.curve] == [t for t, _ in rg.curve]
+    np.testing.assert_allclose([a for _, a in rg.curve], [a for _, a in rc.curve], atol=0.02, rtol=0)

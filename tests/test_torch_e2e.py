@@ -15,6 +15,7 @@ from repro.core.broadcast import pretrain_rnn as jax_pretrain_rnn
 from repro.fl.experiment import build_clients as jax_build_clients
 from repro.fl.experiment import run_experiment as jax_run_experiment
 from repro_torch.fl.experiment import run_experiment
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse: this module's tests on one thread)
 
 ARGS = dict(num_clients=8, max_time=900, seed=0)
 

@@ -16,6 +16,7 @@ from repro.kernels.l1_distance import pairwise_l1 as jax_pairwise_l1
 from repro_torch.kernels import flash_attention as F
 from repro_torch.kernels import flash_attention_bwd as FB
 from repro_torch.kernels import l1, ops
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse: this module's tests on one thread)
 
 # B, H, KV, S, hd, dv, causal, window, softcap (tests/test_attention_grads.py), plus q_pos0
 CASES = [

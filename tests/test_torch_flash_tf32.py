@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as F
 from repro_torch.kernels import flash_attention_bwd as FB
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse: this module's tests on one thread)
 
 
 def tf32_rna(x: torch.Tensor) -> torch.Tensor:

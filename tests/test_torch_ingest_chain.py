@@ -33,6 +33,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.assign_lerp import blend_plain
 from repro_torch.kernels.ingest_chain import ingest_chain_plain
 from test_torch_l1_order import kernel_chain
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse: this module's tests on one thread)
 
 BETA, MARGIN = 0.25, 0.1
 CASES = [(n, c, s) for n in (256, 4099, 8193) for c in (1, 3, 4, 5, 9) for s in (1, 8, 13)]

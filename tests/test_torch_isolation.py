@@ -9,6 +9,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse: this module's tests on one thread)
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -39,6 +40,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     assert len(mods) >= 32
     baselines = {m for m in mods if m.startswith("repro_torch.baselines")}
     assert baselines >= {"repro_torch.baselines", *(f"repro_torch.baselines.{n}" for n in BASELINES)}
+    assert {"repro_torch.optim", "repro_torch.optim.compression", "repro_torch.fl.uplink",
+            "repro_torch.kernels.uplink"} <= set(mods)
 
 
 def _imports(path: Path):
@@ -66,9 +69,10 @@ def test_no_jax_or_reference_import_statement(path):
 @pytest.mark.parametrize("path", sorted((PKG / "kernels").glob("*.py")), ids=lambda p: p.name)
 def test_kernels_import_no_higher_layer(path):
     """The kernel layer sits below the protocol: it imports nothing from
-    ``repro_torch.core`` or ``repro_torch.fl``."""
+    ``repro_torch.core``, ``repro_torch.fl`` or ``repro_torch.optim``."""
     for name in _imports(path):
-        assert not name.startswith(("repro_torch.core", "repro_torch.fl")), f"{path.name}: imports {name}"
+        assert not name.startswith(("repro_torch.core", "repro_torch.fl", "repro_torch.optim")), \
+            f"{path.name}: imports {name}"
 
 
 def test_run_experiment_on_cuda_without_a_card_raises():

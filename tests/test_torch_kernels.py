@@ -26,6 +26,7 @@ from repro.kernels.l1_distance import l1_distance as pallas_l1
 from repro.kernels.l1_pairwise import l1_distance_pairwise as pallas_pairwise
 from repro.kernels.merge_attention import merge_attention as pallas_merge
 from repro_torch.kernels import assign_lerp, chi2, l1, merge, ops
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse: this module's tests on one thread)
 
 
 def _f32(rng, *shape):

@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 
 from repro_torch.kernels import l1
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse: this module's tests on one thread)
 
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
 THREADS, STEPS, WARPS = 256, 4, 8

@@ -17,6 +17,7 @@ from repro.core.broadcast import pretrain_rnn as jax_pretrain_rnn
 from repro.fl.lm_task import default_lm_task as jax_default_lm_task
 from repro.fl.lm_task import run_lm_experiment as jax_run_lm_experiment
 from repro_torch.fl.lm_task import run_lm_experiment
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse: this module's tests on one thread)
 
 ARGS = dict(num_clients=8, max_time=900, eval_interval=120, seed=0)
 

@@ -28,6 +28,7 @@ from repro_torch.fl.lm_task import default_lm_task, make_lm_data
 from repro_torch.fl.tasks import get_task
 from repro_torch.interop import tree_from_numpy, tree_to_numpy
 from repro_torch.models.model import forward, init_params
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse: this module's tests on one thread)
 
 JTASK = jax_default_lm_task()
 BASE_NP = jax.tree_util.tree_map(np.asarray, JTASK.base.params)

@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.core.clustering import DynamicClustering
 from repro_torch.kernels import merge, ops
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse: this module's tests on one thread)
 
 WIDTHS = (1, 100, 4550, 25418, 70000)
 CASES = ("random", "nan in v_main", "nan in v_aux", "nan in v_trained", "+inf", "-inf", "all-negative p",

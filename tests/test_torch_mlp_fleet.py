@@ -16,6 +16,7 @@ from repro_torch.data.synthetic import make_task
 from repro_torch.fl.fleet import ClientFleet
 from repro_torch.interop import tree_from_numpy, tree_to_numpy
 from repro_torch.models import mlp
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse: this module's tests on one thread)
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 CFG = MLPTaskConfig("tiny", 12, (10, 8), 4)

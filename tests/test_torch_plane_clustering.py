@@ -17,6 +17,7 @@ from repro.core.plane import ParameterPlane as JaxPlane
 from repro_torch.common.pytrees import FlattenSpec, tree_leaves
 from repro_torch.core.clustering import DynamicClustering
 from repro_torch.core.plane import ParameterPlane
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse: this module's tests on one thread)
 
 SHAPES = [(16, 8), (8,), (8, 3), (3,)]  # w0, b0, w1, b1 of a tiny MLP
 

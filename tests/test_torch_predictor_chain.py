@@ -25,6 +25,7 @@ import torch
 from repro.core.broadcast import init_rnn as jax_init_rnn
 from repro.kernels import ops as jax_ops
 from repro_torch.core.broadcast import BroadcastPredictor, _rnn_sgd, _rnn_want, build_seq, predictor_chain
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse: this module's tests on one thread)
 
 LR = 1e-2
 

@@ -18,6 +18,7 @@ from repro.core.server import EchoPFLServer as JaxServer
 from repro_torch.common.pytrees import tree_leaves
 from repro_torch.core.server import EchoPFLServer
 from repro_torch.interop import tree_from_numpy
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse: this module's tests on one thread)
 
 DIMS = (12, 10, 6)
 J = 6

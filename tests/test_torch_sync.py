@@ -29,6 +29,7 @@ from repro.fl.lm_task import run_lm_experiment as jax_run_lm_experiment
 from repro_torch.common.pytrees import tree_flat_vector
 from repro_torch.fl.experiment import run_experiment
 from repro_torch.fl.lm_task import run_lm_experiment
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse: this module's tests on one thread)
 
 ARGS = dict(num_clients=6, seed=0)
 SYNC = ("fedavg", "oort", "clusterfl", "standalone")
