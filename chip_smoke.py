@@ -11,8 +11,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the hand-written kernels from ``src/repro_torch/csrc`` and time the build;
    the registers, shared memory and local memory (spills) of each flash
    kernel and of the L1 rows, fused assign, ingest chain, chi2, merge and uplink encode kernels from
-   ``cuobjdump --dump-resource-usage``, the ingest chain's launch plan (grid,
-   dynamic shared memory, rows on chip) at the paths' shapes, and a check of
+   ``cuobjdump --dump-resource-usage`` (the chain in both instantiations,
+   with and without the guard's norm statistic), the ingest chain's launch
+   plan (grid, dynamic shared memory, rows on chip) at the paths' shapes, and a check of
    each flash kernel's SASS for tensor-core ``HMMA`` instructions (none, a
    spill at head width 64, or an L1, assign, chain, chi2, merge or encode
    kernel that spills fail the run);
@@ -35,7 +36,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    statistics bitwise the numpy model of the L1 order
    (``tests/test_torch_l1_order.py::kernel_chain``), bitwise across repeats,
    the centers only read, one kernel per call in a profiler trace at every
-   shape and no device-to-device copy; the uplink encodes
+   shape and no device-to-device copy; and with ``with_stats=True`` (the
+   ingest guard's post-blend center norm) at every shape: the four
+   statistics bitwise the model's, every other output bitwise the chain's
+   without the norm, a NaN upload's norm NaN, one ``ingest_chain_kernel<4>``
+   a call; the uplink encodes
    (``csrc/uplink.cu``) bitwise their plain versions at (B, n) = 1, 3, 32 x
    4,550, 25,418, 2,304 and 783,360 (k = round(0.1 n), chunk 512) and at
    n = 1, n % chunk = 1 and k = n, on random, tie, signed-zero, NaN and
@@ -90,6 +95,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``image_recognition`` run (300 s) with each codec: the encode at
    (1, 25,418) once an upload; then phase 3c's full-width run with
    ``uplink="topk"``: the encode at (1, 783,360) once an upload;
+3h. chaos — the reference's fault and defense sweeps at rate 0.1, seeds
+   0-2, through the port's ``build_clients``, ``build_strategy`` and
+   ``Simulator`` (phase 3's RNN handed over): ``benchmarks/bench_faults.py``'s
+   retry and drop arms (``har``, 32 clients with 48 samples, 2,400 s, 30 s
+   windows) and ``bench_defense.py``'s guard-off and guard-on arms (16
+   clients, 1,800 s, per event and at 30 s); every field printed beside
+   ``BENCH_faults.json``'s and ``BENCH_defense.json``'s, the fields the live
+   reference reproduces (FAULT_EXACT, DEFENSE_EXACT) equal to them; every
+   guard-on run ends with finite centers and no NaN accuracy, and its
+   coalesced runs launch ``ingest_chain`` with the norm statistic; host time
+   per layer, the guard's host copies included;
 4. agreement — a small ``har`` run and the ``tiny_lm`` LM run on the card
    against the same runs on the CPU, where every wrapper takes its plain
    version; the ``har`` run also coalesced at a 45 s window, card against
@@ -99,7 +115,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    identical ledgers and stats, accuracy curves within 0.02; compressed
    ``har``: EchoPFL with ``topk`` and ``int8`` per event and at 45 s, FedAvg
    with ``int8`` (5 rounds), card against CPU: identical ledgers,
-   ``extra["uplink"]``, events and assignments, curves within 0.02;
+   ``extra["uplink"]``, events and assignments, curves within 0.02; chaos
+   ``har`` (faults at 0.3 plus poison at 0.2, guard on) per event and at
+   45 s, card against CPU: identical fault, guard and byte ledgers, events
+   and assignments, curves within 0.02; a guard on a clean run on the card
+   is the guard-off run bit for bit;
 5. timing — each kernel, its plain version and (where one exists) a single
    PyTorch call computing the same function, at the shape the main path
    called it with most (the flash kernels and ``pairwise_l1`` at the
@@ -110,7 +130,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    S = 1, the launch floor; the merge also at ``har``'s, ``tiny_lm``'s and the
    full width's row and at N = 1; the ingest chain at phase 3d's most
    frequent segment shape and at (32, 4, 25,418), beside the per-event
-   device work for the same uploads; the uplink encodes at phase 3g's most
+   device work for the same uploads, and at (25, 4, 25,418) with and without
+   the guard's norm statistic; the uplink encodes at phase 3g's most
    frequent cohort, at (1, 25,418) and at (1, 783,360), the top-k beside
    ``torch.topk`` on |c|), beside the least time the
    card could take (fp32 on the CUDA cores; for the flash kernels also
@@ -122,8 +143,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (``call_ms`` and its two siblings; the merge also in place, as the server
    calls it);
 6. profile — short runs of the main path, of the coalesced path, of
-   both LM paths, of phase 3f's full-width FedAvg run and of phase 3g's
-   EchoPFL top-k arm (its first 1,200 s) under
+   both LM paths, of phase 3f's full-width FedAvg run, of phase 3g's
+   EchoPFL top-k arm (its first 1,200 s) and of phase 3h's coalesced
+   guard-on defense arm (seed 0) under
    ``torch.profiler``: device busy time, the device's idle share and the
    kernels that take the time.
 
@@ -230,6 +252,17 @@ UPLINK_SHAPES = tuple((b, n, 512, round(0.1 * n)) for n in (4550, 25418, 2304, 7
 UPLINK_KINDS = ("random", "ties", "zeros", "nan", "inf")
 # phase 3g: the reference's comm sweep (benchmarks/bench_comm_cost.py::run_compress) at one task and seed
 COMM_SWEEP = dict(num_clients=20, max_time=3600.0, coalesce_window=45.0, eval_interval=120.0, seed=0)
+# phase 3h: the reference's fault and defense sweeps (benchmarks/bench_faults.py, bench_defense.py) at rate 0.1
+CHAOS_RATE, CHAOS_SEEDS = 0.1, (0, 1, 2)
+FAULT_SWEEP = dict(clients=32, horizon=2400.0, windows={"coalesced": 30.0})
+DEFENSE_SWEEP = dict(clients=16, horizon=1800.0, windows={"coalesced": 30.0, "per_event": 0.0})
+# the stored fields held equal: those the live reference (jax 0.9.0, CPU) reproduces at rate 0.1, seeds 0-2, and
+# the port reproduces with its own weights (scripts/chaos_reference.py --port; PERF.md section 7). The faults
+# arms' uploads and up_MB are printed only: the broadcasts (which follow the weights) start windows, and a
+# window's boundaries decide the order of compute-time draws, so one seed's count moves by 2 with other weights.
+# Byte fields are compared as the total bytes over the seeds.
+FAULT_EXACT = ("retry_MB", "dropped", "crashes", "upload_failures", "dups_absorbed")
+DEFENSE_EXACT = {"guard_off": ("uploads", "poisoned"), "guard_on": ()}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -338,7 +371,9 @@ def kernel_resources() -> None:
     for c, n in dict.fromkeys((c, n) for _, c, n in CHAIN_SHAPES):
         plan = chain_plan(c, n)
         print(f"  ingest_chain_kernel launch at (C, N) = {(c, n)}: {plan['blocks']} blocks, dynamic shared "
-              f"{plan['smem']} B a block, rows {'on chip' if plan['on_chip'] else 'in the output matrix'}")
+              f"{plan['smem']} B a block, rows {'on chip' if plan['on_chip'] else 'in the output matrix'}"
+              + ("" if chain_plan(c, n, with_stats=True) == plan else
+                 f"; with the norm {chain_plan(c, n, with_stats=True)}"))
     from repro_torch.kernels.uplink import topk_plan
 
     for b, n, _, _ in UPLINK_SHAPES:
@@ -525,7 +560,8 @@ def chain_inputs(s: int, c: int, n: int, seed: int, nan_step: int | None = None)
 
 
 def ingest_chain_checks() -> None:
-    """The ingest chain kernel (``csrc/ingest_chain.cu``) at CHAIN_SHAPES, on
+    """The ingest chain kernel (``csrc/ingest_chain.cu``) at CHAIN_SHAPES, with
+    and without the guard's norm statistic (``with_stats``), on
     random inputs and (S >= 4) with a NaN upload mid-segment: cids equal to
     the plain version's (run on the CPU) and the numpy model's
     (``tests/test_torch_l1_order.py::kernel_chain``); the blended rows and the
@@ -534,7 +570,10 @@ def ingest_chain_checks() -> None:
     bitwise over 3 repeats; the centers unchanged; ``l1_vec`` on the card
     bitwise the chain's statistic of the same rows; at every shape one
     ``ingest_chain_kernel`` per call in a profiler trace, beside the index
-    table's host-to-device copy and nothing else (no device-to-device copy)."""
+    table's host-to-device copy and nothing else (no device-to-device copy).
+    With the norm: the four statistics bitwise ``kernel_chain(...,
+    with_stats=True)``'s, every other output bitwise the chain's without it,
+    a NaN upload's norm NaN, and ``ingest_chain_kernel<4>`` once a call."""
     import numpy as np
 
     sys.path.insert(0, str(ROOT / "tests"))
@@ -544,7 +583,7 @@ def ingest_chain_checks() -> None:
     from repro_torch.kernels import ops
     from repro_torch.kernels.ingest_chain import ingest_chain_plain
 
-    n_checked, steps, vetoes, pinned = 0, 0, 0, 0
+    n_checked, steps, vetoes, pinned, norms = 0, 0, 0, 0, 0
     for s, c, n in CHAIN_SHAPES:
         for nan_step in (None, s // 2) if s >= 4 else (None,):
             U, centers, bcast, prev, forced = chain_inputs(s, c, n, s * 1000 + c * 10 + n % 97, nan_step)
@@ -552,7 +591,9 @@ def ingest_chain_checks() -> None:
             runs = [ops.ingest_chain(*args, prev, forced, beta=0.25) for _ in range(3)]
             got = runs[0]
             plain = ingest_chain_plain(*(torch.from_numpy(a) for a in (U, centers, bcast)), prev, forced, 0.25)
-            m_cids, m_blended, m_dists, m_stats, m_carried = kernel_chain(U, centers, bcast, prev, forced, 0.25)
+            m_cids, m_blended, m_dists, n_stats, m_carried = kernel_chain(U, centers, bcast, prev, forced, 0.25,
+                                                                          with_stats=True)
+            m_stats = np.ascontiguousarray(n_stats[:, :3])
             label = f"ingest chain (S, C, N) = {(s, c, n)}" + ("" if nan_step is None else f", NaN at step {nan_step}")
             cids = got.cids.cpu()
             check(torch.equal(cids, plain.cids) and np.array_equal(cids.numpy(), m_cids), f"{label}: cids differ")
@@ -567,6 +608,18 @@ def ingest_chain_checks() -> None:
                 j0 = int(cids[0])
                 check(_same_bits(l1_vec(got.blended[0], args[1][j0]), got.stats[0, 0]),
                       f"{label}: l1_vec on the card differs from the chain's change")
+            # with the guard's post-blend center norm: the fourth statistic bitwise the model's, every
+            # other output bitwise the chain's without it
+            on = ops.ingest_chain(*args, prev, forced, beta=0.25, with_stats=True)
+            check(tuple(on.stats.shape) == (s, 4) and _same_nan_bits(on.stats.cpu(), torch.from_numpy(n_stats)),
+                  f"{label}: with_stats statistics (the norm included) not the model's")
+            check(all(_same_bits(a, b) for a, b in ((on.cids, got.cids), (on.blended, got.blended),
+                                                     (on.dists, got.dists), (on.carried, got.carried),
+                                                     (on.stats[:, :3].contiguous(), got.stats))),
+                  f"{label}: with_stats changed another output")
+            if nan_step is not None:
+                check(bool(torch.isnan(on.cnorm[nan_step])), f"{label}: a NaN upload's norm is not NaN")
+            norms += s
             amin = np.argmin(m_dists, axis=1)
             steps += s
             vetoes += int(sum(1 for j in range(s) if forced[j] < 0 and cids[j] != amin[j]))
@@ -576,16 +629,21 @@ def ingest_chain_checks() -> None:
     for s, c, n in CHAIN_SHAPES:  # the one host-to-device copy is the index table
         U, centers, bcast, prev, forced = chain_inputs(s, c, n, 7)
         args = [torch.from_numpy(a).to(DEVICE) for a in (U, centers, bcast)]
-        seen = kernels_per_call(lambda: ops.ingest_chain(*args, prev, forced, beta=0.25))
-        check(sum(v for k, v in seen.items() if "ingest_chain_kernel" in k) == 10
-              and not any("ingest_chain_kernel" not in k and "HtoD" not in k for k in seen),
-              f"ingest chain {(s, c, n)}: 10 calls traced as {dict(seen)}, not 10 chain kernels and index copies")
-        per_call[(s, c, n)] = dict(seen)
+        for with_stats in (False, True):
+            seen = kernels_per_call(lambda: ops.ingest_chain(*args, prev, forced, beta=0.25, with_stats=with_stats))
+            instance = f"ingest_chain_kernel<{4 if with_stats else 3}>"
+            check(sum(v for k, v in seen.items() if instance in k) == 10
+                  and not any(instance not in k and "HtoD" not in k for k in seen),
+                  f"ingest chain {(s, c, n)} with_stats={with_stats}: 10 calls traced as {dict(seen)}, not 10 "
+                  f"{instance} and index copies")
+            per_call[(s, c, n, with_stats)] = dict(seen)
     sync()
     print(f"ingest chain checks: {n_checked} passed at (S, C, N) = {list(CHAIN_SHAPES)}, {steps} steps with "
           f"{vetoes} vetoes and {pinned} forced ids (cids equal; blended rows and carried matrix bitwise the plain "
           f"version's; distances and statistics bitwise the L1 order model's; bitwise across 3 repeats; centers "
-          f"unchanged); device events of 10 calls (no other kernel, no device-to-device copy): {per_call}")
+          f"unchanged); with_stats: {norms} post-blend norms bitwise the model's, every other output bitwise "
+          f"the chain's without the norm, NaN uploads give NaN norms; device events of 10 calls (no other kernel, "
+          f"no device-to-device copy): {per_call}")
 
 
 def chi2_order_checks() -> None:
@@ -870,6 +928,11 @@ def _host_timers():
     from repro_torch.fl.uplink import UplinkCodec
 
     wrap(UplinkCodec, "encode_vecs", "client: uplink encode (a cohort)")
+    from repro_torch.fl.guard import IngestGuard
+
+    wrap(IngestGuard, "upload_stats", "guard: upload_stats (host copies)")
+    wrap(server_mod.EchoPFLServer, "_center_norm", "guard: per-event center norm (host copy)")
+    wrap(server_mod.EchoPFLServer, "_rollback_center", "guard: rollback")
     from repro_torch import baselines
 
     for cls, attrs in ((baselines.FedAvg, ("finish_round",)), (baselines.Oort, ("select", "finish_round")),
@@ -1482,6 +1545,161 @@ def full_width_topk(rnn_params: dict) -> dict:
     return dict(out, encodes=topk)
 
 
+# ----------------------------------------------------------------- phase 3h
+def _fault_plan(rate: float, policy: str = "retry", poison: float = 0.0, seed: int = 0):
+    """``bench_faults.py``'s plan (loss r, crash r/2, duplicates and reorders
+    r/4) at ``rate``, or with ``poison`` ``bench_defense.py``'s (NaN p/2,
+    blow-up and sign flip p/4 each, the other rates at their defaults); the
+    fault seed is ``seed + 1``, as in both."""
+    from repro_torch.fl.faults import FaultConfig, FaultPlan
+
+    if poison:
+        cfg = dict(poison_nan_rate=poison / 2, poison_scale_rate=poison / 4, poison_sign_rate=poison / 4)
+        if rate:
+            cfg.update(loss_rate=rate, crash_rate=rate / 2, dup_rate=rate / 4, reorder_rate=rate / 4)
+        return FaultPlan(config=FaultConfig(seed=seed + 1, policy=policy, **cfg))
+    return FaultPlan(config=FaultConfig(seed=seed + 1, loss_rate=rate, crash_rate=rate / 2, dup_rate=rate / 4,
+                                        reorder_rate=rate / 4, policy=policy))
+
+
+def _nonfinite_centers(strat) -> int:
+    return sum(not bool(torch.isfinite(c.center_vec).all()) for c in strat.clustering.clusters.values())
+
+
+def chaos_run(n: int, seed: int, window: float, horizon: float, faults, guard, rnn_params: dict) -> dict:
+    """One arm of the reference's fault or defense bench on the card
+    (``_run`` of ``benchmarks/bench_faults.py`` / ``bench_defense.py``):
+    ``har``, ``n`` clients with 48 samples each, EchoPFL with phase 3's
+    broadcast RNN handed over, through ``build_clients``, ``build_strategy``
+    and ``Simulator``. Launch counts are zeroed just before and read just
+    after; ``ingest_chain`` calls are counted by ``with_stats``."""
+    from repro_torch.fl.experiment import build_clients, build_strategy
+    from repro_torch.fl.network import NetworkModel
+    from repro_torch.fl.simulator import Simulator
+    from repro_torch.kernels import ops
+
+    _, clients, init = build_clients("har", n, seed=seed, samples_per_client=48, device=DEVICE)
+    strat = build_strategy("echopfl", init, clients, seed=seed, rnn_params=rnn_params, device=DEVICE)
+    sim = Simulator(clients, strat, network=NetworkModel(), seed=seed, coalesce_window=window, faults=faults,
+                    guard=guard)
+    chains: Counter = Counter()
+    fn = ops.ingest_chain
+
+    def rec(*a, with_stats=False, **kw):
+        chains[with_stats] += 1
+        return fn(*a, with_stats=with_stats, **kw)
+
+    spent, restore_timers = _host_timers()
+    ops.ingest_chain = rec
+    sync()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        rep = sim.run_async(max_time=horizon)
+        sync()
+    finally:
+        ops.ingest_chain = fn
+        restore_timers()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    k = max(1, len(rep.curve) // 5)
+    f, g = rep.extra.get("faults", {}), rep.extra.get("guard", {})
+    return dict(
+        final_acc=rep.final_acc, tail_acc=sum(a for _, a in rep.curve[-k:]) / k,
+        any_nan_acc=any(not (a == a) for _, a in rep.curve), uploads=rep.extra["uploads"],
+        retry_MB=rep.up_retry_bytes / 1e6, up_MB=rep.up_bytes / 1e6, dropped=f.get("dropped_clients", 0),
+        crashes=f.get("crashes", 0), upload_failures=f.get("upload_failures", 0),
+        dups_absorbed=f.get("dups_absorbed", 0), stale_absorbed=f.get("stale_downlinks_absorbed", 0),
+        poisoned=f.get("poison_nan", 0) + f.get("poison_scale", 0) + f.get("poison_sign", 0),
+        nonfinite_centers=_nonfinite_centers(sim.strategy),
+        quarantine={key: g.get(key, 0) for key in ("accepted", "rejected_nonfinite", "rejected_norm", "rejected_dist",
+                                                    "rejected_quarantined", "rollbacks", "quarantined_clients",
+                                                    "evicted_clients")} if g else None,
+        wall_s=wall, host=dict(spent), chain_launches=counts["ingest_chain"],
+        chains_with_stats=chains[True], chains_without=chains[False])
+
+
+def _mean_arm(runs: list[dict]) -> dict:
+    """Seed means as the benches take them (a NaN accuracy stays NaN), with
+    the per-seed runs beside."""
+    out = {}
+    for key in ("final_acc", "tail_acc", "uploads", "retry_MB", "up_MB", "dropped", "crashes", "upload_failures",
+                "dups_absorbed", "stale_absorbed", "poisoned", "nonfinite_centers", "wall_s"):
+        out[key] = sum(r[key] for r in runs) / len(runs)
+    out["any_nan_acc"] = any(r["any_nan_acc"] for r in runs)
+    out["final_acc_by_seed"] = [r["final_acc"] for r in runs]
+    if runs[0]["quarantine"] is not None:
+        out["quarantine"] = {k: sum(r["quarantine"][k] for r in runs) / len(runs) for k in runs[0]["quarantine"]}
+    return out
+
+
+def _beside(label: str, mine: dict, stored: dict, exact: tuple) -> None:
+    """Print every field of the stored bench row beside the card's, and
+    require equality where the live reference reproduces the stored value."""
+    parts = []
+    for key, want in stored.items():
+        got = mine.get(key)
+        parts.append(f"{key} {got} (stored {want})")
+    print(f"{label}: " + "; ".join(parts) + f"; wall {mine['wall_s']:.2f} s a run")
+    for key in exact:
+        same = (round(mine[key] * 1e6 * len(CHAOS_SEEDS)) == round(stored[key] * 1e6 * len(CHAOS_SEEDS))
+                if key.endswith("_MB") else mine[key] == stored[key])
+        check(same, f"{label}: {key} {mine[key]} differs from the stored bench's {stored[key]}")
+
+
+def chaos_sweeps(rnn_params: dict) -> dict:
+    """Phase 3h: the reference's fault and defense sweeps at rate 0.1, seeds
+    0-2, on the card: ``bench_faults.py``'s retry and drop arms (``har``, 32
+    clients, 2,400 s, 30 s windows) and ``bench_defense.py``'s guard-on and
+    guard-off arms (16 clients, 1,800 s, per event and at 30 s). Every field
+    is printed beside ``BENCH_faults.json``'s and ``BENCH_defense.json``'s;
+    FAULT_EXACT and DEFENSE_EXACT must equal them. Every guard-on run ends
+    with finite centers and no NaN in its curve, and its coalesced runs
+    launch the chain with the norm statistic (and never without)."""
+    stored_f = json.loads((ROOT / "BENCH_faults.json").read_text())["by_rate"][str(CHAOS_RATE)]
+    stored_d = json.loads((ROOT / "BENCH_defense.json").read_text())["by_rate"][str(CHAOS_RATE)]
+    out: dict = {"faults": {}, "defense": {}}
+    host: Counter = Counter()
+    walls, with_norm = 0.0, 0
+    for policy in ("retry", "drop"):
+        runs = [chaos_run(FAULT_SWEEP["clients"], s, FAULT_SWEEP["windows"]["coalesced"], FAULT_SWEEP["horizon"],
+                          _fault_plan(CHAOS_RATE, policy, seed=s), None, rnn_params) for s in CHAOS_SEEDS]
+        arm = _mean_arm(runs)
+        _beside(f"chaos faults {policy}", arm, stored_f[policy], FAULT_EXACT)
+        check(all(r["chains_without"] == r["chain_launches"] > 0 for r in runs),
+              f"chaos faults {policy}: the guard-off runs must launch the chain without the norm")
+        out["faults"][policy] = arm
+        for r in runs:
+            host.update(r["host"])
+            walls += r["wall_s"]
+    for wname, window in DEFENSE_SWEEP["windows"].items():
+        for arm_name, guard in (("guard_off", "off"), ("guard_on", "on")):
+            runs = [chaos_run(DEFENSE_SWEEP["clients"], s, window, DEFENSE_SWEEP["horizon"],
+                              _fault_plan(0.0, poison=CHAOS_RATE, seed=s), guard, rnn_params) for s in CHAOS_SEEDS]
+            arm = _mean_arm(runs)
+            label = f"chaos defense {wname} {arm_name}"
+            _beside(label, arm, stored_d[wname][arm_name], DEFENSE_EXACT[arm_name])
+            if guard == "on":
+                check(all(r["nonfinite_centers"] == 0 and not r["any_nan_acc"] for r in runs),
+                      f"{label}: a guard-on run ended with a non-finite center or a NaN accuracy")
+                if window:
+                    check(all(r["chains_with_stats"] == r["chain_launches"] > 0 and r["chains_without"] == 0
+                              for r in runs), f"{label}: the chain must launch with the norm statistic, and only so")
+                    print(f"{label}: ingest_chain with the norm {[r['chains_with_stats'] for r in runs]} launches")
+            out["defense"][f"{wname} {arm_name}"] = arm
+            for r in runs:
+                host.update(r["host"])
+                walls += r["wall_s"]
+                with_norm += r["chains_with_stats"]
+    for bucket in sorted(host):
+        print(f"  chaos host time {bucket:<40} {host[bucket]:8.3f} s ({100 * host[bucket] / walls:5.1f}%)")
+    out["wall_s"] = walls
+    out["host"] = dict(host)
+    out["chains_with_stats"] = with_norm
+    print(f"chaos sweeps: {walls:.2f} s of runs")
+    return out
+
+
 # ------------------------------------------------------------------ phase 4
 def agreement():
     """``har`` (8 clients, 900 s) on the card against the CPU, per event and
@@ -1573,6 +1791,66 @@ def compressed_agreement(init_np: list, rnn_np: dict) -> None:
               + (f" and {len(sg.events)} events" if name == "echopfl" else "") + f" identical, "
               f"{rg.up_events} uploads, accuracy gap {gap:.4f}, final {rg.final_acc:.4f}; wall CPU {tc:.2f} s, "
               f"card {tg:.2f} s")
+
+
+def chaos_agreement(init_np: list, rnn_np: dict) -> None:
+    """``har`` (8 clients, 900 s) per event and at a 45 s window, on the card
+    against the CPU's plain versions, with ``bench_faults.py``'s faults at
+    rate 0.3 plus ``bench_defense.py``'s poison at 0.2 and the guard on:
+    identical fault, guard and byte ledgers, server events and assignments,
+    accuracy curves within 0.02 (NaN at the same places). Then a guard on a
+    clean run on the card is the guard-off run on the card bit for bit
+    (curves, ledgers, events, assignments, centers)."""
+    from repro_torch.fl.experiment import run_experiment
+    from repro_torch.kernels import ops
+
+    fields = ("up_events", "down_events", "up_bytes", "down_bytes", "up_retry_bytes", "duration", "up_series",
+              "down_series")
+    for window in (0.0, 45.0):
+        out = {}
+        for dev in ("cpu", DEVICE):
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            _, _, strat, rep = run_experiment("har", "echopfl", num_clients=8, max_time=900, seed=0, device=dev,
+                                              init_params=init_np, rnn_params=rnn_np, coalesce_window=window,
+                                              faults=_fault_plan(0.3, poison=0.2), guard="on")
+            out[dev] = (strat, rep, time.perf_counter() - t0, ops.launch_counts())
+        (sc, rc, tc, _), (sg, rg, tg, counts) = out["cpu"], out[DEVICE]
+        label = f"chaos agreement (window {window} s)"
+        for field in fields:
+            check(getattr(rc, field) == getattr(rg, field), f"{label}: {field} differs card vs CPU")
+        for key in ("faults", "guard", "uploads", "staleness", "broadcasts", "decisions"):
+            check(rc.extra.get(key) == rg.extra.get(key), f"{label}: {key} {rc.extra.get(key)} != {rg.extra.get(key)}")
+        check(sc.events == sg.events and sc.clustering.assignment == sg.clustering.assignment,
+              f"{label}: server events or assignments differ")
+        ac, ag = [a for _, a in rc.curve], [a for _, a in rg.curve]
+        check([a != a for a in ac] == [a != a for a in ag], f"{label}: NaN accuracies at different places")
+        gap = max((abs(a - b) for a, b in zip(ac, ag) if a == a), default=0.0)
+        check(gap <= 0.02, f"{label}: accuracy curves differ by {gap}")
+        if window:
+            check(counts["ingest_chain"] > 0, f"{label}: the chain never launched on the card")
+        print(f"{label} (har, 8 clients, 900 s, faults 0.3 + poison 0.2, guard on; card vs CPU plain versions): "
+              f"fault ledger {json.dumps(rg.extra['faults'])}, guard ledger {json.dumps(rg.extra['guard'])}, bytes "
+              f"and {len(sg.events)} events identical, accuracy gap {gap:.4f}, final {rg.final_acc:.4f}; chain "
+              f"launches {counts['ingest_chain']}; wall CPU {tc:.2f} s, card {tg:.2f} s")
+    for window in (0.0, 45.0):
+        runs = {}
+        for guard in (None, "on"):
+            _, _, strat, rep = run_experiment("har", "echopfl", num_clients=8, max_time=900, seed=0, device=DEVICE,
+                                              init_params=init_np, rnn_params=rnn_np, coalesce_window=window,
+                                              guard=guard)
+            runs[guard] = (strat, rep)
+        (so, ro), (sn, rn) = runs[None], runs["on"]
+        label = f"guard on a clean run (card, window {window} s)"
+        check(ro.curve == rn.curve and ro.per_client_acc == rn.per_client_acc
+              and all(getattr(ro, f) == getattr(rn, f) for f in fields), f"{label}: the report differs from guard-off")
+        check(so.events == sn.events and so.clustering.assignment == sn.clustering.assignment
+              and sorted(so.clustering.clusters) == sorted(sn.clustering.clusters)
+              and all(_same_bits(c.center_vec, sn.clustering.clusters[cid].center_vec)
+                      for cid, c in so.clustering.clusters.items()), f"{label}: events, assignments or centers differ")
+        g = rn.extra["guard"]
+        check(g["accepted"] == rn.extra["uploads"] and g["rollbacks"] == 0, f"{label}: the guard rejected {g}")
+        print(f"{label}: bit for bit the guard-off run ({rn.extra['uploads']} uploads, all accepted)")
 
 
 def baseline_agreement():
@@ -1811,12 +2089,14 @@ def _server_timing(name: str, shape: tuple, launches: int, g, label: str) -> dic
     return row
 
 
-def _chain_timing(shape: tuple, launches: int, label: str) -> dict:
+def _chain_timing(shape: tuple, launches: int, label: str, with_stats: bool = False) -> dict:
     """The ingest chain at one (S, C, N) on fresh inputs: the kernel, the
     plain version on the card, and the per-event device work for the same S
     uploads (S fused assigns and 3 S ``l1_distance``, as ``handle_upload``
     launches them). ``bound_ms``: each input read and each output written
-    once; ``bound_step_ms``: a step's own traffic, S (C + 6) N floats."""
+    once; ``bound_step_ms``: a step's own traffic, S (C + 6) N floats.
+    ``with_stats``: the chain with the guard's norm statistic (one more
+    output a step, 2 N more flops)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ingest_chain import ingest_chain_plain
     from repro_torch.kernels.l1 import l1_distance
@@ -1824,8 +2104,8 @@ def _chain_timing(shape: tuple, launches: int, label: str) -> dict:
     S, C, N = shape
     U, centers, bcast, prev, forced = chain_inputs(S, C, N, S * 31 + C)
     Ud, Cd, Bd = (torch.from_numpy(a).to(DEVICE) for a in (U, centers, bcast))
-    fn = lambda: ops.ingest_chain(Ud, Cd, Bd, prev, forced, beta=0.25)  # noqa: E731
-    plain = lambda: ingest_chain_plain(Ud, Cd, Bd, prev, forced, 0.25)  # noqa: E731
+    fn = lambda: ops.ingest_chain(Ud, Cd, Bd, prev, forced, beta=0.25, with_stats=with_stats)  # noqa: E731
+    plain = lambda: ingest_chain_plain(Ud, Cd, Bd, prev, forced, 0.25, with_stats=with_stats)  # noqa: E731
 
     def per_event():
         for j in range(S):
@@ -1835,8 +2115,9 @@ def _chain_timing(shape: tuple, launches: int, label: str) -> dict:
 
     a, b = fn(), plain()
     err = max((a.stats - b.stats).abs().max().item(), (a.blended - b.blended).abs().max().item())
-    nbytes = 4 * (2 * S * N + 3 * C * N + S * C + 4 * S + 2 * S)
-    bound_ms, bound_by = bound(nbytes, S * (3 * C + 12) * N)
+    K = 4 if with_stats else 3
+    nbytes = 4 * (2 * S * N + 3 * C * N + S * C + (K + 1) * S + 2 * S)
+    bound_ms, bound_by = bound(nbytes, S * (3 * C + 12 + 2 * (K - 3)) * N)
     row = {
         "launches": launches, "max_abs_err": err,
         "ms": device_ms(fn), "plain_ms": device_ms(plain, iters=10), "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1852,9 +2133,12 @@ def _chain_timing(shape: tuple, launches: int, label: str) -> dict:
     return row
 
 
-def chain_row(coal) -> dict:
+def chain_row(coal, chaos) -> dict:
     """The ingest chain's row: at phase 3d's most frequent segment shape,
-    with (32, 4, 25418) beside it under ``"s32_c4"``."""
+    with (32, 4, 25418) beside it under ``"s32_c4"`` and the chain with the
+    guard's norm at (25, 4, 25418) under ``"with_stats"`` (launches: phase
+    3h's coalesced guard-on runs'), beside its time without the norm at the
+    same shape under ``"without_stats"``."""
     source, replaces = KERNELS["ingest_chain"]
     shape = coal["segs"].most_common(1)[0][0]
     row = {"name": "ingest_chain", "route": "cuda", "source": source, "replaces": replaces,
@@ -1862,6 +2146,9 @@ def chain_row(coal) -> dict:
                    "a lax.scan around src/repro/kernels/l1_distance.py:51",
            **_chain_timing(shape, coal["counts"]["ingest_chain"], "phase 3d's most frequent shape ")}
     row["s32_c4"] = _chain_timing((32, 4, 25418), coal["segs"][(32, 4, 25418)], "")
+    with_norm = chaos["chains_with_stats"]
+    row["without_stats"] = _chain_timing((25, 4, 25418), coal["segs"][(25, 4, 25418)], "without the norm ")
+    row["with_stats"] = _chain_timing((25, 4, 25418), with_norm, "with the norm ", with_stats=True)
     return row
 
 
@@ -2136,8 +2423,9 @@ def profiles(rnn_params: dict, lm_rnn_params: dict) -> None:
     pretraining stays outside: the MLP main path (a 300 s image_recognition
     run), the coalesced path (its first 300 uploads), the tiny_lm LM run,
     the full-width llama3.2-1b LM run and phase 3f's full-width FedAvg run
-    (the base drawn once, before the windows), and phase 3g's EchoPFL top-k
-    arm for its first 1,200 s."""
+    (the base drawn once, before the windows), phase 3g's EchoPFL top-k
+    arm for its first 1,200 s, and phase 3h's coalesced guard-on defense
+    arm at seed 0."""
     from repro_torch.fl.experiment import run_experiment
     from repro_torch.fl.lm_task import run_lm_experiment
 
@@ -2169,9 +2457,14 @@ def profiles(rnn_params: dict, lm_rnn_params: dict) -> None:
         return run_experiment("har", "echopfl", device=DEVICE, rnn_params=rnn_params, uplink="topk",
                               **dict(COMM_SWEEP, max_time=1200.0))[3].up_events
 
+    def defense():
+        return chaos_run(DEFENSE_SWEEP["clients"], 0, DEFENSE_SWEEP["windows"]["coalesced"], DEFENSE_SWEEP["horizon"],
+                         _fault_plan(0.0, poison=CHAOS_RATE), "on", rnn_params)["uploads"]
+
     profile_window("image_recognition, 20 clients, 300 s", mlp)
     profile_window("image_recognition coalesced, 128 clients, 45 s windows, 300 uploads", coalesced)
     profile_window("har comm sweep EchoPFL top-k, 20 clients, 45 s windows, 1200 s", comm_topk)
+    profile_window("har defense, guard on, poison 0.1, 16 clients, 30 s windows, 1800 s, seed 0", defense)
     profile_window("tiny_lm LM run, 8 clients, 900 s", tiny)
     task = full_width_task()  # the base is drawn outside the windows
     profile_window("llama3.2-1b LM run, 4 clients, 720 s", full)
@@ -2200,11 +2493,13 @@ def main() -> int:
     sweep = comm_sweep(rnn_params)
     per_event = per_event_encodes(rnn_params)
     full_topk = full_width_topk(tiny["rnn"])
+    chaos = chaos_sweeps(rnn_params)
     init_np, rnn_np = agreement()
     compressed_agreement(init_np, rnn_np)
+    chaos_agreement(init_np, rnn_np)
     baseline_agreement()
     lm_agreement(tiny["rnn"])
-    rows = (timing(counts, shapes, full, tiny) + [chain_row(coal)] + uplink_rows(sweep, per_event, full_topk)
+    rows = (timing(counts, shapes, full, tiny) + [chain_row(coal, chaos)] + uplink_rows(sweep, per_event, full_topk)
             + lm_timing(tiny, full, cohort))
     print(f"timing: {trace_sessions['kept']} profiler sessions kept, {trace_sessions['refused']} refused "
           f"(a partial or empty trace)")
@@ -2212,6 +2507,7 @@ def main() -> int:
     print(f"total {time.perf_counter() - t0:.1f} s")
     print("paper comparison: " + json.dumps(paper))
     print("comm sweep: " + json.dumps(sweep))
+    print("chaos sweeps: " + json.dumps(chaos))
     print(json.dumps({"kernels": rows}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -40,6 +40,11 @@ class Cluster:
         self._row = row
         self._bcast_row = bcast_row
         self._center_cache: PyTree | None = None
+        # last-known-good snapshot ring (the ingest guard's rollback): plane
+        # rows written at broadcast time, read by rollback()
+        self._snap_rows: list[int] | None = None
+        self._snap_cursor = 0
+        self._snap_count = 0
 
     @property
     def size(self) -> int:
@@ -64,12 +69,55 @@ class Cluster:
         self._center_cache = None
 
     def snapshot_broadcast(self) -> None:
-        """Record the current center as the broadcast anchor (a row copy)."""
+        """Record the current center as the broadcast anchor (a row copy)
+        and, with a snapshot ring, as a last-known-good rollback point: a
+        center reaches a broadcast only after the guard's post-blend check
+        passed it."""
         self._plane.copy_row(self._row, self._bcast_row)
+        self._push_snapshot()
+
+    # ------------------------------------------------- guard snapshot ring
+    def ensure_snapshot_ring(self, depth: int) -> None:
+        """Allocate the ring's ``depth`` rows (once; 0 allocates nothing)."""
+        if depth <= 0 or self._snap_rows is not None:
+            return
+        self._snap_rows = [self._plane.alloc() for _ in range(depth)]
+        self._snap_cursor = 0
+        self._snap_count = 0
+
+    def _push_snapshot(self) -> None:
+        if self._snap_rows is None:
+            return
+        self._plane.copy_row(self._row, self._snap_rows[self._snap_cursor])
+        self._snap_cursor = (self._snap_cursor + 1) % len(self._snap_rows)
+        self._snap_count = min(self._snap_count + 1, len(self._snap_rows))
+
+    def rollback(self) -> bool:
+        """Restore the center from the newest finite ring entry, then older
+        ones, then the broadcast anchor (every cluster has one from birth).
+        Returns whether a restore happened; the caller bumps the version,
+        records it on the branch and re-broadcasts. A candidate's
+        finiteness is one host read."""
+        candidates: list[int] = []
+        ring = self._snap_rows
+        if ring is not None and self._snap_count:
+            for back in range(1, self._snap_count + 1):
+                candidates.append(ring[(self._snap_cursor - back) % len(ring)])
+        candidates.append(self._bcast_row)
+        for cand in candidates:
+            if not bool(torch.isfinite(self._plane.row_view(cand)).all()):
+                continue  # this snapshot is itself corrupt: go older
+            self._plane.copy_row(cand, self._row)
+            self._center_cache = None
+            return True
+        return False
 
     def release(self) -> None:
+        """Return this cluster's plane rows (center, anchor, ring) to the free list."""
         self._plane.free(self._row)
         self._plane.free(self._bcast_row)
+        for r in self._snap_rows or ():
+            self._plane.free(r)
 
 
 class DynamicClustering:
@@ -83,6 +131,9 @@ class DynamicClustering:
         self.device = torch.device(device)
         self.backend = "plane"
         self.plane: ParameterPlane | None = None  # built from the first center's structure
+        # > 0 with an ingest guard: the snapshot rows each cluster carries
+        # for center rollback (0 allocates nothing)
+        self.snapshot_ring = 0
         self.clusters: dict[int, Cluster] = {}
         self._next_id = 0
         self.assignment: dict[Any, int] = {}
@@ -108,6 +159,7 @@ class DynamicClustering:
         bcast_row = self.plane.alloc()
         self.plane.copy_row(row, bcast_row)
         c = Cluster(self._next_id, plane=self.plane, row=row, bcast_row=bcast_row)
+        c.ensure_snapshot_ring(self.snapshot_ring)
         self.clusters[self._next_id] = c
         self._next_id += 1
         return c

@@ -20,6 +20,13 @@ each (steps 1 and 3 and the predictor's statistics), the host replays the
 bookkeeping, and the predictor's learn/decide work of each refinement
 sub-window runs as one ``predictor_chain`` per touched cluster with one
 decision sync. The result is that of sequential ``handle_upload`` calls.
+
+With an ingest guard attached (:meth:`EchoPFLServer.attach_guard`) every
+blend is followed by the guard's check of the post-blend center L1 norm:
+per event a host sum of the center row, on the coalesced path the chain
+kernel's fourth statistic. A failed check rolls the center back to its
+newest finite snapshot and re-broadcasts it. :meth:`EchoPFLServer.evict_clients`
+retires clients that went dark for good.
 """
 from __future__ import annotations
 
@@ -103,6 +110,9 @@ class EchoPFLServer:
         self.feedback_batch_fn: Callable[[list], tuple] | None = None
         # the simulator's uplink codec (anchors and EF residuals), when the run compresses
         self.uplink_codec = None
+        # the simulator's ingest guard; None keeps every guard hook off: the
+        # chain runs without its norm statistic and no snapshot ring exists
+        self.guard = None
         self.local_train_fn = local_train_fn
         self.enable_clustering = enable_clustering
         self.enable_broadcast = enable_broadcast
@@ -139,6 +149,17 @@ class EchoPFLServer:
         port this only keeps it; its rows will ride ``state_dict`` when
         checkpoints come."""
         self.uplink_codec = codec
+
+    def attach_guard(self, guard) -> None:
+        """Adopt the simulator's :class:`~repro_torch.fl.guard.IngestGuard`:
+        the post-blend center check runs after every blend, and every
+        cluster, present and future, carries a snapshot ring for rollback."""
+        self.guard = guard
+        if guard is None:
+            return
+        self.clustering.snapshot_ring = guard.cfg.snapshot_ring
+        for c in self.clustering.clusters.values():
+            c.ensure_snapshot_ring(guard.cfg.snapshot_ring)
 
     def _predictor(self, cluster_id: int) -> BroadcastPredictor:
         if cluster_id not in self.predictors:
@@ -184,6 +205,15 @@ class EchoPFLServer:
             self.clustering.aggregate(cid, params)
             return self.clustering.clusters[cid].center_vec
         branch.push(client_id, merge_fn, f"upload from {client_id} (staleness {staleness})")
+
+        # 3b. late poison detection (guard only): a non-finite or blown-out
+        # post-blend center norm vetoes the blend; the center rolls back and
+        # is re-broadcast, and the corrupt blend never feeds the predictor
+        if self.guard is not None and not self.guard.center_ok(cid, self._center_norm(cluster)):
+            out.extend(self._rollback_center(cluster, branch, client_id))
+            if self._uploads % self.refine_every == 0:
+                out.extend(self._refine())
+            return out
 
         # 4. Top-K change record + online fine-tune on the ground truth (Eq. 4)
         if pred is not None:
@@ -278,12 +308,20 @@ class EchoPFLServer:
         boundaries speculatively: a refine that changed the cluster set or an
         upload's prev/forced index stops the replay, and the caller
         relaunches the rest from live state. Returns ``(downlink lists,
-        uploads consumed)``."""
+        uploads consumed)``.
+
+        With a guard the chain also returns each step's post-blend center
+        norm, in the same host copy. Each sub-window walks the norms in step
+        order before planning; a failed check at step ``f`` ends the
+        sub-window there: the predictor plans ``[j0, f)``, step ``f`` blends,
+        rolls back and never reaches the predictor, and the caller relaunches
+        the uploads after ``f`` from the restored state."""
         cl = self.clustering
         plane = cl.plane
         cid_order = sorted(cl.clusters)
         pos = {c: k for k, c in enumerate(cid_order)}
         S = len(seg)
+        guard = self.guard
 
         U = torch.stack([plane.from_pytree(item[1]) for item in seg])  # one flatten per upload
         prev_idx, forced_idx = self._prev_forced(seg, 0, pos)
@@ -291,7 +329,7 @@ class EchoPFLServer:
         res = K.ingest_chain(
             U, plane.rows([cl.clusters[c]._row for c in cid_order]),
             plane.rows([cl.clusters[c]._bcast_row for c in cid_order]),
-            prev_idx, forced_idx, beta=cl.mix_rate,
+            prev_idx, forced_idx, beta=cl.mix_rate, with_stats=guard is not None,
         )
         cids_np, blended, stats = res.host()  # the segment's one host sync
         change_np, gb_np, ga_np = stats[:, 0], stats[:, 1], stats[:, 2]
@@ -307,21 +345,29 @@ class EchoPFLServer:
             # boundary, whose predictor maintenance must see the weights as
             # of refine time
             j1 = min(S, j0 + self.refine_every - (self._uploads % self.refine_every))
+            # the guard's walk of the post-blend norms, in step order, before
+            # anything is planned: a failure at f voids the launch from f on
+            fail = None
+            if guard is not None:
+                fail = next((j for j in range(j0, j1) if not guard.center_ok(step_cids[j], float(stats[j, 3]))),
+                            None)
+            j_end = j1 if fail is None else fail + 1
             # the sub-window's upload rows in one write: a refine, which
             # reads them, only comes at its end
             rows = []
-            for item in seg[j0:j1]:
+            for item in seg[j0:j_end]:
                 row = self._upload_rows.get(item[0])
                 if row is None:
                     row = self._upload_rows[item[0]] = plane.alloc()
                 rows.append(row)
-            plane.write_rows(rows, U[j0:j1])
+            plane.write_rows(rows, U[j0:j_end])
+            j_plan = j1 if fail is None else fail  # the failed step never reaches the predictor
             plan = (
-                self._plan_predictor_window(seg, j0, j1, step_cids, forced_idx, change_np, gb_np, ga_np,
+                self._plan_predictor_window(seg, j0, j_plan, step_cids, forced_idx, change_np, gb_np, ga_np,
                                             blended, bcast_np, last_vec)
-                if self.enable_broadcast else None
+                if self.enable_broadcast and j_plan > j0 else None
             )
-            for j in range(j0, j1):
+            for j in range(j0, j_end):
                 client_id = seg[j][0]
                 self._uploads += 1
                 msgs: list[Downlink] = []
@@ -344,6 +390,16 @@ class EchoPFLServer:
 
                 branch.push(client_id, merge_fn, f"upload from {client_id} (staleness {staleness})")
 
+                if j == fail:
+                    # the carried centers are corrupt from here on: roll back
+                    # and hand the rest back for a relaunch from live state
+                    msgs.extend(self._rollback_center(cluster, branch, client_id))
+                    if self._uploads % self.refine_every == 0:
+                        msgs.extend(self._refine())
+                    out.append(msgs)
+                    cl._pending = None
+                    return out, j + 1
+
                 if pred is not None:  # the plan's chain already took the SGD steps
                     pred.observe(float(change_np[j]))
 
@@ -360,7 +416,7 @@ class EchoPFLServer:
                         bcast_np[cid] = new_vec  # the anchor is now this row
                 last_vec[cid] = new_vec
 
-                if j == j1 - 1 and plan is not None:
+                if j == j_plan - 1 and plan is not None:
                     # the chain's final weights, before a refine inherits them
                     for wcid, wparams in plan.new_params.items():
                         self.predictors[wcid].params = wparams
@@ -526,6 +582,32 @@ class EchoPFLServer:
                 o += len(w)
         new_params = {c: finals[c] for c in launch_cids if any(st["learn"] for st in chains[c])}
         return _PredictorPlan(wants=resolve(used), new_params=new_params)
+
+    def _center_norm(self, cluster) -> float:
+        """The post-blend center L1 norm of the per-event late check: the
+        host's fp32 numpy sum of the center row, as the reference takes it
+        (one device-to-host copy an upload on the card)."""
+        return float(np.abs(cluster.center_vec.cpu().numpy()).sum())
+
+    def _rollback_center(self, cluster, branch, client_id) -> list[Downlink]:
+        """The late check failed: restore the newest finite snapshot (or
+        the anchor), record the recovery on the branch and re-broadcast to
+        every member, the uploader included. If every recorded state is
+        itself corrupt nothing is restored and nothing is sent; the ledger
+        counts the detection either way."""
+        cid = cluster.cluster_id
+        self.guard.note_rollback()
+        if not cluster.rollback():
+            self.events.append({"kind": "rollback", "cluster": cid, "restored": False})
+            return []
+
+        def merge_fn(head):
+            cluster.version += 1
+            return cluster.center_vec
+
+        branch.push(client_id, merge_fn, f"center rollback after poisoned blend from {client_id}")
+        self.events.append({"kind": "rollback", "cluster": cid, "restored": True})
+        return self._broadcast(cluster)
 
     def _broadcast(self, cluster, exclude: set = frozenset()) -> list[Downlink]:
         cluster.snapshot_broadcast()
@@ -727,6 +809,44 @@ class EchoPFLServer:
         self.repo.delete(f"cluster/{victim}")
         self.events.append({"kind": "dissolve", "cluster": victim})
         return True
+
+    # --------------------------------------------------------------- eviction
+    def evict_clients(self, client_ids: list) -> dict:
+        """Remove clients gone dark for good (device death, the drop policy,
+        or the guard's eviction): free each one's upload row and its codec
+        rows, drop its bookkeeping, and reclaim a cluster left with no
+        member (its center, anchor and ring rows, predictor and branch),
+        except cluster 0 with clustering off, which every upload goes to.
+        Returns ``{"evicted": [...], "reclaimed": [cluster ids]}``."""
+        cl = self.clustering
+        evicted: list = []
+        reclaimed: list[int] = []
+        for client_id in client_ids:
+            touched = False
+            if self.uplink_codec is not None:
+                self.uplink_codec.release_client(client_id)
+            row = self._upload_rows.pop(client_id, None)
+            if row is not None:
+                cl.plane.free(row)
+                touched = True
+            self.client_versions.pop(client_id, None)
+            home = cl.assignment.pop(client_id, None)
+            if home is not None and home in cl.clusters:
+                touched = True
+                cluster = cl.clusters[home]
+                cluster.members.discard(client_id)
+                cluster.partial_finetune.discard(client_id)
+                if not cluster.members and self.enable_clustering:
+                    cl.drop_cluster(home)
+                    self.predictors.pop(home, None)
+                    self.repo.delete(f"cluster/{home}")
+                    reclaimed.append(home)
+            if touched:
+                evicted.append(client_id)
+                self.events.append({"kind": "evict", "client": str(client_id)})
+        for home in reclaimed:
+            self.events.append({"kind": "reclaim", "cluster": home})
+        return {"evicted": evicted, "reclaimed": reclaimed}
 
     # ------------------------------------------------------------- metrics
     def stats(self) -> dict:

@@ -3,7 +3,8 @@
 // carried center matrix (every earlier step's blend included), takes the
 // first-index argmin, applies the switch veto and the forced (pinned)
 // index, blends the chosen row, and sums the predictor's three L1
-// statistics of the step.
+// statistics of the step and, for the ingest guard, a fourth: the
+// post-blend center norm L1(new, 0).
 //
 // Replaces src/repro/kernels/ops.py::ingest_chain (_ingest_chain_jit, a
 // lax.scan whose step calls the TPU kernel
@@ -47,14 +48,18 @@
 //      two-op form round(round((1-b)*c) + round(b*u)) (__fmul_rn /
 //      __fadd_rn, no FMA), write them to blended[j], and store per-chunk
 //      partials of change = L1(new, old), gap_before = L1(old, anchor) and
-//      gap_after = L1(new, anchor), in l1_rows.cuh's order, to an
-//      (S, chunks, 3) scratch. Then straight on to step j + 1. A block
+//      gap_after = L1(new, anchor), and with the norm (kStats = 4) cnorm =
+//      L1(new, 0), in l1_rows.cuh's order, to an (S, chunks, kStats)
+//      scratch. Then straight on to step j + 1. A block
 //      writes slot j % 2 again at step j + 2, after step j + 1's barrier,
 //      which every block reaches only after it has read the slot at step j.
 // After the last step the owners write their rows to `carried` (never to
 // the input centers), one more grid sync, and the statistics' partials are
 // summed in chunk order, one warp an output, so each is bitwise l1_distance
 // of the same two rows: S + 1 grid syncs a launch.
+// Two instantiations: kStats = 3 is the chain without the norm, the launch,
+// outputs and buffers a run with no guard makes; kStats = 4 adds the norm's
+// accumulator to step c and its column to `stats`.
 #include <cooperative_groups.h>
 
 #include "l1_rows.cuh"
@@ -212,6 +217,7 @@ struct Items {
   }
 };
 
+template <int kStats>
 __global__ void __launch_bounds__(repro::kThreads)
 ingest_chain_kernel(const float* __restrict__ U, const float* __restrict__ centers, const float* __restrict__ bcast,
                     const int* __restrict__ prev_forced, int64_t steps, int64_t c_rows, int64_t n,
@@ -223,7 +229,7 @@ ingest_chain_kernel(const float* __restrict__ U, const float* __restrict__ cente
   __shared__ float best_v[repro::kWarps];
   __shared__ int best_i[repro::kWarps];
   __shared__ float dpart[repro::kWarps][kTileC];
-  __shared__ float spart[repro::kWarps][3];
+  __shared__ float spart[repro::kWarps][kStats];
   cg::grid_group grid = cg::this_grid();
   const bool on_chip = on_chip_flag != 0;
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
@@ -346,7 +352,7 @@ ingest_chain_kernel(const float* __restrict__ U, const float* __restrict__ cente
           av[s] = repro::load4(anchor, k * repro::kChunk + 4 * (threadIdx.x + repro::kThreads * s), n, al_a);
       }
       const int al_r = repro::row_align(crow), al_o = repro::row_align(out);
-      float st[3] = {0.f, 0.f, 0.f};  // change, gap_before, gap_after
+      float st[kStats] = {};  // change, gap_before, gap_after (, cnorm)
 #pragma unroll
       for (int s = 0; s < kSteps; ++s) {
         const int li = 4 * (threadIdx.x + repro::kThreads * s);
@@ -355,6 +361,7 @@ ingest_chain_kernel(const float* __restrict__ U, const float* __restrict__ cente
         st[0] = repro::add_abs4(st[0], nw, cv[s]);
         st[1] = repro::add_abs4(st[1], cv[s], av[s]);
         st[2] = repro::add_abs4(st[2], nw, av[s]);
+        if constexpr (kStats == 4) st[3] = repro::add_abs4(st[3], nw, make_float4(0.f, 0.f, 0.f, 0.f));
         if (on_chip)
           *reinterpret_cast<float4*>(rows + ci * repro::kChunk + li) = nw;
         else
@@ -363,11 +370,10 @@ ingest_chain_kernel(const float* __restrict__ U, const float* __restrict__ cente
       }
       warp_sum_n(st);
       if (lane == 0) {
-        spart[wid][0] = st[0];
-        spart[wid][1] = st[1];
-        spart[wid][2] = st[2];
+#pragma unroll
+        for (int q = 0; q < kStats; ++q) spart[wid][q] = st[q];
       }
-      repro::store_partials<1, 3>(spart, 1, 3, stat_part + (j * chunks + k) * 3, 0);
+      repro::store_partials<1, kStats>(spart, 1, kStats, stat_part + (j * chunks + k) * kStats, 0);
     }
   }
   // the final rows to `carried`
@@ -384,39 +390,44 @@ ingest_chain_kernel(const float* __restrict__ U, const float* __restrict__ cente
     }
   }
   grid.sync();
-  // the statistics: output o = 3 j + s sums its chunk partials in chunk order
+  // the statistics: output o = kStats j + s sums its chunk partials in chunk order
   const int64_t warp = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
   const int64_t warps = (static_cast<int64_t>(gridDim.x) * blockDim.x) >> 5;
-  for (int64_t o = warp; o < 3 * steps; o += warps) {
-    const float s = repro::sum_chunks(stat_part + (o / 3) * chunks * 3 + o % 3, chunks, 3);
+  for (int64_t o = warp; o < kStats * steps; o += warps) {
+    const float s = repro::sum_chunks(stat_part + (o / kStats) * chunks * kStats + o % kStats, chunks, kStats);
     if (lane == 0) stats[o] = s;
   }
 }
 
-// co-resident blocks by rows held on chip (0: none) and device
-int coresident[kTileC + 1][64];
-bool chip_smem_set[64];
+// co-resident blocks by instantiation (0: 3 statistics, 1: 4), rows held on
+// chip (0: none) and device
+int coresident[2][kTileC + 1][64];
+bool chip_smem_set[2][64];
 
-// The launch for C rows of width n (chunks = ceil(n / 4096)) on the current
-// device: plan = {blocks, dynamic shared memory bytes, rows on chip (1) or
-// in `carried` (0)}. Rows go on chip when every item gets a block of its own.
+// The launch of ingest_chain_kernel<kStats> for C rows of width n (chunks =
+// ceil(n / 4096)) on the current device: plan = {blocks, dynamic shared
+// memory bytes, rows on chip (1) or in `carried` (0)}. Rows go on chip when
+// every item gets a block of its own.
+template <int kStats>
 cudaError_t chain_plan(int64_t c_rows, int64_t chunks, int device, int64_t* plan) {
-  if (!chip_smem_set[device]) {
-    const cudaError_t rc = cudaFuncSetAttribute(ingest_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  constexpr int v = kStats == 4;
+  if (!chip_smem_set[v][device]) {
+    const cudaError_t rc = cudaFuncSetAttribute(ingest_chain_kernel<kStats>,
+                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                 static_cast<int>(chip_bytes(kTileC)));
     if (rc != cudaSuccess) return rc;
-    chip_smem_set[device] = true;
+    chip_smem_set[v][device] = true;
   }
   const int r = c_rows < kTileC ? static_cast<int>(c_rows) : kTileC;
   const int64_t items = chunks * ((c_rows + kTileC - 1) / kTileC);
-  const int cap_chip = repro::coresident_blocks(ingest_chain_kernel, device, coresident[r], chip_bytes(r));
+  const int cap_chip = repro::coresident_blocks(ingest_chain_kernel<kStats>, device, coresident[v][r], chip_bytes(r));
   if (cap_chip > 0 && items <= cap_chip) {
     plan[0] = items;
     plan[1] = static_cast<int64_t>(chip_bytes(r));
     plan[2] = 1;
     return cudaSuccess;
   }
-  const int cap = repro::coresident_blocks(ingest_chain_kernel, device, coresident[0], 0);
+  const int cap = repro::coresident_blocks(ingest_chain_kernel<kStats>, device, coresident[v][0], 0);
   if (cap <= 0) return cudaErrorInvalidConfiguration;  // the occupancy query failed
   plan[0] = items < cap ? items : cap;
   plan[1] = 0;
@@ -426,32 +437,38 @@ cudaError_t chain_plan(int64_t c_rows, int64_t chunks, int device, int64_t* plan
 
 }  // namespace
 
-// plan (3) int64: the launch repro_ingest_chain makes for C rows of width n.
-REPRO_API int repro_ingest_chain_plan(int64_t c_rows, int64_t n, int device, int64_t* plan) {
+// plan (3) int64: the launch repro_ingest_chain makes for C rows of width n
+// and nstats statistics a step (3, or 4 with the center norm).
+REPRO_API int repro_ingest_chain_plan(int64_t c_rows, int64_t n, int nstats, int device, int64_t* plan) {
   if (device < 0 || device >= 64) return static_cast<int>(cudaErrorInvalidDevice);
   repro::use_device(device);
-  if (c_rows <= 0 || c_rows > kMaxCenters || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(chain_plan(c_rows, repro::l1_chunks(n), device, plan));
+  if (c_rows <= 0 || c_rows > kMaxCenters || n <= 0 || (nstats != 3 && nstats != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t chunks = repro::l1_chunks(n);
+  return static_cast<int>(nstats == 4 ? chain_plan<4>(c_rows, chunks, device, plan)
+                                      : chain_plan<3>(c_rows, chunks, device, plan));
 }
 
 // U (S, n) uploads; centers (C, n) the segment-start centers (only read);
 // bcast (C, n) their anchors; prev_forced (2 S) int32: the prev indices,
 // then the forced ones (-1: none). partials: 2 * chunks * C floats;
-// stat_part: S * chunks * 3 floats, chunks = ceil(n / 4096); any other
-// `chunks` is refused. Outputs: dists (S, C), cids (S,), stats (S, 3) as
-// (change, gap_before, gap_after), blended (S, n), carried (C, n) the
-// centers after the last step.
+// stat_part: S * chunks * nstats floats, chunks = ceil(n / 4096); any other
+// `chunks` is refused. nstats: 3, or 4 with the center norm. Outputs: dists
+// (S, C), cids (S,), stats (S, nstats) as (change, gap_before, gap_after[,
+// cnorm]), blended (S, n), carried (C, n) the centers after the last step.
 REPRO_API int repro_ingest_chain(const float* U, const float* centers, const float* bcast,
                                  const int* prev_forced, int64_t steps, int64_t c_rows, int64_t n,
                                  int64_t chunks, double beta, double margin, float* partials,
                                  float* stat_part, float* dists, int* cids, float* stats,
-                                 float* blended, float* carried, int device, void* stream) {
+                                 float* blended, float* carried, int nstats, int device, void* stream) {
   if (device < 0 || device >= 64) return static_cast<int>(cudaErrorInvalidDevice);
   repro::use_device(device);
-  if (steps <= 0 || c_rows <= 0 || c_rows > kMaxCenters || n <= 0 || chunks != repro::l1_chunks(n))
+  if (steps <= 0 || c_rows <= 0 || c_rows > kMaxCenters || n <= 0 || chunks != repro::l1_chunks(n) ||
+      (nstats != 3 && nstats != 4))
     return static_cast<int>(cudaErrorInvalidValue);
   int64_t plan[3];
-  const cudaError_t planned = chain_plan(c_rows, chunks, device, plan);
+  const cudaError_t planned =
+      nstats == 4 ? chain_plan<4>(c_rows, chunks, device, plan) : chain_plan<3>(c_rows, chunks, device, plan);
   if (planned != cudaSuccess) return static_cast<int>(planned);
   // beta and the margin fold like the host's Python floats: (1 - x) in
   // double, then one rounding to fp32
@@ -462,8 +479,10 @@ REPRO_API int repro_ingest_chain(const float* U, const float* centers, const flo
   void* args[] = {&U,     &centers, &bcast, &prev_forced, &steps,    &c_rows,    &n,     &chunks,
                   &omb,   &b,       &omm,   &on_chip,     &partials, &stat_part, &dists, &cids,
                   &stats, &blended, &carried};
+  const void* kernel = nstats == 4 ? reinterpret_cast<const void*>(ingest_chain_kernel<4>)
+                                   : reinterpret_cast<const void*>(ingest_chain_kernel<3>);
   const cudaError_t rc = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(ingest_chain_kernel), dim3(static_cast<unsigned>(plan[0])),
+      kernel, dim3(static_cast<unsigned>(plan[0])),
       dim3(repro::kThreads), args, static_cast<size_t>(plan[1]), static_cast<cudaStream_t>(stream));
   return rc != cudaSuccess ? static_cast<int>(rc) : repro::launch_status();
 }

@@ -5,7 +5,9 @@
 point for EchoPFL and the six baselines: the synchronous strategies run
 ``rounds`` round barriers, the asynchronous ones the per-event loop, or
 with ``coalesce_window=`` seconds the coalesced one; ``uplink=`` compresses
-the uploads (``"topk"``, ``"int8"`` or an ``UplinkConfig``). It runs on
+the uploads (``"topk"``, ``"int8"`` or an ``UplinkConfig``); ``churn=``,
+``faults=`` and ``guard=`` make an asynchronous run a chaos run
+(:class:`~repro_torch.fl.simulator.Simulator`). It runs on
 ``device="cuda"`` unless the caller asks for the CPU.
 ``init_params=`` (MLP weights) and ``rnn_params=`` (pretrained broadcast
 RNN) hand over weights made elsewhere — e.g. the reference's, which torch
@@ -160,6 +162,9 @@ def run_experiment(
     coalesce_window: float = 0.0,
     max_uploads: int | None = None,
     uplink: Any = None,
+    churn: dict | None = None,
+    faults: Any = None,
+    guard: Any = None,
     **strategy_kw,
 ):
     """Returns (task, clients, strategy, report). A synchronous strategy
@@ -168,7 +173,12 @@ def run_experiment(
     ``coalesce_window`` > 0 (seconds of virtual time a window), and
     ``max_uploads`` stops it at that many ingested uploads. ``uplink``: no
     codec (``None``, ``"none"``), ``"topk"``, ``"int8"`` or an
-    :class:`~repro_torch.fl.uplink.UplinkConfig`."""
+    :class:`~repro_torch.fl.uplink.UplinkConfig`. ``churn``: offline
+    windows a client; ``faults``: ``None``/``"off"``, a
+    :class:`~repro_torch.fl.faults.FaultConfig` or ``FaultPlan``; ``guard``:
+    ``None``/``"off"``, ``"on"`` or a
+    :class:`~repro_torch.fl.guard.GuardConfig` (the asynchronous loops
+    only, as in the reference)."""
     dev = resolve_device(device)
     task, clients, init_params = build_clients(
         task_name, num_clients, seed=seed, latent_clusters=latent_clusters,
@@ -184,7 +194,7 @@ def run_experiment(
         clients, strategy,
         network=network or NetworkModel(),
         eval_interval=eval_interval, target_acc=target_acc, seed=seed, coalesce_window=coalesce_window,
-        uplink=uplink,
+        uplink=uplink, churn=churn, faults=faults, guard=guard,
     )
     report = sim.run(max_time=max_time, rounds=rounds, max_uploads=max_uploads)
     report.extra["task"] = task_name

@@ -11,20 +11,32 @@ barriers. The client side runs on the batched
 :class:`~repro_torch.fl.fleet.ClientFleet`. With ``uplink=`` the uploads
 are compressed (:mod:`repro_torch.fl.uplink`): the server ingests each
 upload's reconstruction and the network bills its payload's exact size,
-while the client keeps its own trained model. Faults, the ingest guard and
-churn are not part of this port yet.
+while the client keeps its own trained model.
+
+The two asynchronous loops take churn, faults and the ingest guard, as the
+reference's do (its synchronous loop has none of them): ``churn=`` static
+offline windows a client, ``faults=`` a seeded
+:class:`~repro_torch.fl.faults.FaultPlan` (crashes and deaths, lost,
+retried and dropped uploads, duplicates, reordered downlinks, value
+poison), ``guard=`` an :class:`~repro_torch.fl.guard.IngestGuard` config
+that scores every delivered upload before the strategy sees it. ``None``
+is off for each, and then no fault or guard code runs. A plan with a server
+restart raises ``NotImplementedError``: the port has no checkpoints yet.
 """
 from __future__ import annotations
 
 import dataclasses
 import heapq
 import itertools
+import math
 from typing import Any
 
 import numpy as np
 
 from repro_torch.common.pytrees import tree_leaves
 from repro_torch.core.client import SimClient
+from repro_torch.fl.faults import FaultInjector, apply_poison, resolve_faults
+from repro_torch.fl.guard import IngestGuard, resolve_guard
 from repro_torch.fl.network import NetworkModel
 from repro_torch.fl.uplink import UplinkCodec, resolve_uplink
 
@@ -105,6 +117,9 @@ class Simulator:
         seed: int = 0,
         coalesce_window: float = 0.0,
         uplink: Any = None,
+        churn: dict[Any, list[tuple[float, float]]] | None = None,
+        faults: Any = None,
+        guard: Any = None,
     ):
         self.clients = {c.client_id: c for c in clients}
         self.strategy = strategy
@@ -121,6 +136,39 @@ class Simulator:
         self.coalesced_groups: dict[str, list[int]] = {}  # kind -> window group sizes
         self._fleet = None  # built lazily from the first initial model
         self._last_accs: dict = {}
+        # elastic membership: {client: [(t_offline, t_back), ...]}; a device
+        # whose local round would start inside a window resumes when it is back
+        self.churn = churn or {}
+        self.churn_delays = 0
+        plan = resolve_faults(faults)
+        if plan is not None and plan.restart is not None:
+            raise NotImplementedError("repro_torch: a server restart needs checkpoints, which the port does not "
+                                      "have yet; run the plan without restart")
+        self._faults = FaultInjector(plan) if plan is not None else None
+        gcfg = resolve_guard(guard)
+        self._guard = IngestGuard(gcfg) if gcfg is not None else None
+        self._dead: set = set()  # clients gone dark for good (death, the drop policy, the guard)
+        self._useq: dict[Any, int] = {}  # a client's upload send sequence
+        self._ingest_high: dict[Any, int] = {}  # the highest sequence ingested (the duplicate fence)
+        self._dl_seq: dict[Any, int] = {}  # a recipient's downlink send sequence
+        self._dl_high: dict[Any, int] = {}  # the highest sequence installed (the reorder fence)
+
+    def _next_online(self, cid, t: float) -> float:
+        """When a local round that finishes at ``t`` can upload: static churn
+        windows first, then an injected crash (the round's work is lost and
+        the device resumes after its downtime; ``inf`` is a death)."""
+        for t_off, t_on in self.churn.get(cid, ()):
+            if t_off <= t < t_on:
+                self.churn_delays += 1
+                return t_on
+        if self._faults is not None:
+            down = self._faults.crash(cid)
+            if down is not None:
+                if down == math.inf:
+                    return math.inf
+                self.churn_delays += 1
+                return t + down
+        return t
 
     # -------------------------------------------------------- fleet engine
     def _ensure_fleet(self, template: PyTree) -> None:
@@ -140,6 +188,10 @@ class Simulator:
             attach = getattr(strat, "attach_uplink_codec", None)
             if attach is not None and getattr(strat, "uplink_codec", None) is not self._codec:
                 attach(self._codec)
+        if self._guard is not None:
+            attach_g = getattr(strat, "attach_guard", None)
+            if attach_g is not None and getattr(strat, "guard", None) is not self._guard:
+                attach_g(self._guard)
         current = getattr(strat, "feedback_batch_fn", "missing")
         if current == "missing":
             return
@@ -165,7 +217,10 @@ class Simulator:
 
     # ----------------------------------------------------------- evaluation
     def _evaluate(self, t: float) -> float:
-        params = [self.strategy.model_for(cid) for cid in self._fleet.ids]
+        # a client gone dark for good was evicted by the server: it scores
+        # with the last model it installed
+        params = [self.clients[cid].model if cid in self._dead else self.strategy.model_for(cid)
+                  for cid in self._fleet.ids]
         fleet_accs = self._fleet.evaluate_fleet(params)
         accs = {cid: float(a) for cid, a in zip(self._fleet.ids, fleet_accs)}
         mean = float(np.mean(list(accs.values())))
@@ -250,35 +305,68 @@ class Simulator:
                 next_eval += self.eval_interval
 
             if kind == "upload_start":  # local training finished; uplink begins
-                new_params, _ = self._fleet.train_client(payload)
-                self.clients[payload].model = new_params
-                self._send_upload(push, t, payload, *self._encode_upload(payload, new_params))
+                cid = payload
+                t_on = self._next_online(cid, t)
+                if t_on == math.inf:  # the crash was fatal: the device never returns
+                    self._retire_client(cid, "death")
+                    continue
+                if t_on > t:  # offline: the round restarts when the device is back
+                    push(t_on + self.clients[cid].compute_time(), "upload_start", cid)
+                    continue
+                new_params, _ = self._fleet.train_client(cid)
+                self.clients[cid].model = new_params
+                self._send_upload(push, t, cid, *self._encode_upload(cid, new_params))
             elif kind == "upload_done":
-                cid, params, base_version = payload
+                cid, params, base_version, useq = payload
+                if self._faults is not None:
+                    # the duplicate fence: a copy (or anything older than what landed) is absorbed
+                    if useq <= self._ingest_high.get(cid, -1):
+                        self._faults.ledger["dups_absorbed"] += 1
+                        continue
+                    self._ingest_high[cid] = useq
+                if self._guard is not None and self._guard_check(cid, params) != "accept":
+                    # rejected: the strategy never sees it; the client trains
+                    # on from its own model, unless it is evicted
+                    if self._guard.should_evict(cid):
+                        self._retire_client(cid, "guard")
+                    else:
+                        push(t + self.clients[cid].compute_time(), "upload_start", cid)
+                    continue
                 uploads += 1
                 c = self.clients[cid]
                 for dl in strat.handle_upload(cid, params, base_version, c.data.n, t):
                     dur = self.net.download(model_bytes(dl.params), t)
-                    push(t + dur, "downlink", dl)
+                    self._push_downlink(push, t, dl, dur)
                 # the client starts its next local round at once
                 push(t + c.compute_time(), "upload_start", cid)
                 if max_uploads and uploads >= max_uploads:
                     break
             elif kind == "downlink":
-                self._install(payload)
+                if not self._reorder_fenced(payload):
+                    self._install(payload)
             elif kind == "tick":  # the strategy's periodic hook (FedSEA's synchronization points)
                 self._tick(push, t)
 
         extra = strat.stats() if hasattr(strat, "stats") else {}
         extra["uploads"] = uploads
-        return self._report(t, extra)
+        return self._report(t, self._chaos_extra(extra))
+
+    def _chaos_extra(self, extra: dict) -> dict:
+        """The report's churn, fault and guard entries (each only when on)."""
+        if self.churn:
+            extra["churn_delays"] = self.churn_delays
+        if self._faults is not None:
+            extra["faults"] = self._faults.ledger_snapshot()
+        if self._guard is not None:
+            extra["guard"] = self._guard.ledger_snapshot()
+        return extra
 
     def _tick(self, push, t: float) -> None:
         """A strategy tick: bill and ship its downlinks one by one, then
         schedule the next tick."""
         strat = self.strategy
         for dl in strat.on_tick(t):
-            push(t + self.net.download(model_bytes(dl.params), t), "downlink", dl)
+            self._push_downlink(push, t, dl, self.net.download(model_bytes(dl.params), t))
         if strat.tick_interval:
             push(t + strat.tick_interval, "tick", None)
 
@@ -297,9 +385,97 @@ class Simulator:
 
     def _send_upload(self, push, t: float, cid, up_params: PyTree, nbytes: int, raw: int | None) -> None:
         """Bill one upload of ``nbytes`` on the wire (``raw``: its dense
-        size, under a codec) and schedule its arrival."""
-        dur = self.net.upload(nbytes, t, raw_nbytes=raw)
-        push(t + dur, "upload_done", (cid, up_params, self.clients[cid].base_version))
+        size, under a codec) and schedule its arrival, with the client's send
+        sequence (the ingest fences on it). Under faults: retries and their
+        backoff, the drop policy's give-up (the client leaves), value poison
+        and a duplicate delivery, which bills the bytes again."""
+        base_version = self.clients[cid].base_version
+        if self._faults is None:
+            dur = self.net.upload(nbytes, t, raw_nbytes=raw)
+            push(t + dur, "upload_done", (cid, up_params, base_version, 0))
+            return
+        delay, delivered = self._upload_with_faults(cid, nbytes, raw, t)
+        if not delivered:  # the drop policy hit the retry cap: the straggler leaves
+            self._retire_client(cid, "dropped")
+            return
+        pz = self._faults.poison(cid)
+        if pz is not None:  # the bytes crossed fine, the values arrive corrupt (the copy too)
+            up_params = apply_poison(up_params, pz[0], pz[1], self._faults.cfg)
+        useq = self._useq[cid] = self._useq.get(cid, 0) + 1
+        push(t + delay, "upload_done", (cid, up_params, base_version, useq))
+        dup = self._faults.duplicate(cid)
+        if dup is not None:  # a retransmission: real bytes cross the link again
+            self.net.upload(nbytes, t, raw_nbytes=raw, retry=True)
+            push(t + delay + dup, "upload_done", (cid, up_params, base_version, useq))
+
+    def _upload_with_faults(self, cid, nbytes: int, raw: int | None, t: float) -> tuple[float, bool]:
+        """Bill one upload with its lost attempts: each failed attempt sends
+        the full payload (retry bytes past the first send) and waits a
+        capped exponential backoff. Returns ``(delay to arrival, delivered)``;
+        the delay shows up in the staleness the server records."""
+        inj = self._faults
+        fails, delivered = inj.upload_plan(cid)
+        delay = 0.0
+        for i in range(fails):
+            delay += self.net.upload(nbytes, t + delay, raw_nbytes=raw, retry=i > 0)
+            delay += inj.backoff(i)
+        if not delivered:
+            return delay, False
+        dur = self.net.upload(nbytes, t + delay, raw_nbytes=raw, retry=fails > 0)
+        if fails:
+            inj.ledger["retry_delay_s"] += delay
+        return delay + dur, True
+
+    def _push_downlink(self, push, t_send: float, dl, dur: float) -> None:
+        """Schedule one downlink; under faults with the recipient's send
+        sequence (the install fences on it) and a possible reorder delay."""
+        if self._faults is None:
+            push(t_send + dur, "downlink", dl)
+            return
+        dl._fseq = self._dl_seq[dl.client_id] = self._dl_seq.get(dl.client_id, -1) + 1
+        push(t_send + dur + self._faults.reorder(dl.client_id), "downlink", dl)
+
+    def _reorder_fenced(self, dl) -> bool:
+        """Under faults, whether a downlink was overtaken by a newer send to
+        its client (absorbed, so a stale model never overwrites a newer one);
+        else it raises the fence."""
+        if self._faults is None:
+            return False
+        if dl._fseq < self._dl_high.get(dl.client_id, -1):
+            self._faults.ledger["stale_downlinks_absorbed"] += 1
+            return True
+        self._dl_high[dl.client_id] = dl._fseq
+        return False
+
+    def _guard_check(self, cid, params) -> str:
+        """Score one delivered upload against the guard before the strategy
+        sees it: against the client's home cluster and its center (key -1
+        and no center before its first assignment)."""
+        cl = getattr(self.strategy, "clustering", None)
+        home = cl.assignment.get(cid) if cl is not None else None
+        if home is not None and home in cl.clusters:
+            key, center = home, cl.clusters[home].center
+        else:
+            key, center = -1, None
+        finite, l2, dist = self._guard.upload_stats(params, center)
+        return self._guard.check_upload(cid, key, finite, l2, dist)
+
+    def _retire_client(self, cid, kind: str) -> None:
+        """Take a client gone dark for good out of the run: the server evicts
+        it (its rows freed, an emptied cluster reclaimed) and the loops stop
+        scheduling it; it keeps its last model for evaluation."""
+        if cid in self._dead:
+            return
+        self._dead.add(cid)
+        led = self._faults.ledger if self._faults is not None else None  # the guard retires without faults too
+        if led is not None and kind == "dropped":
+            led["dropped_clients"] += 1
+        evict = getattr(self.strategy, "evict_clients", None)
+        if evict is not None:
+            res = evict([cid])
+            if led is not None:
+                led["evicted_clients"] += len(res["evicted"])
+                led["reclaimed_clusters"] += len(res["reclaimed"])
 
     def _install(self, dl, *, row_written: bool = False) -> None:
         """A downlink's protocol state on its client (and the model in its
@@ -334,7 +510,9 @@ class Simulator:
         order, as the reference draws them; an arrival made inside its own
         window draws in the next one, after the window's later arrivals, so
         there the device RNG stream and the virtual times differ from the
-        per-event loop's, in the reference as here."""
+        per-event loop's, in the reference as here. Churn and crashes, the
+        duplicate fence and the guard's verdicts are settled at collection
+        time too, in that same order."""
         strat = self.strategy
         events: list = []  # (time, seq, kind, payload)
 
@@ -344,9 +522,33 @@ class Simulator:
         self._init_async_events(push)
         self.coalesced_groups = {}
 
-        def stash(kn, pn):
-            # an arrival draws its client's next compute time now, in event order
-            return self.clients[pn[0]].compute_time() if kn == "upload_done" else None
+        def stash(tn, kn, pn):
+            """What an event draws, at collection time in global event order:
+            a finished round its churn or crash (``None``: it uploads now,
+            ``inf``: the device died, else the time it restarts, its compute
+            time drawn now); an arrival its next compute time (a float), or
+            ``"dup"`` (fenced, draws nothing), ``"evicted"`` (the guard
+            retired it, draws nothing) or ``("rejected", compute time)``."""
+            if kn == "upload_start":
+                t_on = self._next_online(pn, tn)
+                if t_on == math.inf:  # a fatal crash: no restart, no draw
+                    return math.inf
+                if t_on > tn:  # offline: the round restarts when the device is back
+                    return t_on + self.clients[pn].compute_time()
+                return None
+            if kn == "upload_done":
+                if self._faults is not None:
+                    if pn[3] <= self._ingest_high.get(pn[0], -1):
+                        self._faults.ledger["dups_absorbed"] += 1
+                        return "dup"
+                    self._ingest_high[pn[0]] = pn[3]
+                if self._guard is not None and self._guard_check(pn[0], pn[1]) != "accept":
+                    if self._guard.should_evict(pn[0]):
+                        self._retire_client(pn[0], "guard")
+                        return "evicted"
+                    return ("rejected", self.clients[pn[0]].compute_time())
+                return self.clients[pn[0]].compute_time()
+            return None
 
         next_eval = self.eval_interval
         uploads = 0
@@ -365,18 +567,21 @@ class Simulator:
                 continue
 
             buckets: dict[str, list] = {"downlink": [], "upload_start": [], "upload_done": []}
-            buckets[kind].append((t0, payload, stash(kind, payload)))
+            s0 = stash(t0, kind, payload)
+            buckets[kind].append((t0, payload, s0))
             limit = t0 + window
             cap = max_uploads - uploads if max_uploads else None
-            arrivals = 1 if kind == "upload_done" else 0
+            # the cap counts arrivals that will ingest: a float compute time
+            arrivals = 1 if kind == "upload_done" and isinstance(s0, float) else 0
             while events and (cap is None or arrivals < cap):
                 tn, _, kn, pn = events[0]
                 if kn == "tick" or tn >= limit or tn >= next_eval or tn > max_time:
                     break
                 heapq.heappop(events)
-                buckets[kn].append((tn, pn, stash(kn, pn)))
+                sn = stash(tn, kn, pn)
+                buckets[kn].append((tn, pn, sn))
                 t = tn
-                arrivals += kn == "upload_done"
+                arrivals += kn == "upload_done" and isinstance(sn, float)
             for kn, group in buckets.items():
                 if group:
                     self.coalesced_groups.setdefault(kn, []).append(len(group))
@@ -393,21 +598,34 @@ class Simulator:
         extra = strat.stats() if hasattr(strat, "stats") else {}
         extra["uploads"] = uploads
         extra["coalesce_window"] = window
-        return self._report(t, extra)
+        return self._report(t, self._chaos_extra(extra))
 
     def _coalesced_upload_starts(self, group, push) -> None:
-        """One batched training call for a window's finished local rounds,
-        and under a codec one encode of the trained matrix; billing and
-        scheduling per event, in order, so the heap's sequence numbers match
-        the per-event loop's push for push."""
-        cids = [cid for _, cid, _ in group]
-        if len(cids) > 1:
-            trained, _, vecs = self._fleet.train_rows(cids)
-            sent = trained if self._codec is None else self._codec.encode_rows(cids, vecs)[0]
-        else:
-            trained = [self._fleet.train_client(cids[0])[0]]
-            sent = trained if self._codec is None else [self._codec.encode(cids[0], trained[0])[0]]
-        for (ti, cid, _), new_params, up in zip(group, trained, sent):
+        """One batched training call for a window's finished local rounds
+        whose devices are online (churn settled at collection), and under a
+        codec one encode of the trained matrix; a death retires its client,
+        an offline device's restart is scheduled; billing and scheduling per
+        event, in order, so the heap's sequence numbers match the per-event
+        loop's push for push."""
+        ready = [cid for _, cid, resume in group if resume is None]
+        trained: dict[Any, Any] = {}
+        sent: dict[Any, Any] = {}
+        if len(ready) > 1:
+            outs, _, vecs = self._fleet.train_rows(ready)
+            trained = dict(zip(ready, outs))
+            sent = trained if self._codec is None else dict(zip(ready, self._codec.encode_rows(ready, vecs)[0]))
+        for ti, cid, resume in group:
+            if resume == math.inf:  # a fatal crash: the device never returns
+                self._retire_client(cid, "death")
+                continue
+            if resume is not None:  # offline: the round restarts when the device is back
+                push(resume, "upload_start", cid)
+                continue
+            if cid in trained:
+                new_params, up = trained[cid], sent[cid]
+            else:
+                new_params = self._fleet.train_client(cid)[0]
+                up = self._encode_upload(cid, new_params)[0]
             self.clients[cid].model = new_params
             self._send_upload(push, ti, cid, up, *self._billing(new_params))
 
@@ -415,16 +633,35 @@ class Simulator:
         """One batched ingest for a window's arrivals (``handle_uploads``
         where the strategy has it, else one ``handle_upload`` an arrival, in
         order). The downlinks of one ingest all carry a whole model, so each run of them that shares a
-        payload object is billed in one call and shipped as one batch event;
-        the next local round is scheduled with the compute time drawn at
-        collection."""
+        payload object is billed in one call and shipped as one batch event
+        (under faults each one on its own, with its send sequence); the next
+        local round is scheduled with the compute time drawn at collection.
+        Returns the arrivals ingested."""
         strat = self.strategy
-        batch = [(cid, params, bv, self.clients[cid].data.n, ti) for ti, (cid, params, bv), _ in group]
+        # fenced duplicates and the guard's rejects never reach the server: a
+        # rejected client's next round is scheduled, a duplicate or an
+        # evicted client schedules nothing
+        live = [e for e in group if isinstance(e[2], float)]
+        batch = [(cid, params, bv, self.clients[cid].data.n, ti) for ti, (cid, params, bv, _), _ in live]
         if len(batch) > 1 and hasattr(strat, "handle_uploads"):
             downlinks_per = strat.handle_uploads(batch)
         else:
             downlinks_per = [strat.handle_upload(*b) for b in batch]
-        for (ti, (cid, _, _), next_compute), dls in zip(group, downlinks_per):
+        dls_iter = iter(downlinks_per)
+        for ti, (cid, _, _, _), sn in group:
+            if sn == "dup" or sn == "evicted":
+                continue
+            if isinstance(sn, tuple):  # rejected by the guard: only its next round
+                push(ti + sn[1], "upload_start", cid)
+                continue
+            next_compute, dls = sn, next(dls_iter)
+            if self._faults is not None:
+                # one by one, so send sequences and reorder delays land as in
+                # the per-event loop (the bytes and events are the bulk's)
+                for dl in dls:
+                    self._push_downlink(push, ti, dl, self.net.download(model_bytes(dl.params), ti))
+                push(ti + next_compute, "upload_start", cid)
+                continue
             run: list = []
             run_obj, run_nb = None, 0
             for dl in dls:
@@ -449,6 +686,11 @@ class Simulator:
         flat: list = []
         for _, payload, _ in group:
             flat.extend(payload) if isinstance(payload, list) else flat.append(payload)
+        # the reorder fence, in delivery order, before the batched row write:
+        # a stale delivery must not reach the model rows at all
+        flat = [dl for dl in flat if not self._reorder_fenced(dl)]
+        if not flat:
+            return
         batched = len(flat) > 1
         if batched:
             self._fleet.set_models([dl.client_id for dl in flat], [dl.params for dl in flat])

@@ -27,9 +27,9 @@ simulator's upload path:
 The port takes its configuration by argument (``uplink=`` of the
 simulator and the experiment entry points), not from the environment:
 ``None`` or ``"none"`` (no codec), ``"topk"``, ``"int8"`` or an
-:class:`UplinkConfig`. Not carried yet: ``release_client`` (client
-eviction) and the checkpoint methods ``state_dict``, ``load_state`` and
-``seed_template``.
+:class:`UplinkConfig`. A client evicted for good gives its rows back
+(:meth:`UplinkCodec.release_client`). Not carried yet: the checkpoint
+methods ``state_dict``, ``load_state`` and ``seed_template``.
 """
 from __future__ import annotations
 
@@ -112,6 +112,7 @@ class UplinkCodec:
         self._anchor_row = self.plane.alloc_many(K)
         self._resid_row = self.plane.alloc_many(K) if topk else None
         self._seeded = [False] * K
+        self._released = [False] * K  # evicted clients: rows back on the plane's free list
         self._install_memo: tuple[Any, Any] = (None, None)  # (params object, its flat vector)
         self.launches = 0
         # the wire size of one upload, from the static config; equal to what the codecs emit
@@ -136,7 +137,7 @@ class UplinkCodec:
         rows, vecs = [], []
         for cid, params in models.items():
             i = self.index.get(cid)
-            if i is None or self._seeded[i]:
+            if i is None or self._seeded[i] or self._released[i]:
                 continue
             vec = by_obj.get(id(params))
             if vec is None:
@@ -155,7 +156,7 @@ class UplinkCodec:
         between two downlinks. Installs of one object in a row (a
         broadcast's fan-out) share one flatten."""
         i = self.index.get(cid)
-        if i is None:
+        if i is None or self._released[i]:
             return
         obj, vec = self._install_memo
         if obj is not params:
@@ -165,6 +166,19 @@ class UplinkCodec:
         if self._resid_row is not None:
             self.plane.row_view(self._resid_row[i]).zero_()
         self._seeded[i] = True
+
+    def release_client(self, cid) -> None:
+        """Give an evicted client's rows (anchor, and residual under top-k)
+        back to the plane. Idempotent; a released client is no longer
+        seeded or installed, and its encode raises."""
+        i = self.index.get(cid)
+        if i is None or self._released[i]:
+            return
+        self.plane.free(self._anchor_row[i])
+        if self._resid_row is not None:
+            self.plane.free(self._resid_row[i])
+        self._released[i] = True
+        self._seeded[i] = False
 
     # ------------------------------------------------------------- encoding
     def encode_vecs(self, cids: Sequence[Any], mat: torch.Tensor) -> torch.Tensor:

@@ -47,10 +47,10 @@ _SIGNATURES = {
     # u, centers, C, N, chunks, beta, scratch, dists, idx, out, device, stream
     "repro_assign_lerp": ([_P, _P, _I64, _I64, _I64, ctypes.c_double] + [_P] * 4 + [_INT, _P], _INT),
     # U, centers, bcast, prev_forced, S, C, N, chunks, beta, margin, partials, stat_part, dists, cids,
-    # stats, blended, carried, device, stream
-    "repro_ingest_chain": ([_P] * 4 + [_I64] * 4 + [ctypes.c_double] * 2 + [_P] * 7 + [_INT, _P], _INT),
-    # C, N, device, plan (3 int64: blocks, dynamic shared memory bytes, rows on chip)
-    "repro_ingest_chain_plan": ([_I64, _I64, _INT, _P], _INT),
+    # stats, blended, carried, nstats (3, or 4 with the center norm), device, stream
+    "repro_ingest_chain": ([_P] * 4 + [_I64] * 4 + [ctypes.c_double] * 2 + [_P] * 7 + [_INT, _INT, _P], _INT),
+    # C, N, nstats, device, plan (3 int64: blocks, dynamic shared memory bytes, rows on chip)
+    "repro_ingest_chain_plan": ([_I64, _I64, _INT, _INT, _P], _INT),
     # fp, ft, ss, seg, out, M, J, S, device, stream
     "repro_chi2": ([_P] * 5 + [_I64] * 3 + [_INT, _P], _INT),
     # vm, va, vt, N, out, device, stream

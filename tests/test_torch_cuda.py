@@ -9,7 +9,8 @@ bitwise, the index equal, the merge bitwise its plain version (NaN at the
 same places), the flash forward 1e-5 and backward 3e-4 (the backward also
 bitwise across repeats); the ingest chain's cids, blended rows and carried
 matrix bitwise its plain version's and its distances and statistics
-bitwise the numpy model of the L1 order (``kernel_chain``). The ``har``
+bitwise the numpy model of the L1 order (``kernel_chain``), with and without
+the guard's norm statistic. The ``har``
 FedAvg and FedAsyn runs on the card against the same runs on the CPU:
 identical ledgers and stats, accuracy curves within 0.02. The uplink
 encodes bitwise their plain versions (NaN at the same places) at the paths'
@@ -400,6 +401,35 @@ def _chain_against_plain_and_model(dev, U, centers, bcast, prev, forced):
     return got.cids.cpu().numpy()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,with_nan", [(sh, nan) for sh in CHAIN_SHAPES for nan in (False, True)
+                                            if not nan or sh[0] >= 4], ids=str)
+def test_cuda_ingest_chain_with_stats_bits(cuda_device, shape, with_nan):
+    """``with_stats=True`` (the guard's post-blend center norm): the four
+    statistics bitwise ``kernel_chain(..., with_stats=True)``'s (a NaN
+    upload gives a NaN norm), every other output bitwise the chain's
+    without the norm, and that chain still bitwise its plain version and
+    the model; one launch a call either way."""
+    from test_torch_l1_order import kernel_chain
+
+    s, c, n = shape
+    U, centers, bcast, prev, forced = _chain_inputs(s, c, n, s // 2 if with_nan else None)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (U, centers, bcast)]
+    ops.reset_launch_counts()
+    off = ops.ingest_chain(*args, prev, forced, beta=0.25)
+    on = ops.ingest_chain(*args, prev, forced, beta=0.25, with_stats=True)
+    assert ops.launch_counts()["ingest_chain"] == 2
+    m_cids, _, _, m_stats, _ = kernel_chain(U, centers, bcast, prev, forced, 0.25, with_stats=True)
+    assert on.stats.shape == (s, 4) and _same_nan_bits(on.stats.cpu(), torch.from_numpy(m_stats))
+    for a, b in ((off.cids, on.cids), (off.blended, on.blended), (off.dists, on.dists), (off.carried, on.carried),
+                 (off.stats, on.stats[:, :3].contiguous())):
+        assert _same_nan_bits(a.cpu(), b.cpu())
+    assert off.buf.numel() == s * n + s * c + 4 * s and on.buf.numel() == s * n + s * c + 5 * s
+    if with_nan:
+        assert bool(torch.isnan(on.cnorm[s // 2]))
+    _chain_against_plain_and_model(cuda_device, U, centers, bcast, prev, forced)
+
+
 # (S, C, N): rows on chip; and four rows over 192 chunks (192 items, more than the 132 blocks that
 # hold four rows on chip on an H100), kept in `carried`
 CHAIN_OWNER_SHAPES = [(32, 4, 25418), (12, 5, 8193), (8, 4, 783360)]
@@ -449,6 +479,7 @@ def test_cuda_ingest_chain_plan(cuda_device, c, n, on_chip):
     items = -(-n // 4096) * -(-c // 4)
     plan = chain_plan(c, n, cuda_device)
     assert plan["on_chip"] == on_chip, plan
+    assert chain_plan(c, n, cuda_device, with_stats=True) == plan  # the norm's instantiation launches alike
     if on_chip:
         assert plan["blocks"] == items and plan["smem"] == (2 * min(c, 4) + 2) * 4096 * 4, plan
     else:

@@ -14,6 +14,12 @@ held to three things on the same numpy-seeded inputs:
 - the numpy model of the card kernel's order (``kernel_chain``): identical
   cids, blended rows bit for bit, distances and statistics within rtol 1e-5.
 
+``with_stats=True`` (the ingest guard's post-blend center norm) changes no
+other output by a bit and adds ``cnorm = torch.sum(torch.abs(c_new))`` as
+a fourth statistic in the same buffer: within rtol 2e-6 of the
+reference's ``ops.ingest_chain(..., with_stats=True)`` with identical
+cids, within rtol 1e-5 of the order model's; a NaN upload gives a NaN norm.
+
 Cases: N = 256, 4,099 and 8,193 (three chunks of the card kernel, the
 last one ragged), C = 1, 3, 4, 5 and 9 (a partial tile of four rows), S = 1,
 8, 13, with first uploads (prev -1), vetoed switches, forced (pinned) ids,
@@ -263,13 +269,83 @@ def test_the_kernel_has_one_grid_barrier_a_step():
 def test_chain_rejects_what_it_does_not_take():
     U, centers, bcast, prev, forced = (torch.from_numpy(a) if isinstance(a, np.ndarray) else a
                                        for a in _inputs(16, 2, 3, seed=5))
-    with pytest.raises(NotImplementedError, match="guard"):
-        ops.ingest_chain(U, centers, bcast, prev, forced, beta=BETA, with_stats=True)
     with pytest.raises(ValueError, match="index"):
         ops.ingest_chain(U, centers, bcast, [2, -1, -1], forced, beta=BETA)
     with pytest.raises(ValueError, match="one entry per upload"):
         ops.ingest_chain(U, centers, bcast, prev[:2], forced, beta=BETA)
     with pytest.raises(TypeError):
         ops.ingest_chain(U.double(), centers, bcast, prev, forced, beta=BETA)
+    with pytest.raises(ValueError, match="index"):
+        ops.ingest_chain(U, centers, bcast, prev, [-1, 2, -1], beta=BETA, with_stats=True)
     host = ingest_chain_plain(U, centers, bcast, prev, forced, BETA).host()
     assert host[0].dtype == np.int32 and host[1].shape == (3, 16) and host[2].shape == (3, 3)
+    host = ingest_chain_plain(U, centers, bcast, prev, forced, BETA, with_stats=True).host()
+    assert host[0].dtype == np.int32 and host[1].shape == (3, 16) and host[2].shape == (3, 4)
+
+
+STATS_CASES = [(n, c, s) for n in (256, 4099) for c in (1, 4, 9) for s in (1, 8, 13)]
+
+
+@pytest.mark.parametrize("n,c,s", STATS_CASES)
+def test_with_stats_changes_no_other_output(n, c, s):
+    U, centers, bcast, prev, forced = _inputs(n, c, s, seed=7)
+    _, _, _, off = _port(U, centers, bcast, prev, forced)
+    on = ops.ingest_chain(torch.from_numpy(U), torch.from_numpy(centers), torch.from_numpy(bcast), prev, forced,
+                          beta=BETA, switch_margin=MARGIN, with_stats=True)
+    assert off.cnorm is None and on.stats.shape == (s, 4) and on.cnorm.shape == (s,)
+    for a, b in ((off.cids, on.cids), (off.blended, on.blended), (off.dists, on.dists), (off.carried, on.carried),
+                 (off.stats, on.stats[:, :3])):
+        assert a.numpy().tobytes() == b.numpy().tobytes()
+    want = np.asarray([float(torch.sum(torch.abs(on.blended[j]))) for j in range(s)], np.float32)
+    assert on.cnorm.numpy().tobytes() == want.tobytes()
+    cids, blended, stats = on.host()
+    assert stats.shape == (s, 4) and stats.tobytes() == on.stats.numpy().tobytes()
+    assert np.array_equal(cids, on.cids.numpy()) and blended.tobytes() == on.blended.numpy().tobytes()
+
+
+def _reference_with_stats(U, centers, bcast, prev, forced):
+    """The reference's chain with its norm, called as its server calls it
+    (S and C padded to powers of two)."""
+    S, C = len(U), len(centers)
+    P, Cp = 1 << (S - 1).bit_length(), 1 << (C - 1).bit_length()
+    Up = np.concatenate([U, np.broadcast_to(U[:1], (P - S, U.shape[1]))])
+    zpad = np.zeros((Cp - C, centers.shape[1]), np.float32)
+    outs = jax_ops.ingest_chain(
+        jnp.asarray(Up), jnp.asarray(np.concatenate([centers, zpad])), jnp.asarray(np.concatenate([bcast, zpad])),
+        prev + [-1] * (P - S), forced + [-1] * (P - S), [True] * S + [False] * (P - S),
+        beta=BETA, switch_margin=MARGIN, num_centers=C, with_stats=True,
+    )
+    assert len(outs) == 6
+    return np.asarray(outs[0])[:S], np.asarray(outs[5])[:S]
+
+
+@pytest.mark.parametrize("n,c,s", STATS_CASES)
+def test_norm_matches_the_reference_and_the_order_model(n, c, s):
+    U, centers, bcast, prev, forced = _inputs(n, c, s, seed=8)
+    on = ops.ingest_chain(torch.from_numpy(U), torch.from_numpy(centers), torch.from_numpy(bcast), prev, forced,
+                          beta=BETA, switch_margin=MARGIN, with_stats=True)
+    r_cids, r_cnorm = _reference_with_stats(U, centers, bcast, prev, forced)
+    np.testing.assert_array_equal(on.cids.numpy(), r_cids)
+    np.testing.assert_allclose(on.cnorm.numpy(), r_cnorm, rtol=2e-6, atol=0)
+    m_cids, _, _, m_stats, _ = kernel_chain(U, centers, bcast, prev, forced, BETA, MARGIN, with_stats=True)
+    np.testing.assert_array_equal(on.cids.numpy(), m_cids)
+    np.testing.assert_allclose(on.stats.numpy(), m_stats, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("n", [256, 4099])
+def test_nan_upload_gives_a_nan_norm(n):
+    """A NaN upload blends NaN into the first center: its step's norm is
+    NaN, as is every later norm of that center, in the port, the
+    reference and the order model alike."""
+    U, centers, bcast, prev, forced = _inputs(n, 4, 8, seed=3, nan_step=2)
+    forced[2] = -1
+    on = ops.ingest_chain(torch.from_numpy(U), torch.from_numpy(centers), torch.from_numpy(bcast), prev, forced,
+                          beta=BETA, switch_margin=MARGIN, with_stats=True)
+    cn = on.cnorm.numpy()
+    assert np.isnan(cn[2])
+    nan_rows = np.isnan(on.blended.numpy()).any(axis=1)
+    np.testing.assert_array_equal(np.isnan(cn), nan_rows)
+    _, r_cnorm = _reference_with_stats(U, centers, bcast, prev, forced)
+    np.testing.assert_array_equal(np.isnan(cn), np.isnan(r_cnorm))
+    m_stats = kernel_chain(U, centers, bcast, prev, forced, BETA, MARGIN, with_stats=True)[3]
+    np.testing.assert_array_equal(np.isnan(cn), np.isnan(m_stats[:, 3]))

@@ -70,13 +70,16 @@ def kernel_l1(x: np.ndarray, c: np.ndarray) -> np.float32:
     return butterfly(per_lane)
 
 
-def kernel_chain(U, centers, bcast, prev_idx, forced_idx, beta: float, margin: float = 0.1):
+def kernel_chain(U, centers, bcast, prev_idx, forced_idx, beta: float, margin: float = 0.1,
+                 with_stats: bool = False):
     """The ingest chain in numpy, with every sum in :func:`kernel_l1`'s
     order: per step the distances to the carried rows, the first-index
     argmin (a NaN wins), the veto ``d[amin] > fl(fl(1 - margin) d[prev])``,
     the forced index, the two-op blend and the three statistics. Returns
     ``(cids, blended, dists, stats, carried)``; ``stats[j]`` is (change,
-    gap_before, gap_after)."""
+    gap_before, gap_after), and with ``with_stats`` also the post-blend
+    center norm ``cnorm = L1(new, 0)`` in the same order, as the kernel's
+    fourth statistic sums it."""
     U, cmat, bcast = (np.asarray(a, np.float32) for a in (U, centers, bcast))
     cmat = cmat.copy()
     S, C = U.shape[0], cmat.shape[0]
@@ -84,7 +87,8 @@ def kernel_chain(U, centers, bcast, prev_idx, forced_idx, beta: float, margin: f
     cids = np.zeros(S, np.int32)
     blended = np.zeros_like(U)
     dists = np.zeros((S, C), np.float32)
-    stats = np.zeros((S, 3), np.float32)
+    stats = np.zeros((S, 4 if with_stats else 3), np.float32)
+    zero = np.zeros(U.shape[1], np.float32)
     for j in range(S):
         d = np.asarray([kernel_l1(U[j], r) for r in cmat], np.float32)
         amin = int(np.argmin(d))
@@ -96,7 +100,9 @@ def kernel_chain(U, centers, bcast, prev_idx, forced_idx, beta: float, margin: f
         old = cmat[cid].copy()
         new = omb * old + b * U[j]
         cids[j], blended[j], dists[j] = cid, new, d
-        stats[j] = (kernel_l1(new, old), kernel_l1(old, bcast[cid]), kernel_l1(new, bcast[cid]))
+        stats[j, :3] = (kernel_l1(new, old), kernel_l1(old, bcast[cid]), kernel_l1(new, bcast[cid]))
+        if with_stats:
+            stats[j, 3] = kernel_l1(new, zero)
         cmat[cid] = new
     return cids, blended, dists, stats, cmat
 
@@ -204,3 +210,26 @@ def test_nan_propagates_to_the_sum():
     c[4500] = np.nan  # in the second chunk
     assert np.isnan(kernel_l1(u, c))
     assert kernel_l1(u, np.zeros(5000, np.float32)) == np.float32(5000)
+
+
+@pytest.mark.parametrize("n,c,s", [(4099, 3, 6), (8193, 5, 4), (300, 1, 3)])
+def test_kernel_chain_norm_is_the_fourth_statistic(n, c, s):
+    """``with_stats`` adds ``cnorm = L1(new, 0)`` in the kernel's order as a
+    fourth column and changes nothing else; the norm is that of each
+    step's blended row, within rtol 1e-5 of a float64 sum."""
+    rng = np.random.default_rng(n + c + s)
+    U = rng.standard_normal((s, n)).astype(np.float32)
+    centers = rng.standard_normal((c, n)).astype(np.float32)
+    bcast = centers + np.float32(0.1)
+    prev, forced = [-1] * s, [-1] * s
+    plain = kernel_chain(U, centers, bcast, prev, forced, 0.25)
+    with_norm = kernel_chain(U, centers, bcast, prev, forced, 0.25, with_stats=True)
+    assert with_norm[3].shape == (s, 4)
+    for a, b in zip(plain[:3] + plain[4:], with_norm[:3] + with_norm[4:]):
+        assert a.tobytes() == b.tobytes()
+    assert with_norm[3][:, :3].tobytes() == plain[3].tobytes()
+    zero = np.zeros(n, np.float32)
+    for j in range(s):
+        assert with_norm[3][j, 3].tobytes() == kernel_l1(with_norm[1][j], zero).tobytes()
+    exact = np.abs(with_norm[1].astype(np.float64)).sum(axis=1)
+    np.testing.assert_allclose(with_norm[3][:, 3], exact, rtol=1e-5, atol=0)
