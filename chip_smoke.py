@@ -106,6 +106,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    guard-on run ends with finite centers and no NaN accuracy, and its
    coalesced runs launch ``ingest_chain`` with the norm statistic; host time
    per layer, the guard's host copies included;
+3i. restart (run last, after phase 6, with phase 4's restart agreement,
+   so that the timed and profiled phases follow the same run as before
+   it) — the fault plan's server kill and restore
+   (``ServerRestartPlan``): ``tests/test_faults.py``'s run (``har``, 8
+   clients with 48 samples, ``uplink="topk"``, faults at seed 5, 900 s,
+   killed at 30 uploads) per event and at a 30 s window, and phase 3c's
+   full-width ``llama3.2-1b`` run killed at half its uploads; each twice
+   uninterrupted and once killed, with the launch counts zeroed before each
+   run: the two uninterrupted runs must agree (fields that do not are
+   printed and left out) and the killed run must equal them in the
+   ledgers, curve, accuracies, events, assignments, the final state bit
+   for bit and the kernel and codec launches; the checkpoint's bytes and
+   leaves and the times of ``state_dict``, the save, the restore and
+   ``load_state``; then an ``image_recognition`` server's checkpoint
+   (25,418 floats a row, top-k codec) from the card into a CPU server and
+   a CPU server's into a card server, each restore equal to its writer's
+   state bit for bit; checkpoints go to a temporary directory the phase
+   deletes;
 4. agreement — a small ``har`` run and the ``tiny_lm`` LM run on the card
    against the same runs on the CPU, where every wrapper takes its plain
    version; the ``har`` run also coalesced at a 45 s window, card against
@@ -119,7 +137,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``har`` (faults at 0.3 plus poison at 0.2, guard on) per event and at
    45 s, card against CPU: identical fault, guard and byte ledgers, events
    and assignments, curves within 0.02; a guard on a clean run on the card
-   is the guard-off run bit for bit;
+   is the guard-off run bit for bit; phase 3i's coalesced ``har`` restart,
+   card against CPU: identical ledgers, events and assignments, curves
+   within 0.02;
 5. timing — each kernel, its plain version and (where one exists) a single
    PyTorch call computing the same function, at the shape the main path
    called it with most (the flash kernels and ``pairwise_l1`` at the
@@ -155,11 +175,15 @@ outside a checkout of the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import hashlib
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 from pathlib import Path
@@ -1700,6 +1724,289 @@ def chaos_sweeps(rnn_params: dict) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 3i
+def _synced(spent: Counter, step: str, fn, *a, **kw):
+    """``fn(*a, **kw)`` on the host clock, the card synced before and after,
+    its seconds added to ``spent[step]``."""
+    sync()
+    t = time.perf_counter()
+    out = fn(*a, **kw)
+    sync()
+    spent[step] += time.perf_counter() - t
+    return out
+
+
+def _restart_timers():
+    """Time the restart's four steps on the host clock, the card synced
+    before and after each (seconds summed per step, over every restart in
+    the window), and record each saved checkpoint's bytes on disk and
+    leaf count."""
+    from repro_torch import checkpoint as ck_pkg
+    from repro_torch.checkpoint import checkpointer as ck_mod
+    from repro_torch.core.server import EchoPFLServer
+
+    spent: Counter = Counter()
+    saved: list[dict] = []
+    originals = []
+
+    def wrap(owner, attr, step, after=None):
+        fn = getattr(owner, attr)
+
+        def timed(*a, **kw):
+            out = _synced(spent, step, fn, *a, **kw)
+            if after is not None:
+                after(*a)
+            return out
+        originals.append((owner, attr, fn))
+        setattr(owner, attr, timed)
+
+    def size(directory, tree, extra=None):
+        files = [os.path.join(directory, n) for n in os.listdir(directory)]
+        saved.append({"bytes": sum(os.path.getsize(f) for f in files),
+                      "leaves": len(ck_mod._paths_and_leaves(tree)[0])})
+
+    wrap(EchoPFLServer, "state_dict", "state_dict")
+    wrap(ck_mod, "save_pytree", "save", after=size)
+    wrap(ck_pkg, "restore_pytree", "restore")
+    wrap(EchoPFLServer, "load_state", "load_state")
+
+    def restore():
+        for owner, attr, fn in reversed(originals):
+            setattr(owner, attr, fn)
+
+    return spent, saved, restore
+
+
+def _state_bits(strat) -> str:
+    """A digest of every leaf of the strategy's state tree and of its meta."""
+    from repro_torch.checkpoint.checkpointer import _paths_and_leaves
+
+    tree, meta = strat.state_dict()
+    h = hashlib.sha256(json.dumps(meta).encode())
+    for path, leaf in zip(*_paths_and_leaves(tree)):
+        h.update(path.encode())
+        h.update(leaf.tobytes())
+    return h.hexdigest()
+
+
+def _run_fields(rep, sim, counts) -> dict:
+    """What a killed run must share with the uninterrupted one: the ledgers,
+    the curve and accuracies, the server's decisions and state, the kernel
+    launches (the codec's included)."""
+    strat = sim.strategy
+    out = {f: getattr(rep, f) for f in ("curve", "per_client_acc", "up_bytes", "down_bytes", "up_events",
+                                         "down_events", "up_raw_bytes", "up_retry_bytes", "duration", "up_series",
+                                         "down_series")}
+    out["faults"] = {k: v for k, v in rep.extra["faults"].items() if k != "server_restarts"}
+    for key in ("staleness", "uploads", "broadcasts", "decisions", "rnn_broadcasts", "clusters", "merges",
+                "expansions", "uplink"):
+        out[key] = rep.extra.get(key)
+    out["events"] = strat.events
+    out["assignment"] = strat.clustering.assignment
+    out["launches"] = counts
+    out["state"] = _state_bits(strat)
+    return out
+
+
+def _restart_trio(label: str, build, at_uploads: int | None = None) -> dict:
+    """Two uninterrupted runs and one killed at ``at_uploads`` (default: half
+    the first run's uploads), each with the launch counts zeroed just before
+    and read just after. Fields the two uninterrupted runs do not share are
+    printed and left out; the killed run must equal the uninterrupted one in
+    every other field. ``build(restart_dir, at_uploads)`` returns a ready
+    simulator and its horizon."""
+    from repro_torch.kernels import ops
+
+    runs = []
+    workdir = tempfile.mkdtemp(prefix="repro_torch_restart_")
+    try:
+        for killed in (False, False, True):
+            if killed and at_uploads is None:
+                at_uploads = runs[0][0]["uploads"] // 2
+            sim, horizon = build(os.path.join(workdir, "ck") if killed else None, at_uploads)
+            if killed:
+                spent, saved, restore = _restart_timers()
+            sync()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            try:
+                rep = sim.run_async(max_time=horizon)
+                sync()
+            finally:
+                if killed:
+                    restore()
+            wall = time.perf_counter() - t0
+            runs.append((_run_fields(rep, sim, ops.launch_counts()), rep, sim, wall))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    (a, _, sa, wa), (a2, _, _, wa2), (b, rb, sb, wb) = runs
+    unsteady = sorted(k for k in a if a[k] != a2[k])
+    differ = sorted(k for k in a if k not in unsteady and a[k] != b[k])
+    check(rb.extra["faults"]["server_restarts"] == 1, f"{label}: the server was not restarted")
+    check(sb.strategy is not sa.strategy and b["uploads"] > at_uploads,
+          f"{label}: the restored server did not finish the run")
+    if sb._codec is not None:
+        check(sb.strategy.uplink_codec is sb._codec, f"{label}: the codec was not re-attached")
+    check(getattr(sb.strategy.feedback_batch_fn, "_fleet", None) is sb._fleet,
+          f"{label}: the fleet's feedback probe was not reinstalled")
+    print(f"{label}: two uninterrupted card runs " + ("identical in every field" if not unsteady else
+          f"DIFFER in {unsteady}; the restart is held to the other fields only"))
+    check(not differ, f"{label}: the killed run differs from the uninterrupted one in {differ}")
+    check(len(saved) == 1, f"{label}: {len(saved)} checkpoints saved, not 1")
+    held = [k for k in a if k not in unsteady]
+    print(f"{label}: killed at {at_uploads} of {b['uploads']} uploads, equal to the uninterrupted run in "
+          f"{len(held)} fields ({', '.join(held)}); launches {json.dumps(b['launches'])}; checkpoint "
+          f"{saved[0]['bytes']} B on disk, {saved[0]['leaves']} leaves; state_dict {spent['state_dict'] * 1e3:.3f} ms, "
+          f"save {spent['save'] * 1e3:.3f} ms, restore {spent['restore'] * 1e3:.3f} ms (raw, then into the template), "
+          f"load_state {spent['load_state'] * 1e3:.3f} ms; wall {wa:.2f} / {wa2:.2f} / {wb:.2f} s (uninterrupted, "
+          f"again, killed); card {sh('nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader')}")
+    return dict(fields=b, unsteady=unsteady, saved=saved[0], spent=dict(spent), at=at_uploads)
+
+
+RESTART_CHAOS = dict(seed=5, crash_rate=0.05, loss_rate=0.2, dup_rate=0.1, reorder_rate=0.1)
+NO_FAULTS = dict(crash_rate=0.0, loss_rate=0.0, dup_rate=0.0, reorder_rate=0.0)
+
+
+def _har_restart_sim(device: str, window: float, rnn_params: dict, init_params=None):
+    """``tests/test_faults.py``'s kill-restore run: ``har``, 8 clients with
+    48 samples, seed 0, ``uplink="topk"``, faults (seed 5), 900 s; the
+    simulator builder ``_restart_trio`` takes."""
+    from repro_torch.fl.experiment import build_clients, build_strategy
+    from repro_torch.fl.faults import FaultConfig, FaultPlan, ServerRestartPlan
+    from repro_torch.fl.simulator import Simulator
+
+    def build(restart_dir, at_uploads):
+        _, clients, init = build_clients("har", 8, seed=0, samples_per_client=48, device=device,
+                                         init_params=init_params)
+
+        def factory():
+            return build_strategy("echopfl", init, clients, seed=0, rnn_params=rnn_params, device=device)
+
+        plan = None if restart_dir is None else ServerRestartPlan(at_uploads, restart_dir, factory)
+        return Simulator(clients, factory(), seed=0, coalesce_window=window, uplink="topk",
+                         faults=FaultPlan(config=FaultConfig(**RESTART_CHAOS), restart=plan)), 900.0
+
+    return build
+
+
+def _interchange(rnn_params: dict) -> dict:
+    """A card server's checkpoint into a CPU server of the port and a CPU
+    server's into a card server (``image_recognition``, 25,418 floats a row,
+    20 clients, 600 s with ``uplink="topk"``, so the codec's rows ride
+    along): in each direction ``state_dict`` after the restore equals the
+    writer's leaf for leaf, bit for bit, the meta equal. The CPU server
+    ingests five uploads of its own before it writes."""
+    from repro_torch.checkpoint import restore_pytree, save_pytree
+    from repro_torch.checkpoint.checkpointer import _paths_and_leaves
+    from repro_torch.fl.experiment import build_clients, build_strategy, run_experiment
+    from repro_torch.fl.uplink import UplinkCodec
+
+    import numpy as np
+
+    _, _, card, rep = run_experiment("image_recognition", "echopfl", num_clients=20, max_time=600, seed=0,
+                                     device=DEVICE, rnn_params=rnn_params, uplink="topk")
+    init_np = [{k: v.cpu().numpy() for k, v in layer.items()} for layer in card.init_params]
+
+    def server(device):
+        _, clients, init = build_clients("image_recognition", 20, seed=0, device=device, init_params=init_np)
+        srv = build_strategy("echopfl", init, clients, seed=0, rnn_params=rnn_params, device=device)
+        srv.attach_uplink_codec(UplinkCodec(init, [c.client_id for c in clients], card.uplink_codec.config,
+                                            device=device))
+        return srv
+
+    def same(w, r) -> bool:
+        (tw, mw), (tr, mr) = w.state_dict(), r.state_dict()
+        (pw, lw), (pr, lr) = _paths_and_leaves(tw), _paths_and_leaves(tr)
+        return mw == mr and pw == pr and all(a.dtype == b.dtype and a.tobytes() == b.tobytes()
+                                             for a, b in zip(lw, lr))
+
+    spent: Counter = Counter()
+
+    def timed(step, fn, *a, **kw):
+        return _synced(spent, step, fn, *a, **kw)
+
+    workdir = tempfile.mkdtemp(prefix="repro_torch_interchange_")
+    try:
+        cpu = server("cpu")
+        d = os.path.join(workdir, "card")
+        tree, meta = timed("card state_dict", card.state_dict)
+        timed("save", save_pytree, d, tree, extra=meta)
+        nbytes = sum(os.path.getsize(os.path.join(d, n)) for n in os.listdir(d))
+        leaves = len(_paths_and_leaves(tree)[0])
+        raw = timed("restore", restore_pytree, d)[1]
+        got = timed("restore", restore_pytree, d, like=cpu.state_template(raw))
+        timed("CPU load_state", cpu.load_state, *got)
+        check(same(card, cpu), "interchange: the CPU server's state differs from the card checkpoint's")
+        rng = np.random.default_rng(0)
+        for i in range(5):
+            up = [{k: v + torch.from_numpy(rng.standard_normal(v.shape).astype(np.float32) * 0.05)
+                   for k, v in layer.items()} for layer in cpu.init_params]
+            cpu.handle_upload(i, up, 0, 48, 601.0 + i)
+        d2 = os.path.join(workdir, "cpu")
+        tree, meta = cpu.state_dict()
+        save_pytree(d2, tree, extra=meta)
+        card2 = server(DEVICE)
+        raw = restore_pytree(d2)[1]
+        got = restore_pytree(d2, like=card2.state_template(raw))
+        timed("card load_state", card2.load_state, *got)
+        check(same(cpu, card2), "interchange: the card server's state differs from the CPU checkpoint's")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(f"interchange (image_recognition, 25,418 floats a row, {rep.extra['uploads']} uploads on the card, top-k "
+          f"codec): card -> CPU and CPU -> card restores equal the writer's state bit for bit, meta equal; "
+          f"checkpoint {nbytes} B on disk, {leaves} leaves; card state_dict {spent['card state_dict'] * 1e3:.3f} ms, "
+          f"save {spent['save'] * 1e3:.3f} ms, restore {spent['restore'] * 1e3:.3f} ms (raw, then into the "
+          f"template), CPU load_state {spent['CPU load_state'] * 1e3:.3f} ms, card load_state (the CPU "
+          f"checkpoint) {spent['card load_state'] * 1e3:.3f} ms; card "
+          f"{sh('nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader')}")
+    return dict(bytes=nbytes, leaves=leaves, spent=dict(spent))
+
+
+def restart_phase(rnn_params: dict, lm_rnn_params: dict) -> dict:
+    """Phase 3i: the fault plan's server kill and restore on the card.
+    ``har``, the reference's own bar, per event and at a 30 s window; the
+    full-width ``llama3.2-1b`` run of phase 3c killed near the middle of its
+    uploads; and checkpoints between card and CPU servers."""
+    from repro_torch.fl.experiment import build_strategy
+    from repro_torch.fl.faults import FaultConfig, FaultPlan, ServerRestartPlan
+    from repro_torch.fl.lm_task import build_lm_clients
+    from repro_torch.fl.network import NetworkModel
+    from repro_torch.fl.simulator import Simulator
+
+    out = {}
+    for window in (0.0, 30.0):
+        label = f"restart har (8 clients, 900 s, top-k, faults, window {window} s)"
+        res = _restart_trio(label, _har_restart_sim(DEVICE, window, rnn_params), at_uploads=30)
+        counts = res["fields"]["launches"]
+        for name in ("l1_distance", "assign_and_lerp", "uplink_topk_encode") + (("ingest_chain",) if window else ()):
+            check(counts[name] > 0, f"{label}: kernel {name} never launched")
+        check(counts["uplink_topk_encode"] == res["fields"]["uplink"]["launches"],
+              f"{label}: encode launches {counts['uplink_topk_encode']} != the codec's")
+        out[f"har w{int(window)}"] = res
+    task = full_width_task()
+
+    def build(restart_dir, at_uploads):
+        clients, _, init = build_lm_clients(4, seed=0, local_epochs=1, n_train=4, n_test=2, seq_len=256, task=task,
+                                            device=DEVICE)
+
+        def factory():
+            return build_strategy("echopfl", init, clients, seed=0, rnn_params=lm_rnn_params, device=DEVICE)
+
+        plan = None if restart_dir is None else ServerRestartPlan(at_uploads, restart_dir, factory)
+        return Simulator(clients, factory(), network=NetworkModel(), eval_interval=240, seed=0,
+                         faults=FaultPlan(config=FaultConfig(**NO_FAULTS), restart=plan)), 720.0
+
+    label = "restart full width (llama3.2-1b, 4 clients, seq 256, 720 s, no fault)"
+    res = _restart_trio(label, build)
+    for name in LM_PATH:
+        check(res["fields"]["launches"][name] > 0, f"{label}: kernel {name} never launched")
+    out["llama3.2-1b"] = res
+    del task
+    torch.cuda.empty_cache()
+    out["interchange"] = _interchange(rnn_params)
+    return out
+
+
 # ------------------------------------------------------------------ phase 4
 def agreement():
     """``har`` (8 clients, 900 s) on the card against the CPU, per event and
@@ -1853,6 +2160,40 @@ def chaos_agreement(init_np: list, rnn_np: dict) -> None:
         print(f"{label}: bit for bit the guard-off run ({rn.extra['uploads']} uploads, all accepted)")
 
 
+def restart_agreement(init_np: list, rnn_np: dict) -> None:
+    """Phase 3i's coalesced ``har`` kill-restore run (30 s windows, top-k,
+    faults, the server killed at 30 uploads) on the card against the CPU:
+    identical ledgers (the fault ledger with its restart), server events and
+    assignments, accuracy curves within 0.02."""
+    out = {}
+    for dev in ("cpu", DEVICE):
+        workdir = tempfile.mkdtemp(prefix="repro_torch_restart_")
+        try:
+            sim, horizon = _har_restart_sim(dev, 30.0, rnn_np, init_np)(workdir, 30)
+            t0 = time.perf_counter()
+            rep = sim.run_async(max_time=horizon)
+            out[dev] = (sim, rep, time.perf_counter() - t0)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+    (sc, rc, tc), (sg, rg, tg) = out["cpu"], out[DEVICE]
+    label = "restart agreement (window 30.0 s)"
+    for field in ("up_events", "down_events", "up_bytes", "down_bytes", "up_raw_bytes", "up_retry_bytes", "duration",
+                  "up_series", "down_series"):
+        check(getattr(rc, field) == getattr(rg, field), f"{label}: {field} differs card vs CPU")
+    for key in ("faults", "uploads", "staleness", "broadcasts", "decisions", "uplink"):
+        check(rc.extra.get(key) == rg.extra.get(key), f"{label}: {key} {rc.extra.get(key)} != {rg.extra.get(key)}")
+    check(rg.extra["faults"]["server_restarts"] == 1, f"{label}: no restart on the card")
+    check(sc.strategy.events == sg.strategy.events
+          and sc.strategy.clustering.assignment == sg.strategy.clustering.assignment,
+          f"{label}: server events or assignments differ")
+    check([t for t, _ in rc.curve] == [t for t, _ in rg.curve], f"{label}: evaluation times differ")
+    gap = max(abs(a - b) for (_, a), (_, b) in zip(rc.curve, rg.curve))
+    check(gap <= 0.02, f"{label}: accuracy curves differ by {gap}")
+    print(f"{label} (har, 8 clients, 900 s, top-k, faults, killed at 30 uploads; card vs CPU plain versions): "
+          f"ledgers and {len(sg.strategy.events)} events identical, {rg.extra['uploads']} uploads, accuracy gap "
+          f"{gap:.4f}, final {rg.final_acc:.4f}; wall CPU {tc:.2f} s, card {tg:.2f} s")
+
+
 def baseline_agreement():
     """``har`` (8 clients) FedAvg at 5 rounds and FedAsyn at 900 s, per
     event and at a 45 s window, on the card against the CPU: identical
@@ -1950,9 +2291,10 @@ def _device_us(prof) -> Counter:
 
 PROFILER_PAD_S = 0.005  # host sleep at each end of a profiled window
 # On the H100 a session can drop its first few kernel launches (2 to 6 seen, more after a long
-# run, never a later one): each session starts with this many spin kernels, which
+# run, never a later one; once, with 32 spin kernels, every session of a timing lacked 2 of its
+# 300 measured launches): each session starts with this many spin kernels, which
 # _device_events leaves out, so the launches that are measured come after them.
-PROFILER_HEAD_KERNELS = 32
+PROFILER_HEAD_KERNELS = 256
 trace_sessions = Counter()  # device_ms's profiler sessions: "kept" and "refused"
 
 
@@ -2504,10 +2846,15 @@ def main() -> int:
     print(f"timing: {trace_sessions['kept']} profiler sessions kept, {trace_sessions['refused']} refused "
           f"(a partial or empty trace)")
     profiles(rnn_params, tiny["rnn"])
+    # the restart last: phases 5 and 6 follow the same run as before it
+    restart = restart_phase(rnn_params, tiny["rnn"])
+    restart_agreement(init_np, rnn_np)
     print(f"total {time.perf_counter() - t0:.1f} s")
     print("paper comparison: " + json.dumps(paper))
     print("comm sweep: " + json.dumps(sweep))
     print("chaos sweeps: " + json.dumps(chaos))
+    print("restart: " + json.dumps({k: {f: v[f] for f in ("saved", "spent", "at", "unsteady", "bytes", "leaves")
+                                       if f in v} for k, v in restart.items()}))
     print(json.dumps({"kernels": rows}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -236,7 +236,9 @@ def predictor_for_merge(a: BroadcastPredictor, b: BroadcastPredictor) -> Broadca
     n_b = min(k - n_a, len(b.records))
     rec_a = sorted(a.records, key=abs)[-n_a:] if n_a else []
     rec_b = sorted(b.records, key=abs)[-n_b:] if n_b else []
-    merged_params = {name: 0.5 * (a.params[name] + b.params[name]) for name in a.params}
+    # no weights with the broadcast ablation (enable_broadcast=False): the merge keeps none
+    merged_params = None if a.params is None else {name: 0.5 * (a.params[name] + b.params[name])
+                                                    for name in a.params}
     out = BroadcastPredictor(params=merged_params, k=k, scale=max(a.scale, b.scale))
     out.records = rec_a + rec_b
     return out

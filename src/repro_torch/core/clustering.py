@@ -164,8 +164,26 @@ class DynamicClustering:
         self._next_id += 1
         return c
 
+    def restore_cluster(self, cid: int, center: PyTree | torch.Tensor, bcast_center: PyTree | torch.Tensor) -> Cluster:
+        """Rebuild one cluster from a checkpoint's center and broadcast
+        anchor (a restart). Rows go center, anchor, then the snapshot ring,
+        as in the reference: row order decides later allocations."""
+        self._ensure_plane(center)
+        row = self.plane.alloc(center)
+        bcast_row = self.plane.alloc(bcast_center)
+        c = Cluster(cid, plane=self.plane, row=row, bcast_row=bcast_row)
+        c.ensure_snapshot_ring(self.snapshot_ring)
+        self.clusters[cid] = c
+        return c
+
     def drop_cluster(self, cid: int) -> None:
         self.clusters.pop(cid).release()
+
+    def reset(self) -> None:
+        """Drop every cluster and return its rows (ring rows included) before a restore."""
+        for c in self.clusters.values():
+            c.release()
+        self.clusters = {}
 
     # -------------------------------------------------------------- assign
     def upload_vec(self, update: PyTree) -> torch.Tensor:

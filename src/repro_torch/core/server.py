@@ -55,6 +55,13 @@ from repro_torch.kernels.chi2 import segmented_numpy
 PyTree = Any
 
 
+def _on_device(leaf, device: torch.device) -> torch.Tensor:
+    """A restored fp32 leaf (numpy, or a tensor on any device) as a tensor of its own on ``device``."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().to(device=device, dtype=torch.float32, copy=True)
+    return torch.tensor(np.asarray(leaf), dtype=torch.float32).to(device)
+
+
 @dataclasses.dataclass
 class _PredictorPlan:
     """Resolved predictor work for one refinement sub-window: per-step
@@ -108,8 +115,12 @@ class EchoPFLServer:
         # optional batched probe: [(member, center), ...] -> stacked
         # (F_pred, F_true, S_soft); the simulator's fleet installs one
         self.feedback_batch_fn: Callable[[list], tuple] | None = None
-        # the simulator's uplink codec (anchors and EF residuals), when the run compresses
+        # the simulator's uplink codec (anchors and EF residuals), when the
+        # run compresses; its rows ride state_dict. A load_state that ran
+        # before the codec existed keeps the codec's section here until
+        # attach_uplink_codec replays it
         self.uplink_codec = None
+        self._pending_uplink_state: tuple | None = None
         # the simulator's ingest guard; None keeps every guard hook off: the
         # chain runs without its norm statistic and no snapshot ring exists
         self.guard = None
@@ -145,10 +156,14 @@ class EchoPFLServer:
         return self.clustering.clusters[cid].center
 
     def attach_uplink_codec(self, codec) -> None:
-        """Adopt the simulator's uplink codec. Without checkpoints in the
-        port this only keeps it; its rows will ride ``state_dict`` when
-        checkpoints come."""
+        """Adopt the simulator's uplink codec: its anchor and residual rows
+        ride :meth:`state_dict` and :meth:`load_state`. A restore that ran
+        before the codec existed stashed the codec's section; it is replayed
+        into the codec here."""
         self.uplink_codec = codec
+        if codec is not None and self._pending_uplink_state is not None:
+            codec.load_state(*self._pending_uplink_state)
+            self._pending_uplink_state = None
 
     def attach_guard(self, guard) -> None:
         """Adopt the simulator's :class:`~repro_torch.fl.guard.IngestGuard`:
@@ -847,6 +862,143 @@ class EchoPFLServer:
         for home in reclaimed:
             self.events.append({"kind": "reclaim", "cluster": home})
         return {"evicted": evicted, "reclaimed": reclaimed}
+
+    # ------------------------------------------------- checkpoint and restart
+    def state_dict(self) -> tuple[PyTree, dict]:
+        """``(tree, meta)``: every piece of state the protocol accumulates,
+        the reference's layout. The tree holds the cluster centers and
+        broadcast anchors, each client's last upload (the expansion and
+        dissolve geometry), each predictor's RNN weights and, with a codec,
+        its rows; leaves are copies of the plane rows and the live RNN
+        tensors. The meta is JSON (Python ints, floats, strings, bools,
+        lists, dicts): membership, versions, the staleness counters, the
+        Top-K records and the counters and histories :meth:`stats` reads.
+        :meth:`load_state` restores it."""
+        cl = self.clustering
+        plane = cl.plane
+        last_uploads = {str(k): plane.to_pytree(row) for k, row in self._upload_rows.items()}
+        tree = {
+            "centers": {str(cid): c.center for cid, c in cl.clusters.items()},
+            "bcast_centers": {str(cid): plane.to_pytree(c._bcast_row) for cid, c in cl.clusters.items()},
+            "last_uploads": last_uploads,
+            "rnn": {str(cid): p.params for cid, p in self.predictors.items()},
+        }
+        meta = {
+            "clusters": {
+                str(cid): {
+                    "version": c.version,
+                    "members": sorted(map(str, c.members)),
+                    "partial_finetune": sorted(map(str, c.partial_finetune)),
+                    "pf_round": c.pf_round,
+                    "last_broadcast_version": c.last_broadcast_version,
+                }
+                for cid, c in cl.clusters.items()
+            },
+            "assignment": {str(k): v for k, v in cl.assignment.items()},
+            "next_id": cl._next_id,
+            "merges": cl.merges,
+            "expansions": cl.expansions,
+            "peel_counts": {str(k): v for k, v in cl.peel_counts.items()},
+            "predictors": {
+                str(cid): {"k": p.k, "records": list(p.records), "active": p.active, "scale": p.scale,
+                           "decisions": p.decisions, "broadcasts": p.broadcasts}
+                for cid, p in self.predictors.items()
+            },
+            "staleness": {"count": self.staleness.count, "total": self.staleness.total,
+                          "q_max": self.staleness.q_max},
+            "client_versions": {str(k): list(v) for k, v in self.client_versions.items()},
+            "uploads": self._uploads,
+            "decisions": self._decisions,
+            "rnn_broadcasts": self._rnn_broadcasts,
+            "refine_round": self._refine_round,
+            "upload_clients": sorted(last_uploads),
+            # what an exact restart needs besides: the expansion cooldown
+            # gates refine decisions, the events and feedback means feed stats()
+            "last_expand_round": {str(k): v for k, v in cl._last_expand_round.items()},
+            "events": [dict(e) for e in self.events],
+            "cluster_feedback_mean": {str(k): v for k, v in self.last_cluster_feedback_mean.items()},
+        }
+        if self.uplink_codec is not None:
+            tree["uplink"], meta["uplink"] = self.uplink_codec.state_dict()
+        return tree, meta
+
+    def state_template(self, meta: dict) -> PyTree:
+        """A tree of :meth:`state_dict`'s structure for ``meta``, for the
+        checkpointer's restore: centers, anchors and uploads share the
+        initial model's structure, predictors the RNN's."""
+        from repro_torch.fl.uplink import seed_template
+
+        # with the broadcast ablation the predictors hold no weights, and
+        # their entries no leaves (the reference's template gives them RNN
+        # leaves, so its own restart of such a server fails)
+        rnn_like = self._rnn_init
+        template = {
+            "centers": {cid: self.init_params for cid in meta["clusters"]},
+            "bcast_centers": {cid: self.init_params for cid in meta["clusters"]},
+            "last_uploads": {c: self.init_params for c in meta.get("upload_clients", [])},
+            "rnn": {cid: rnn_like for cid in meta["predictors"]},
+        }
+        if meta.get("uplink"):
+            template["uplink"] = seed_template(meta["uplink"], self.init_params)
+        return template
+
+    def load_state(self, tree: PyTree, meta: dict, client_id_type=int) -> None:
+        """Restore from :meth:`state_dict`'s output, or from a checkpoint of
+        it (numpy leaves; either package's). The old upload rows and
+        clusters go first; clusters come back in the meta's order, then the
+        upload rows, so rows are claimed as in the reference. A snapshot
+        ring is not part of the state: :meth:`attach_guard` gives a
+        restored server empty rings."""
+        cid_of = client_id_type
+        cl = self.clustering
+        for row in self._upload_rows.values():
+            cl.plane.free(row)
+        self._upload_rows = {}
+        cl.reset()
+        for cid_s, info in meta["clusters"].items():
+            cid = int(cid_s)
+            c = cl.restore_cluster(cid, tree["centers"][cid_s], tree["bcast_centers"][cid_s])
+            c.version = info["version"]
+            c.members = {cid_of(m) for m in info["members"]}
+            c.partial_finetune = {cid_of(m) for m in info["partial_finetune"]}
+            c.pf_round = info["pf_round"]
+            c.last_broadcast_version = info["last_broadcast_version"]
+            self.repo.branch(f"cluster/{cid}", c.center_vec)
+        for k, v in (tree.get("last_uploads") or {}).items():
+            cl._ensure_plane(v)
+            self._upload_rows[cid_of(k)] = cl.plane.alloc(v)
+        cl.assignment = {cid_of(k): v for k, v in meta["assignment"].items()}
+        cl._next_id = meta["next_id"]
+        cl.merges = meta["merges"]
+        cl.expansions = meta["expansions"]
+        cl.peel_counts = {cid_of(k): v for k, v in meta["peel_counts"].items()}
+        self.predictors = {}
+        for cid_s, info in meta["predictors"].items():
+            raw = tree["rnn"][cid_s]
+            params = None if raw is None else {k: _on_device(v, self.device) for k, v in raw.items()}
+            p = BroadcastPredictor(params=params, k=info["k"])
+            p.records = list(info["records"])
+            p.active = info["active"]
+            p.scale = info["scale"]
+            p.decisions = info["decisions"]
+            p.broadcasts = info["broadcasts"]
+            self.predictors[int(cid_s)] = p
+        st = meta["staleness"]
+        self.staleness.count, self.staleness.total, self.staleness.q_max = st["count"], st["total"], st["q_max"]
+        self.client_versions = {cid_of(k): tuple(v) for k, v in meta["client_versions"].items()}
+        self._uploads = meta["uploads"]
+        self._decisions = meta["decisions"]
+        self._rnn_broadcasts = meta["rnn_broadcasts"]
+        self._refine_round = meta["refine_round"]
+        cl._last_expand_round = {int(k): v for k, v in meta.get("last_expand_round", {}).items()}
+        self.events = [dict(e) for e in meta.get("events", [])]
+        self.last_cluster_feedback_mean = {int(k): v for k, v in meta.get("cluster_feedback_mean", {}).items()}
+        self._pending_uplink_state = None
+        if meta.get("uplink"):
+            if self.uplink_codec is not None:
+                self.uplink_codec.load_state(tree["uplink"], meta["uplink"], client_id_type)
+            else:  # the codec comes with the next run's fleet: replayed at attach
+                self._pending_uplink_state = (tree["uplink"], meta["uplink"], client_id_type)
 
     # ------------------------------------------------------------- metrics
     def stats(self) -> dict:

@@ -31,8 +31,8 @@ The port takes its plan by argument (``faults=`` of the simulator and of
 ``run_experiment``): ``None`` or ``"off"`` is no faults, a
 :class:`FaultConfig` or a :class:`FaultPlan` a chaos run. It reads no
 environment variable. A plan's server restart (:class:`ServerRestartPlan`)
-needs checkpoints, which the port does not have yet: the simulator refuses
-such a plan.
+kills the EchoPFL server mid-run and brings a fresh one back from a
+crash-safe checkpoint (:mod:`repro_torch.checkpoint`).
 """
 from __future__ import annotations
 
@@ -125,9 +125,12 @@ def apply_poison(params: Any, kind: str, u: float, cfg: FaultConfig) -> Any:
 
 @dataclasses.dataclass
 class ServerRestartPlan:
-    """Kill and restore the server mid-run through a checkpoint (the
-    reference's ``ServerRestartPlan``). Data only: the port has no
-    checkpoints yet, and its simulator refuses a plan that sets one."""
+    """Kill and restore the server mid-run (the reference's
+    ``ServerRestartPlan``): once ``at_uploads`` uploads are ingested, the
+    live strategy's ``state_dict`` goes through the checkpointer into
+    ``directory``, the object is dropped, and ``strategy_factory()``'s fresh
+    instance is restored from disk and finishes the run. The finished run
+    has the uninterrupted run's exact ledger."""
 
     at_uploads: int
     directory: str
@@ -170,6 +173,7 @@ class FaultInjector:
         self.plan = plan
         self.cfg = plan.config
         self._counters: dict[tuple[int, int], int] = {}
+        self._restart_done = False
         self.ledger: dict[str, Any] = {
             "crashes": 0,
             "deaths": 0,
@@ -282,6 +286,15 @@ class FaultInjector:
             return None
         self.ledger[f"poison_{kind}"] += 1
         return kind, float(u[1])
+
+    def restart_due(self, uploads: int) -> bool:
+        """Whether the plan's server restart is due after ``uploads`` ingested uploads (once a run)."""
+        plan = self.plan.restart
+        return plan is not None and not self._restart_done and uploads >= plan.at_uploads
+
+    def mark_restarted(self) -> None:
+        self._restart_done = True
+        self.ledger["server_restarts"] += 1
 
     def ledger_snapshot(self) -> dict:
         out = dict(self.ledger)

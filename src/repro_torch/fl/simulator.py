@@ -20,8 +20,11 @@ offline windows a client, ``faults=`` a seeded
 retried and dropped uploads, duplicates, reordered downlinks, value
 poison), ``guard=`` an :class:`~repro_torch.fl.guard.IngestGuard` config
 that scores every delivered upload before the strategy sees it. ``None``
-is off for each, and then no fault or guard code runs. A plan with a server
-restart raises ``NotImplementedError``: the port has no checkpoints yet.
+is off for each, and then no fault or guard code runs. A plan's server
+restart (:class:`~repro_torch.fl.faults.ServerRestartPlan`) kills the
+strategy between two events, or two windows, once its upload count is
+reached, and a fresh one restored from a crash-safe checkpoint finishes the
+run with the uninterrupted run's ledger.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import dataclasses
 import heapq
 import itertools
 import math
+import os
 from typing import Any
 
 import numpy as np
@@ -141,9 +145,6 @@ class Simulator:
         self.churn = churn or {}
         self.churn_delays = 0
         plan = resolve_faults(faults)
-        if plan is not None and plan.restart is not None:
-            raise NotImplementedError("repro_torch: a server restart needs checkpoints, which the port does not "
-                                      "have yet; run the plan without restart")
         self._faults = FaultInjector(plan) if plan is not None else None
         gcfg = resolve_guard(guard)
         self._guard = IngestGuard(gcfg) if gcfg is not None else None
@@ -152,6 +153,7 @@ class Simulator:
         self._ingest_high: dict[Any, int] = {}  # the highest sequence ingested (the duplicate fence)
         self._dl_seq: dict[Any, int] = {}  # a recipient's downlink send sequence
         self._dl_high: dict[Any, int] = {}  # the highest sequence installed (the reorder fence)
+        self._template = None  # the model template, for rewiring a restored strategy
 
     def _next_online(self, cid, t: float) -> float:
         """When a local round that finishes at ``t`` can upload: static churn
@@ -177,6 +179,7 @@ class Simulator:
         takes it adopts it); hand the strategy its batched feedback probe
         (replacing a hook a previous simulator's fleet installed)."""
         strat = self.strategy
+        self._template = template
         device = tree_leaves(template)[0].device
         if self._fleet is None:
             from repro_torch.fl.fleet import ClientFleet
@@ -205,6 +208,38 @@ class Simulator:
             hook._fleet_hook = True
             hook._fleet = fleet
             strat.feedback_batch_fn = hook
+
+    def _server_kill_restore(self) -> None:
+        """Kill the live strategy and restore a fresh one from a checkpoint
+        written through the crash-safe checkpointer. The old object is
+        dropped, so all the continuation needs comes back through
+        ``state_dict`` and ``load_state``; a strategy without them fails
+        here. The restore is rewired as a run start would be: the codec (its
+        section replayed), the guard (empty snapshot rings) and the fleet's
+        feedback probe."""
+        from repro_torch.checkpoint import Checkpointer, latest_step, restore_pytree
+
+        inj = self._faults
+        plan = inj.plan.restart
+        cl = getattr(self.strategy, "clustering", None)
+        if cl is not None and cl._pending is not None:
+            # a restart falls between events or windows: no ingest is half done
+            raise RuntimeError("server restart inside an ingest: the assign-time cache is live")
+        tree, meta = self.strategy.state_dict()
+        ck = Checkpointer(plan.directory, keep=2)
+        try:
+            ck.save(inj.ledger["server_restarts"], tree, extra=meta)
+        finally:
+            ck.close()
+        fresh = plan.strategy_factory()
+        path = os.path.join(plan.directory, f"step_{latest_step(plan.directory):010d}")
+        raw_meta = restore_pytree(path)[1]
+        tree_r, meta_r = restore_pytree(path, like=fresh.state_template(raw_meta))
+        fresh.load_state(tree_r, meta_r, client_id_type=plan.client_id_type)
+        self.strategy = fresh
+        if self._template is not None:
+            self._ensure_fleet(self._template)
+        inj.mark_restarted()
 
     def _set_model(self, c: SimClient, params: PyTree) -> None:
         """Install a downlinked model on a client (mirrored into its fleet
@@ -296,6 +331,9 @@ class Simulator:
         uploads = 0
         t = 0.0
         while events:
+            if self._faults is not None and self._faults.restart_due(uploads):
+                self._server_kill_restore()
+                strat = self.strategy
             t, _, kind, payload = heapq.heappop(events)
             if t > max_time:
                 t = max_time
@@ -554,6 +592,9 @@ class Simulator:
         uploads = 0
         t = 0.0
         while events:
+            if self._faults is not None and self._faults.restart_due(uploads):
+                self._server_kill_restore()
+                strat = self.strategy
             t0, _, kind, payload = heapq.heappop(events)
             if t0 > max_time:
                 t = max_time

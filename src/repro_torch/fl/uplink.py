@@ -28,8 +28,10 @@ The port takes its configuration by argument (``uplink=`` of the
 simulator and the experiment entry points), not from the environment:
 ``None`` or ``"none"`` (no codec), ``"topk"``, ``"int8"`` or an
 :class:`UplinkConfig`. A client evicted for good gives its rows back
-(:meth:`UplinkCodec.release_client`). Not carried yet: the checkpoint
-methods ``state_dict``, ``load_state`` and ``seed_template``.
+(:meth:`UplinkCodec.release_client`). The rows of the seeded clients ride
+the server's checkpoints (:meth:`UplinkCodec.state_dict`,
+:meth:`UplinkCodec.load_state`, :func:`seed_template`): without them a
+restarted run would anchor at zero and ship a whole model's delta.
 """
 from __future__ import annotations
 
@@ -213,3 +215,61 @@ class UplinkCodec:
         """One upload (the per-event loop): the same launch at B = 1."""
         vec = self.plane.as_vec(params)
         return self.spec.unflatten(self.encode_vecs([cid], vec[None, :])[0]), self.nbytes
+
+    # ------------------------------------------------- checkpoint and restart
+    def state_dict(self) -> tuple[PyTree, dict]:
+        """``(tree, meta)`` of the seeded clients' rows: anchors, and EF
+        residuals under ``topk`` (copies of the plane rows); the meta is the
+        reference's JSON."""
+        seeded = [cid for cid in self.ids if self._seeded[self.index[cid]]]
+        tree: dict[str, Any] = {
+            "anchors": {str(cid): self.plane.to_pytree(self._anchor_row[self.index[cid]]) for cid in seeded}
+        }
+        if self.mode == "topk":
+            tree["residuals"] = {str(cid): self.plane.to_pytree(self._resid_row[self.index[cid]])
+                                 for cid in seeded}
+        meta = {"mode": self.mode, "k": self.k, "chunk": self.chunk,
+                "clients": sorted(str(cid) for cid in seeded)}
+        return tree, meta
+
+    def load_state(self, tree: PyTree, meta: dict, client_id_type=int) -> None:
+        """Restore from :meth:`state_dict`'s output (or a checkpoint of it).
+        The mode must match; the geometry (``k``, ``chunk``) stays this
+        codec's. Every live row is zeroed first, then the restored rows land
+        in one write a section; clients this codec does not simulate, or has
+        released, are skipped."""
+        if meta["mode"] != self.mode:
+            raise ValueError(f"uplink codec mode mismatch: checkpoint is {meta['mode']!r}, "
+                             f"this run is {self.mode!r}")
+        live = [i for i in range(len(self.ids)) if not self._released[i]]
+        zeros = torch.zeros((len(live), self.dim), dtype=torch.float32, device=self.plane.device)
+        self.plane.write_rows([self._anchor_row[i] for i in live], zeros)
+        if self._resid_row is not None:
+            self.plane.write_rows([self._resid_row[i] for i in live], zeros)
+        self._seeded = [False] * len(self.ids)
+
+        def restore(section: dict, row_of: list[int]) -> list[int]:
+            idx, vecs = [], []
+            for s, p in section.items():
+                i = self.index.get(client_id_type(s))
+                if i is None or self._released[i]:  # not simulated, or evicted
+                    continue
+                idx.append(i)
+                vecs.append(self.plane.as_vec(p))
+            if idx:
+                self.plane.write_rows([row_of[i] for i in idx], torch.stack(vecs))
+            return idx
+
+        for i in restore(tree.get("anchors") or {}, self._anchor_row):
+            self._seeded[i] = True
+        if self.mode == "topk":
+            restore(tree.get("residuals") or {}, self._resid_row)
+
+
+def seed_template(meta: dict, params_template: PyTree) -> PyTree:
+    """A tree of :meth:`UplinkCodec.state_dict`'s structure for ``meta``,
+    for the checkpointer's restore (every row has the model's structure)."""
+    tree: dict[str, Any] = {"anchors": {c: params_template for c in meta["clients"]}}
+    if meta["mode"] == "topk":
+        tree["residuals"] = {c: params_template for c in meta["clients"]}
+    return tree

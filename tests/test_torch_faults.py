@@ -284,15 +284,6 @@ def test_resolve_faults_takes_arguments_only(monkeypatch):
         tf.FaultConfig(poison_nan_rate=0.6, poison_sign_rate=0.6)
 
 
-def test_a_server_restart_is_refused(weights):
-    init_np, rnn_np = weights
-    _, clients, init = build_clients("har", 2, seed=SEED, device="cpu", init_params=init_np)
-    strat = build_strategy("echopfl", init, clients, seed=SEED, rnn_params=rnn_np, device="cpu")
-    plan = tf.FaultPlan(restart=tf.ServerRestartPlan(at_uploads=5, directory="unused", strategy_factory=lambda: None))
-    with pytest.raises(NotImplementedError, match="checkpoints"):
-        Simulator(clients, strat, seed=SEED, faults=plan)
-
-
 def test_faults_off_builds_nothing(weights):
     init_np, rnn_np = weights
     _, clients, init = build_clients("har", 2, seed=SEED, device="cpu", init_params=init_np)

@@ -41,7 +41,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     baselines = {m for m in mods if m.startswith("repro_torch.baselines")}
     assert baselines >= {"repro_torch.baselines", *(f"repro_torch.baselines.{n}" for n in BASELINES)}
     assert {"repro_torch.optim", "repro_torch.optim.compression", "repro_torch.fl.uplink",
-            "repro_torch.kernels.uplink", "repro_torch.fl.faults", "repro_torch.fl.guard"} <= set(mods)
+            "repro_torch.kernels.uplink", "repro_torch.fl.faults", "repro_torch.fl.guard", "repro_torch.checkpoint",
+            "repro_torch.checkpoint.checkpointer"} <= set(mods)
 
 
 def _imports(path: Path):
