@@ -16,7 +16,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    plan (grid, dynamic shared memory, rows on chip) at the paths' shapes, and a check of
    each flash kernel's SASS for tensor-core ``HMMA`` instructions (none, a
    spill at head width 64, or an L1, assign, chain, chi2, merge or encode
-   kernel that spills fail the run);
+   kernel that spills fail the run; ``flash_fwd_kernel<256>``'s, which
+   phase 3j's prefill runs, on a line of its own);
 2. kernels — every kernel wrapper against its plain PyTorch version on the
    card, at the main path's widths and at edge shapes; the L1 sums' fixed
    order at N % 4 = 0, 1, 2, 3, N = 1 and N = 783,360 (bitwise across
@@ -48,7 +49,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    must not touch, across 3 repeats, one kernel per call in a profiler
    trace; the flash-attention forward and
    backward at the LM paths' shapes and at the model zoo's head widths (up
-   to 256), the backward also bitwise across repeats;
+   to 256), the backward also bitwise across repeats; the forward alone at
+   phase 3j's gemma2-2b prefill shapes, (4, 512) and (2, 4,200), each with
+   the local layers' window of 4,096 and the global layers' none;
 3. main path — ``repro_torch.fl.experiment.run_experiment("image_recognition",
    "echopfl", num_clients=20, max_time=1500, seed=0)`` on the card and, only
    if that run makes no merge, the same run with ``hm=1.0``; launch counts
@@ -106,6 +109,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    guard-on run ends with finite centers and no NaN accuracy, and its
    coalesced runs launch ``ingest_chain`` with the norm statistic; host time
    per layer, the guard's host copies included;
+3j. serving — gemma2-2b at full width (2.61 B parameters, fp32, random
+   weights from a card generator seeded 0) through the serving entry point
+   (``repro_torch.launch.serve.serve``): (a) batch 4, prompt 512, 32
+   tokens and (b) batch 2, prompt 4,200, 16 tokens, whose decode runs past
+   the 4,096-token window; the prefill makes one flash forward launch a
+   layer (26, head width 256) and the decode none; every decode step's
+   logits against a teacher-forced full forward within SERVE_ATOL, the
+   tokens its argmax wherever its top-2 margin exceeds that; prefill
+   seconds, decode tokens/s and peak memory; a profiled window of 8 decode
+   steps (kernels a step, idle share); then the pytree backend:
+   ``image_recognition`` per event (20 clients, 300 s, hm 1.0) with
+   ``plane_backend="pytree"`` against the plane backend: identical
+   ledgers, decisions, stats and centers, and the pytree run's
+   ``l1_distance`` and ``merge_attention`` launches;
 3i. restart (run last, after phase 6, with phase 4's restart agreement,
    so that the timed and profiled phases follow the same run as before
    it) — the fault plan's server kill and restore
@@ -139,12 +156,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and assignments, curves within 0.02; a guard on a clean run on the card
    is the guard-off run bit for bit; phase 3i's coalesced ``har`` restart,
    card against CPU: identical ledgers, events and assignments, curves
-   within 0.02;
+   within 0.02; the per-cluster serving example
+   (``repro_torch.launch.serve_cluster_models``), card against CPU:
+   identical clusters, assignments and events, served logits within
+   EXAMPLE_ATOL and tokens equal under the margin rule; ``har`` with the
+   pytree backend, card against CPU: identical ledgers, events and
+   assignments, curves within 0.02;
 5. timing — each kernel, its plain version and (where one exists) a single
    PyTorch call computing the same function, at the shape the main path
    called it with most (the flash kernels and ``pairwise_l1`` at the
    ``tiny_lm`` and the ``llama3.2-1b`` shapes, the flash kernels also at
-   phase 3f's cohort shape, ``l1_distance`` and
+   phase 3f's cohort shape, the flash forward also at phase 3j's two
+   gemma2-2b prefill shapes with its softcap, where no library call
+   applies, ``l1_distance`` and
    ``assign_and_lerp`` also at the full-width run's; the segmented chi2 also
    at the 128-client fleet's refine, (128, 10) with S = 16, and at (1, 1) with
    S = 1, the launch floor; the merge also at ``har``'s, ``tiny_lm``'s and the
@@ -258,6 +282,13 @@ FLASH_CASES = (
     ("one row past a tile", 1, 4, 2, 65, 65, 64, 64, {}),
     ("hd 12: 4-byte copies", 2, 4, 2, 70, 70, 12, 12, {}),
 )
+# forward-only checks at phase 3j's prefill shapes (gemma2-2b: 8 heads over 4, head width 256, softcap 50,
+# scale 1/16), on the local layers' window of 4,096 and on the global layers' none; at 4,200 the window bites
+GEMMA_PREFILL = dict(causal=True, softcap=50.0, scale=256 ** -0.5)
+FLASH_FWD_CASES = tuple(
+    (f"gemma2-2b prefill {B}x{S}{' local' if w else ' global'}", B, 8, 4, S, S, 256, 256,
+     dict(GEMMA_PREFILL, window=w) if w else GEMMA_PREFILL)
+    for B, S in ((4, 512), (2, 4200)) for w in (4096, None))
 
 
 # phase 3e: the reference's Tab. 1 bench (benchmarks/bench_accuracy_time.py) at one task and seed
@@ -287,6 +318,14 @@ DEFENSE_SWEEP = dict(clients=16, horizon=1800.0, windows={"coalesced": 30.0, "pe
 # Byte fields are compared as the total bytes over the seeds.
 FAULT_EXACT = ("retry_MB", "dropped", "crashes", "upload_failures", "dups_absorbed")
 DEFENSE_EXACT = {"guard_off": ("uploads", "poisoned"), "guard_on": ()}
+# phase 3j: gemma2-2b at full width through the serving entry point; (b) decodes past the 4,096-token window
+SERVE_CASES = {"a": dict(batch=4, prompt=512, gen=32), "b": dict(batch=2, prompt=4200, gen=16)}
+# decode logits against the teacher-forced full forward (fp32 over 26 layers, logits up to the softcap of 30;
+# 2.3e-5 and 7.4e-5 measured at the two cases, PERF.md), and the token margin rule's
+SERVE_ATOL = 2e-4
+# phase 3j's pytree-against-plane run; hm = 1.0 so that 300 s hold a merge (as phase 3's second run)
+PYTREE_RUN = dict(num_clients=20, max_time=300, seed=0, hm=1.0)
+EXAMPLE_ATOL = 1e-4  # the serving example's served logits, card against CPU (120 AdamW steps apart)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -378,6 +417,13 @@ def kernel_resources() -> None:
             check(u.get("LOCAL", 0) == 0 and u.get("STACK", 0) == 0,
                   f"{_kernel_label(n)} spills ({u.get('STACK')} B stack, {u.get('LOCAL')} B local)")
     print(f"flash kernels: {len(flash)} instantiations, every one with HMMA; none at head width 64 spills")
+    fwd256 = [n for n in flash if "flash_fwd_kernel" in n and "Li256E" in n]
+    check(len(fwd256) == 1, "cuobjdump found no flash_fwd_kernel<256> (gemma2-2b's head width) in the library")
+    u = usage[fwd256[0]]
+    spill = u.get("LOCAL", 0) or u.get("STACK", 0)
+    print(f"flash_fwd_kernel<256> (gemma2-2b's head width, phase 3j's prefill): registers {u.get('REG')}, shared "
+          f"{u.get('SHARED')} B static, local {u.get('LOCAL')} B, stack {u.get('STACK')} B: "
+          + (f"it spills ({u.get('STACK')} B stack, {u.get('LOCAL')} B local)" if spill else "no spills"))
     kinds = ("l1_rows_kernel", "assign_lerp_kernel", "ingest_chain_kernel", "chi2_kernel", "merge_kernel",
              "uplink_int8_kernel", "uplink_topk_kernel", "uplink_topk_split_kernel")
     rows = sorted(n for n in usage if any(k in n for k in kinds))
@@ -876,7 +922,19 @@ def flash_checks():
         print(f"  flash {name} (B {B}, H {H}, KV {KV}, Sq {Sq}, Sk {Sk}, hd {hd}, dv {dv}, {kw or 'causal'}): "
               f"max |err| o {(o - o_p).abs().max().item():.3g}, lse {(lse - lse_p).abs().max().item():.3g}, "
               f"dq {errs[0]:.3g}, dk {errs[1]:.3g}, dv {errs[2]:.3g}; backward bitwise across 3 repeats")
-    print(f"flash checks: {len(FLASH_CASES)} cases passed (forward rtol/atol 1e-5, backward rtol/atol 3e-4)")
+    for name, B, H, KV, Sq, Sk, hd, dv, kw in FLASH_FWD_CASES:  # the serving path runs no backward
+        q, k, v, _ = flash_inputs(g, B, H, KV, Sq, Sk, hd, dv)
+        o, lse = F.flash_attention_with_lse(q, k, v, **kw)
+        o_p, lse_p = F.flash_attention_with_lse_plain(q, k, v, **kw)
+        torch.testing.assert_close(o, o_p, rtol=1e-5, atol=1e-5, msg=lambda m: f"fwd o {name}: {m}")
+        torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-5, msg=lambda m: f"fwd lse {name}: {m}")
+        sync()
+        print(f"  flash {name} (B {B}, H {H}, KV {KV}, Sq {Sq}, Sk {Sk}, hd {hd}, dv {dv}, {kw}): forward only, "
+              f"max |err| o {(o - o_p).abs().max().item():.3g}, lse {(lse - lse_p).abs().max().item():.3g}")
+        del q, k, v, o, lse, o_p, lse_p
+        torch.cuda.empty_cache()
+    print(f"flash checks: {len(FLASH_CASES)} cases passed (forward rtol/atol 1e-5, backward rtol/atol 3e-4), "
+          f"{len(FLASH_FWD_CASES)} forward-only serving cases passed (rtol/atol 1e-5)")
 
 
 # ------------------------------------------------------------------ phase 3
@@ -1724,6 +1782,165 @@ def chaos_sweeps(rnn_params: dict) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 3j
+def margin_rule(tokens: torch.Tensor, ref_logits: torch.Tensor, vocab: int, tol: float, label: str) -> int:
+    """Greedy ``tokens (B, n)`` against the argmax of ``ref_logits (n, B,
+    V)`` wherever the reference's top-2 margin exceeds ``tol``; returns the
+    number of positions exempt (margin at most ``tol``)."""
+    top2 = torch.topk(ref_logits[..., :vocab], 2, dim=-1)
+    margin = (top2.values[..., 0] - top2.values[..., 1]).T
+    firm = margin > tol
+    same = tokens.to(top2.indices.device) == top2.indices[..., 0].T
+    bad = int((firm & ~same).sum())
+    check(bad == 0, f"{label}: {bad} tokens differ from the reference's argmax where its top-2 margin exceeds {tol}")
+    return int((~firm).sum())
+
+
+def serving_phase(rnn_params: dict) -> dict:
+    """gemma2-2b at full width (2.61 B parameters in fp32, random weights
+    from a generator seeded 0 on the card) through the serving entry point's
+    ``repro_torch.launch.serve.serve`` (what ``python -m
+    repro_torch.launch.serve --arch gemma2-2b`` runs) at SERVE_CASES: the
+    prefill through the flash forward kernel at head width 256 (window
+    4,096 on the local layers, softcap 50), one launch a layer and no
+    kernel of ours in the decode; each decode step's logits against a
+    teacher-forced full forward over the prompt and the tokens, within
+    SERVE_ATOL, and the greedy tokens its argmax wherever its top-2 margin
+    exceeds SERVE_ATOL. Prints the prefill time, the decode tokens/s and the
+    peak memory. Then the pytree backend (``pytree_phase``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.model import forward
+
+    cfg = get_config("gemma2-2b")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out, params = {}, None
+    shapes, restore = _record_flash_shapes(ops)
+    try:
+        for label, kw in SERVE_CASES.items():
+            torch.cuda.reset_peak_memory_stats()
+            res = serve.serve(cfg, device=DEVICE, params=params, keep_logits=True, verbose=False, **kw)
+            params = res["params"]
+            peak = torch.cuda.max_memory_allocated()
+            pre, dec = res["launches"]["prefill"], res["launches"]["decode"]
+            check(pre["flash_attention_fwd"] == cfg.num_layers and sum(pre.values()) == cfg.num_layers,
+                  f"serving {label}: prefill launches {pre}, not {cfg.num_layers} flash forwards")
+            check(sum(dec.values()) == 0, f"serving {label}: the decode launched {dec}")
+            toks = torch.from_numpy(res["tokens"]).to(DEVICE)
+            with torch.no_grad():
+                full = forward(cfg, params, {"tokens": torch.cat([res["prompts"], toks], dim=1)},
+                               last=kw["gen"] + 1)[0].transpose(0, 1)  # (gen + 1, B, V)
+            got = torch.stack(res["logits"])
+            check(got.shape == full.shape == (kw["gen"] + 1, kw["batch"], cfg.padded_vocab)
+                  and bool(torch.isfinite(got).all()), f"serving {label}: logits {tuple(got.shape)} not finite")
+            err = (got - full).abs().max().item()
+            check(err <= SERVE_ATOL, f"serving {label}: decode logits differ from the full forward by {err}")
+            exempt = margin_rule(toks, full[:-1], cfg.vocab_size, SERVE_ATOL, f"serving {label}")
+            tps = kw["batch"] * kw["gen"] / res["decode_s"]
+            out[label] = {**kw, "prefill_s": res["prefill_s"], "decode_s": res["decode_s"], "decode_tok_s": tps,
+                          "peak_GiB": peak / 2**30, "max_abs_err": err, "exempt": exempt,
+                          "flash_prefill": pre["flash_attention_fwd"]}
+            print(f"serving {label} (gemma2-2b full width, batch {kw['batch']}, prompt {kw['prompt']}, gen "
+                  f"{kw['gen']}): prefill {res['prefill_s']:.4f} s, decode {res['decode_s']:.4f} s ({tps:.2f} "
+                  f"tokens/s), peak {peak / 2**30:.2f} GiB; flash forward launches {pre['flash_attention_fwd']} in "
+                  f"the prefill, {dec['flash_attention_fwd']} in the decode; decode against the teacher-forced "
+                  f"full forward max |diff| {err:.3g} (tolerance {SERVE_ATOL}), tokens its argmax where the "
+                  f"margin exceeds that, {exempt} of {toks.numel()} positions exempt; "
+                  f"sample {res['tokens'][0, :8].tolist()}")
+            del res, full, got, toks
+            if label == "a":
+                out["decode_profile"] = decode_profile(cfg, params)
+    finally:
+        restore()
+    del params
+    torch.cuda.empty_cache()
+    out["flash_shapes"] = shapes
+    out["pytree"] = pytree_phase(rnn_params)
+    out["wall"] = time.perf_counter() - t0
+    print(f"phase 3j: {out['wall']:.1f} s")
+    return out
+
+
+def decode_profile(cfg, params, steps: int = 8) -> dict:
+    """Device kernels a decode step and the device's idle share: a fresh
+    prefill at SERVE_CASES["a"]'s shape (other prompts), then ``steps``
+    decode steps under ``torch.profiler``."""
+    from repro_torch.launch import serve
+
+    kw = SERVE_CASES["a"]
+    g = torch.Generator().manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (kw["batch"], kw["prompt"]), generator=g).to(DEVICE)
+    logits, cache = serve.prefill(cfg, params, prompts, steps)
+
+    def run():
+        t0 = time.perf_counter()
+        serve.decode(cfg, params, cache, logits, steps)
+        sync()
+        return time.perf_counter() - t0
+
+    prof, wall = _device_trace(run)
+    events = _device_events(prof)
+    busy = sum(e.time_range.elapsed_us() for e in events) / 1e6
+    per = _device_us(prof)
+    out = {"kernels_a_step": len(events) / steps, "busy_ms_a_step": 1e3 * busy / steps,
+           "wall_ms_a_step": 1e3 * wall / steps, "idle_share": 1 - busy / wall}
+    print(f"decode profile (gemma2-2b, batch {kw['batch']}, {steps} steps after a {kw['prompt']}-token prefill): "
+          f"{out['kernels_a_step']:.1f} device kernels a step, busy {out['busy_ms_a_step']:.3f} ms of "
+          f"{out['wall_ms_a_step']:.3f} ms a step under the profiler, idle share {out['idle_share']:.4f}; top: "
+          + "; ".join(f"{name[:60]} {us / 1e3 / steps:.3f} ms" for name, us in per.most_common(4)))
+    return out
+
+
+def pytree_phase(rnn_params: dict) -> dict:
+    """The pytree backend on the card: ``image_recognition`` per event
+    (PYTREE_RUN, phase 3's broadcast RNN), pytree against plane. Identical
+    ledgers, curves, events, assignments, staleness, centers and anchors
+    (bit for bit) and ``stats()`` (its backend fields aside; the feedback
+    means within rtol 1e-5). The pytree run assigns through
+    ``l1_distance`` (no fused assign, no chain) and merges through
+    ``merge_attention``, each launched; its launch counts are printed."""
+    from repro_torch.fl.experiment import run_experiment
+    from repro_torch.kernels import ops
+
+    runs = {}
+    for backend in ("pytree", "plane"):
+        sync()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, _, strat, rep = run_experiment("image_recognition", "echopfl", device=DEVICE, rnn_params=rnn_params,
+                                          plane_backend=backend, **PYTREE_RUN)
+        sync()
+        runs[backend] = (strat, rep, ops.launch_counts(), time.perf_counter() - t0)
+    (ts, tr, tc, tw), (ps, pr, pc, pw) = runs["pytree"], runs["plane"]
+    for name in ("up_events", "down_events", "up_bytes", "down_bytes", "duration", "up_series", "down_series",
+                 "curve"):
+        check(getattr(tr, name) == getattr(pr, name), f"pytree on the card: {name} differs from the plane run's")
+    check(ts.events == ps.events and ts.clustering.assignment == ps.clustering.assignment
+          and ts.staleness.snapshot() == ps.staleness.snapshot(), "pytree on the card: decisions differ")
+    check(sorted(ts.clustering.clusters) == sorted(ps.clustering.clusters) and all(
+        _same_bits(c.center_vec, ts.clustering.clusters[cid].center_vec)
+        and _same_bits(c.broadcast_vec, ts.clustering.clusters[cid].broadcast_vec)
+        for cid, c in ps.clustering.clusters.items()), "pytree on the card: centers differ from the plane run's")
+    st, sp = ts.stats(), ps.stats()
+    check(st.pop("backend") == "pytree" and st.pop("plane_rows") == 0 and sp.pop("backend") == "plane"
+          and sp.pop("plane_rows") > 0, "pytree on the card: backend fields")
+    fb_t, fb_p = st.pop("cluster_feedback_mean"), sp.pop("cluster_feedback_mean")
+    check(st == sp and fb_t.keys() == fb_p.keys()
+          and all(abs(fb_t[c] - fb_p[c]) <= 1e-5 * abs(fb_p[c]) for c in fb_p), "pytree on the card: stats differ")
+    check(tc["assign_and_lerp"] == tc["ingest_chain"] == 0 and tc["l1_distance"] > 0 and tc["merge_attention"] > 0,
+          f"pytree on the card: launches {tc} (an assign is one l1_distance, a merge one merge_attention)")
+    print(f"pytree backend on the card (image_recognition, {PYTREE_RUN['num_clients']} clients, "
+          f"{PYTREE_RUN['max_time']} s, hm {PYTREE_RUN['hm']}, per event): {tr.extra['uploads']} uploads, {len(ts.events)} events, "
+          f"clusters {st['clusters']}, merges {st['merges']}, identical to the plane run (centers bit for bit); "
+          f"launches pytree l1_distance {tc['l1_distance']}, merge_attention {tc['merge_attention']}, "
+          f"l1_distance_pairwise {tc['l1_distance_pairwise']}, chi2 {tc['chi2_feedback']} + "
+          f"{tc['chi2_feedback_segmented']}; plane l1_distance {pc['l1_distance']}, assign_and_lerp "
+          f"{pc['assign_and_lerp']}, merge_attention {pc['merge_attention']}; wall pytree {tw:.2f} s, plane {pw:.2f} s")
+    return {"uploads": tr.extra["uploads"], "pytree": tc, "plane": pc, "wall": {"pytree": tw, "plane": pw}}
+
+
 # ----------------------------------------------------------------- phase 3i
 def _synced(spent: Counter, step: str, fn, *a, **kw):
     """``fn(*a, **kw)`` on the host clock, the card synced before and after,
@@ -2255,6 +2472,87 @@ def lm_agreement(rnn_params: dict):
           f"wall CPU {tc:.2f} s, card {tg:.2f} s")
 
 
+def serving_agreement(rnn_np: dict) -> None:
+    """The per-cluster serving example (``repro_torch.launch.serve_cluster_models``)
+    on the card against the CPU, the initial weights (a CPU generator seeded
+    0) and the broadcast RNN handed over: identical clusters, assignments
+    and events; served logits within EXAMPLE_ATOL and tokens the CPU's
+    wherever the CPU's top-2 margin exceeds EXAMPLE_ATOL, each row up to
+    and including its first position where the margin is thin and the
+    tokens differ; at least one position compared."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.interop import tree_to_numpy
+    from repro_torch.launch.serve_cluster_models import main as example
+    from repro_torch.models.model import init_params
+
+    cfg = reduced_config(get_config("gemma2-2b"), d_model=64, periods=2)
+    init = tree_to_numpy(init_params(cfg, torch.Generator().manual_seed(0)))
+    t0 = time.perf_counter()
+    cpu = example("cpu", init_params=init, rnn_params=rnn_np, verbose=False)
+    t1 = time.perf_counter()
+    card = example(DEVICE, init_params=init, rnn_params=rnn_np)
+    t2 = time.perf_counter()
+    sc, sg = cpu["server"], card["server"]
+    check(sc.clustering.assignment == sg.clustering.assignment and sc.events == sg.events
+          and sc.stats() == sg.stats(), "serving example: card and CPU differ in clusters or decisions")
+    centers = max((sc.clustering.clusters[cid].center_vec - c.center_vec.cpu()).abs().max().item()
+                  for cid, c in sg.clustering.clusters.items())
+    err, exempt, n, compared = 0.0, 0, 0, 0
+    for cid, want in cpu["served"].items():
+        got = card["served"][cid]
+        ref, out = torch.from_numpy(want["logits"]), torch.from_numpy(got["logits"])  # (gen, B, V)
+        top2 = torch.topk(ref[..., :cfg.vocab_size], 2, dim=-1).values
+        margin = (top2[..., 0] - top2[..., 1]).T.numpy()
+        B, T = got["tokens"].shape
+        n += B * T
+        for b in range(B):
+            # a row's logits and tokens are compared up to and including its first position where the CPU's
+            # margin is thin and the tokens differ: the logits there came from the same prefix, later ones not
+            stop = T
+            for t in range(T):
+                if margin[b, t] > EXAMPLE_ATOL:
+                    check(got["tokens"][b, t] == want["tokens"][b, t], f"serving example: cluster {cid} row {b} "
+                          f"position {t} differs with margin {margin[b, t]}")
+                elif got["tokens"][b, t] != want["tokens"][b, t]:
+                    exempt += T - t
+                    stop = t + 1
+                    break
+                else:
+                    exempt += 1
+            err = max(err, (out[:stop, b] - ref[:stop, b]).abs().max().item())
+            compared += stop
+    check(compared > 0, "serving example: no served position was compared")
+    check(err <= EXAMPLE_ATOL, f"serving example: served logits differ by {err}")
+    print(f"serving example agreement (reduced gemma2-2b, 4 clients, 40 uploads, card vs CPU): clusters "
+          f"{sg.stats()['clusters']}, assignments and {len(sg.events)} events identical, centers max |diff| "
+          f"{centers:.3g}, served logits max |diff| {err:.3g} at {compared} of {n} positions (tolerance "
+          f"{EXAMPLE_ATOL}), {exempt} of {n} token positions exempt; wall CPU {t1 - t0:.2f} s, card {t2 - t1:.2f} s")
+
+
+def pytree_agreement(init_np: list, rnn_np: dict) -> None:
+    """``har`` (8 clients, 900 s, per event) with the pytree backend, card
+    against CPU: identical ledgers, events and assignments, accuracy curves
+    within 0.02."""
+    from repro_torch.fl.experiment import run_experiment
+
+    out = {}
+    for dev in ("cpu", DEVICE):
+        t0 = time.perf_counter()
+        _, _, strat, rep = run_experiment("har", "echopfl", num_clients=8, max_time=900, seed=0, device=dev,
+                                          init_params=init_np, rnn_params=rnn_np, plane_backend="pytree")
+        out[dev] = (strat, rep, time.perf_counter() - t0)
+    (sc, rc, tc), (sg, rg, tg) = out["cpu"], out[DEVICE]
+    for name in ("up_events", "down_events", "up_bytes", "down_bytes", "duration"):
+        check(getattr(rc, name) == getattr(rg, name), f"pytree agreement: {name} differs")
+    check(sc.events == sg.events and sc.clustering.assignment == sg.clustering.assignment,
+          "pytree agreement: decisions differ")
+    check(sg.stats()["backend"] == "pytree" and sg.stats()["plane_rows"] == 0, "pytree agreement: backend")
+    gap = max(abs(a - b) for (_, a), (_, b) in zip(rc.curve, rg.curve))
+    check(gap <= 0.02, f"pytree agreement: accuracy curves differ by {gap}")
+    print(f"pytree agreement (har, 8 clients, 900 s, per event, card vs CPU): ledger and {len(sg.events)} events "
+          f"identical, accuracy gap {gap:.4f}; wall CPU {tc:.2f} s, card {tg:.2f} s")
+
+
 # ------------------------------------------------------------------ phase 5
 def call_ms(fn, iters: int = 200, reps: int = 5) -> float:
     """Per-call time of back-to-back calls between two CUDA events: what a
@@ -2722,6 +3020,49 @@ def lm_timing(tiny, full, cohort) -> list[dict]:
     return rows
 
 
+def gemma_flash_timing(serving: dict) -> dict:
+    """The flash forward at phase 3j's two prefill shapes (gemma2-2b: 8
+    heads over 4, head width 256, causal, softcap 50, scale 1/16; the
+    global layers' case, no window): device time, the plain version's, the
+    bound ``2 (hd + dv)`` flops a causal pair (fp32 on the CUDA cores, and
+    split TF32 on the tensor cores) and the launches at that shape in phase
+    3j. No library call: ``scaled_dot_product_attention`` has no logit
+    softcap."""
+    from repro_torch.kernels import flash_attention as F
+    from repro_torch.kernels import ops
+
+    g = gen(17)
+    opts = GEMMA_PREFILL
+    out = {}
+    for label, kw in SERVE_CASES.items():
+        B, Sq = kw["batch"], kw["prompt"]
+        shape = (B, 8, Sq, 256, 4, Sq, 256)
+        q, k, v, _ = flash_inputs(g, B, 8, 4, Sq, Sq, 256, 256)
+        o, lse = ops.flash_attention_with_lse(q, k, v, **opts)
+        o_p, lse_p = F.flash_attention_with_lse_plain(q, k, v, **opts)
+        torch.testing.assert_close(o, o_p, rtol=1e-5, atol=1e-5, msg=lambda m: f"gemma2-2b prefill {label} o: {m}")
+        torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-5,
+                                   msg=lambda m: f"gemma2-2b prefill {label} lse: {m}")
+        iters = 20
+        row = {"ms": device_ms(lambda: ops.flash_attention_with_lse(q, k, v, **opts), iters),
+               "plain_ms": device_ms(lambda: F.flash_attention_with_lse_plain(q, k, v, **opts), 5),
+               "library_ms": None, "call_ms": call_ms(lambda: ops.flash_attention_with_lse(q, k, v, **opts), iters, 3)}
+        pairs = B * 8 * _allowed_pairs(Sq, Sq)
+        row.update(bound_pair(4 * (q.numel() + k.numel() + v.numel() + o.numel() + lse.numel()),
+                              2 * (256 + 256) * pairs, split_tf32=True),
+                   max_abs_err=max((o - o_p).abs().max().item(), (lse - lse_p).abs().max().item()),
+                   shape=list(shape), launches=serving["flash_shapes"][shape], opts="causal, softcap 50, scale 1/16")
+        out[f"gemma2-2b prefill {label}"] = row
+        print(f"timing flash_attention_fwd at gemma2-2b prefill {label} {shape}: device time kernel {row['ms']:.5f} ms, "
+              f"plain {row['plain_ms']:.5f} ms, library none (SDPA has no softcap); bound {row['bound_ms']:.6f} ms "
+              f"({row['bound_by']}), split-TF32 tensor-core bound {row['bound_tc_ms']:.6f} ms; per call kernel "
+              f"{row['call_ms']:.4f} ms; launches at this shape in phase 3j {row['launches']}; "
+              f"max_abs_err {row['max_abs_err']:.3g}")
+        del q, k, v, o, lse, o_p, lse_p
+        torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------------------------ phase 6
 def profile_window(label: str, run) -> None:
     """One run under ``torch.profiler`` (CUDA activity only). Device busy
@@ -2836,13 +3177,17 @@ def main() -> int:
     per_event = per_event_encodes(rnn_params)
     full_topk = full_width_topk(tiny["rnn"])
     chaos = chaos_sweeps(rnn_params)
+    serving = serving_phase(rnn_params)
     init_np, rnn_np = agreement()
     compressed_agreement(init_np, rnn_np)
     chaos_agreement(init_np, rnn_np)
     baseline_agreement()
     lm_agreement(tiny["rnn"])
+    serving_agreement(rnn_np)
+    pytree_agreement(init_np, rnn_np)
     rows = (timing(counts, shapes, full, tiny) + [chain_row(coal, chaos)] + uplink_rows(sweep, per_event, full_topk)
             + lm_timing(tiny, full, cohort))
+    next(r for r in rows if r["name"] == "flash_attention_fwd").update(gemma_flash_timing(serving))
     print(f"timing: {trace_sessions['kept']} profiler sessions kept, {trace_sessions['refused']} refused "
           f"(a partial or empty trace)")
     profiles(rnn_params, tiny["rnn"])
@@ -2853,6 +3198,8 @@ def main() -> int:
     print("paper comparison: " + json.dumps(paper))
     print("comm sweep: " + json.dumps(sweep))
     print("chaos sweeps: " + json.dumps(chaos))
+    print("serving: " + json.dumps({k: v for k, v in serving.items()
+                                    if k in SERVE_CASES or k in ("decode_profile", "pytree", "wall")}))
     print("restart: " + json.dumps({k: {f: v[f] for f in ("saved", "spent", "at", "unsteady", "bytes", "leaves")
                                        if f in v} for k, v in restart.items()}))
     print(json.dumps({"kernels": rows}))

@@ -38,3 +38,10 @@ def to_device(array, device: torch.device, dtype: torch.dtype | None = None) -> 
     if torch.device(device).type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+def on_device(leaf, device: torch.device) -> torch.Tensor:
+    """A restored fp32 leaf (numpy, or a tensor on any device) as a tensor of its own on ``device``."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().to(device=device, dtype=torch.float32, copy=True)
+    return torch.tensor(np.asarray(leaf), dtype=torch.float32).to(device)

@@ -56,6 +56,11 @@ def _build(skel, leaves: list) -> PyTree:
     return items if kind == "l" else tuple(items)
 
 
+def tree_unflatten(template: PyTree, leaves: list) -> PyTree:
+    """A tree of ``template``'s structure with ``leaves`` (in tree order)."""
+    return _build(_skeleton(template), list(leaves)[::-1])
+
+
 def tree_l1(a: PyTree, b: PyTree | None = None) -> torch.Tensor:
     """Sum of absolute (differences of) leaves — Eq. 1's L1 distance."""
     if b is None:

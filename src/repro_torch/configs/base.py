@@ -1,11 +1,12 @@
 """Model configuration (counterpart of ``repro.configs.base``, the subset
-the port's LM path needs).
+the port's LM and serving paths need).
 
 A model is ``prefix`` (unrolled layers) followed by ``pattern`` repeated
 ``num_periods`` times. Each layer is a (mixer, ffn) pair. The port's model
 (:mod:`repro_torch.models.model`) runs the dense subset: ``attn`` /
 ``attn_local`` mixers with ``dense`` FFNs; the MoE, MLA and Mamba specs are
 kept only so that every field of :class:`ModelConfig` can be constructed.
+:func:`reduced_config` cuts a config to the width its CPU tests run at.
 """
 from __future__ import annotations
 
@@ -116,3 +117,37 @@ def get_config(name: str) -> ModelConfig:
     if name not in ARCH_REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCH_REGISTRY)}")
     return ARCH_REGISTRY[name]
+
+
+def reduced_config(config: ModelConfig, d_model: int = 64, periods: int = 2) -> ModelConfig:
+    """A small config of the same family for CPU tests (the reference's
+    cut): at most 4 heads, head width ``d_model // heads`` (at least 8),
+    ``d_ff`` scaled with ``d_model``, a vocab of at most 512, ``periods``
+    periods, one prefix layer at most and a sliding window of 16."""
+    scale = d_model / config.d_model
+    heads = max(2, min(config.num_heads, 4))
+    kv = max(1, min(config.num_kv_heads, heads))
+    kw: dict = dict(
+        d_model=d_model,
+        num_heads=heads,
+        num_kv_heads=kv,
+        head_dim=max(8, d_model // heads),
+        d_ff=max(16, int(config.d_ff * scale)) if config.d_ff else 0,
+        vocab_size=min(config.vocab_size, 512),
+        num_periods=periods,
+        prefix=config.prefix[: min(len(config.prefix), 1)],
+        train=dataclasses.replace(config.train, microbatches=1, dp_shard_params=False),
+    )
+    if config.moe is not None:
+        kw["moe"] = dataclasses.replace(
+            config.moe, num_experts=4, top_k=min(config.moe.top_k, 2),
+            d_expert=max(16, int(config.moe.d_expert * scale)),
+        )
+    if config.mla is not None:
+        kw["mla"] = MLASpec(kv_lora_rank=16, qk_nope_head_dim=8, qk_rope_head_dim=8, v_head_dim=8)
+        kw["head_dim"] = 8
+    if config.mamba is not None:
+        kw["mamba"] = dataclasses.replace(config.mamba, d_state=8)
+    if config.sliding_window:
+        kw["sliding_window"] = 16
+    return dataclasses.replace(config, **kw)

@@ -1,8 +1,23 @@
-"""Data-aware dynamic client clustering (paper Sec. 4), plane backend.
+"""Data-aware dynamic client clustering (paper Sec. 4).
 
-Counterpart of ``repro.core.clustering`` with the parameter-plane storage
-only: every center and broadcast anchor is a row of a device-resident
-:class:`~repro_torch.core.plane.ParameterPlane`.
+Counterpart of ``repro.core.clustering``, with its two storage backends,
+chosen by the ``backend`` argument (the port reads no ``REPRO_PLANE``):
+
+  * ``plane`` (the default): every center and broadcast anchor is a row of
+    a device-resident :class:`~repro_torch.core.plane.ParameterPlane`;
+  * ``pytree``: every cluster keeps its center and anchor, and the
+    registry each client's last upload, as parameter trees, as the
+    reference's original path does. An assign flattens the upload and each
+    center and makes one ``l1_distance`` launch; the blend is the two-op
+    ``tree_lerp``; a merge flattens the three trees for one
+    ``merge_attention`` launch. Its blends and merges are the plane
+    backend's bit for bit; the predictor's statistics (:meth:`DynamicClustering.l1`)
+    are ``tree_l1`` sums, as in the reference's tree path.
+
+The server sees one interface for both: ``store_upload`` and
+``nearest_centers`` for the last uploads, ``Cluster.head`` and
+``Cluster.anchor`` for what the branches and the predictor read, and
+``DynamicClustering.l1`` for the predictor's statistics.
 
   * on-arrival assignment (Sec. 4.2): the first C arrivals seed the
     centers; later arrivals go to the nearest center by L1 (Eq. 1), through
@@ -19,17 +34,27 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch.core.plane import ParameterPlane
+from repro_torch.common.device import on_device
+from repro_torch.common.pytrees import tree_flat_vector, tree_l1, tree_lerp, tree_map, tree_unflatten_vector
+from repro_torch.core.plane import ParameterPlane, l1_vec
 from repro_torch.kernels import ops as K
 
 PyTree = Any
+BACKENDS = ("plane", "pytree")
+
+
+def _finite(vec: torch.Tensor) -> bool:
+    return bool(torch.isfinite(vec).all())
 
 
 class Cluster:
-    """One cluster branch; ``center`` is a tree view of its plane row,
-    cached until the row changes."""
+    """One cluster branch. In plane mode ``center`` is a tree view of its
+    plane row, cached until the row changes; in tree mode the cluster holds
+    its center and broadcast anchor as trees, and ``center_vec`` and
+    ``broadcast_vec`` flatten them."""
 
-    def __init__(self, cluster_id: int, *, plane: ParameterPlane, row: int, bcast_row: int):
+    def __init__(self, cluster_id: int, center: PyTree | None = None, *, plane: ParameterPlane | None = None,
+                 row: int | None = None, bcast_row: int | None = None):
         self.cluster_id = cluster_id
         self.version = 0  # bumped on every aggregation into this cluster
         self.members: set = set()
@@ -40,9 +65,12 @@ class Cluster:
         self._row = row
         self._bcast_row = bcast_row
         self._center_cache: PyTree | None = None
+        self._center_tree: PyTree | None = center if plane is None else None
+        self._bcast_tree: PyTree | None = None
         # last-known-good snapshot ring (the ingest guard's rollback): plane
-        # rows written at broadcast time, read by rollback()
+        # rows or trees, written at broadcast time, read by rollback()
         self._snap_rows: list[int] | None = None
+        self._snap_trees: list[PyTree | None] | None = None
         self._snap_cursor = 0
         self._snap_count = 0
 
@@ -50,47 +78,100 @@ class Cluster:
     def size(self) -> int:
         return len(self.members)
 
+    # ------------------------------------------------------------ tree views
     @property
     def center(self) -> PyTree:
+        if self._plane is None:
+            return self._center_tree
         if self._center_cache is None:
             self._center_cache = self._plane.to_pytree(self._row)
         return self._center_cache
 
+    @center.setter
+    def center(self, value: PyTree) -> None:
+        if self._plane is None:
+            self._center_tree = value
+        else:
+            self._plane.write(self._row, value)
+            self._center_cache = None
+
+    @property
+    def last_broadcast_center(self) -> PyTree:
+        if self._plane is None:
+            return self._bcast_tree
+        return self._plane.to_pytree(self._bcast_row)
+
+    @last_broadcast_center.setter
+    def last_broadcast_center(self, value: PyTree) -> None:
+        if self._plane is None:
+            self._bcast_tree = value
+        else:
+            self._plane.write(self._bcast_row, value)
+
+    # ------------------------------------------------------------ flat views
     @property
     def center_vec(self) -> torch.Tensor:
+        if self._plane is None:
+            return tree_flat_vector(self._center_tree)
         return self._plane.row(self._row)
 
     @property
     def broadcast_vec(self) -> torch.Tensor:
+        if self._plane is None:
+            return tree_flat_vector(self._bcast_tree)
         return self._plane.row(self._bcast_row)
 
+    @property
+    def head(self) -> PyTree | torch.Tensor:
+        """The center as the branch records it and the predictor reads it:
+        the tree in tree mode, a copy of the row in plane mode."""
+        return self._center_tree if self._plane is None else self.center_vec
+
+    @property
+    def anchor(self) -> PyTree | torch.Tensor:
+        """The broadcast anchor in :attr:`head`'s form."""
+        return self._bcast_tree if self._plane is None else self.broadcast_vec
+
     def set_center_vec(self, vec: torch.Tensor) -> None:
+        if self._plane is None:
+            self._center_tree = tree_unflatten_vector(vec, self._center_tree)
+            return
         self._plane.write(self._row, vec)
         self._center_cache = None
 
     def snapshot_broadcast(self) -> None:
-        """Record the current center as the broadcast anchor (a row copy)
-        and, with a snapshot ring, as a last-known-good rollback point: a
-        center reaches a broadcast only after the guard's post-blend check
-        passed it."""
-        self._plane.copy_row(self._row, self._bcast_row)
+        """Record the current center as the broadcast anchor (a row copy, or
+        the tree itself) and, with a snapshot ring, as a last-known-good
+        rollback point: a center reaches a broadcast only after the guard's
+        post-blend check passed it."""
+        if self._plane is None:
+            self._bcast_tree = self._center_tree
+        else:
+            self._plane.copy_row(self._row, self._bcast_row)
         self._push_snapshot()
 
     # ------------------------------------------------- guard snapshot ring
     def ensure_snapshot_ring(self, depth: int) -> None:
-        """Allocate the ring's ``depth`` rows (once; 0 allocates nothing)."""
-        if depth <= 0 or self._snap_rows is not None:
+        """Allocate the ring's ``depth`` slots (once; 0 allocates nothing)."""
+        if depth <= 0 or self._snap_rows is not None or self._snap_trees is not None:
             return
-        self._snap_rows = [self._plane.alloc() for _ in range(depth)]
+        if self._plane is not None:
+            self._snap_rows = [self._plane.alloc() for _ in range(depth)]
+        else:
+            self._snap_trees = [None] * depth
         self._snap_cursor = 0
         self._snap_count = 0
 
     def _push_snapshot(self) -> None:
-        if self._snap_rows is None:
+        ring = self._snap_rows if self._plane is not None else self._snap_trees
+        if ring is None:
             return
-        self._plane.copy_row(self._row, self._snap_rows[self._snap_cursor])
-        self._snap_cursor = (self._snap_cursor + 1) % len(self._snap_rows)
-        self._snap_count = min(self._snap_count + 1, len(self._snap_rows))
+        if self._plane is not None:
+            self._plane.copy_row(self._row, ring[self._snap_cursor])
+        else:
+            ring[self._snap_cursor] = self._center_tree
+        self._snap_cursor = (self._snap_cursor + 1) % len(ring)
+        self._snap_count = min(self._snap_count + 1, len(ring))
 
     def rollback(self) -> bool:
         """Restore the center from the newest finite ring entry, then older
@@ -98,22 +179,30 @@ class Cluster:
         Returns whether a restore happened; the caller bumps the version,
         records it on the branch and re-broadcasts. A candidate's
         finiteness is one host read."""
-        candidates: list[int] = []
-        ring = self._snap_rows
+        ring = self._snap_rows if self._plane is not None else self._snap_trees
+        candidates: list = []
         if ring is not None and self._snap_count:
             for back in range(1, self._snap_count + 1):
                 candidates.append(ring[(self._snap_cursor - back) % len(ring)])
-        candidates.append(self._bcast_row)
+        candidates.append(self._bcast_row if self._plane is not None else self._bcast_tree)
         for cand in candidates:
-            if not bool(torch.isfinite(self._plane.row_view(cand)).all()):
-                continue  # this snapshot is itself corrupt: go older
-            self._plane.copy_row(cand, self._row)
-            self._center_cache = None
+            if self._plane is not None:
+                if not _finite(self._plane.row_view(cand)):
+                    continue  # this snapshot is itself corrupt: go older
+                self._plane.copy_row(cand, self._row)
+                self._center_cache = None
+            else:
+                if cand is None or not _finite(tree_flat_vector(cand)):
+                    continue
+                self._center_tree = cand
             return True
         return False
 
     def release(self) -> None:
-        """Return this cluster's plane rows (center, anchor, ring) to the free list."""
+        """Return this cluster's plane rows (center, anchor, ring) to the free
+        list; a tree-mode cluster holds none."""
+        if self._plane is None:
+            return
         self._plane.free(self._row)
         self._plane.free(self._bcast_row)
         for r in self._snap_rows or ():
@@ -124,17 +213,22 @@ class DynamicClustering:
     """Server-side cluster registry with incremental init + refinement."""
 
     def __init__(self, num_initial: int, mix_rate: float = 0.5, hm: float = 2.0,
-                 *, device: torch.device | str = "cpu"):
+                 *, backend: str = "plane", device: torch.device | str = "cpu"):
         self.num_initial = num_initial
         self.mix_rate = mix_rate
         self.hm = hm  # merge trigger: merge when count > hm * num_initial
         self.device = torch.device(device)
-        self.backend = "plane"
+        self.backend = str(backend).lower()
+        if self.backend not in BACKENDS:
+            raise ValueError(f"clustering backend must be plane|pytree, got {backend!r}")
         self.plane: ParameterPlane | None = None  # built from the first center's structure
         # > 0 with an ingest guard: the snapshot rows each cluster carries
         # for center rollback (0 allocates nothing)
         self.snapshot_ring = 0
         self.clusters: dict[int, Cluster] = {}
+        # client -> its last upload (the expansion and dissolve geometry):
+        # a plane row in plane mode, the tree in tree mode
+        self.uploads: dict[Any, Any] = {}
         self._next_id = 0
         self.assignment: dict[Any, int] = {}
         self.merges = 0
@@ -147,18 +241,22 @@ class DynamicClustering:
 
     # ------------------------------------------------------------------ init
     def _ensure_plane(self, template: PyTree) -> None:
-        if self.plane is None:
+        if self.backend == "plane" and self.plane is None:
             self.plane = ParameterPlane(
                 template, capacity=max(8, 4 * self.num_initial), device=self.device
             )
 
     def _new_cluster(self, center: PyTree | torch.Tensor) -> Cluster:
-        """``center`` may be a tree or an already-flat row."""
-        self._ensure_plane(center)
-        row = self.plane.alloc(center)
-        bcast_row = self.plane.alloc()
-        self.plane.copy_row(row, bcast_row)
-        c = Cluster(self._next_id, plane=self.plane, row=row, bcast_row=bcast_row)
+        """``center`` may be a tree or (plane mode) an already-flat row."""
+        if self.backend == "plane":
+            self._ensure_plane(center)
+            row = self.plane.alloc(center)
+            bcast_row = self.plane.alloc()
+            self.plane.copy_row(row, bcast_row)
+            c = Cluster(self._next_id, plane=self.plane, row=row, bcast_row=bcast_row)
+        else:
+            c = Cluster(self._next_id, center=center)
+            c.last_broadcast_center = center
         c.ensure_snapshot_ring(self.snapshot_ring)
         self.clusters[self._next_id] = c
         self._next_id += 1
@@ -166,29 +264,101 @@ class DynamicClustering:
 
     def restore_cluster(self, cid: int, center: PyTree | torch.Tensor, bcast_center: PyTree | torch.Tensor) -> Cluster:
         """Rebuild one cluster from a checkpoint's center and broadcast
-        anchor (a restart). Rows go center, anchor, then the snapshot ring,
-        as in the reference: row order decides later allocations."""
-        self._ensure_plane(center)
-        row = self.plane.alloc(center)
-        bcast_row = self.plane.alloc(bcast_center)
-        c = Cluster(cid, plane=self.plane, row=row, bcast_row=bcast_row)
+        anchor (a restart; numpy or tensor leaves). Plane rows go center,
+        anchor, then the snapshot ring, as in the reference: row order
+        decides later allocations. Tree mode keeps trees of tensors of their
+        own on the device."""
+        if self.backend == "plane":
+            self._ensure_plane(center)
+            row = self.plane.alloc(center)
+            bcast_row = self.plane.alloc(bcast_center)
+            c = Cluster(cid, plane=self.plane, row=row, bcast_row=bcast_row)
+        else:
+            c = Cluster(cid, center=self._device_tree(center))
+            c.last_broadcast_center = self._device_tree(bcast_center)
         c.ensure_snapshot_ring(self.snapshot_ring)
         self.clusters[cid] = c
         return c
+
+    def _device_tree(self, tree: PyTree) -> PyTree:
+        return tree_map(lambda leaf: on_device(leaf, self.device), tree)
 
     def drop_cluster(self, cid: int) -> None:
         self.clusters.pop(cid).release()
 
     def reset(self) -> None:
-        """Drop every cluster and return its rows (ring rows included) before a restore."""
+        """Drop every cluster and every last upload, returning their rows
+        (ring rows included), before a restore."""
         for c in self.clusters.values():
             c.release()
         self.clusters = {}
+        for client_id in list(self.uploads):
+            self.drop_upload(client_id)
+
+    # -------------------------------------------------------- last uploads
+    def store_upload(self, client_id, update: PyTree) -> None:
+        """Keep ``update`` as the client's last upload: written into its
+        plane row (claimed on its first upload), or the tree itself."""
+        if self.backend == "pytree":
+            self.uploads[client_id] = update
+            return
+        vec = self.upload_vec(update)
+        row = self.uploads.get(client_id)
+        if row is None:
+            row = self.uploads[client_id] = self.plane.alloc()
+        self.plane.write(row, vec)
+
+    def restore_upload(self, client_id, update: PyTree) -> None:
+        """A checkpoint's last upload (numpy or tensor leaves)."""
+        if self.backend == "pytree":
+            self.uploads[client_id] = self._device_tree(update)
+            return
+        self._ensure_plane(update)
+        self.uploads[client_id] = self.plane.alloc(update)
+
+    def upload_tree(self, client_id) -> PyTree:
+        """The client's last upload as a tree (a copy of its plane row)."""
+        u = self.uploads[client_id]
+        return u if self.backend == "pytree" else self.plane.to_pytree(u)
+
+    def drop_upload(self, client_id) -> bool:
+        """Forget the client's last upload and free its row; whether it had one."""
+        u = self.uploads.pop(client_id, None)
+        if u is not None and self.backend == "plane":
+            self.plane.free(u)
+        return u is not None
+
+    def _upload_matrix(self, uploads: dict[Any, Any], clients: list) -> torch.Tensor:
+        """``(len(clients), N)``: the uploads of ``clients`` in ``uploads``
+        (plane rows, or trees in tree mode), flattened."""
+        if self.backend == "pytree":
+            return torch.stack([tree_flat_vector(uploads[m]) for m in clients])
+        return self.plane.take([uploads[m] for m in clients])
+
+    def _center_matrix(self, cids: list[int]) -> torch.Tensor:
+        if self.backend == "pytree":
+            return torch.stack([self.clusters[c].center_vec for c in cids])
+        return self.plane.rows([self.clusters[c]._row for c in cids])
+
+    def nearest_centers(self, clients: list, cids: list[int]) -> dict[Any, int]:
+        """Each of ``clients`` with a last upload, to the L1-nearest of the
+        clusters ``cids``: one ``l1_distance_pairwise`` launch."""
+        have = [m for m in clients if m in self.uploads]
+        if not have:
+            return {}
+        D = K.l1_distance_pairwise(self._upload_matrix(self.uploads, have), self._center_matrix(cids)).cpu().numpy()
+        return {m: cids[int(np.argmin(d))] for m, d in zip(have, D)}
+
+    def l1(self, a: PyTree | torch.Tensor, b: PyTree | torch.Tensor) -> float:
+        """L1 between two :attr:`Cluster.head`-form values: the predictor's
+        change and gap statistics (``tree_l1`` in tree mode, as the
+        reference's tree path sums leaf by leaf)."""
+        return float(tree_l1(a, b) if self.backend == "pytree" else l1_vec(a, b))
 
     # -------------------------------------------------------------- assign
     def upload_vec(self, update: PyTree) -> torch.Tensor:
-        """Flat view of ``update``, reusing the assign-time flatten when this
-        is the same object ``assign`` just processed."""
+        """Flat view of ``update`` (plane mode), reusing the assign-time
+        flatten when this is the same object ``assign`` just processed."""
         p = self._pending
         if p is not None and p[0] is update:
             return p[2]
@@ -204,6 +374,8 @@ class DynamicClustering:
         prev = self.assignment.get(client_id)
         if prev is not None and client_id in self.clusters[prev].partial_finetune:
             return prev, False  # expansion members stay put until next merge
+        if self.backend == "pytree":
+            return self._assign_tree(client_id, update, switch_margin, prev)
         self._ensure_plane(update)
         u = self.plane.from_pytree(update)
         if len(self.clusters) < self.num_initial:
@@ -225,6 +397,25 @@ class DynamicClustering:
         self._move(client_id, cid)
         return cid, False
 
+    def _assign_tree(self, client_id, update: PyTree, switch_margin: float, prev) -> tuple[int, bool]:
+        """Tree mode: flatten the upload and every center, one
+        ``l1_distance`` launch, the argmin on the host, the same hysteresis."""
+        if len(self.clusters) < self.num_initial:
+            c = self._new_cluster(update)
+            self._move(client_id, c.cluster_id)
+            return c.cluster_id, True
+        cids = sorted(self.clusters)
+        u = tree_flat_vector(update)
+        centers = torch.stack([self.clusters[c].center_vec for c in cids])
+        dists = K.l1_distance(u, centers).cpu().numpy()
+        cid = cids[int(np.argmin(dists))]
+        if prev is not None and prev in self.clusters and prev != cid:
+            d_prev = dists[cids.index(prev)]
+            if dists[cids.index(cid)] > (1.0 - switch_margin) * d_prev:
+                cid = prev  # not decisively closer: stay
+        self._move(client_id, cid)
+        return cid, False
+
     def _move(self, client_id, cid: int) -> None:
         prev = self.assignment.get(client_id)
         if prev is not None and prev in self.clusters:
@@ -239,6 +430,10 @@ class DynamicClustering:
         not decayed by staleness: slow devices' knowledge is kept)."""
         c = self.clusters[cid]
         b = self.mix_rate if weight is None else weight
+        if self.backend == "pytree":
+            c.center = tree_lerp(c.center, update, b)
+            c.version += 1
+            return
         p = self._pending
         if (
             p is not None and p[0] is update and p[1] == cid
@@ -262,12 +457,16 @@ class DynamicClustering:
         one local training pass that yields the posterior direction."""
         a, b = self.clusters[cid_a], self.clusters[cid_b]
         main, aux = (a, b) if a.size >= b.size else (b, a)
-        v_trained = self.plane.from_pytree(local_train_fn(main.center))  # from the pre-merge center
-        # no row copies: the kernel reads both rows in the plane and writes
-        # the merged center over the main row
-        v_m = self.plane.row_view(main._row)
-        K.merge_attention(v_m, self.plane.row_view(aux._row), v_trained, out=v_m)
-        main._center_cache = None
+        if self.backend == "plane":
+            v_trained = self.plane.from_pytree(local_train_fn(main.center))  # from the pre-merge center
+            # no row copies: the kernel reads both rows in the plane and
+            # writes the merged center over the main row
+            v_m = self.plane.row_view(main._row)
+            K.merge_attention(v_m, self.plane.row_view(aux._row), v_trained, out=v_m)
+            main._center_cache = None
+        else:
+            v_trained = tree_flat_vector(local_train_fn(main.center))
+            main.set_center_vec(K.merge_attention(main.center_vec, aux.center_vec, v_trained))
         main.version += 1
         for client in list(aux.members):
             self._move(client, main.cluster_id)
@@ -287,8 +486,10 @@ class DynamicClustering:
             cids = mature
         if len(cids) < 2:
             return None
-        vecs = self.plane.rows([self.clusters[c]._row for c in cids])
+        vecs = self._center_matrix(cids)
         dmat = K.l1_distance_pairwise(vecs, vecs).cpu().numpy()
+        if self.backend == "pytree":
+            dmat = dmat.astype(np.float64)  # the reference's tree path fills a float64 matrix, row by row
         off = dmat[~np.eye(len(cids), dtype=bool)]
         median = float(np.median(off))
         dmat = dmat.copy()
@@ -303,8 +504,8 @@ class DynamicClustering:
                uploads: dict[Any, int] | None = None, refine_round: int = 0) -> int | None:
         """Sec. 4.3.3: the worst-``frac`` feedback members split into a new
         cluster seeded from the running mean of their last uploads (plane
-        rows in ``uploads``) and enter head-only fine-tuning until the next
-        merging refinement."""
+        rows in ``uploads`` in plane mode, trees in tree mode) and enter
+        head-only fine-tuning until the next merging refinement."""
         c = self.clusters[cid]
         if self._last_expand_round.get(cid, -10) >= refine_round - 1:
             return None  # cooldown: let the last split differentiate first
@@ -325,13 +526,15 @@ class DynamicClustering:
             return None
         have = [m for m in bad if uploads and m in uploads]
         if have:
-            vecs = self.plane.take([uploads[m] for m in have])
+            vecs = self._upload_matrix(uploads, have)
             seed_center = vecs[0]
-            for i in range(1, len(have)):  # running mean, each product rounded
+            for i in range(1, len(have)):  # running mean, each product rounded (tree_lerp's ops)
                 t = 1.0 / (i + 1)
                 seed_center = torch.mul(seed_center, 1.0 - t) + torch.mul(vecs[i], t)
         else:
-            seed_center = self.plane.row(c._row)
+            seed_center = c.center_vec
+        if self.backend == "pytree":
+            seed_center = tree_unflatten_vector(seed_center, c.center)
         new = self._new_cluster(seed_center)
         for client in bad:
             self._move(client, new.cluster_id)

@@ -27,6 +27,11 @@ per event a host sum of the center row, on the coalesced path the chain
 kernel's fourth statistic. A failed check rolls the center back to its
 newest finite snapshot and re-broadcasts it. :meth:`EchoPFLServer.evict_clients`
 retires clients that went dark for good.
+
+``plane_backend="pytree"`` keeps the centers, anchors and last uploads as
+parameter trees (:mod:`repro_torch.core.clustering`'s tree mode, behind
+the same interface), and the coalesced loop takes the per-upload path, as
+the reference's does. ``stats()["plane_rows"]`` is then 0.
 """
 from __future__ import annotations
 
@@ -36,7 +41,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch.common.device import resolve_device
+from repro_torch.common.device import on_device, resolve_device
 from repro_torch.core.broadcast import (
     BroadcastPredictor,
     build_seq,
@@ -46,20 +51,12 @@ from repro_torch.core.broadcast import (
     pretrain_rnn,
 )
 from repro_torch.core.clustering import DynamicClustering
-from repro_torch.core.plane import l1_vec
 from repro_torch.core.staleness import StalenessTracker
 from repro_torch.core.versioning import ModelRepo
 from repro_torch.kernels import ops as K
 from repro_torch.kernels.chi2 import segmented_numpy
 
 PyTree = Any
-
-
-def _on_device(leaf, device: torch.device) -> torch.Tensor:
-    """A restored fp32 leaf (numpy, or a tensor on any device) as a tensor of its own on ``device``."""
-    if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to(device=device, dtype=torch.float32, copy=True)
-    return torch.tensor(np.asarray(leaf), dtype=torch.float32).to(device)
 
 
 @dataclasses.dataclass
@@ -99,13 +96,14 @@ class EchoPFLServer:
         rnn_params: dict | None = None,
         enable_clustering: bool = True,
         enable_broadcast: bool = True,
+        plane_backend: str = "plane",
         seed: int = 0,
         device: str | torch.device = "cuda",
     ):
         self.device = resolve_device(device)
         self.init_params = init_params
         self.clustering = DynamicClustering(
-            num_initial_clusters, mix_rate=mix_rate, hm=hm, device=self.device
+            num_initial_clusters, mix_rate=mix_rate, hm=hm, backend=plane_backend, device=self.device
         )
         self.repo = ModelRepo()
         self.staleness = StalenessTracker()
@@ -131,7 +129,6 @@ class EchoPFLServer:
         self._decisions = 0
         self._rnn_broadcasts = 0
         self._refine_round = 0
-        self._upload_rows: dict[Any, int] = {}  # client -> plane row of its last upload
         self.last_cluster_feedback_mean: dict[int, float] = {}
         self._rng = np.random.default_rng(seed)
         if not enable_broadcast:
@@ -197,16 +194,13 @@ class EchoPFLServer:
                 self.clustering._new_cluster(self.init_params)
             cid = 0
             self.clustering._move(client_id, 0)
-        cluster = self.clustering.clusters[cid]
-        plane = self.clustering.plane
-        row = self._upload_rows.get(client_id)
-        if row is None:
-            row = self._upload_rows[client_id] = plane.alloc()
-        plane.write(row, self.clustering.upload_vec(params))
+        cl = self.clustering
+        cluster = cl.clusters[cid]
+        cl.store_upload(client_id, params)
         try:
             branch = self.repo.branch(f"cluster/{cid}")
         except KeyError:
-            branch = self.repo.branch(f"cluster/{cid}", cluster.center_vec)
+            branch = self.repo.branch(f"cluster/{cid}", cluster.head)
 
         # 2. staleness bookkeeping (all updates included, none dropped)
         staleness = self._staleness(client_id, cid, cluster)
@@ -214,11 +208,11 @@ class EchoPFLServer:
         # 3. aggregate = CI push into the branch
         pred = self._predictor(cid) if self.enable_broadcast else None
         if pred is not None:  # the pre-update center only feeds the predictor
-            prev_center = cluster.center_vec
+            prev_center = cluster.head
 
         def merge_fn(head):
-            self.clustering.aggregate(cid, params)
-            return self.clustering.clusters[cid].center_vec
+            cl.aggregate(cid, params)
+            return cl.clusters[cid].head
         branch.push(client_id, merge_fn, f"upload from {client_id} (staleness {staleness})")
 
         # 3b. late poison detection (guard only): a non-finite or blown-out
@@ -232,8 +226,8 @@ class EchoPFLServer:
 
         # 4. Top-K change record + online fine-tune on the ground truth (Eq. 4)
         if pred is not None:
-            change = float(l1_vec(cluster.center_vec, prev_center))
-            gap_before = float(l1_vec(prev_center, cluster.broadcast_vec))
+            change = cl.l1(cluster.head, prev_center)
+            gap_before = cl.l1(prev_center, cluster.anchor)
             label = 1 if change > gap_before else 0
             if pred.records:
                 pred.learn(label)
@@ -245,7 +239,7 @@ class EchoPFLServer:
 
         # 6. on-demand broadcast to the rest of the cluster
         if pred is not None and cluster.size > 1:
-            gap = float(l1_vec(cluster.center_vec, cluster.broadcast_vec))
+            gap = cl.l1(cluster.head, cluster.anchor)
             self._decisions += 1
             if pred.decide(gap):
                 self._rnn_broadcasts += 1
@@ -279,8 +273,8 @@ class EchoPFLServer:
 
         Uploads go in segments of consecutive distinct clients, each one
         ``ingest_chain`` launch (:meth:`_handle_upload_segment`). The seeding
-        phase, the clustering ablation, a repeated client and a segment of
-        one upload take the per-upload path."""
+        phase, the clustering ablation, a repeated client, a segment of one
+        upload and the pytree backend take the per-upload path."""
         out: list[list[Downlink]] = []
         i, n = 0, len(batch)
         while i < n:
@@ -371,9 +365,9 @@ class EchoPFLServer:
             # reads them, only comes at its end
             rows = []
             for item in seg[j0:j_end]:
-                row = self._upload_rows.get(item[0])
+                row = cl.uploads.get(item[0])
                 if row is None:
-                    row = self._upload_rows[item[0]] = plane.alloc()
+                    row = cl.uploads[item[0]] = plane.alloc()
                 rows.append(row)
             plane.write_rows(rows, U[j0:j_end])
             j_plan = j1 if fail is None else fail  # the failed step never reaches the predictor
@@ -601,7 +595,8 @@ class EchoPFLServer:
     def _center_norm(self, cluster) -> float:
         """The post-blend center L1 norm of the per-event late check: the
         host's fp32 numpy sum of the center row, as the reference takes it
-        (one device-to-host copy an upload on the card)."""
+        (one device-to-host copy an upload on the card); in tree mode that of
+        the flattened center tree."""
         return float(np.abs(cluster.center_vec.cpu().numpy()).sum())
 
     def _rollback_center(self, cluster, branch, client_id) -> list[Downlink]:
@@ -618,7 +613,7 @@ class EchoPFLServer:
 
         def merge_fn(head):
             cluster.version += 1
-            return cluster.center_vec
+            return cluster.head
 
         branch.push(client_id, merge_fn, f"center rollback after poisoned blend from {client_id}")
         self.events.append({"kind": "rollback", "cluster": cid, "restored": True})
@@ -750,7 +745,7 @@ class EchoPFLServer:
             if cid not in self.clustering.clusters:
                 continue
             new_cid = self.clustering.expand(
-                cid, fb, uploads=self._upload_rows, refine_round=self._refine_round
+                cid, fb, uploads=self.clustering.uploads, refine_round=self._refine_round,
             )
             if new_cid is not None:
                 parent_pred = self._predictor(cid)
@@ -796,7 +791,6 @@ class EchoPFLServer:
         rest = [c for c in clusters if c != victim]
         members = sorted(clusters[victim].members, key=str)
         best_of: dict[Any, int] = {m: rest[0] for m in members}
-        plane = clustering.plane
         if members and self.feedback_fn is not None:
             centers = {c: clusters[c].center for c in rest}
             f_pred, f_true, s_soft = self._feedback_rows(
@@ -808,13 +802,7 @@ class EchoPFLServer:
             for m, row in zip(members, scores):
                 best_of[m] = rest[int(np.argmin(row))]
         elif members:
-            have = [m for m in members if m in self._upload_rows]
-            if have:
-                U = plane.take([self._upload_rows[m] for m in have])
-                centers = plane.rows([clusters[c]._row for c in rest])
-                D = K.l1_distance_pairwise(U, centers).cpu().numpy()
-                for m, d in zip(have, D):
-                    best_of[m] = rest[int(np.argmin(d))]
+            best_of.update(clustering.nearest_centers(members, rest))
         for m in members:
             best = best_of[m]
             clustering._move(m, best)
@@ -840,9 +828,7 @@ class EchoPFLServer:
             touched = False
             if self.uplink_codec is not None:
                 self.uplink_codec.release_client(client_id)
-            row = self._upload_rows.pop(client_id, None)
-            if row is not None:
-                cl.plane.free(row)
+            if cl.drop_upload(client_id):
                 touched = True
             self.client_versions.pop(client_id, None)
             home = cl.assignment.pop(client_id, None)
@@ -869,17 +855,16 @@ class EchoPFLServer:
         the reference's layout. The tree holds the cluster centers and
         broadcast anchors, each client's last upload (the expansion and
         dissolve geometry), each predictor's RNN weights and, with a codec,
-        its rows; leaves are copies of the plane rows and the live RNN
-        tensors. The meta is JSON (Python ints, floats, strings, bools,
+        its rows; leaves are copies of the plane rows (in tree mode the trees
+        themselves) and the live RNN tensors. The meta is JSON (Python ints, floats, strings, bools,
         lists, dicts): membership, versions, the staleness counters, the
         Top-K records and the counters and histories :meth:`stats` reads.
         :meth:`load_state` restores it."""
         cl = self.clustering
-        plane = cl.plane
-        last_uploads = {str(k): plane.to_pytree(row) for k, row in self._upload_rows.items()}
+        last_uploads = {str(k): cl.upload_tree(k) for k in cl.uploads}
         tree = {
             "centers": {str(cid): c.center for cid, c in cl.clusters.items()},
-            "bcast_centers": {str(cid): plane.to_pytree(c._bcast_row) for cid, c in cl.clusters.items()},
+            "bcast_centers": {str(cid): c.last_broadcast_center for cid, c in cl.clusters.items()},
             "last_uploads": last_uploads,
             "rnn": {str(cid): p.params for cid, p in self.predictors.items()},
         }
@@ -951,9 +936,6 @@ class EchoPFLServer:
         restored server empty rings."""
         cid_of = client_id_type
         cl = self.clustering
-        for row in self._upload_rows.values():
-            cl.plane.free(row)
-        self._upload_rows = {}
         cl.reset()
         for cid_s, info in meta["clusters"].items():
             cid = int(cid_s)
@@ -963,10 +945,9 @@ class EchoPFLServer:
             c.partial_finetune = {cid_of(m) for m in info["partial_finetune"]}
             c.pf_round = info["pf_round"]
             c.last_broadcast_version = info["last_broadcast_version"]
-            self.repo.branch(f"cluster/{cid}", c.center_vec)
+            self.repo.branch(f"cluster/{cid}", c.head)
         for k, v in (tree.get("last_uploads") or {}).items():
-            cl._ensure_plane(v)
-            self._upload_rows[cid_of(k)] = cl.plane.alloc(v)
+            cl.restore_upload(cid_of(k), v)
         cl.assignment = {cid_of(k): v for k, v in meta["assignment"].items()}
         cl._next_id = meta["next_id"]
         cl.merges = meta["merges"]
@@ -975,7 +956,7 @@ class EchoPFLServer:
         self.predictors = {}
         for cid_s, info in meta["predictors"].items():
             raw = tree["rnn"][cid_s]
-            params = None if raw is None else {k: _on_device(v, self.device) for k, v in raw.items()}
+            params = None if raw is None else {k: on_device(v, self.device) for k, v in raw.items()}
             p = BroadcastPredictor(params=params, k=info["k"])
             p.records = list(info["records"])
             p.active = info["active"]

@@ -49,3 +49,12 @@ class TokenStream:
         cfg = self.cfg
         seqs = np.stack([self._sample_seq(cfg.seq_len + 1) for _ in range(cfg.batch_size)])
         return seqs[:, :-1].astype(np.int32), seqs[:, 1:].astype(np.int32)
+
+
+def token_stream(vocab_size: int, seed: int = 0, batch: int = 4, seq: int = 32):
+    """Infinite generator of train-step batches ``{"tokens", "labels"}``
+    (int32 numpy, ``(batch, seq)``), the reference's draws."""
+    stream = TokenStream(TokenStreamConfig(vocab_size=vocab_size, seq_len=seq, batch_size=batch, seed=seed))
+    while True:
+        tokens, labels = stream.next_batch()
+        yield {"tokens": tokens, "labels": labels}

@@ -146,7 +146,7 @@ class LMTask:
 
     # ---- batched arithmetic (leading client axis) -------------------------
     def _logits(self, delta_b, tokens):
-        return model_forward(self.cfg, self.merged(delta_b), tokens).to(torch.float32)
+        return model_forward(self.cfg, self.merged(delta_b), {"tokens": tokens})[0].to(torch.float32)
 
     @staticmethod
     def _denom(mask, seq_len):

@@ -1,0 +1,133 @@
+"""Serving: prefill, then batched greedy decode over fixed-size KV
+buffers (counterpart of ``repro.launch.serve``).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \\
+        --batch 4 --prompt 512 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b --reduced \\
+        --batch 4 --prompt 16 --gen 32 --device cpu
+
+Weights are drawn on the device from a ``torch.Generator`` seeded 0;
+prompts from ``numpy.random.default_rng(0)``. The prefill's caches are
+grafted into ``init_cache`` buffers with a margin of ``gen + 8``; then each
+step feeds the last greedy token. One card only: ``--mesh smoke`` is the
+one mesh (``pod`` and ``multipod`` are not ported).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.common.device import resolve_device
+from repro_torch.common.pytrees import tree_map
+from repro_torch.configs import ARCH_REGISTRY
+from repro_torch.configs.base import ModelConfig, reduced_config
+from repro_torch.models.model import graft, init_cache, init_params
+from repro_torch.models.steps import make_prefill_step, make_serve_step
+
+PyTree = Any
+
+
+def sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def prefill(cfg: ModelConfig, params: PyTree, prompts: torch.Tensor, gen: int) -> tuple[torch.Tensor, PyTree]:
+    """The last prompt position's logits ``(B, 1, V)`` and the decode cache:
+    the prefill's exact-length caches grafted into buffers with room for
+    ``gen + 8`` more tokens."""
+    logits, pre_cache = make_prefill_step(cfg)(params, {"tokens": prompts})
+    B, L = prompts.shape
+    cache = init_cache(cfg, B, ctx_len=L, margin=gen + 8, device=prompts.device)
+    return logits, tree_map(graft, cache, pre_cache)
+
+
+def greedy(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
+    """The next token of each row, ``(B, 1)``, over the real vocab."""
+    return torch.argmax(logits[:, -1, : cfg.vocab_size], dim=-1)[:, None]
+
+
+def decode(cfg: ModelConfig, params: PyTree, cache: PyTree, logits: torch.Tensor, gen: int,
+           keep_logits: bool = False) -> tuple[torch.Tensor, list[torch.Tensor]]:
+    """``gen`` greedy tokens ``(B, gen)`` from the prefill's ``logits``:
+    token 0 is the prefill's argmax, token i + 1 the argmax of step i,
+    which feeds token i. With ``keep_logits`` also each step's logits
+    ``(B, V)`` (the positions ``len .. len + gen - 1``)."""
+    serve = make_serve_step(cfg)
+    tok = greedy(cfg, logits)
+    out, kept = [], []
+    for _ in range(gen):
+        out.append(tok)
+        logits, cache = serve(params, cache, {"tokens": tok})
+        if keep_logits:
+            kept.append(logits[:, -1])
+        tok = greedy(cfg, logits)
+    return torch.cat(out, dim=1), kept
+
+
+def serve(cfg: ModelConfig, *, batch: int, prompt: int, gen: int, device="cuda", params: PyTree | None = None,
+          keep_logits: bool = False, verbose: bool = True) -> dict:
+    """Draw the weights (unless given), prefill ``batch`` random prompts of
+    ``prompt`` tokens and decode ``gen`` tokens. Returns the params, the
+    prompts, the tokens, the prefill seconds, the decode seconds and the
+    kernel launches of each part (``kernels.ops.launch_counts`` deltas);
+    with ``keep_logits`` also the prefill's last-position logits ``(B, V)``
+    and each decode step's."""
+    from repro_torch.kernels import ops
+
+    if cfg.is_encoder:
+        raise SystemExit("encoder-only arch has no decode step")
+    dev = resolve_device(device)
+    if params is None:
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, prompt))).to(dev)
+    sync(dev)
+    c0 = ops.launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill(cfg, params, prompts, gen)
+    sync(dev)
+    t_prefill = time.perf_counter() - t0
+    c1 = ops.launch_counts()
+    t0 = time.perf_counter()
+    toks, step_logits = decode(cfg, params, cache, logits, gen, keep_logits=keep_logits)
+    toks = toks.cpu().numpy()  # waits for the last step
+    t_decode = time.perf_counter() - t0
+    c2 = ops.launch_counts()
+    del cache
+    if verbose:
+        print(f"prefill: {batch}x{prompt} in {t_prefill:.2f}s")
+        print(f"decode:  {batch}x{gen} tokens in {t_decode:.2f}s ({batch * gen / t_decode:,.0f} tok/s)")
+        print(f"sample: {toks[0, :12].tolist()}")
+    out = {"params": params, "prompts": prompts, "tokens": toks, "prefill_s": t_prefill, "decode_s": t_decode,
+           "launches": {"prefill": {k: c1[k] - c0[k] for k in c0}, "decode": {k: c2[k] - c1[k] for k in c1}}}
+    if keep_logits:
+        out["logits"] = [logits[:, -1]] + step_logits
+    return out
+
+
+def main(argv: list[str] | None = None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", required=True, choices=sorted(ARCH_REGISTRY))
+    ap.add_argument("--mesh", default="smoke", choices=["smoke", "pod", "multipod"])
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt", type=int, default=16)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if args.mesh != "smoke":
+        raise NotImplementedError(f"repro_torch: the {args.mesh} mesh is not ported yet (ROADMAP queue 1 item 7: "
+                                  f"meshes); --mesh smoke serves on one device")
+    cfg = ARCH_REGISTRY[args.arch]
+    if args.reduced:
+        cfg = reduced_config(cfg)
+    return serve(cfg, batch=args.batch, prompt=args.prompt, gen=args.gen, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

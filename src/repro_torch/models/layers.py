@@ -1,8 +1,10 @@
-"""Layer primitives of the dense decoder (counterpart of the subset of
-``repro.models.layers`` that ``tiny_lm`` and ``llama3.2-1b`` use):
-RMSNorm, RoPE, GQA attention through the flash kernels, and the SwiGLU
-FFN. Functional like the reference: ``init_*`` returns a dict of tensors,
-``apply_*`` takes (params, activations).
+"""Layer primitives of the dense decoders (counterpart of the subset of
+``repro.models.layers`` that the registered dense archs use): RMSNorm,
+RoPE, GQA attention through the flash kernels (causal, with gemma's
+sliding window, logit softcap and fixed query scale), the decode step's
+plain attention over a cache buffer, and the SwiGLU FFN. Functional like
+the reference: ``init_*`` returns a dict of tensors, ``apply_*`` takes
+(params, activations).
 
 Activations are ``(..., S, d)``. A weight may carry one extra leading
 client axis ``C`` (the LM task's per-client merged query projection);
@@ -78,27 +80,83 @@ def init_attention(generator: torch.Generator, cfg: ModelConfig, lead=()) -> PyT
     }
 
 
-def apply_attention(params: PyTree, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Full-sequence causal GQA attention (no cache) through
+def attention_scale(cfg: ModelConfig) -> float:
+    """gemma's fixed ``query_pre_attn_scalar ** -0.5``, else ``hd ** -0.5``."""
+    if cfg.query_pre_attn_scalar is not None:
+        return cfg.query_pre_attn_scalar ** -0.5
+    return cfg.resolved_head_dim ** -0.5
+
+
+def attention_scores_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool, scale: float,
+                               window: int | None = None, softcap: float | None = None, q_pos0: int = 0,
+                               chunk_q: int | None = None) -> torch.Tensor:
+    """Materialized grouped-query attention, ``q (B, Sq, H, hd)``, ``k (B,
+    Sk, KV, hd)``, ``v (B, Sk, KV, dv)`` -> ``(B, Sq, H, dv)``: scores in
+    fp32, the softcap, the causal and window masks on the positions
+    ``q_pos0 + i`` against ``j``, softmax. The decode step's attention (the
+    reference's is this plain function too, not a Pallas kernel). Query
+    head ``h`` reads KV head ``h // (H // KV)``; the reference repeats the
+    KV heads, this groups the queries instead (the same products, no copy
+    of the cache). ``chunk_q`` bounds the scores held at once to
+    ``chunk_q x Sk`` rows."""
+    B, Sq, H, hd = q.shape
+    Sk, KV, dv = k.shape[1], k.shape[2], v.shape[-1]
+    k_pos = torch.arange(Sk, device=q.device)
+
+    def block(q_blk: torch.Tensor, start: int) -> torch.Tensor:
+        sq = q_blk.shape[1]
+        qg = q_blk.reshape(B, sq, KV, H // KV, hd)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg, k).to(torch.float32) * scale
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        q_pos = q_pos0 + start + torch.arange(sq, device=q.device)
+        mask = torch.ones((sq, Sk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= q_pos[:, None] >= k_pos[None, :]
+        if window is not None:
+            mask &= (q_pos[:, None] - k_pos[None, :]) < window
+        s = torch.where(mask, s, torch.full((), -1e30, device=s.device))
+        p = torch.softmax(s, dim=-1)
+        return torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype), v).reshape(B, sq, H, dv)
+
+    if chunk_q is None or Sq <= chunk_q:
+        return block(q, 0)
+    return torch.cat([block(q[:, i: i + chunk_q], i) for i in range(0, Sq, chunk_q)], dim=1)
+
+
+def apply_attention(params: PyTree, x: torch.Tensor, cfg: ModelConfig, *, local: bool = False,
+                    cache: PyTree | None = None, pos0: int = 0, return_cache: bool = False):
+    """Full-sequence causal GQA attention through
     :func:`repro_torch.kernels.ops.attention`: the flash forward kernel and,
-    under autograd, the two backward kernels."""
+    under autograd, the two backward kernels. ``local`` takes the config's
+    sliding window; the config's logit softcap and query scale apply;
+    queries sit at positions ``pos0 + i``. A ``cache`` (``{"k", "v"}`` of
+    ``(B, S_ctx, KV, hd)``) is prepended to the keys and values. Returns
+    ``(out, {"k", "v"} of this call's rotated keys and values)`` with
+    ``return_cache``, else ``(out, None)``."""
     from repro_torch.kernels import ops as K
 
     S, d = x.shape[-2], x.shape[-1]
     q = project(x, params["wq"], 3)  # (..., S, H, hd)
     k = project(x, params["wk"], 3)
     v = project(x, params["wv"], 3)
-    positions = torch.arange(S, device=x.device)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if not cfg.is_encoder:
+        positions = pos0 + torch.arange(S, device=x.device)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    new_entries = {"k": k, "v": v}
+    if cache is not None:
+        k = torch.cat([cache["k"], k], dim=-3)
+        v = torch.cat([cache["v"], v], dim=-3)
 
     def heads_first(t):  # (..., S, heads, hd) -> (B', heads, S, hd)
-        return t.reshape(-1, S, *t.shape[-2:]).transpose(1, 2)
+        return t.reshape(-1, *t.shape[-3:]).transpose(1, 2)
 
-    out = K.attention(heads_first(q), heads_first(k), heads_first(v), causal=True,
-                      scale=cfg.resolved_head_dim ** -0.5)  # (B', H, S, hd)
+    out = K.attention(heads_first(q), heads_first(k), heads_first(v), causal=cfg.causal,
+                      scale=attention_scale(cfg), window=cfg.sliding_window if local else None,
+                      softcap=cfg.attn_logit_softcap, q_pos0=pos0)  # (B', H, S, hd)
     out = out.transpose(1, 2).reshape(-1, S, out.shape[1] * out.shape[-1]) @ params["wo"].reshape(-1, d)
-    return out.reshape(*x.shape[:-2], S, d)
+    return out.reshape(*x.shape[:-2], S, d), (new_entries if return_cache else None)
 
 
 # -------------------------------------------------------------- dense FFN

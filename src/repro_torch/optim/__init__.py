@@ -1,1 +1,3 @@
-"""Optimization helpers: the uplink codecs (``compression``)."""
+"""Optimization: the uplink codecs (``compression``), the functional
+optimizers (``optimizers``, ``adafactor``) and learning-rate
+``schedules``."""

@@ -16,6 +16,9 @@ identical ledgers and stats, accuracy curves within 0.02. The uplink
 encodes bitwise their plain versions (NaN at the same places) at the paths'
 widths, B = 1, 3 and 32, on tie, signed-zero, NaN and inf rows, one kernel
 a call, one a codec cohort; compressed ``har`` runs card against CPU.
+Reduced gemma2's decode against its teacher-forced full forward within
+1e-4 (one flash forward a layer in the prefill, none in the decode), and
+the pytree backend's assign as one ``l1_distance`` launch.
 """
 import numpy as np
 import pytest
@@ -685,3 +688,51 @@ def test_cuda_har_compressed_matches_the_cpu(cuda_device, cpu_rnn, name, kw):
         assert sc.stats() == sg.stats()
     assert [t for t, _ in rc.curve] == [t for t, _ in rg.curve]
     np.testing.assert_allclose([a for _, a in rg.curve], [a for _, a in rc.curve], atol=0.02, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_matches_the_full_forward(cuda_device):
+    """Reduced gemma2 on the card (the flash forward at head width 16,
+    window 16, softcap 50): prefill, 24 greedy decode steps past the window,
+    each step's logits against a teacher-forced full forward within 1e-4;
+    one flash forward launch per layer in the prefill, none in the decode."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch.serve import decode, prefill
+    from repro_torch.models.model import forward, init_params
+
+    cfg = reduced_config(get_config("gemma2-2b"))
+    params = init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0), device=cuda_device)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 20))).to(cuda_device)
+    ops.reset_launch_counts()
+    logits, cache = prefill(cfg, params, prompts, 24)
+    assert ops.launch_counts()["flash_attention_fwd"] == cfg.num_layers
+    toks, steps = decode(cfg, params, cache, logits, 24, keep_logits=True)
+    assert ops.launch_counts()["flash_attention_fwd"] == cfg.num_layers
+    with torch.no_grad():
+        full = forward(cfg, params, {"tokens": torch.cat([prompts, toks], dim=1)}, last=25)[0]
+    torch.testing.assert_close(logits[:, 0], full[:, 0], rtol=0, atol=1e-4)
+    for i, step in enumerate(steps):
+        torch.testing.assert_close(step, full[:, i + 1], rtol=0, atol=1e-4, msg=f"step {i}")
+
+
+@pytest.mark.cuda
+def test_cuda_pytree_assign_is_one_l1_launch(cuda_device):
+    """The pytree backend's assign flattens the upload and the centers for
+    one ``l1_distance`` launch; the plane backend's is one fused assign."""
+    from repro_torch.core.clustering import DynamicClustering
+
+    rng = np.random.default_rng(0)
+
+    def tree():
+        return [{"w": torch.from_numpy(_f32(rng, 64, 32)).to(cuda_device),
+                 "b": torch.from_numpy(_f32(rng, 32)).to(cuda_device)}]
+
+    cl = DynamicClustering(3, backend="pytree", device=cuda_device)
+    for c in range(3):
+        cl.assign(c, tree())
+    ops.reset_launch_counts()
+    cid, created = cl.assign(7, tree())
+    counts = ops.launch_counts()
+    assert not created and counts["l1_distance"] == 1 and sum(counts.values()) == 1
+    cl.aggregate(cid, tree())
+    assert sum(ops.launch_counts().values()) == 1 and cl.plane is None

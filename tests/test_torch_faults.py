@@ -114,9 +114,9 @@ def early_row_writes():
     def early(self, seg):
         plane = self.clustering.plane
         for client, *_ in seg:
-            if client not in self._upload_rows:
-                self._upload_rows[client] = plane.alloc()
-        plane.write_rows([self._upload_rows[c] for c, *_ in seg],
+            if client not in self.clustering.uploads:
+                self.clustering.uploads[client] = plane.alloc()
+        plane.write_rows([self.clustering.uploads[c] for c, *_ in seg],
                          torch.stack([plane.from_pytree(item[1]) for item in seg]))
         return orig(self, seg)
 
@@ -236,7 +236,7 @@ def test_evict_frees_rows_and_reclaims_empty_clusters(weights):
     assert victim not in srv.clustering.clusters and victim not in srv.predictors
     assert f"cluster/{victim}" not in srv.repo.names()
     assert plane.num_allocated == before - 2 - len(members)
-    assert all(m not in srv._upload_rows and m not in srv.clustering.assignment for m in members)
+    assert all(m not in srv.clustering.uploads and m not in srv.clustering.assignment for m in members)
     assert srv.events[-1] == {"kind": "reclaim", "cluster": victim}
     assert srv.evict_clients(members) == {"evicted": [], "reclaimed": []}  # idempotent
     assert srv.evict_clients(["nobody"]) == {"evicted": [], "reclaimed": []}
@@ -349,8 +349,8 @@ def test_deaths_free_their_rows(runs, window):
     f = rep.extra["faults"]
     assert f["evicted_clients"] == f["deaths"] == len(sim._dead) > 0
     srv = sim.strategy
-    assert srv.clustering.plane.num_allocated == 2 * len(srv.clustering.clusters) + len(srv._upload_rows)
-    assert not (sim._dead & set(srv._upload_rows)) and not (sim._dead & set(srv.clustering.assignment))
+    assert srv.clustering.plane.num_allocated == 2 * len(srv.clustering.clusters) + len(srv.clustering.uploads)
+    assert not (sim._dead & set(srv.clustering.uploads)) and not (sim._dead & set(srv.clustering.assignment))
     assert set(rep.per_client_acc) == set(sim.clients)
 
 

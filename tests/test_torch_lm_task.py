@@ -24,6 +24,7 @@ from repro.fl.lm_task import make_lm_data as jax_make_lm_data
 from repro.models.model import forward as jax_forward
 from repro_torch.common.pytrees import flatten_spec, tree_leaves, tree_map
 from repro_torch.configs import LayerSpec, get_config
+from repro_torch.configs.base import MLASpec
 from repro_torch.fl.lm_task import default_lm_task, make_lm_data
 from repro_torch.fl.tasks import get_task
 from repro_torch.interop import tree_from_numpy, tree_to_numpy
@@ -78,17 +79,17 @@ def test_delta_row_flatten_order_is_identical(task):
 def test_forward_logits_match(task):
     tok = make_lm_data(2, **DATA)[0].tokens_train
     want, _, _ = jax_forward(JTASK.cfg, JTASK.base.params, {"tokens": jnp.asarray(tok)})
-    got = forward(task.cfg, task.base.params, torch.from_numpy(tok.astype(np.int64)))
+    got = forward(task.cfg, task.base.params, {"tokens": torch.from_numpy(tok.astype(np.int64))})[0]
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
 def test_merged_initial_delta_is_the_base(task):
     delta = task.init_params(torch.Generator().manual_seed(3))
     tok = torch.from_numpy(make_lm_data(1, **DATA)[0].tokens_train.astype(np.int64))
-    base = forward(task.cfg, task.base.params, tok)
-    assert torch.equal(forward(task.cfg, task.merged(delta), tok), base)
+    base = forward(task.cfg, task.base.params, {"tokens": tok})[0]
+    assert torch.equal(forward(task.cfg, task.merged(delta), {"tokens": tok})[0], base)
     batched = tree_map(lambda t: t[None].expand(2, *t.shape), delta)
-    assert torch.equal(forward(task.cfg, task.merged(batched), tok[None].expand(2, *tok.shape)),
+    assert torch.equal(forward(task.cfg, task.merged(batched), {"tokens": tok[None].expand(2, *tok.shape)})[0],
                        base[None].expand(2, *base.shape))
 
 
@@ -155,7 +156,7 @@ def test_per_client_entry_points_agree_with_the_fleet(task):
     assert 0.0 <= task.evaluate(p, data) <= 1.0
 
 
-@pytest.mark.parametrize("change", [dict(tie_embeddings=False), dict(attn_logit_softcap=50.0),
+@pytest.mark.parametrize("change", [dict(pattern=(LayerSpec("mamba", "dense"),)), dict(mla=MLASpec()),
                                     dict(pattern=(LayerSpec("attn", "moe"),))], ids=str)
 def test_configs_outside_the_ported_subset_raise(change):
     cfg = dataclasses.replace(get_config("tiny_lm"), **change)

@@ -213,13 +213,13 @@ def test_load_state_restores_last_uploads_and_leaks_no_row(rnn_np):
     srv.refine_every = 10**9
     _feed(srv, ups, 0, True)
     tree, meta = srv.state_dict()
-    assert meta["upload_clients"] == sorted(str(c) for c in srv._upload_rows)
+    assert meta["upload_clients"] == sorted(str(c) for c in srv.clustering.uploads)
     restored = _port_server(init, rnn_np)
     restored.load_state(tree, meta)
     plane = restored.clustering.plane
-    assert set(restored._upload_rows) == set(srv._upload_rows)
-    for cid, row in srv._upload_rows.items():
-        assert torch.equal(srv.clustering.plane.row(row), plane.row(restored._upload_rows[cid]))
+    assert set(restored.clustering.uploads) == set(srv.clustering.uploads)
+    for cid, row in srv.clustering.uploads.items():
+        assert torch.equal(srv.clustering.plane.row(row), plane.row(restored.clustering.uploads[cid]))
     before = plane.num_allocated
     restored.load_state(tree, meta)  # the pre-restore rows are freed first
     assert plane.num_allocated == before == 2 * len(meta["clusters"]) + len(meta["upload_clients"])
