@@ -51,7 +51,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    backward at the LM paths' shapes and at the model zoo's head widths (up
    to 256), the backward also bitwise across repeats; the forward alone at
    phase 3j's gemma2-2b prefill shapes, (4, 512) and (2, 4,200), each with
-   the local layers' window of 4,096 and the global layers' none;
+   the local layers' window of 4,096 and the global layers' none, and at
+   phase 3k's MLA prefill shape (2, 16, 512, 192, value width 128, scale
+   192 ** -0.5); forward and backward at hubert-xlarge's non-causal heads
+   (2, 16, 200, 80);
 3. main path — ``repro_torch.fl.experiment.run_experiment("image_recognition",
    "echopfl", num_clients=20, max_time=1500, seed=0)`` on the card and, only
    if that run makes no merge, the same run with ``hm=1.0``; launch counts
@@ -123,6 +126,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``plane_backend="pytree"`` against the plane backend: identical
    ledgers, decisions, stats and centers, and the pytree run's
    ``l1_distance`` and ``merge_attention`` launches;
+3k. the model zoo's full-width MoE and MLA arch — deepseek-v2-lite-16b
+   (15.7 B parameters, 2.66 B active a token, 58.5 GiB of fp32 weights
+   from a card generator seeded 0, depth uncut) through the same serving
+   entry point at ZOO_SERVE (batch 2, prompt 512, 16 tokens), after phase
+   3j has freed gemma2-2b's weights: (a) MoE dropless, 27 flash forward
+   launches a prefill (head width 192 in the 256 bucket, value width 128)
+   and none in the decode (MLA's absorbed decode and the MoE dispatch are
+   plain PyTorch), every decode step's logits against a teacher-forced
+   full forward within SERVE_ATOL under the margin rule; (b) the default
+   capacity dispatch (1.25), the same launches, finite logits; prefill
+   seconds, decode tokens/s, peak memory, the largest leaf, the tree's
+   element count beside ``param_count`` and ``active_param_count``;
 3i. restart (run last, after phase 6, with phase 4's restart agreement,
    so that the timed and profiled phases follow the same run as before
    it) — the fault plan's server kill and restore
@@ -161,14 +176,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    identical clusters, assignments and events, served logits within
    EXAMPLE_ATOL and tokens equal under the margin rule; ``har`` with the
    pytree backend, card against CPU: identical ledgers, events and
-   assignments, curves within 0.02;
+   assignments, curves within 0.02; the model zoo's five reduced archs
+   (granite-moe, deepseek-v2-lite, hubert, jamba, xlstm), card against
+   CPU: the forward (one flash forward an attention layer), the prefill
+   and 8 decode steps fed the same tokens (MoE dropless), one train step
+   (the flash backward once an attention layer), at ``tests/torch_zoo.py``'s
+   tolerances (ZOO_ATOL; xlstm 3 x its one-ulp spread);
 5. timing — each kernel, its plain version and (where one exists) a single
    PyTorch call computing the same function, at the shape the main path
    called it with most (the flash kernels and ``pairwise_l1`` at the
    ``tiny_lm`` and the ``llama3.2-1b`` shapes, the flash kernels also at
    phase 3f's cohort shape, the flash forward also at phase 3j's two
    gemma2-2b prefill shapes with its softcap, where no library call
-   applies, ``l1_distance`` and
+   applies, and at phase 3k's MLA prefill shape beside fp32 SDPA,
+   ``l1_distance`` and
    ``assign_and_lerp`` also at the full-width run's; the segmented chi2 also
    at the 128-client fleet's refine, (128, 10) with S = 16, and at (1, 1) with
    S = 1, the launch floor; the merge also at ``har``'s, ``tiny_lm``'s and the
@@ -281,14 +302,21 @@ FLASH_CASES = (
     ("hd 128", 1, 8, 2, 300, 300, 128, 128, {}),
     ("one row past a tile", 1, 4, 2, 65, 65, 64, 64, {}),
     ("hd 12: 4-byte copies", 2, 4, 2, 70, 70, 12, 12, {}),
+    # hubert-xlarge's non-causal encoder attention, head width 80 in the 128 bucket
+    ("hubert-xlarge heads, non-causal", 2, 16, 16, 200, 200, 80, 80, dict(causal=False)),
 )
 # forward-only checks at phase 3j's prefill shapes (gemma2-2b: 8 heads over 4, head width 256, softcap 50,
 # scale 1/16), on the local layers' window of 4,096 and on the global layers' none; at 4,200 the window bites
 GEMMA_PREFILL = dict(causal=True, softcap=50.0, scale=256 ** -0.5)
+# phase 3k's MLA prefill (deepseek-v2-lite-16b: 16 heads, query/key width 128 + 64, value width 128, scale
+# 192 ** -0.5, causal): (B, H, KV, Sq, Sk, hd, dv)
+MLA_PREFILL = (2, 16, 16, 512, 512, 192, 128)
+MLA_OPTS = dict(causal=True, scale=192 ** -0.5)
 FLASH_FWD_CASES = tuple(
     (f"gemma2-2b prefill {B}x{S}{' local' if w else ' global'}", B, 8, 4, S, S, 256, 256,
      dict(GEMMA_PREFILL, window=w) if w else GEMMA_PREFILL)
-    for B, S in ((4, 512), (2, 4200)) for w in (4096, None))
+    for B, S in ((4, 512), (2, 4200)) for w in (4096, None)) + (
+    ("deepseek-v2-lite-16b MLA prefill 2x512", *MLA_PREFILL, MLA_OPTS),)
 
 
 # phase 3e: the reference's Tab. 1 bench (benchmarks/bench_accuracy_time.py) at one task and seed
@@ -326,6 +354,13 @@ SERVE_ATOL = 2e-4
 # phase 3j's pytree-against-plane run; hm = 1.0 so that 300 s hold a merge (as phase 3's second run)
 PYTREE_RUN = dict(num_clients=20, max_time=300, seed=0, hm=1.0)
 EXAMPLE_ATOL = 1e-4  # the serving example's served logits, card against CPU (120 AdamW steps apart)
+# phase 3k: deepseek-v2-lite-16b at full width through the serving entry point, (a) dropless, (b) capacity dispatch
+ZOO_SERVE = dict(batch=2, prompt=512, gen=16)
+# phase 4's model-zoo agreement: the reduced archs, card against CPU, at tests/torch_zoo.py's tolerances
+ZOO = ("granite-moe-3b-a800m", "deepseek-v2-lite-16b", "hubert-xlarge", "jamba-1.5-large-398b", "xlstm-1.3b")
+ZOO_ATOL = 1e-4  # logits, caches and the aux loss, rtol and atol
+# archs whose logits move more than ZOO_ATOL under one ulp of noise on the embeddings: held to 3 x that spread
+ZOO_SENSITIVE = ("xlstm-1.3b",)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1863,13 +1898,12 @@ def serving_phase(rnn_params: dict) -> dict:
     return out
 
 
-def decode_profile(cfg, params, steps: int = 8) -> dict:
+def decode_profile(cfg, params, steps: int = 8, kw: dict = SERVE_CASES["a"]) -> dict:
     """Device kernels a decode step and the device's idle share: a fresh
-    prefill at SERVE_CASES["a"]'s shape (other prompts), then ``steps``
-    decode steps under ``torch.profiler``."""
+    prefill at ``kw``'s shape (other prompts), then ``steps`` decode steps
+    under ``torch.profiler``."""
     from repro_torch.launch import serve
 
-    kw = SERVE_CASES["a"]
     g = torch.Generator().manual_seed(1)
     prompts = torch.randint(0, cfg.vocab_size, (kw["batch"], kw["prompt"]), generator=g).to(DEVICE)
     logits, cache = serve.prefill(cfg, params, prompts, steps)
@@ -1886,7 +1920,7 @@ def decode_profile(cfg, params, steps: int = 8) -> dict:
     per = _device_us(prof)
     out = {"kernels_a_step": len(events) / steps, "busy_ms_a_step": 1e3 * busy / steps,
            "wall_ms_a_step": 1e3 * wall / steps, "idle_share": 1 - busy / wall}
-    print(f"decode profile (gemma2-2b, batch {kw['batch']}, {steps} steps after a {kw['prompt']}-token prefill): "
+    print(f"decode profile ({cfg.name}, batch {kw['batch']}, {steps} steps after a {kw['prompt']}-token prefill): "
           f"{out['kernels_a_step']:.1f} device kernels a step, busy {out['busy_ms_a_step']:.3f} ms of "
           f"{out['wall_ms_a_step']:.3f} ms a step under the profiler, idle share {out['idle_share']:.4f}; top: "
           + "; ".join(f"{name[:60]} {us / 1e3 / steps:.3f} ms" for name, us in per.most_common(4)))
@@ -1939,6 +1973,197 @@ def pytree_phase(rnn_params: dict) -> dict:
           f"{tc['chi2_feedback_segmented']}; plane l1_distance {pc['l1_distance']}, assign_and_lerp "
           f"{pc['assign_and_lerp']}, merge_attention {pc['merge_attention']}; wall pytree {tw:.2f} s, plane {pw:.2f} s")
     return {"uploads": tr.extra["uploads"], "pytree": tc, "plane": pc, "wall": {"pytree": tw, "plane": pw}}
+
+
+# ----------------------------------------------------------------- phase 3k
+def _largest_leaf(tree, path: str = "") -> tuple[str, torch.Tensor | None]:
+    if isinstance(tree, dict):
+        items = ((f"{path}.{k}" if path else k, v) for k, v in tree.items())
+    elif isinstance(tree, (list, tuple)):
+        items = ((f"{path}[{i}]", v) for i, v in enumerate(tree))
+    else:
+        return path, tree
+    best = ("", None)
+    for p, v in items:
+        cand = _largest_leaf(v, p)
+        if cand[1] is not None and (best[1] is None or cand[1].numel() > best[1].numel()):
+            best = cand
+    return best
+
+
+class Routing:
+    """The MoE layers' top-k choices (``models.layers.top_k``) in call
+    order: ``record`` keeps each call's experts and the margin of the k-th
+    probability over the next, ``replay`` hands recorded experts back (with
+    the current probabilities at them), so that a second computation can be
+    held to a first under the same routing. Two computations that round a
+    router's logits differently (cuBLAS picks its kernels by shape) route a
+    token whose k-th and next probabilities are that close to different
+    experts, a jump in its output."""
+
+    def __init__(self):
+        from repro_torch.models import layers
+
+        self.layers, self.top_k, self.calls = layers, layers.top_k, []
+
+    def record(self) -> None:
+        self.calls = []
+
+        def rec(probs, k):
+            values, indices = self.top_k(probs, k + 1)
+            self.calls.append((indices[..., :k], values[..., k - 1] - values[..., k]))
+            return values[..., :k], indices[..., :k]
+
+        self.layers.top_k = rec
+
+    def replay(self, chosen: list) -> None:
+        it = iter(chosen)
+
+        def rep(probs, k):
+            indices = next(it)
+            return probs.gather(-1, indices), indices
+
+        self.layers.top_k = rep
+
+    def restore(self) -> None:
+        self.layers.top_k = self.top_k
+
+
+def _pinned_routing(calls: list, n_moe: int, batch: int, prompt: int, gen: int) -> list:
+    """The experts a teacher-forced forward over prompt and tokens would
+    take if it routed as the prefill and the decode steps did: per MoE
+    layer, the prefill's ``(batch, prompt)`` choices and each step's
+    ``(batch, 1)``, token-major as the forward groups them."""
+    pre, dec = calls[:n_moe], calls[n_moe:]
+    k = pre[0][0].shape[-1]
+    return [torch.cat([pre[l][0].reshape(batch, prompt, k)]
+                      + [dec[s * n_moe + l][0].reshape(batch, 1, k) for s in range(gen)], dim=1).reshape(1, -1, k)
+            for l in range(n_moe)]
+
+
+def zoo_serving_phase() -> dict:
+    """deepseek-v2-lite-16b at full width (15.7 B parameters, 2.66 B active
+    a token, in fp32; random weights from a generator seeded 0 on the card;
+    depth uncut: a dense prefix layer and 26 MoE layers, MLA in all 27)
+    through the serving entry point's ``repro_torch.launch.serve.serve``
+    (what ``python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b``
+    runs) at ZOO_SERVE: (a) with ``moe_dropless``, the prefill through the
+    flash forward kernel at head width 192 and value width 128, one launch a
+    layer, and no kernel of ours in the decode (MLA's absorbed decode and the
+    MoE are plain PyTorch); each decode step's logits against a
+    teacher-forced full forward routed as the prefill and the decode were
+    (``Routing``) within SERVE_ATOL, and the greedy tokens its argmax
+    wherever its top-2 margin exceeds SERVE_ATOL; the same forward routing
+    freely is printed beside it, with the tokens it routes otherwise and
+    their margins (random weights leave top-k margins down to 1e-7, under
+    what rounding moves); (b) the serving
+    entry point's default capacity dispatch (capacity factor 1.25: one slot an
+    expert at a decode step of 2 tokens), the same launches and finite
+    logits. Prints the prefill time, the decode tokens/s, the peak memory,
+    the largest leaf and the analytic parameter counts, and profiles 8
+    decode steps of each (kernels a step, idle share)."""
+    import dataclasses
+
+    from repro_torch.common.pytrees import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.model import forward
+
+    base = get_config("deepseek-v2-lite-16b")
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out, params = {}, None
+    shapes, restore = _record_flash_shapes(ops)
+    try:
+        for label, cfg in (("a", dataclasses.replace(base, moe_dropless=True)), ("b", base)):
+            kw = ZOO_SERVE
+            torch.cuda.reset_peak_memory_stats()
+            routing = Routing()
+            if cfg.moe_dropless:
+                routing.record()
+            t1 = time.perf_counter()
+            try:
+                res = serve.serve(cfg, device=DEVICE, params=params, keep_logits=True, verbose=False, **kw)
+            finally:
+                routing.restore()
+            wall = time.perf_counter() - t1
+            peak = torch.cuda.max_memory_allocated()
+            if params is None:
+                params = res["params"]
+                leaf_path, leaf = _largest_leaf(params)
+                n_tree = sum(t.numel() for t in tree_leaves(params))
+                out["weights"] = {"draw_s": wall - res["prefill_s"] - res["decode_s"], "tree_params": n_tree,
+                                  "param_count": base.param_count(), "active_param_count": base.active_param_count(),
+                                  "GiB": 4 * n_tree / 2**30, "largest_leaf": leaf_path,
+                                  "largest_leaf_shape": list(leaf.shape), "largest_leaf_GiB": 4 * leaf.numel() / 2**30,
+                                  "resident_before_GiB": resident / 2**30}
+                w = out["weights"]
+                print(f"deepseek-v2-lite-16b weights: {n_tree:,} elements in the tree ({w['GiB']:.2f} GiB fp32), "
+                      f"param_count {w['param_count']:,}, active_param_count {w['active_param_count']:,}; largest "
+                      f"leaf {leaf_path} {tuple(leaf.shape)} ({w['largest_leaf_GiB']:.2f} GiB); drawn in "
+                      f"{w['draw_s']:.2f} s; {resident / 2**30:.2f} GiB resident before the phase")
+                del leaf
+            pre, dec = res["launches"]["prefill"], res["launches"]["decode"]
+            check(pre["flash_attention_fwd"] == cfg.num_layers == 27 and sum(pre.values()) == cfg.num_layers,
+                  f"zoo serving {label}: prefill launches {pre}, not {cfg.num_layers} flash forwards")
+            check(sum(dec.values()) == 0, f"zoo serving {label}: the decode launched {dec}")
+            got = torch.stack(res["logits"])  # (gen + 1, B, V)
+            check(got.shape == (kw["gen"] + 1, kw["batch"], cfg.padded_vocab) and bool(torch.isfinite(got).all()),
+                  f"zoo serving {label}: logits {tuple(got.shape)} not finite")
+            row = {**kw, "prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
+                   "decode_tok_s": kw["batch"] * kw["gen"] / res["decode_s"], "peak_GiB": peak / 2**30,
+                   "flash_prefill": pre["flash_attention_fwd"], "moe_dropless": cfg.moe_dropless}
+            note = "logits finite"
+            if cfg.moe_dropless:
+                toks = torch.from_numpy(res["tokens"]).to(DEVICE)
+                n_moe = sum(spec.ffn == "moe" for spec in cfg.all_layers)
+                check(len(routing.calls) == n_moe * (kw["gen"] + 1),
+                      f"zoo serving {label}: {len(routing.calls)} MoE calls, not {n_moe} a prefill and a step")
+                chosen = _pinned_routing(routing.calls, n_moe, kw["batch"], kw["prompt"], kw["gen"])
+                batch = {"tokens": torch.cat([res["prompts"], toks], dim=1)}
+                try:
+                    with torch.no_grad():
+                        routing.replay(chosen)
+                        full = forward(cfg, params, batch, last=kw["gen"] + 1)[0].transpose(0, 1)
+                        routing.record()
+                        free = forward(cfg, params, batch, last=kw["gen"] + 1)[0].transpose(0, 1)
+                finally:
+                    routing.restore()
+                err = (got - full).abs().max().item()
+                check(err <= SERVE_ATOL, f"zoo serving {label}: decode logits differ from the full forward routed as "
+                                         f"they were by {err}")
+                exempt = margin_rule(toks, full[:-1], cfg.vocab_size, SERVE_ATOL, f"zoo serving {label}")
+                moved = [(c != f[0].reshape(c.shape)).any(-1).reshape(-1) for c, f in zip(chosen, routing.calls)]
+                margins = [f[1].reshape(-1)[m] for m, f in zip(moved, routing.calls)]
+                rerouted = sum(int(m.sum()) for m in moved)
+                top_margin = max((float(m.max()) for m in margins if m.numel()), default=0.0)
+                free_err = (got - free).abs().max().item()
+                row.update(max_abs_err=err, exempt=exempt, free_max_abs_err=free_err, rerouted=rerouted,
+                           rerouted_margin_max=top_margin)
+                note = (f"decode against the teacher-forced full forward routed as they were max |diff| {err:.3g} "
+                        f"(tolerance {SERVE_ATOL}), tokens its argmax where the margin exceeds that, {exempt} of "
+                        f"{toks.numel()} positions exempt; the forward routing freely {free_err:.3g} away, "
+                        f"{rerouted} of {n_moe * batch['tokens'].numel()} token-layers routed otherwise, at top-k "
+                        f"margins up to {top_margin:.3g}")
+                del toks, full, free, chosen
+            out[label] = row
+            print(f"zoo serving {label} (deepseek-v2-lite-16b full width, {'dropless' if cfg.moe_dropless else 'capacity 1.25'}, "
+                  f"batch {kw['batch']}, prompt {kw['prompt']}, gen {kw['gen']}): prefill {res['prefill_s']:.4f} s, "
+                  f"decode {res['decode_s']:.4f} s ({row['decode_tok_s']:.2f} tokens/s), peak {peak / 2**30:.2f} GiB; "
+                  f"flash forward launches {pre['flash_attention_fwd']} in the prefill, {dec['flash_attention_fwd']} in "
+                  f"the decode; {note}; sample {res['tokens'][0, :8].tolist()}")
+            del res, got
+            out[f"decode_profile {label}"] = decode_profile(cfg, params, kw=ZOO_SERVE)
+    finally:
+        restore()
+    del params
+    torch.cuda.empty_cache()
+    out["flash_shapes"] = shapes
+    out["wall"] = time.perf_counter() - t0
+    print(f"phase 3k: {out['wall']:.1f} s")
+    return out
 
 
 # ----------------------------------------------------------------- phase 3i
@@ -2553,6 +2778,153 @@ def pytree_agreement(init_np: list, rnn_np: dict) -> None:
           f"identical, accuracy gap {gap:.4f}; wall CPU {tc:.2f} s, card {tg:.2f} s")
 
 
+def _zoo_batch(cfg, shape, seed: int) -> dict:
+    """Tokens, or frame embeddings for an encoder, from a numpy generator."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    if cfg.is_encoder:
+        return {"embeds": torch.from_numpy(rng.standard_normal((*shape, cfg.d_model)).astype(np.float32))}
+    return {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, shape))}
+
+
+def _zoo_perturbed(params: dict) -> dict:
+    """The weights with the embedding scaled by 1 +- 6e-8 (a random sign an
+    element): one ulp of noise, as tests/torch_zoo.py perturbs them."""
+    import numpy as np
+
+    sign = np.random.default_rng(5).choice([-1.0, 1.0], tuple(params["embed"].shape)).astype(np.float32)
+    return dict(params, embed=params["embed"] * (1 + 6e-8 * torch.from_numpy(sign)).to(params["embed"].device))
+
+
+def _params_off(a_leaves, b_leaves, lr: float) -> tuple[int, int, int, float]:
+    """Elements beyond atol 1e-6 and beyond atol 0.1 lr (rtol 1e-4 in both),
+    the element count and the largest difference."""
+    off = big = total = 0
+    worst = 0.0
+    for a, b in zip(a_leaves, b_leaves):
+        d, r = (a.cpu() - b).abs(), 1e-4 * b.abs()
+        off += int((d > 1e-6 + r).sum())
+        big += int((d > 0.1 * lr + r).sum())
+        total += a.numel()
+        worst = max(worst, d.max().item())
+    return off, big, total, worst
+
+
+def zoo_agreement() -> None:
+    """The model zoo's five reduced archs (``reduced_config``: d_model 64,
+    2 periods) on the card against the CPU, weights from a CPU generator
+    seeded 0: the forward's logits and MoE aux loss; the prefill and 8
+    decode steps fed the same tokens (MoE dropless; not the encoder); one
+    train step's loss, ce, aux and params. Tolerances as
+    ``tests/torch_zoo.py``'s: logits and caches within rtol/atol ZOO_ATOL,
+    except an arch of ZOO_SENSITIVE, held to 3 times how far its CPU logits
+    move under one ulp of noise on the embeddings (the forward's, and the
+    prefill and decode steps' for those); params at most 0.1% of
+    the elements beyond atol 1e-6 and 0.001% beyond 0.1 lr (an Adam or
+    Adafactor first step's sign flips where a gradient is rounding noise),
+    none beyond 2.5 lr, or for ZOO_SENSITIVE 3 times the CPU's own counts
+    from the perturbed weights. The card's flash forward must launch once an
+    attention layer in the forward, and the backward kernels once each in
+    the train step."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.common.pytrees import tree_leaves, tree_map
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import prefill
+    from repro_torch.models.model import forward, init_params
+    from repro_torch.models.steps import TrainState, make_optimizer, make_serve_step, make_train_step
+
+    S, GEN = 12, 8
+    for name in ZOO:
+        t0 = time.perf_counter()
+        cfg = reduced_config(get_config(name))
+        n_attn = sum(spec.mixer in ("attn", "attn_local") for spec in cfg.all_layers)
+        cpu = init_params(cfg, torch.Generator().manual_seed(0))
+        card = tree_map(lambda t: t.to(DEVICE), cpu)
+        b = _zoo_batch(cfg, (2, S), 1)
+        on = lambda batch: {k: v.to(DEVICE) for k, v in batch.items()}  # noqa: E731
+        with torch.no_grad():
+            want, want_aux, _ = forward(cfg, cpu, b)
+            tol, spread = ZOO_ATOL, None
+            if name in ZOO_SENSITIVE:
+                spread = (forward(cfg, _zoo_perturbed(cpu), b)[0] - want).abs().max().item()
+                tol = max(ZOO_ATOL, 3 * spread)
+            ops.reset_launch_counts()
+            got, aux, _ = forward(cfg, card, on(b))
+            sync()
+            launches = ops.launch_counts()
+        check(launches["flash_attention_fwd"] == n_attn and sum(launches.values()) == n_attn,
+              f"zoo agreement {name}: forward launches {launches}, not {n_attn} flash forwards")
+        torch.testing.assert_close(got.cpu(), want, rtol=tol, atol=tol, msg=lambda m: f"zoo {name} forward: {m}")
+        torch.testing.assert_close(aux.cpu(), want_aux, rtol=ZOO_ATOL, atol=ZOO_ATOL,
+                                   msg=lambda m: f"zoo {name} aux: {m}")
+        errs = {"forward": (got.cpu() - want).abs().max().item()}
+        if not cfg.is_encoder:
+            dcfg = dataclasses.replace(cfg, moe_dropless=True)
+            feed = _zoo_batch(cfg, (2, GEN), 5)["tokens"]
+            steps = {}
+            starts = [("cpu", cpu), (DEVICE, card)] + ([("moved", _zoo_perturbed(cpu))] if spread else [])
+            for label, params in starts:
+                dev = DEVICE if label == DEVICE else "cpu"
+                logits, cache = prefill(dcfg, params, b["tokens"].to(dev), GEN)
+                serve = make_serve_step(dcfg)
+                out = [logits[:, -1]]
+                for i in range(GEN):
+                    logits, cache = serve(params, cache, {"tokens": feed[:, i:i + 1].to(dev)})
+                    out.append(logits[:, -1])
+                steps[label] = torch.stack(out).cpu()
+            dtol = ZOO_ATOL
+            if spread:  # the decode's own one-ulp spread on the CPU
+                spread = max(spread, (steps["moved"] - steps["cpu"]).abs().max().item())
+                dtol = max(ZOO_ATOL, 3 * spread)
+            torch.testing.assert_close(steps[DEVICE], steps["cpu"], rtol=dtol, atol=dtol,
+                                       msg=lambda m: f"zoo {name} prefill and decode: {m}")
+            errs["decode"] = (steps[DEVICE] - steps["cpu"]).abs().max().item()
+            errs["decode_tol"] = dtol
+        labels = np.random.default_rng(10).integers(0, cfg.vocab_size, (4, S))
+        tb = dict(_zoo_batch(cfg, (4, S), 20), labels=torch.from_numpy(labels))
+        opt = make_optimizer(cfg)
+        step = make_train_step(cfg)
+        runs = {}
+        starts = [("cpu", cpu), (DEVICE, card)] + ([("moved", _zoo_perturbed(cpu))] if name in ZOO_SENSITIVE else [])
+        for label, params in starts:
+            if label == DEVICE:
+                ops.reset_launch_counts()
+            state, m = step(TrainState(params, opt.init(params), torch.zeros((), dtype=torch.int32)), tb)
+            if label == DEVICE:
+                sync()
+                launches = ops.launch_counts()
+            runs[label] = (tree_leaves(state.params), {k: float(v) for k, v in m.items()})
+        check(launches["flash_attention_fwd"] == launches["flash_attention_dq"] == launches["flash_attention_dkv"]
+              == n_attn, f"zoo agreement {name}: train step launches {launches}")
+        (cl, cm), (gl, gm) = runs["cpu"], runs[DEVICE]
+        lr = cfg.train.learning_rate
+        for k in ("loss", "ce", "moe_aux"):
+            limit = max(1e-5 * abs(cm[k]), 1e-6 if k == "moe_aux" else 0.0)
+            if "moved" in runs:
+                limit = max(limit, 3 * abs(runs["moved"][1][k] - cm[k]))
+            check(abs(gm[k] - cm[k]) <= limit, f"zoo agreement {name}: train {k} {gm[k]} against {cm[k]}")
+        off, big, total, worst = _params_off(gl, cl, lr)
+        off_limit, big_limit = 1e-3 * total, 1e-5 * total
+        if "moved" in runs:
+            m_off, m_big, _, _ = _params_off(runs["moved"][0], cl, lr)
+            off_limit, big_limit = max(off_limit, 3 * m_off), max(big_limit, 3 * m_big)
+        check(off <= off_limit and big <= big_limit and worst <= 2.5 * lr,
+              f"zoo agreement {name}: params after a train step off {off} (limit {off_limit}), beyond 0.1 lr {big} "
+              f"(limit {big_limit}), worst {worst}")
+        print(f"zoo agreement ({name} reduced, card vs CPU): forward max |diff| {errs['forward']:.3g} (tolerance "
+              f"{tol:.3g})" + (f", prefill and 8 decode steps {errs['decode']:.3g} (tolerance {errs['decode_tol']:.3g})"
+                               if "decode" in errs else ", no decode (encoder)")
+              + (f", tolerances 3 x the CPU's one-ulp spread, at most {spread:.3g}" if spread else "")
+              + f"; aux {float(aux):.6f}; train loss {gm['loss']:.6f} against {cm['loss']:.6f}, params off "
+              f"{off} / beyond 0.1 lr {big} of {total}, worst {worst:.3g}; flash forward launches {n_attn} a forward; "
+              f"wall {time.perf_counter() - t0:.2f} s")
+
+
 # ------------------------------------------------------------------ phase 5
 def call_ms(fn, iters: int = 200, reps: int = 5) -> float:
     """Per-call time of back-to-back calls between two CUDA events: what a
@@ -3063,6 +3435,53 @@ def gemma_flash_timing(serving: dict) -> dict:
     return out
 
 
+def mla_flash_timing(zoo: dict) -> dict:
+    """The flash forward at phase 3k's MLA prefill shape (deepseek-v2-lite-16b:
+    16 heads, head width 192 in the 256 bucket, value width 128, causal,
+    scale 192 ** -0.5): device time, the plain version's, the bound ``2 (hd +
+    dv)`` flops a causal pair (fp32 on the CUDA cores, and split TF32 on the
+    tensor cores) and the launches at that shape in phase 3k. The library
+    call is fp32 ``scaled_dot_product_attention`` with the same scale, where
+    it takes a value width other than the head width (else none, with the
+    reason)."""
+    from repro_torch.kernels import flash_attention as F
+    from repro_torch.kernels import ops
+
+    g = gen(19)
+    B, H, KV, Sq, Sk, hd, dv = MLA_PREFILL
+    q, k, v, _ = flash_inputs(g, B, H, KV, Sq, Sk, hd, dv)
+    o, lse = ops.flash_attention_with_lse(q, k, v, **MLA_OPTS)
+    o_p, lse_p = F.flash_attention_with_lse_plain(q, k, v, **MLA_OPTS)
+    torch.testing.assert_close(o, o_p, rtol=1e-5, atol=1e-5, msg=lambda m: f"MLA prefill o: {m}")
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-5, msg=lambda m: f"MLA prefill lse: {m}")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib, lib_note = (lambda: sdpa(q, k, v, is_causal=True, scale=MLA_OPTS["scale"])), "fp32 SDPA, dv != hd"
+    try:
+        torch.testing.assert_close(lib(), o_p, rtol=1e-4, atol=1e-4)
+    except (RuntimeError, AssertionError) as e:  # the library call is a yardstick only: record why it has none
+        lib, lib_note = None, f"none: SDPA {type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    iters = 20
+    row = {"ms": device_ms(lambda: ops.flash_attention_with_lse(q, k, v, **MLA_OPTS), iters),
+           "plain_ms": device_ms(lambda: F.flash_attention_with_lse_plain(q, k, v, **MLA_OPTS), 5),
+           "library_ms": None if lib is None else device_ms(lib, iters), "library": lib_note,
+           "call_ms": call_ms(lambda: ops.flash_attention_with_lse(q, k, v, **MLA_OPTS), iters, 3)}
+    pairs = B * H * _allowed_pairs(Sq, Sk)
+    key = (B, H, Sq, hd, KV, Sk, dv)
+    row.update(bound_pair(4 * (q.numel() + k.numel() + v.numel() + o.numel() + lse.numel()), 2 * (hd + dv) * pairs,
+                          split_tf32=True),
+               max_abs_err=max((o - o_p).abs().max().item(), (lse - lse_p).abs().max().item()),
+               shape=list(key), launches=zoo["flash_shapes"][key], opts="causal, scale 192 ** -0.5, hd 192, dv 128")
+    lib_ms = "none" if row["library_ms"] is None else f"{row['library_ms']:.5f} ms"
+    print(f"timing flash_attention_fwd at deepseek-v2-lite-16b MLA prefill {key}: device time kernel {row['ms']:.5f} ms, "
+          f"plain {row['plain_ms']:.5f} ms, library {lib_ms} ({lib_note}); bound {row['bound_ms']:.6f} ms "
+          f"({row['bound_by']}), split-TF32 tensor-core bound {row['bound_tc_ms']:.6f} ms; per call kernel "
+          f"{row['call_ms']:.4f} ms; launches at this shape in phase 3k {row['launches']}; "
+          f"max_abs_err {row['max_abs_err']:.3g}")
+    del q, k, v, o, lse, o_p, lse_p
+    torch.cuda.empty_cache()
+    return {"deepseek-v2-lite-16b MLA prefill": row}
+
+
 # ------------------------------------------------------------------ phase 6
 def profile_window(label: str, run) -> None:
     """One run under ``torch.profiler`` (CUDA activity only). Device busy
@@ -3178,6 +3597,7 @@ def main() -> int:
     full_topk = full_width_topk(tiny["rnn"])
     chaos = chaos_sweeps(rnn_params)
     serving = serving_phase(rnn_params)
+    zoo = zoo_serving_phase()
     init_np, rnn_np = agreement()
     compressed_agreement(init_np, rnn_np)
     chaos_agreement(init_np, rnn_np)
@@ -3185,9 +3605,12 @@ def main() -> int:
     lm_agreement(tiny["rnn"])
     serving_agreement(rnn_np)
     pytree_agreement(init_np, rnn_np)
+    zoo_agreement()
     rows = (timing(counts, shapes, full, tiny) + [chain_row(coal, chaos)] + uplink_rows(sweep, per_event, full_topk)
             + lm_timing(tiny, full, cohort))
-    next(r for r in rows if r["name"] == "flash_attention_fwd").update(gemma_flash_timing(serving))
+    flash_row = next(r for r in rows if r["name"] == "flash_attention_fwd")
+    flash_row.update(gemma_flash_timing(serving))
+    flash_row.update(mla_flash_timing(zoo))
     print(f"timing: {trace_sessions['kept']} profiler sessions kept, {trace_sessions['refused']} refused "
           f"(a partial or empty trace)")
     profiles(rnn_params, tiny["rnn"])
@@ -3200,6 +3623,7 @@ def main() -> int:
     print("chaos sweeps: " + json.dumps(chaos))
     print("serving: " + json.dumps({k: v for k, v in serving.items()
                                     if k in SERVE_CASES or k in ("decode_profile", "pytree", "wall")}))
+    print("zoo serving: " + json.dumps({k: v for k, v in zoo.items() if k != "flash_shapes"}))
     print("restart: " + json.dumps({k: {f: v[f] for f in ("saved", "spent", "at", "unsteady", "bytes", "leaves")
                                        if f in v} for k, v in restart.items()}))
     print(json.dumps({"kernels": rows}))

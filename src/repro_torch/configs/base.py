@@ -1,11 +1,14 @@
-"""Model configuration (counterpart of ``repro.configs.base``, the subset
-the port's LM and serving paths need).
+"""Model configuration (counterpart of ``repro.configs.base``).
 
 A model is ``prefix`` (unrolled layers) followed by ``pattern`` repeated
-``num_periods`` times. Each layer is a (mixer, ffn) pair. The port's model
-(:mod:`repro_torch.models.model`) runs the dense subset: ``attn`` /
-``attn_local`` mixers with ``dense`` FFNs; the MoE, MLA and Mamba specs are
-kept only so that every field of :class:`ModelConfig` can be constructed.
+``num_periods`` times. Each layer is a (mixer, ffn) pair:
+
+  mixer: "attn" | "attn_local" | "mamba" | "mlstm" | "slstm"
+  ffn:   "dense" | "moe" | "none"
+
+Attention is multi-head latent attention where the config has an
+:class:`MLASpec`. :meth:`ModelConfig.param_count` and
+:meth:`ModelConfig.active_param_count` are the reference's analytic counts;
 :func:`reduced_config` cuts a config to the width its CPU tests run at.
 """
 from __future__ import annotations
@@ -47,6 +50,9 @@ class MambaSpec:
     d_state: int = 16
     d_conv: int = 4
     expand: int = 2
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,6 +109,74 @@ class ModelConfig:
     def padded_vocab(self) -> int:
         """Vocab padded to a multiple of 256 (the reference's layout)."""
         return math.ceil(self.vocab_size / 256) * 256
+
+    @property
+    def all_layers(self) -> tuple[LayerSpec, ...]:
+        return self.prefix + self.pattern * self.num_periods
+
+    def param_count(self) -> int:
+        """The reference's analytic parameter count: embedding, untied head,
+        every layer's mixer, FFN and two norms, the final norm. Its Mamba
+        term counts the dt projection as ``di`` per input column (not the
+        low-rank ``w_x``/``w_dt`` pair the layer holds), as the reference's
+        does."""
+        d, hd = self.d_model, self.resolved_head_dim
+        n = self.padded_vocab * d
+        if not self.tie_embeddings:
+            n += d * self.padded_vocab
+        for layer in self.all_layers:
+            n += self._mixer_params(layer.mixer, d, hd)
+            n += self._ffn_params(layer.ffn, d)
+            n += 2 * d
+        n += d
+        return n
+
+    def active_param_count(self) -> int:
+        """Parameters a token passes through: an MoE layer counts its top-k
+        and shared experts and its router only."""
+        d, hd = self.d_model, self.resolved_head_dim
+        n = self.padded_vocab * d
+        if not self.tie_embeddings:
+            n += d * self.padded_vocab
+        for layer in self.all_layers:
+            n += self._mixer_params(layer.mixer, d, hd)
+            if layer.ffn == "moe":
+                active = self.moe.top_k + self.moe.num_shared
+                n += active * 3 * d * self.moe.d_expert + d * self.moe.num_experts
+            else:
+                n += self._ffn_params(layer.ffn, d)
+            n += 2 * d
+        n += d
+        return n
+
+    def _mixer_params(self, mixer: str, d: int, hd: int) -> int:
+        if mixer in ("attn", "attn_local"):
+            if self.mla is not None:
+                m = self.mla
+                n = d * self.num_heads * (m.qk_nope_head_dim + m.qk_rope_head_dim)
+                n += d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                n += m.kv_lora_rank * self.num_heads * (m.qk_nope_head_dim + m.v_head_dim)
+                n += self.num_heads * m.v_head_dim * d
+                return n
+            return d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd + self.num_heads * hd * d
+        if mixer == "mamba":
+            di, ds, dc = self.mamba.d_inner(d), self.mamba.d_state, self.mamba.d_conv
+            return d * 2 * di + di * dc + di * (ds * 2 + 1) + di + di * ds + di + di * d
+        if mixer == "mlstm":
+            di = int(d * self.mlstm_proj_factor)
+            return d * 2 * di + 3 * di * di // max(self.num_heads, 1) + 3 * di + di * d
+        if mixer == "slstm":
+            return 8 * d * d + 4 * d + int(d * self.slstm_proj_factor) * d * 2
+        raise ValueError(mixer)
+
+    def _ffn_params(self, ffn: str, d: int) -> int:
+        if ffn == "dense":
+            return 3 * d * self.d_ff
+        if ffn == "moe":
+            return (self.moe.num_experts + self.moe.num_shared) * 3 * d * self.moe.d_expert + d * self.moe.num_experts
+        if ffn == "none":
+            return 0
+        raise ValueError(ffn)
 
 
 ARCH_REGISTRY: dict[str, ModelConfig] = {}

@@ -41,7 +41,6 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.data.lm import TokenStream, TokenStreamConfig
 from repro_torch.fl.tasks import FleetData, pad_rows
 from repro_torch.interop import tree_from_numpy
-from repro_torch.models.model import check_supported
 from repro_torch.models.model import forward as model_forward
 from repro_torch.models.model import init_params as model_init_params
 
@@ -94,7 +93,12 @@ class LMTask:
     name: str = "lm"
 
     def __post_init__(self):
-        check_supported(self.cfg)
+        cfg = self.cfg
+        if (cfg.prefix or cfg.mla is not None or cfg.is_encoder
+                or any(s.mixer not in ("attn", "attn_local") or s.ffn != "dense" for s in cfg.pattern)):
+            raise NotImplementedError(f"repro_torch: the LM task's per-client query deltas on {cfg.name} need "
+                                      f"dense attention layers; MoE, MLA, recurrent, encoder and prefix layers "
+                                      f"take no client axis (not ported)")
 
     @property
     def device(self) -> torch.device:

@@ -1,15 +1,23 @@
-"""Layer primitives of the dense decoders (counterpart of the subset of
-``repro.models.layers`` that the registered dense archs use): RMSNorm,
-RoPE, GQA attention through the flash kernels (causal, with gemma's
-sliding window, logit softcap and fixed query scale), the decode step's
-plain attention over a cache buffer, and the SwiGLU FFN. Functional like
-the reference: ``init_*`` returns a dict of tensors, ``apply_*`` takes
-(params, activations).
+"""Layer primitives of the model zoo (counterpart of
+``repro.models.layers``): RMSNorm, RoPE, GQA attention through the flash
+kernels (causal or not, with gemma's sliding window, logit softcap and
+fixed query scale), DeepSeek's multi-head latent attention (MLA), the
+decode step's plain attention over a cache buffer, the SwiGLU FFN, the
+top-k MoE FFN, the Mamba selective scan, and xLSTM's mLSTM (chunkwise) and
+sLSTM (sequential) blocks. Functional like the reference: ``init_*``
+returns a dict of tensors (each with the leading axes ``lead``, the
+stacked periods), ``apply_*`` takes (params, activations).
 
-Activations are ``(..., S, d)``. A weight may carry one extra leading
-client axis ``C`` (the LM task's per-client merged query projection);
-activations are then ``(C, n, S, d)`` and the product runs as a batched
-matmul over ``C``.
+Activations are ``(..., S, d)``. A weight of the dense attention may carry
+one extra leading client axis ``C`` (the LM task's per-client merged query
+projection); activations are then ``(C, n, S, d)`` and the product runs as
+a batched matmul over ``C``. The MLA, MoE, Mamba and xLSTM layers take
+``(B, S, d)`` only.
+
+The MoE dispatch, the Mamba scan, the mLSTM chunk scan and the sLSTM
+recurrence are plain PyTorch, as the reference's are plain ``jnp`` and
+``lax.scan`` code (no Pallas kernel); the attention inside MLA goes through
+the flash kernels.
 """
 from __future__ import annotations
 
@@ -24,9 +32,15 @@ PyTree = Any
 
 
 def dense_init(generator: torch.Generator, shape, in_axis_size: int) -> torch.Tensor:
-    """normal / sqrt(fan-in), drawn on the generator's device."""
+    """normal / sqrt(fan-in), drawn on the generator's device and scaled in
+    place (no second copy of the leaf: deepseek's expert stacks are 4.8 G
+    elements each)."""
     scale = 1.0 / math.sqrt(max(in_axis_size, 1))
-    return torch.randn(shape, generator=generator, device=generator.device, dtype=torch.float32) * scale
+    return torch.randn(shape, generator=generator, device=generator.device, dtype=torch.float32).mul_(scale)
+
+
+def _full(generator: torch.Generator, shape, value: float) -> torch.Tensor:
+    return torch.full(shape, value, dtype=torch.float32, device=generator.device)
 
 
 def project(x: torch.Tensor, w: torch.Tensor, base_ndim: int) -> torch.Tensor:
@@ -42,8 +56,8 @@ def project(x: torch.Tensor, w: torch.Tensor, base_ndim: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------- norms
-def init_rmsnorm(d: int, device) -> PyTree:
-    return {"scale": torch.zeros((d,), dtype=torch.float32, device=device)}  # gemma-style (1 + scale)
+def init_rmsnorm(d: int, device, lead=()) -> PyTree:
+    return {"scale": torch.zeros((*lead, d), dtype=torch.float32, device=device)}  # gemma-style (1 + scale)
 
 
 def rms_norm(params: PyTree, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -70,8 +84,20 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 # --------------------------------------------------------------- attention
 def init_attention(generator: torch.Generator, cfg: ModelConfig, lead=()) -> PyTree:
     """wq (d, H, hd), wk/wv (d, KV, hd), wo (H, hd, d), each with the
-    leading axes ``lead`` (the stacked periods)."""
+    leading axes ``lead`` (the stacked periods). MLA: wq (d, H, nope +
+    rope), w_dkv (d, lora + rope), w_ukv (lora, H, nope + v), wo (H, v, d)
+    and the latent's ``kv_norm``."""
     d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {
+            "wq": dense_init(generator, (*lead, d, H, m.qk_nope_head_dim + m.qk_rope_head_dim), d),
+            "w_dkv": dense_init(generator, (*lead, d, m.kv_lora_rank + m.qk_rope_head_dim), d),
+            "w_ukv": dense_init(generator, (*lead, m.kv_lora_rank, H, m.qk_nope_head_dim + m.v_head_dim),
+                                m.kv_lora_rank),
+            "wo": dense_init(generator, (*lead, H, m.v_head_dim, d), H * m.v_head_dim),
+            "kv_norm": init_rmsnorm(m.kv_lora_rank, generator.device, lead),
+        }
     return {
         "wq": dense_init(generator, (*lead, d, H, hd), d),
         "wk": dense_init(generator, (*lead, d, KV, hd), d),
@@ -133,9 +159,12 @@ def apply_attention(params: PyTree, x: torch.Tensor, cfg: ModelConfig, *, local:
     queries sit at positions ``pos0 + i``. A ``cache`` (``{"k", "v"}`` of
     ``(B, S_ctx, KV, hd)``) is prepended to the keys and values. Returns
     ``(out, {"k", "v"} of this call's rotated keys and values)`` with
-    ``return_cache``, else ``(out, None)``."""
+    ``return_cache``, else ``(out, None)``. A config with MLA takes
+    :func:`_apply_mla`."""
     from repro_torch.kernels import ops as K
 
+    if cfg.mla is not None:
+        return _apply_mla(params, x, cfg, cache=cache, pos0=pos0, return_cache=return_cache)
     S, d = x.shape[-2], x.shape[-1]
     q = project(x, params["wq"], 3)  # (..., S, H, hd)
     k = project(x, params["wk"], 3)
@@ -159,6 +188,40 @@ def apply_attention(params: PyTree, x: torch.Tensor, cfg: ModelConfig, *, local:
     return out.reshape(*x.shape[:-2], S, d), (new_entries if return_cache else None)
 
 
+def _apply_mla(params: PyTree, x: torch.Tensor, cfg: ModelConfig, *, cache: PyTree | None, pos0: int,
+               return_cache: bool):
+    """DeepSeek-V2 multi-head latent attention, full sequence, through the
+    flash kernels (head width nope + rope against value width v, scale
+    ``(nope + rope) ** -0.5``). Keys and values come up from the 512-wide
+    latent ``ckv`` (after ``kv_norm``); the one RoPE key ``krope`` is shared
+    by every head. A ``cache`` (``{"ckv": (B, S_ctx, lora), "krope": (B,
+    S_ctx, rope)}``) is prepended; ``return_cache`` returns this call's
+    entries."""
+    from repro_torch.kernels import ops as K
+
+    m = cfg.mla
+    S, d = x.shape[1], x.shape[2]
+    nope = m.qk_nope_head_dim
+    q = project(x, params["wq"], 3)  # (B, S, H, nope + rope)
+    positions = pos0 + torch.arange(S, device=x.device)
+    q_nope, q_rope = q[..., :nope], rope(q[..., nope:], positions, cfg.rope_theta)
+    dkv = project(x, params["w_dkv"], 2)  # (B, S, lora + rope)
+    ckv = rms_norm(params["kv_norm"], dkv[..., : m.kv_lora_rank], cfg.norm_eps)
+    k_rope = rope(dkv[..., m.kv_lora_rank:][:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+    new_entries = {"ckv": ckv, "krope": k_rope}
+    if cache is not None:
+        ckv = torch.cat([cache["ckv"], ckv], dim=1)
+        k_rope = torch.cat([cache["krope"], k_rope], dim=1)
+    ukv = project(ckv, params["w_ukv"], 3)  # (B, S_ctx, H, nope + v)
+    k_nope, v = ukv[..., :nope], ukv[..., nope:]
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(*k_nope.shape[:3], m.qk_rope_head_dim)], dim=-1)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    out = K.attention(q_full.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=cfg.causal,
+                      scale=(nope + m.qk_rope_head_dim) ** -0.5, q_pos0=pos0)  # (B, H, S, v)
+    out = out.transpose(1, 2).reshape(x.shape[0], S, -1) @ params["wo"].reshape(-1, d)
+    return out, (new_entries if return_cache else None)
+
+
 # -------------------------------------------------------------- dense FFN
 def init_dense_ffn(generator: torch.Generator, d: int, d_ff: int, lead=()) -> PyTree:
     return {
@@ -172,3 +235,365 @@ def apply_dense_ffn(params: PyTree, x: torch.Tensor) -> torch.Tensor:
     gate = torch.nn.functional.silu(x @ params["wg"])
     up = x @ params["wu"]
     return (gate * up) @ params["wd"]
+
+
+# -------------------------------------------------------------------- MoE
+def init_moe_ffn(generator: torch.Generator, cfg: ModelConfig, lead=()) -> PyTree:
+    """router (d, E) (fp32 in the reference too), expert stacks wg/wu
+    (E, d, de) and wd (E, de, d), and the shared experts as one dense FFN
+    of width ``num_shared * de``."""
+    moe = cfg.moe
+    d, de, E = cfg.d_model, moe.d_expert, moe.num_experts
+    p = {
+        "router": dense_init(generator, (*lead, d, E), d),
+        "wg": dense_init(generator, (*lead, E, d, de), d),
+        "wu": dense_init(generator, (*lead, E, d, de), d),
+        "wd": dense_init(generator, (*lead, E, de, d), de),
+    }
+    if moe.num_shared:
+        p["shared"] = init_dense_ffn(generator, d, moe.num_shared * de, lead)
+    return p
+
+
+def top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k``'s order along the last axis: the larger value first,
+    ties to the lower index (a stable descending sort; ``torch.topk``
+    promises no order among ties)."""
+    values, indices = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]
+
+
+def apply_moe_ffn(params: PyTree, x: torch.Tensor, cfg: ModelConfig, capacity_factor: float = 1.25,
+                  group_size: int = 4096) -> tuple[torch.Tensor, torch.Tensor]:
+    """GShard-style top-k MoE over ``x (B, S, d)``; returns ``(y, aux)``.
+
+    The reference's rules, one for one: the ``T = B S`` tokens go in groups
+    of ``g = min(group_size, T)``; the router's softmax in fp32, each
+    token's top-k experts in ``lax.top_k``'s order, their weights divided
+    by ``sum + 1e-9``; an expert takes ``C = ceil(K g cf / E)`` pairs of a
+    group (``C = g`` with ``cfg.moe_dropless``), and a (token, k) pair's
+    slot is its place in the expert's queue counted token-major, then k;
+    pairs at or past ``C`` are dropped (their token keeps the residual).
+    Tokens past the last whole group get zero output. ``aux`` is the
+    Switch load-balancing loss ``E mean(sum(density router_prob)) / K``,
+    with ``density`` counting the routed pairs before the drop.
+
+    Dispatch gathers the kept tokens into an ``(n, E, C, d)`` buffer (a
+    dropped pair writes to a spare slot ``C`` that is cut off): the same
+    values as the reference's one-hot ``dispatch`` einsum, exactly. The
+    expert FFN runs on the whole buffer, as the reference's. The combine
+    sums each token's K rows, weighted, over k in order (the reference
+    contracts over all ``E C`` slots, most of them zero weights): the same
+    terms, rounded in another order."""
+    moe = cfg.moe
+    B, S, D = x.shape
+    E, K = moe.num_experts, moe.top_k
+    T = B * S
+    g = min(group_size, T)
+    n = T // g
+    xg = x.reshape(T, D)[: n * g].reshape(n, g, D)
+    logits = (xg @ params["router"].to(xg.dtype)).to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)  # (n, g, E)
+    topw, topi = top_k(probs, K)  # (n, g, K)
+    topw = topw / (torch.sum(topw, dim=-1, keepdim=True) + 1e-9)
+    C = g if cfg.moe_dropless else max(1, int(math.ceil(K * g * capacity_factor / E)))
+
+    onehot = torch.nn.functional.one_hot(topi, E)  # (n, g, K, E)
+    flat = onehot.reshape(n, g * K, E)
+    expert = topi.reshape(n, g * K)
+    slot = (torch.cumsum(flat, dim=1) - flat).gather(-1, expert[..., None])[..., 0]  # place in the expert's queue
+    keep = slot < C
+    slot = torch.where(keep, slot, C)
+    group = torch.arange(n, device=x.device)[:, None].expand(n, g * K)
+    token = torch.arange(g * K, device=x.device) // K
+    expert_in = xg.new_zeros((n, E, C + 1, D)).index_put((group, expert, slot), xg[:, token])[:, :, :C]
+    h = torch.nn.functional.silu(expert_in @ params["wg"]) * (expert_in @ params["wu"])
+    expert_out = h @ params["wd"]  # (n, E, C, d)
+    rows = expert_out[group, expert, slot.clamp(max=C - 1)]  # (n, g K, d)
+    w = (topw.reshape(n, g * K) * keep).to(rows.dtype)
+    out = (rows * w[..., None]).reshape(n, g, K, D).sum(dim=2)
+
+    density = torch.mean(torch.sum(onehot.to(torch.float32), dim=2), dim=1)  # (n, E)
+    router_prob = torch.mean(probs, dim=1)
+    aux = E * torch.mean(torch.sum(density * router_prob, dim=-1)) / K
+
+    out = out.reshape(n * g, D)
+    if n * g < T:  # tokens past the last whole group
+        out = torch.cat([out, out.new_zeros((T - n * g, D))], dim=0)
+    y = out.reshape(B, S, D)
+    if moe.num_shared:
+        y = y + apply_dense_ffn(params["shared"], x)
+    return y, aux
+
+
+# ------------------------------------------------------------------ Mamba
+def init_mamba(generator: torch.Generator, cfg: ModelConfig, lead=()) -> PyTree:
+    """The selective SSM: in projection (x, z), depthwise causal conv, the
+    low-rank dt projection (rank ``max(16, d // 16)``), ``dt_bias`` -4.6
+    (softplus^-1(0.01)), ``A_log = log(1..d_state)``, ``D`` ones (the last
+    two fp32), out projection."""
+    mb = cfg.mamba
+    d = cfg.d_model
+    di, ds, dc = mb.d_inner(d), mb.d_state, mb.d_conv
+    dt_rank = max(16, d // 16)
+    A = torch.log(torch.arange(1, ds + 1, dtype=torch.float32, device=generator.device))
+    return {
+        "w_in": dense_init(generator, (*lead, d, 2 * di), d),
+        "conv_w": dense_init(generator, (*lead, dc, di), dc),
+        "conv_b": _full(generator, (*lead, di), 0.0),
+        "w_x": dense_init(generator, (*lead, di, dt_rank + 2 * ds), di),
+        "w_dt": dense_init(generator, (*lead, dt_rank, di), dt_rank),
+        "dt_bias": _full(generator, (*lead, di), -4.6),
+        "A_log": A.expand(*lead, di, ds).clone(),
+        "D": _full(generator, (*lead, di), 1.0),
+        "w_out": dense_init(generator, (*lead, di, d), di),
+    }
+
+
+def _mamba_conv(params: PyTree, x_in: torch.Tensor, conv_state: torch.Tensor | None = None):
+    """Causal depthwise conv over ``x_in (B, S, Di)`` after the carried
+    ``conv_state (B, dc - 1, Di)`` (zeros without one); returns the output
+    and the last ``dc - 1`` inputs."""
+    dc = params["conv_w"].shape[0]
+    if conv_state is None:
+        pad = x_in.new_zeros((x_in.shape[0], dc - 1, x_in.shape[2]))
+    else:
+        pad = conv_state.to(x_in.dtype)
+    xp = torch.cat([pad, x_in], dim=1)
+    S = x_in.shape[1]
+    out = sum(xp[:, i: i + S, :] * params["conv_w"][i][None, None, :] for i in range(dc))
+    return out + params["conv_b"][None, None, :], xp[:, -(dc - 1):, :]
+
+
+def _mamba_ssm_inputs(params: PyTree, xc: torch.Tensor, mb):
+    """The discretized ``dA = exp(dt A)``, ``dBx = dt B x`` ``(B, S, Di,
+    ds)`` and ``C (B, S, ds)``, in fp32; ``dt = softplus(x W_x W_dt +
+    dt_bias)``."""
+    dt_rank = params["w_dt"].shape[0]
+    ds = mb.d_state
+    proj = xc @ params["w_x"]
+    dt_r, Bs, Cs = proj[..., :dt_rank], proj[..., dt_rank: dt_rank + ds], proj[..., dt_rank + ds:]
+    pre = (dt_r @ params["w_dt"]).to(torch.float32) + params["dt_bias"].to(torch.float32)
+    dt = torch.logaddexp(pre, torch.zeros((), device=pre.device))  # softplus, as jax.nn.softplus computes it
+    A = -torch.exp(params["A_log"])
+    dA = torch.exp(dt[..., None] * A[None, None])
+    dBx = dt[..., None] * Bs[:, :, None, :].to(torch.float32) * xc[..., None].to(torch.float32)
+    return dA, dBx, Cs.to(torch.float32)
+
+
+def associative_scan(fn, elems: list[torch.Tensor], dim: int) -> list[torch.Tensor]:
+    """Inclusive scan of ``elems`` along ``dim`` under the associative
+    ``fn`` (lists of tensors in and out), combining in
+    ``lax.associative_scan``'s order: adjacent pairs, the scan of those by
+    recursion, then each even element from the odd one before it. The
+    reference's Mamba chunk uses it; a sequential scan rounds otherwise."""
+    n = elems[0].shape[dim]
+    if n < 2:
+        return elems
+
+    def cut(t, start, stop=None, step=1):
+        return t[(slice(None),) * dim + (slice(start, stop, step),)]
+
+    odd = associative_scan(fn, fn([cut(e, 0, -1, 2) for e in elems], [cut(e, 1, None, 2) for e in elems]), dim)
+    prev = [cut(o, 0, -1) for o in odd] if n % 2 == 0 else odd
+    even = fn(prev, [cut(e, 2, None, 2) for e in elems])
+    out = []
+    for e, ev, od in zip(elems, even, odd):
+        ev = torch.cat([cut(e, 0, 1), ev], dim=dim)
+        pairs = torch.stack([cut(ev, 0, od.shape[dim]), od], dim=dim + 1).flatten(dim, dim + 1)
+        out.append(pairs if n % 2 == 0 else torch.cat([pairs, cut(ev, -1)], dim=dim))
+    return out
+
+
+def _mamba_combine(a, b):
+    return [a[0] * b[0], b[0] * a[1] + b[1]]
+
+
+def _mamba_chunk(h_prev: torch.Tensor, dA: torch.Tensor, dBx: torch.Tensor, Cs: torch.Tensor):
+    """One chunk of the selective scan from the state ``h_prev (B, Di,
+    ds)``: the chunk's prefix products and sums by the associative scan,
+    then ``h_t = prod_A h_prev + sum_B``; returns the last state and ``y (B,
+    ck, Di)``."""
+    pA, pB = associative_scan(_mamba_combine, [dA, dBx], 1)
+    h_all = pA * h_prev[:, None] + pB
+    return h_all[:, -1], torch.einsum("bcis,bcs->bci", h_all, Cs)
+
+
+def apply_mamba(params: PyTree, x: torch.Tensor, cfg: ModelConfig, *, cache: PyTree | None = None,
+                scan_chunk: int = 256):
+    """Mamba over ``x (B, S, d)``; returns ``(out, {"conv": (B, dc - 1,
+    Di), "ssm": (B, Di, ds)})``. A decode step (``cache`` given and ``S ==
+    1``) advances the state once; otherwise the scan runs in chunks of
+    ``scan_chunk`` (a Python loop over the reference's ``lax.scan``), a
+    ragged tail as one more chunk, from the cache's state or zeros."""
+    mb = cfg.mamba
+    B, S, _ = x.shape
+    xz = x @ params["w_in"]
+    x_in, z = xz.chunk(2, dim=-1)
+    if cache is not None and S == 1:
+        xc, conv_state = _mamba_conv(params, x_in, cache["conv"])
+        xc = torch.nn.functional.silu(xc)
+        dA, dBx, Cs = _mamba_ssm_inputs(params, xc, mb)
+        h = cache["ssm"] * dA[:, 0] + dBx[:, 0]
+        y = torch.einsum("bis,bs->bi", h, Cs[:, 0])[:, None, :]
+    else:
+        xc, conv_state = _mamba_conv(params, x_in, cache["conv"] if cache else None)
+        xc = torch.nn.functional.silu(xc)
+        h = cache["ssm"] if cache else torch.zeros((B, x_in.shape[-1], mb.d_state), device=x.device)
+        ck = min(scan_chunk, S)
+        n = S // ck
+        dA, dBx, Cs = _mamba_ssm_inputs(params, xc[:, : n * ck], mb)
+        ys = []
+        for i in range(n):
+            part = slice(i * ck, (i + 1) * ck)
+            h, y_c = _mamba_chunk(h, dA[:, part], dBx[:, part], Cs[:, part])
+            ys.append(y_c)
+        if n * ck < S:  # ragged tail
+            h, y_c = _mamba_chunk(h, *_mamba_ssm_inputs(params, xc[:, n * ck:], mb))
+            ys.append(y_c)
+        y = torch.cat(ys, dim=1)
+    y = y.to(x.dtype) + params["D"].to(x.dtype)[None, None, :] * xc
+    out = (y * torch.nn.functional.silu(z)) @ params["w_out"]
+    return out, {"conv": conv_state, "ssm": h}
+
+
+# ------------------------------------------------------------------ mLSTM
+def init_mlstm(generator: torch.Generator, cfg: ModelConfig, lead=()) -> PyTree:
+    """Up projection (x, z) to ``di = d mlstm_proj_factor``, block-diagonal
+    per-head q/k/v ``(h, hd, hd)``, fp32 input and forget gates (forget
+    bias 3.0), the output norm and the down projection."""
+    d = cfg.d_model
+    di = int(d * cfg.mlstm_proj_factor)
+    h = cfg.num_heads
+    hd = di // h
+    return {
+        "w_up": dense_init(generator, (*lead, d, 2 * di), d),
+        "wq": dense_init(generator, (*lead, h, hd, hd), hd),
+        "wk": dense_init(generator, (*lead, h, hd, hd), hd),
+        "wv": dense_init(generator, (*lead, h, hd, hd), hd),
+        "w_i": dense_init(generator, (*lead, di, h), di),
+        "w_f": dense_init(generator, (*lead, di, h), di),
+        "f_bias": _full(generator, (*lead, h), 3.0),
+        "out_norm": init_rmsnorm(di, generator.device, lead),
+        "w_down": dense_init(generator, (*lead, di, d), di),
+    }
+
+
+def _mlstm_chunk(carry, qc, kc, vc, ic, fc):
+    """One chunk of the stabilized mLSTM (the reference's ``chunk_step``,
+    expression for expression): inside the chunk attention-style with
+    gate-derived decay masks (``-inf`` above the diagonal, the stabilizer
+    at least ``-1e30``), the carried ``(C, n, m)`` read through the inter
+    weights; returns the carry at the chunk's end and the outputs."""
+    C, n, m = carry
+    ck = qc.shape[1]
+    fcum = torch.cumsum(fc, dim=1)  # (B, ck, h)
+    log_inter = m[:, None, :] + fcum
+    log_intra = fcum[:, :, None, :] - fcum[:, None, :, :] + ic[:, None, :, :]  # (B, t, s, h)
+    tri = torch.tril(torch.ones((ck, ck), dtype=torch.bool, device=fc.device))
+    log_intra = torch.where(tri[None, :, :, None], log_intra, torch.full((), -math.inf, device=fc.device))
+    m_new = torch.maximum(log_inter, torch.amax(log_intra, dim=2))
+    m_new = torch.clamp_min(m_new, -1e30)
+    inter_w = torch.exp(log_inter - m_new)
+    intra_w = torch.exp(log_intra - m_new[:, :, None, :])
+    qf, kf, vf = qc.to(torch.float32), kc.to(torch.float32), vc.to(torch.float32)
+    o_inter = torch.einsum("bth,bhkl,bthk->bthl", inter_w, C, qf)
+    n_inter = torch.einsum("bth,bhk,bthk->bth", inter_w, n, qf)
+    s_intra = torch.einsum("bthk,bshk->btsh", qf, kf)
+    o_intra = torch.einsum("btsh,btsh,bshl->bthl", intra_w, s_intra, vf)
+    n_intra = torch.einsum("btsh,btsh->bth", intra_w, s_intra)
+    denom = torch.maximum(torch.abs(n_inter + n_intra), torch.exp(-m_new)) + 1e-6
+    out = (o_inter + o_intra) / denom[..., None]
+    ftot = fcum[:, -1, :]
+    m_next = torch.maximum(m + ftot, torch.amax(fcum[:, -1:, :] - fcum + ic, dim=1))
+    decay_keep = torch.exp(m + ftot - m_next)
+    kv_w = torch.exp(ftot[:, None, :] - fcum + ic - m_next[:, None, :])
+    C_next = decay_keep[..., None, None] * C + torch.einsum("bsh,bshk,bshl->bhkl", kv_w, kf, vf)
+    n_next = decay_keep[..., None] * n + torch.einsum("bsh,bshk->bhk", kv_w, kf)
+    return (C_next, n_next, m_next), out
+
+
+def apply_mlstm(params: PyTree, x: torch.Tensor, cfg: ModelConfig, *, cache: PyTree | None = None,
+                chunk: int = 64):
+    """Chunkwise-parallel mLSTM over ``x (B, S, d)``; returns ``(out, {"C":
+    (B, h, hd, hd), "n": (B, h, hd), "m": (B, h)})``, all fp32. Chunks of
+    ``chunk`` in a Python loop (the reference's ``lax.scan``), a ragged
+    tail as one more chunk; from the cache's state, else ``C = n = 0`` and
+    ``m = -1e30``. A decode step is a chunk of one."""
+    B, S, d = x.shape
+    h = cfg.num_heads
+    x_in, z = (x @ params["w_up"]).chunk(2, dim=-1)
+    di = x_in.shape[-1]
+    hd = di // h
+    xh = x_in.reshape(B, S, h, hd)
+    q = torch.einsum("bshk,hkl->bshl", xh, params["wq"]) * (hd ** -0.5)
+    k = torch.einsum("bshk,hkl->bshl", xh, params["wk"])
+    v = torch.einsum("bshk,hkl->bshl", xh, params["wv"])
+    xf = x_in.to(torch.float32)
+    i_log = xf @ params["w_i"]  # (B, S, h)
+    f_log = torch.nn.functional.logsigmoid(xf @ params["w_f"] + params["f_bias"])
+    if cache is None:
+        carry = (torch.zeros((B, h, hd, hd), device=x.device), torch.zeros((B, h, hd), device=x.device),
+                 torch.full((B, h), -1e30, device=x.device))
+    else:
+        carry = (cache["C"], cache["n"], cache["m"])
+    ck = min(chunk, S)
+    outs = []
+    for start in range(0, S, ck):  # whole chunks, then the ragged tail
+        part = slice(start, min(start + ck, S))
+        carry, out = _mlstm_chunk(carry, q[:, part], k[:, part], v[:, part], i_log[:, part], f_log[:, part])
+        outs.append(out)
+    out = torch.cat(outs, dim=1).reshape(B, S, di).to(x.dtype)
+    out = rms_norm(params["out_norm"], out, cfg.norm_eps) * torch.nn.functional.silu(z)
+    return out @ params["w_down"], {"C": carry[0], "n": carry[1], "m": carry[2]}
+
+
+# ------------------------------------------------------------------ sLSTM
+def init_slstm(generator: torch.Generator, cfg: ModelConfig, lead=()) -> PyTree:
+    """Input and recurrent gate weights in the gate-aligned ``(d, 4, d)``
+    layout (i, f, z, o), fp32 gate biases (zero), and the block's GELU FFN
+    (width ``d slstm_proj_factor``)."""
+    d = cfg.d_model
+    df = int(d * cfg.slstm_proj_factor)
+    return {
+        "wgx": dense_init(generator, (*lead, d, 4, d), d),
+        "wgh": dense_init(generator, (*lead, d, 4, d), d),
+        "gbias": _full(generator, (*lead, 4, d), 0.0),
+        "ffn_up": dense_init(generator, (*lead, d, df), d),
+        "ffn_down": dense_init(generator, (*lead, df, d), df),
+    }
+
+
+def apply_slstm(params: PyTree, x: torch.Tensor, cfg: ModelConfig, *, cache: PyTree | None = None):
+    """Strictly sequential sLSTM with exponential gating and a stabilizer
+    (one Python step a token; the recurrence runs through ``h``, so it has
+    no parallel form), then the block's GELU (tanh) FFN, added. Returns
+    ``(out, {"c", "n", "m", "h"})``, each ``(B, d)``: ``c``, ``n``, ``m``
+    fp32 (``n`` starts at 1e-6), ``h`` in the input's dtype. One device:
+    the reference's channel-sharded ``shard_map`` form needs a mesh."""
+    B, S, d = x.shape
+    if cache is None:
+        c = torch.zeros((B, d), device=x.device)
+        n = torch.full((B, d), 1e-6, device=x.device)
+        m = torch.zeros((B, d), device=x.device)
+        h = torch.zeros((B, d), dtype=x.dtype, device=x.device)
+    else:
+        c, n, m, h = cache["c"], cache["n"], cache["m"], cache["h"]
+    gx = project(x, params["wgx"], 3)  # (B, S, 4, d)
+    wh = params["wgh"].reshape(d, 4 * d)
+    hs = []
+    for t in range(S):
+        gates = (gx[:, t] + (h @ wh).reshape(B, 4, d) + params["gbias"]).to(torch.float32)
+        i_l, f_l, z_l, o_l = gates.unbind(1)
+        f_log = torch.nn.functional.logsigmoid(f_l)
+        m_new = torch.maximum(f_log + m, i_l)
+        i_g = torch.exp(i_l - m_new)
+        f_g = torch.exp(f_log + m - m_new)
+        c = f_g * c + i_g * torch.tanh(z_l)
+        n = f_g * n + i_g
+        h = (torch.sigmoid(o_l) * c / torch.clamp_min(n, 1e-6)).to(h.dtype)
+        m = m_new
+        hs.append(h)
+    out = torch.stack(hs, dim=1)
+    up = torch.nn.functional.gelu(out @ params["ffn_up"], approximate="tanh")
+    return out + up @ params["ffn_down"], {"c": c, "n": n, "m": m, "h": h}

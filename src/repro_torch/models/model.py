@@ -1,21 +1,23 @@
-"""Decoder assembly: init, full-sequence forward, prefill caches and the
-fixed-buffer decode step (counterpart of the dense subset of
-``repro.models.model``).
+"""Model assembly: init, full-sequence forward, prefill caches and the
+fixed-buffer decode step for every architecture of the zoo (counterpart
+of ``repro.models.model``).
 
-The backbone is ``pattern`` × ``num_periods``. ``params["blocks"]`` keeps
-the reference's layout — ``{"slot<i>": layer tree}`` with every leaf
-stacked over a leading period axis ``P`` — so a flattened tree matches the
-reference's element by element; the reference's ``lax.scan`` over periods
-is a Python loop here. Decode caches are stacked the same way.
+The backbone is ``prefix`` (a list of unrolled layers) and then
+``pattern`` × ``num_periods``. ``params["blocks"]`` keeps the reference's
+layout — ``{"slot<i>": layer tree}`` with every leaf stacked over a
+leading period axis ``P`` — and ``params["prefix"]`` is a list of layer
+trees, so a flattened tree matches the reference's element by element; the
+reference's ``lax.scan`` over periods is a Python loop here. Decode caches
+are laid out the same way.
 
-``forward`` takes ``{"tokens": (B, S)}`` or ``{"embeds": (B, S, d)}``
-(pixtral's frontend stub), or tokens ``(C, n, S)`` together with
-client-batched weights: ``embed (C, V, d)`` and, in ``blocks``, a
-per-client ``wq (P, C, d, H, hd)`` (the LM task's merged deltas). The
-dense decoders run here: ``attn`` and ``attn_local`` mixers, dense FFNs,
-tied or untied heads, gemma's post-norms, softcaps, fixed query scale and
-embedding scale. Configs with MoE, MLA, Mamba or xLSTM layers, encoders or
-prefix layers raise ``NotImplementedError``.
+A layer is a mixer (``attn``, ``attn_local``, ``mamba``, ``mlstm``,
+``slstm``; attention is MLA where the config has one) and an FFN
+(``dense``, ``moe`` or ``none``, which has no ``norm2``). ``forward``
+takes ``{"tokens": (B, S)}`` or ``{"embeds": (B, S, d)}`` (pixtral's and
+hubert's frontend stubs; an encoder adds sinusoidal positions), or tokens
+``(C, n, S)`` together with client-batched weights: ``embed (C, V, d)``
+and, in ``blocks``, a per-client ``wq (P, C, d, H, hd)`` (the LM task's
+merged deltas, dense attention only).
 """
 from __future__ import annotations
 
@@ -25,58 +27,54 @@ from typing import Any
 import torch
 
 from repro_torch.common.pytrees import tree_map
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import layers as L
 
 PyTree = Any
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    unsupported = [
-        name for name, bad in (
-            ("prefix layers", bool(cfg.prefix)),
-            ("Mamba or xLSTM mixers", any(s.mixer not in ("attn", "attn_local") for s in cfg.pattern)),
-            ("MoE", cfg.moe is not None or any(s.ffn == "moe" for s in cfg.pattern)),
-            ("FFN-less layers", any(s.ffn == "none" for s in cfg.pattern)),
-            ("MLA", cfg.mla is not None),
-            ("encoders", cfg.is_encoder or not cfg.causal),
-        ) if bad
-    ]
-    if unsupported:
-        raise NotImplementedError(f"repro_torch: {cfg.name} needs {', '.join(unsupported)}, not ported yet")
-
-
 # ------------------------------------------------------------------ init
-def _init_layer(generator: torch.Generator, cfg: ModelConfig, device, lead) -> PyTree:
+_MIXER_INIT = {"attn": L.init_attention, "attn_local": L.init_attention, "mamba": L.init_mamba,
+               "mlstm": L.init_mlstm, "slstm": L.init_slstm}
+
+
+def _init_layer(generator: torch.Generator, spec: LayerSpec, cfg: ModelConfig, device, lead) -> PyTree:
+    """One layer's params (leaves with the leading axes ``lead``), drawn on
+    the generator's device and moved to ``device``."""
     d = cfg.d_model
-    p = {
-        "norm1": {"scale": torch.zeros((*lead, d), device=device)},
-        "mixer": tree_map(lambda t: t.to(device), L.init_attention(generator, cfg, lead)),
-        "norm2": {"scale": torch.zeros((*lead, d), device=device)},
-        "ffn": tree_map(lambda t: t.to(device), L.init_dense_ffn(generator, d, cfg.d_ff, lead)),
-    }
+    moved = lambda tree: tree_map(lambda t: t.to(device), tree)  # noqa: E731
+    p = {"norm1": L.init_rmsnorm(d, device, lead), "mixer": moved(_MIXER_INIT[spec.mixer](generator, cfg, lead))}
+    if spec.ffn != "none":
+        p["norm2"] = L.init_rmsnorm(d, device, lead)
+        if spec.ffn == "dense":
+            p["ffn"] = moved(L.init_dense_ffn(generator, d, cfg.d_ff, lead))
+        else:
+            p["ffn"] = moved(L.init_moe_ffn(generator, cfg, lead))
     if cfg.use_post_norm:
-        p["post_norm1"] = {"scale": torch.zeros((*lead, d), device=device)}
-        p["post_norm2"] = {"scale": torch.zeros((*lead, d), device=device)}
+        p["post_norm1"] = L.init_rmsnorm(d, device, lead)
+        if spec.ffn != "none":
+            p["post_norm2"] = L.init_rmsnorm(d, device, lead)
     return p
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> PyTree:
     """Random weights from ``generator`` (drawn on its device, then moved to
     ``device``): embed normal / sqrt(d), norms zero (gemma-style 1 + scale),
-    projections normal / sqrt(fan-in), blocks stacked over periods, then an
-    untied head ``(d, V)`` where the config has one."""
-    check_supported(cfg)
+    projections normal / sqrt(fan-in) (each scaled in place), the prefix
+    layers, blocks stacked over periods, then an untied head ``(d, V)``
+    where the config has one."""
     device = generator.device if device is None else torch.device(device)
     embed = torch.randn((cfg.padded_vocab, cfg.d_model), generator=generator, device=generator.device)
     params: dict[str, Any] = {
         "embed": embed.mul_(1.0 / math.sqrt(cfg.d_model)).to(device),
         "final_norm": L.init_rmsnorm(cfg.d_model, device),
     }
+    if cfg.prefix:
+        params["prefix"] = [_init_layer(generator, spec, cfg, device, ()) for spec in cfg.prefix]
     if cfg.num_periods:
         params["blocks"] = {
-            f"slot{i}": _init_layer(generator, cfg, device, (cfg.num_periods,))
-            for i in range(len(cfg.pattern))
+            f"slot{i}": _init_layer(generator, spec, cfg, device, (cfg.num_periods,))
+            for i, spec in enumerate(cfg.pattern)
         }
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(generator, (cfg.d_model, cfg.padded_vocab), cfg.d_model).to(device)
@@ -84,22 +82,52 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> Py
 
 
 # ---------------------------------------------------------------- caches
+def _init_layer_cache(spec: LayerSpec, cfg: ModelConfig, batch: int, buf_len: int, lead, device, dtype) -> PyTree:
+    """One layer's decode buffers: attention ``{"k", "v"}`` of ``(batch,
+    buf_len, KV, hd)`` (MLA: ``{"ckv": (batch, buf_len, lora), "krope":
+    (batch, buf_len, rope)}``); Mamba ``{"conv", "ssm"}``; mLSTM ``{"C",
+    "n", "m"}`` (``m`` at -1e30); sLSTM ``{"c", "n", "m", "h"}`` (``n`` at
+    1e-6). Recurrent states are fp32 whatever ``dtype``."""
+    def zeros(*shape, dt=dtype):
+        return torch.zeros((*lead, batch, *shape), dtype=dt, device=device)
+
+    def full(value, *shape):
+        return torch.full((*lead, batch, *shape), value, dtype=torch.float32, device=device)
+
+    if spec.mixer in ("attn", "attn_local"):
+        if cfg.mla is not None:
+            return {"ckv": zeros(buf_len, cfg.mla.kv_lora_rank), "krope": zeros(buf_len, cfg.mla.qk_rope_head_dim)}
+        return {"k": zeros(buf_len, cfg.num_kv_heads, cfg.resolved_head_dim),
+                "v": zeros(buf_len, cfg.num_kv_heads, cfg.resolved_head_dim)}
+    if spec.mixer == "mamba":
+        di = cfg.mamba.d_inner(cfg.d_model)
+        return {"conv": zeros(cfg.mamba.d_conv - 1, di), "ssm": zeros(di, cfg.mamba.d_state, dt=torch.float32)}
+    if spec.mixer == "mlstm":
+        h = cfg.num_heads
+        hd = int(cfg.d_model * cfg.mlstm_proj_factor) // h
+        return {"C": zeros(h, hd, hd, dt=torch.float32), "n": zeros(h, hd, dt=torch.float32), "m": full(-1e30, h)}
+    if spec.mixer == "slstm":
+        d = cfg.d_model
+        return {"c": zeros(d, dt=torch.float32), "n": full(1e-6, d), "m": zeros(d, dt=torch.float32), "h": zeros(d)}
+    raise ValueError(spec.mixer)
+
+
 def init_cache(cfg: ModelConfig, batch: int, ctx_len: int, margin: int = 128, *, device="cpu",
                dtype=torch.float32) -> PyTree:
     """Fixed-size decode buffers for ``ctx_len`` context and ``margin``
-    generated tokens: per pattern slot ``{"k", "v"}`` of ``(P, batch,
-    ctx_len + margin, KV, hd)``, stacked over periods like
-    ``params["blocks"]``. ``len`` counts the valid tokens. It is a Python
-    int here (the reference's is a device scalar): the decode step reads it
-    as the write position without a host sync."""
-    check_supported(cfg)
-    shape = (cfg.num_periods, batch, ctx_len + margin, cfg.num_kv_heads, cfg.resolved_head_dim)
+    generated tokens (``_init_layer_cache``, length ``ctx_len + margin``):
+    ``prefix`` a list, ``blocks`` per pattern slot stacked over periods
+    like ``params["blocks"]``. ``len`` counts the valid tokens. It is a
+    Python int here (the reference's is a device scalar): the decode step
+    reads it as the write position without a host sync."""
+    buf = ctx_len + margin
     cache: dict[str, Any] = {"len": int(ctx_len)}
+    if cfg.prefix:
+        cache["prefix"] = [_init_layer_cache(spec, cfg, batch, buf, (), device, dtype) for spec in cfg.prefix]
     if cfg.num_periods:
         cache["blocks"] = {
-            f"slot{i}": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                         "v": torch.zeros(shape, dtype=dtype, device=device)}
-            for i in range(len(cfg.pattern))
+            f"slot{i}": _init_layer_cache(spec, cfg, batch, buf, (cfg.num_periods,), device, dtype)
+            for i, spec in enumerate(cfg.pattern)
         }
     return cache
 
@@ -122,7 +150,10 @@ def _attn_decode(mp: PyTree, h: torch.Tensor, cfg: ModelConfig, local: bool, cac
     """One new token against the fixed-size buffer: its rotated k and v are
     written at ``pos0`` in place, then it attends over the whole buffer
     (``attention_scores_reference``; the slots past ``pos0`` are masked
-    causally, and a window layer masks ``q_pos - k_pos >= window``)."""
+    causally, and a window layer masks ``q_pos - k_pos >= window``). MLA
+    takes :func:`_mla_decode_absorbed`."""
+    if cfg.mla is not None:
+        return _mla_decode_absorbed(mp, h, cfg, cache, pos0)
     q = L.project(h, mp["wq"], 3)  # (B, 1, H, hd)
     k = L.project(h, mp["wk"], 3)
     v = L.project(h, mp["wv"], 3)
@@ -140,20 +171,96 @@ def _attn_decode(mp: PyTree, h: torch.Tensor, cfg: ModelConfig, local: bool, cac
     return out.reshape(B, S, -1) @ mp["wo"].reshape(-1, h.shape[-1]), {"k": k_buf, "v": v_buf}
 
 
-def _apply_layer(lp: PyTree, local: bool, cfg: ModelConfig, x: torch.Tensor, *, cache, pos0: int,
+def _mla_decode_absorbed(mp: PyTree, h: torch.Tensor, cfg: ModelConfig, cache: PyTree, pos0: int):
+    """One new token of MLA against the fixed-size latent buffers, with the
+    up-projection absorbed: the query goes into the latent space (``q_nope
+    @ w_uk``), scores read ``ckv`` and ``krope`` directly, and the
+    attention-weighted latent comes back through ``w_uv``; the cache is
+    never up-projected. The new ``ckv``/``krope`` are written at ``pos0``
+    in place; slots past ``pos0`` are masked. Plain PyTorch, as the
+    reference's ``_mla_decode_absorbed`` is plain ``jnp``."""
+    m = cfg.mla
+    nope = m.qk_nope_head_dim
+    q = L.project(h, mp["wq"], 3)  # (B, 1, H, nope + rope)
+    positions = pos0 + torch.arange(h.shape[1], device=h.device)
+    q_nope, q_rope = q[..., :nope], L.rope(q[..., nope:], positions, cfg.rope_theta)
+    dkv = L.project(h, mp["w_dkv"], 2)
+    ckv_new = L.rms_norm(mp["kv_norm"], dkv[..., : m.kv_lora_rank], cfg.norm_eps)
+    krope_new = L.rope(dkv[..., m.kv_lora_rank:][:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+    ckv_buf, krope_buf = cache["ckv"], cache["krope"]
+    ckv_buf[:, pos0: pos0 + h.shape[1]] = ckv_new.to(ckv_buf.dtype)
+    krope_buf[:, pos0: pos0 + h.shape[1]] = krope_new.to(krope_buf.dtype)
+    w_uk, w_uv = mp["w_ukv"][..., :nope], mp["w_ukv"][..., nope:]  # (lora, H, nope), (lora, H, v)
+    q_abs = torch.einsum("bshk,rhk->bshr", q_nope, w_uk)
+    ckv = ckv_buf.to(q_abs.dtype)
+    s_nope = torch.einsum("bshr,btr->bhst", q_abs, ckv)
+    s_rope = torch.einsum("bshk,btk->bhst", q_rope, krope_buf.to(q_rope.dtype))
+    s = (s_nope + s_rope).to(torch.float32) * (nope + m.qk_rope_head_dim) ** -0.5
+    t_pos = torch.arange(ckv_buf.shape[1], device=h.device)
+    s = torch.where((t_pos <= pos0)[None, None, None, :], s, torch.full((), -1e30, device=s.device))
+    p = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhst,btr->bshr", p.to(ckv.dtype), ckv)
+    out = torch.einsum("bshr,rhk->bshk", o_lat, w_uv)
+    out = out.reshape(*out.shape[:2], -1) @ mp["wo"].reshape(-1, h.shape[-1])
+    return out, {"ckv": ckv_buf, "krope": krope_buf}
+
+
+def _apply_layer(lp: PyTree, spec: LayerSpec, cfg: ModelConfig, x: torch.Tensor, *, cache, pos0: int,
                  decode: bool, collect: bool):
+    """Pre-norm mixer and FFN with residuals (and gemma's post-norms);
+    returns ``(x, the mixer's cache or None, the MoE aux loss or None)``.
+    Attention in decode mode writes its buffers in place; the recurrent
+    mixers return their new state, which the caller stores."""
     h = L.rms_norm(lp["norm1"], x, cfg.norm_eps)
-    if decode:
-        mix, new_cache = _attn_decode(lp["mixer"], h, cfg, local, cache, pos0)
+    if spec.mixer in ("attn", "attn_local"):
+        local = spec.mixer == "attn_local"
+        if decode:
+            mix, new_cache = _attn_decode(lp["mixer"], h, cfg, local, cache, pos0)
+        else:
+            mix, new_cache = L.apply_attention(lp["mixer"], h, cfg, local=local, pos0=pos0, return_cache=collect)
+    elif spec.mixer == "mamba":
+        mix, new_cache = L.apply_mamba(lp["mixer"], h, cfg, cache=cache)
+    elif spec.mixer == "mlstm":
+        mix, new_cache = L.apply_mlstm(lp["mixer"], h, cfg, cache=cache)
+    elif spec.mixer == "slstm":
+        mix, new_cache = L.apply_slstm(lp["mixer"], h, cfg, cache=cache)
     else:
-        mix, new_cache = L.apply_attention(lp["mixer"], h, cfg, local=local, pos0=pos0, return_cache=collect)
+        raise ValueError(spec.mixer)
     if cfg.use_post_norm:
         mix = L.rms_norm(lp["post_norm1"], mix, cfg.norm_eps)
     x = x + mix
-    f = L.apply_dense_ffn(lp["ffn"], L.rms_norm(lp["norm2"], x, cfg.norm_eps))
-    if cfg.use_post_norm:
-        f = L.rms_norm(lp["post_norm2"], f, cfg.norm_eps)
-    return x + f, new_cache
+    aux = None
+    if spec.ffn != "none":
+        h2 = L.rms_norm(lp["norm2"], x, cfg.norm_eps)
+        if spec.ffn == "dense":
+            f = L.apply_dense_ffn(lp["ffn"], h2)
+        else:
+            f, aux = L.apply_moe_ffn(lp["ffn"], h2, cfg)
+        if cfg.use_post_norm:
+            f = L.rms_norm(lp["post_norm2"], f, cfg.norm_eps)
+        x = x + f
+    return x, new_cache, aux
+
+
+def _store(buffers: PyTree, new: PyTree) -> None:
+    """Write a decode step's layer state into its cache buffers (views of
+    the stacked cache) in place; attention's are those buffers already."""
+    for k, t in new.items():
+        if t is not buffers[k]:
+            buffers[k].copy_(t)
+
+
+def _sinusoidal(seq: int, d: int, dtype) -> torch.Tensor:
+    """The encoder's fixed positions ``(seq, d)``: sin on the even
+    channels, cos on the odd, ``pos / 10000 ** (2i / d)``, fp32 then
+    cast."""
+    pos = torch.arange(seq, dtype=torch.float32)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32)[None, :]
+    angle = pos / torch.pow(torch.tensor(10000.0), dim / d)
+    pe = torch.zeros((seq, d), dtype=torch.float32)
+    pe[:, 0::2] = torch.sin(angle)
+    pe[:, 1::2] = torch.cos(angle[:, : d // 2])
+    return pe.to(dtype)
 
 
 def forward(cfg: ModelConfig, params: PyTree, batch: dict, cache: PyTree | None = None,
@@ -165,13 +272,14 @@ def forward(cfg: ModelConfig, params: PyTree, batch: dict, cache: PyTree | None 
     ``cache`` is given: then ``S == 1``, the new token goes to buffer slot
     ``cache["len"]``, the buffers are updated in place and come back in
     ``new_cache`` with ``len + 1``. ``return_cache=True`` in full-sequence
-    mode collects the prefill caches (exact-length ``(P, B, S, KV, hd)``).
-    ``last=n`` projects only the last ``n`` positions to logits: the same
-    numbers as the full projection's last ``n`` rows, without the
-    ``(B, S, V)`` tensor (prefill keeps one). The MoE aux loss is 0 (no
-    MoE layer runs here). No remat: the reference's ``jax.checkpoint``
-    changes memory only, and the port keeps every activation."""
-    check_supported(cfg)
+    mode collects the prefill caches (attention's exact-length, ``(P, B,
+    S, ...)`` in ``blocks``, ``(B, S, ...)`` in ``prefix``; the recurrent
+    mixers' final states). ``last=n`` projects only the last ``n``
+    positions to logits: the same numbers as the full projection's last
+    ``n`` rows, without the ``(B, S, V)`` tensor (prefill keeps one). The
+    MoE aux loss is the sum over the MoE layers, prefix first, then
+    period by period. No remat: the reference's ``jax.checkpoint`` changes
+    memory only, and the port keeps every activation."""
     decode = cache is not None
     collect = decode or return_cache
     pos0 = int(cache["len"]) if decode else 0
@@ -187,9 +295,25 @@ def forward(cfg: ModelConfig, params: PyTree, batch: dict, cache: PyTree | None 
         x = torch.as_tensor(batch["embeds"], device=embed.device)
     if cfg.query_pre_attn_scalar is not None:  # gemma scales embeddings, in the input's dtype
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    if cfg.is_encoder:
+        x = x + _sinusoidal(x.shape[-2], cfg.d_model, x.dtype).to(x.device)[None]
     S = x.shape[-2]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: dict[str, Any] | None = {"len": pos0 + S} if collect else None
+
+    def layer(lp, spec, lc):
+        nonlocal x, aux
+        x, nc, a = _apply_layer(lp, spec, cfg, x, cache=lc, pos0=pos0, decode=decode, collect=collect)
+        if a is not None:
+            aux = aux + a
+        if decode:
+            _store(lc, nc)
+        return nc
+
+    for i, spec in enumerate(cfg.prefix):
+        nc = layer(params["prefix"][i], spec, cache["prefix"][i] if decode else None)
+        if collect and not decode:
+            new_cache.setdefault("prefix", []).append(nc)
     if cfg.num_periods:
         collected: dict[str, list] = {f"slot{i}": [] for i in range(len(cfg.pattern))}
         for p in range(cfg.num_periods):
@@ -197,17 +321,14 @@ def forward(cfg: ModelConfig, params: PyTree, batch: dict, cache: PyTree | None 
                 slot = f"slot{i}"
                 lp = tree_map(lambda t: t[p], params["blocks"][slot])
                 lc = tree_map(lambda t: t[p], cache["blocks"][slot]) if decode else None
-                x, nc = _apply_layer(lp, spec.mixer == "attn_local", cfg, x, cache=lc, pos0=pos0, decode=decode,
-                                     collect=collect)
+                nc = layer(lp, spec, lc)
                 if collect and not decode:
                     collected[slot].append(nc)
-        if decode:
-            new_cache["blocks"] = cache["blocks"]  # written in place
-        elif collect:
-            new_cache["blocks"] = {
-                slot: {k: torch.stack([nc[k] for nc in ncs]) for k in ("k", "v")}
-                for slot, ncs in collected.items()
-            }
+        if collect and not decode:
+            new_cache["blocks"] = {slot: {k: torch.stack([nc[k] for nc in ncs]) for k in ncs[0]}
+                                   for slot, ncs in collected.items()}
+    if decode:  # written in place
+        new_cache.update({k: cache[k] for k in ("prefix", "blocks") if k in cache})
     if last is not None:
         x = x[..., -last:, :]
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)

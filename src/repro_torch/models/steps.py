@@ -2,12 +2,15 @@
 microbatch gradient accumulation), eval, prefill and the single-token
 serve step.
 
-Batches are dicts of ``tokens`` and ``labels`` (numpy or tensors, int);
-they go to the params' device. The train step differentiates through the
-flash kernels (``kernels.ops.attention``) with autograd and returns
-detached params: nothing it hands out carries a graph, and no tensor of
-the state it was given is written. ``cfg.train.remat`` is not carried
-out: it changes memory only, and the port keeps every activation.
+Batches are dicts of ``tokens`` (or an encoder's ``embeds``) and
+``labels`` (numpy or tensors); they go to the params' device. The train
+step differentiates through the flash kernels (``kernels.ops.attention``)
+with autograd and returns detached params: nothing it hands out carries a
+graph, and no tensor of the state it was given is written. A leaf the
+loss does not reach (the embedding table, when embeddings are fed) gets a
+zero gradient, as the reference's ``jax.grad`` gives it.
+``cfg.train.remat`` is not carried out: it changes memory only, and the
+port keeps every activation.
 """
 from __future__ import annotations
 
@@ -70,7 +73,8 @@ def _grads(cfg: ModelConfig, params: PyTree, batch: dict):
     """(metrics, gradient tree) of the loss at ``params``."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     loss, metrics = _loss_fn(cfg, tree_unflatten(params, leaves), batch)
-    grads = torch.autograd.grad(loss, leaves)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]  # embed, fed embeddings
     return {k: v.detach() for k, v in metrics.items()}, tree_unflatten(params, grads)
 
 

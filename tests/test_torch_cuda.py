@@ -16,9 +16,11 @@ identical ledgers and stats, accuracy curves within 0.02. The uplink
 encodes bitwise their plain versions (NaN at the same places) at the paths'
 widths, B = 1, 3 and 32, on tie, signed-zero, NaN and inf rows, one kernel
 a call, one a codec cohort; compressed ``har`` runs card against CPU.
-Reduced gemma2's decode against its teacher-forced full forward within
-1e-4 (one flash forward a layer in the prefill, none in the decode), and
-the pytree backend's assign as one ``l1_distance`` launch.
+Reduced gemma2's, deepseek-v2-lite's and jamba's decode against their
+teacher-forced full forward within 1e-4 (one flash forward an attention
+layer in the prefill, none in the decode), reduced hubert's forward card
+against CPU within 1e-4, and the pytree backend's assign as one
+``l1_distance`` launch.
 """
 import numpy as np
 import pytest
@@ -713,6 +715,58 @@ def test_cuda_decode_matches_the_full_forward(cuda_device):
     torch.testing.assert_close(logits[:, 0], full[:, 0], rtol=0, atol=1e-4)
     for i, step in enumerate(steps):
         torch.testing.assert_close(step, full[:, i + 1], rtol=0, atol=1e-4, msg=f"step {i}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["deepseek-v2-lite-16b", "jamba-1.5-large-398b"])
+def test_cuda_zoo_decode_matches_the_full_forward(cuda_device, name):
+    """Reduced deepseek-v2-lite (MLA through the flash forward at head width
+    16 and value width 8; absorbed MLA decode; MoE with shared experts) and
+    reduced jamba (Mamba, MoE, one attention layer a period), both MoE
+    dropless, on the card: prefill, 12 greedy decode steps, each step's
+    logits against a teacher-forced full forward within 1e-4; one flash
+    forward launch an attention layer in the prefill, none in the decode."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch.serve import decode, prefill
+    from repro_torch.models.model import forward, init_params
+
+    cfg = dataclasses.replace(reduced_config(get_config(name)), moe_dropless=True)
+    n_attn = sum(spec.mixer in ("attn", "attn_local") for spec in cfg.all_layers)
+    params = init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0), device=cuda_device)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 20))).to(cuda_device)
+    ops.reset_launch_counts()
+    logits, cache = prefill(cfg, params, prompts, 12)
+    assert ops.launch_counts()["flash_attention_fwd"] == n_attn > 0
+    toks, steps = decode(cfg, params, cache, logits, 12, keep_logits=True)
+    assert ops.launch_counts()["flash_attention_fwd"] == n_attn
+    with torch.no_grad():
+        full = forward(cfg, params, {"tokens": torch.cat([prompts, toks], dim=1)}, last=13)[0]
+    torch.testing.assert_close(logits[:, 0], full[:, 0], rtol=0, atol=1e-4)
+    for i, step in enumerate(steps):
+        torch.testing.assert_close(step, full[:, i + 1], rtol=0, atol=1e-4, msg=f"step {i}")
+
+
+@pytest.mark.cuda
+def test_cuda_encoder_forward_matches_the_cpu(cuda_device):
+    """Reduced hubert-xlarge (non-causal attention through the flash forward
+    at head width 16, frame embeddings with sinusoidal positions): the
+    card's logits against the CPU's within 1e-4, weights from one CPU
+    generator; one flash forward launch a layer."""
+    from repro_torch.common.pytrees import tree_map
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models.model import forward, init_params
+
+    cfg = reduced_config(get_config("hubert-xlarge"))
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    embeds = torch.from_numpy(_f32(np.random.default_rng(1), 2, 40, cfg.d_model))
+    with torch.no_grad():
+        want = forward(cfg, params, {"embeds": embeds})[0]
+        ops.reset_launch_counts()
+        got = forward(cfg, tree_map(lambda t: t.to(cuda_device), params), {"embeds": embeds.to(cuda_device)})[0]
+    assert ops.launch_counts()["flash_attention_fwd"] == cfg.num_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda

@@ -25,10 +25,10 @@ from repro.models.model import forward as jax_forward
 from repro_torch.common.pytrees import flatten_spec, tree_leaves, tree_map
 from repro_torch.configs import LayerSpec, get_config
 from repro_torch.configs.base import MLASpec
-from repro_torch.fl.lm_task import default_lm_task, make_lm_data
+from repro_torch.fl.lm_task import FrozenBase, LMTask, default_lm_task, make_lm_data
 from repro_torch.fl.tasks import get_task
 from repro_torch.interop import tree_from_numpy, tree_to_numpy
-from repro_torch.models.model import forward, init_params
+from repro_torch.models.model import forward
 from torch_threads import one_intra_op_thread  # noqa: F401  (autouse: this module's tests on one thread)
 
 JTASK = jax_default_lm_task()
@@ -159,9 +159,11 @@ def test_per_client_entry_points_agree_with_the_fleet(task):
 @pytest.mark.parametrize("change", [dict(pattern=(LayerSpec("mamba", "dense"),)), dict(mla=MLASpec()),
                                     dict(pattern=(LayerSpec("attn", "moe"),))], ids=str)
 def test_configs_outside_the_ported_subset_raise(change):
+    """The LM task's per-client query deltas run through dense attention
+    layers only: a base with Mamba, MLA or MoE layers raises."""
     cfg = dataclasses.replace(get_config("tiny_lm"), **change)
     with pytest.raises(NotImplementedError, match="not ported"):
-        init_params(cfg, torch.Generator().manual_seed(0))
+        LMTask(FrozenBase({}), cfg)
 
 
 def test_get_task_resolves_both_tasks():

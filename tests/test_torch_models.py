@@ -21,8 +21,9 @@ weights (``init_params(cfg, PRNGKey(0))``) handed over as numpy:
   0.1 x the learning rate (3e-5): Adam divides each gradient by its own
   RMS, so an element whose gradient is at the level of fp32 rounding noise
   steps by a fraction of the learning rate either way;
-* configs the port does not run (MoE, MLA, Mamba, xLSTM, encoders, prefix
-  layers) raise ``NotImplementedError`` naming what is missing.
+* every config of the reference's registry (the dense ones here, the MoE,
+  MLA, recurrent and encoder ones in ``tests/test_torch_zoo_*.py``) equals
+  the port's field for field.
 """
 import dataclasses
 import functools
@@ -47,12 +48,12 @@ from repro_torch.common.pytrees import tree_leaves, tree_map
 from repro_torch.configs import ARCH_REGISTRY, base as port_base, get_config, reduced_config
 from repro_torch.interop import tree_from_numpy
 from repro_torch.launch.serve import decode, prefill
-from repro_torch.models.model import forward, graft, init_cache, init_params
+from repro_torch.models.model import forward, graft, init_cache
 from repro_torch.models.steps import TrainState, make_optimizer, make_prefill_step, make_serve_step, make_train_step
 from torch_threads import one_intra_op_thread  # noqa: F401  (autouse: this module's tests on one thread)
 
 RTOL, ATOL = 1e-5, 1e-5
-DENSE = sorted(ARCH_REGISTRY)
+DENSE = sorted(["tiny_lm", "llama3.2-1b", "gemma2-2b", "command-r-35b", "llama3-405b", "pixtral-12b"])
 B, S, GEN = 2, 12, 8
 
 
@@ -83,9 +84,12 @@ def _jax_graft(fixed, pre):
 
 
 def test_every_dense_arch_is_registered():
-    assert {"gemma2-2b", "command-r-35b", "llama3-405b", "pixtral-12b", "llama3.2-1b", "tiny_lm"} <= set(DENSE)
-    for name in DENSE:
+    """All 11 of the reference's configs are registered, each equal to the
+    reference's field for field (the dense ones are this file's)."""
+    assert set(DENSE) < set(ARCH_REGISTRY) == set(JAX_ARCHS) and len(ARCH_REGISTRY) == 11
+    for name in JAX_ARCHS:
         assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(JAX_ARCHS[name]), name
+        assert get_config(name) == _port_config(JAX_ARCHS[name]), name
 
 
 def test_forward_logits(arch):
@@ -218,24 +222,6 @@ def _port_config(jcfg):
             return tuple(conv(x) for x in v)
         return v
     return conv(jcfg)
-
-
-UNSUPPORTED = {
-    "granite-moe-3b-a800m": "MoE",
-    "deepseek-v2-lite-16b": "MLA",
-    "jamba-1.5-large-398b": "Mamba",
-    "xlstm-1.3b": "xLSTM",
-    "hubert-xlarge": "encoders",
-}
-
-
-@pytest.mark.parametrize("name", sorted(UNSUPPORTED))
-def test_unsupported_archs_raise(name):
-    cfg = _port_config(jax_reduced(JAX_ARCHS[name]))
-    with pytest.raises(NotImplementedError, match=UNSUPPORTED[name]):
-        init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        forward(cfg, {}, {"tokens": torch.zeros((1, 1), dtype=torch.long)})
 
 
 @pytest.mark.parametrize("opts", [dict(causal=True), dict(causal=True, window=5, softcap=50.0, q_pos0=7),
