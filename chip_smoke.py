@@ -54,7 +54,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the local layers' window of 4,096 and the global layers' none, and at
    phase 3k's MLA prefill shape (2, 16, 512, 192, value width 128, scale
    192 ** -0.5); forward and backward at hubert-xlarge's non-causal heads
-   (2, 16, 200, 80);
+   (2, 16, 200, 80) and at phase 3l's training shape (2, 32, 4,096, 64,
+   8 KV heads);
 3. main path — ``repro_torch.fl.experiment.run_experiment("image_recognition",
    "echopfl", num_clients=20, max_time=1500, seed=0)`` on the card and, only
    if that run makes no merge, the same run with ``hm=1.0``; launch counts
@@ -138,6 +139,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    capacity dispatch (1.25), the same launches, finite logits; prefill
    seconds, decode tokens/s, peak memory, the largest leaf, the tree's
    element count beside ``param_count`` and ``active_param_count``;
+3l. training — llama3.2-1b at full width (1.24 B parameters, fp32, AdamW,
+   weights from a card generator seeded 0, depth uncut) through the
+   training driver's ``repro_torch.launch.train.train`` at train_4k's
+   4,096 tokens: one step at batch 1 with remat on and off (the loss and
+   every param bit for bit; both peaks), then 8 steps at batch 2 with remat
+   (launch counts zeroed just before and read just after: 32 flash forward
+   launches a step, each of 16 layers also recomputed, and 16 of each
+   backward kernel, all at (2, 32, 4,096, 64); every loss finite, the last
+   below the first; s a step, tokens/s, peak memory); the driver's
+   checkpoints at reduced llama3.2-1b (stopped at 3 steps, the checkpoint
+   the stopped state bit for bit, resumed to 6 twice, identical; bytes,
+   save and restore times); the EchoPFL transformer-client example
+   (``repro_torch.launch.train_async_pfl``) killed at round 150 and resumed
+   to 300 (its own assertion on the killed half and over the whole run, the
+   restored server state the saved one bit for bit, launches by name,
+   rounds per second);
 3i. restart (run last, after phase 6, with phase 4's restart agreement,
    so that the timed and profiled phases follow the same run as before
    it) — the fault plan's server kill and restore
@@ -180,15 +197,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (granite-moe, deepseek-v2-lite, hubert, jamba, xlstm), card against
    CPU: the forward (one flash forward an attention layer), the prefill
    and 8 decode steps fed the same tokens (MoE dropless), one train step
-   (the flash backward once an attention layer), at ``tests/torch_zoo.py``'s
-   tolerances (ZOO_ATOL; xlstm 3 x its one-ulp spread);
+   (the flash backward once an attention layer, the forward once more an
+   attention layer that remat recomputes), at ``tests/torch_zoo.py``'s
+   tolerances (ZOO_ATOL; xlstm 3 x its one-ulp spread); training: the
+   driver at reduced llama3.2-1b and deepseek-v2-lite-16b for 3 steps,
+   card against CPU (losses within rtol 1e-5, params by the zoo's rule),
+   remat on against off on the card bit for bit, and the transformer-client
+   example for 40 rounds, card against CPU (identical arrivals and
+   decisions every round, round losses within EXAMPLE_LOSS_RTOL);
 5. timing — each kernel, its plain version and (where one exists) a single
    PyTorch call computing the same function, at the shape the main path
    called it with most (the flash kernels and ``pairwise_l1`` at the
    ``tiny_lm`` and the ``llama3.2-1b`` shapes, the flash kernels also at
    phase 3f's cohort shape, the flash forward also at phase 3j's two
    gemma2-2b prefill shapes with its softcap, where no library call
-   applies, and at phase 3k's MLA prefill shape beside fp32 SDPA,
+   applies, and at phase 3k's MLA prefill shape beside fp32 SDPA, the
+   flash forward and backward at phase 3l's training shape beside fp32
+   SDPA's,
    ``l1_distance`` and
    ``assign_and_lerp`` also at the full-width run's; the segmented chi2 also
    at the 128-client fleet's refine, (128, 10) with S = 16, and at (1, 1) with
@@ -222,6 +247,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import math
 import os
 import re
 import shutil
@@ -293,6 +319,7 @@ FLASH_CASES = (
     ("llama3.2-1b", 4, 32, 8, 256, 256, 64, 64, {}),
     ("llama3.2-1b cohort", 16, 32, 8, 256, 256, 64, 64, {}),
     ("llama3.2-1b S=2048", 1, 32, 8, 2048, 2048, 64, 64, {}),
+    ("llama3.2-1b train 2x4096", 2, 32, 8, 4096, 4096, 64, 64, {}),  # phase 3l's training shape
     ("gemma2-2b heads", 1, 8, 4, 512, 512, 256, 256, dict(window=128, softcap=50.0, scale=256 ** -0.5)),
     ("MLA", 1, 16, 16, 256, 256, 192, 128, {}),
     ("non-causal", 1, 2, 2, 64, 64, 32, 32, dict(causal=False)),
@@ -356,6 +383,17 @@ PYTREE_RUN = dict(num_clients=20, max_time=300, seed=0, hm=1.0)
 EXAMPLE_ATOL = 1e-4  # the serving example's served logits, card against CPU (120 AdamW steps apart)
 # phase 3k: deepseek-v2-lite-16b at full width through the serving entry point, (a) dropless, (b) capacity dispatch
 ZOO_SERVE = dict(batch=2, prompt=512, gen=16)
+# phase 3l: llama3.2-1b trained at full width through the training driver, at train_4k's 4,096 tokens
+TRAIN_FULL = dict(batch=2, seq=4096, steps=8)
+TRAIN_FLASH = (2, 32, 4096, 64, 8, 4096, 64)  # (B, H, Sq, hd, KV, Sk, dv) of its flash launches
+# the driver's checkpoints at reduced llama3.2-1b (the driver's default batch and length): stopped at 3, resumed to 6
+TRAIN_CKPT = dict(batch=8, seq=64, kill=3, steps=6)
+# the EchoPFL transformer-client example: killed at round 150 (a checkpoint every 50), resumed to its 300
+EXAMPLE_RUN = dict(kill=150, steps=300)
+# phase 4's training agreement: the driver at these reduced archs for 3 steps, card against CPU, and the example
+TRAIN_AGREEMENT = ("llama3.2-1b", "deepseek-v2-lite-16b")
+EXAMPLE_AGREEMENT_ROUNDS = 40
+EXAMPLE_LOSS_RTOL = 1e-4  # the example's round losses (tests/test_torch_train_async_pfl.py's tolerance)
 # phase 4's model-zoo agreement: the reduced archs, card against CPU, at tests/torch_zoo.py's tolerances
 ZOO = ("granite-moe-3b-a800m", "deepseek-v2-lite-16b", "hubert-xlarge", "jamba-1.5-large-398b", "xlstm-1.3b")
 ZOO_ATOL = 1e-4  # logits, caches and the aux loss, rtol and atol
@@ -2166,6 +2204,210 @@ def zoo_serving_phase() -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 3l
+def recomputed_attention(cfg) -> int:
+    """Attention layers a train step runs twice under remat: those of the
+    periods (the prefix is not wrapped)."""
+    if not cfg.train.remat:
+        return 0
+    return cfg.num_periods * sum(spec.mixer in ("attn", "attn_local") for spec in cfg.pattern)
+
+
+def _tree_bits_equal(a, b) -> bool:
+    """Two trees (tensors or numpy leaves) equal leaf for leaf, bit for bit."""
+    from repro_torch.common.pytrees import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(torch.as_tensor(x).cpu(), torch.as_tensor(y).cpu())
+                                      for x, y in zip(la, lb))
+
+
+def training_phase(rnn_params: dict) -> dict:
+    """Training through the port's entry points. (a) llama3.2-1b at full
+    width (1.24 B parameters, fp32, AdamW, weights drawn on the card from a
+    generator seeded 0, depth uncut) through ``repro_torch.launch.train.train``
+    at train_4k's 4,096 tokens: one step at batch 1 with remat on and with
+    it off, the loss and every param identical; then TRAIN_FULL's 8 steps
+    at batch 2 with remat on, launch counts zeroed just before and read just
+    after: 32 flash forward launches a step (16 layers, each recomputed)
+    and 16 of each backward kernel, all at TRAIN_FLASH, every loss finite and
+    the last below the first; s a step, tokens/s, peak memory. (b) The
+    driver's checkpoints at reduced llama3.2-1b: stopped at 3 steps (saved
+    at 3), the checkpoint equal to the stopped state bit for bit, then
+    resumed to 6 twice from copies of it, the two resumed runs identical;
+    the checkpoint's bytes, save and restore times. (c) The EchoPFL
+    transformer-client example (``repro_torch.launch.train_async_pfl``,
+    phase 3's broadcast RNN handed over) killed at round 150 and resumed to
+    300: its own assertion on the killed half and over the whole run (the
+    resumed half alone fails it, as the reference's ``--resume`` does), the
+    restored server's state equal to the saved one bit for bit, launches by
+    name and rounds per second."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.core.server import EchoPFLServer
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as driver
+    from repro_torch.launch import train_async_pfl as example
+    from repro_torch.checkpoint import restore_pytree, save_pytree
+
+    t0 = time.perf_counter()
+    out = {}
+    cfg = get_config("llama3.2-1b")
+    seq = SHAPES["train_4k"].seq_len
+    check(seq == TRAIN_FULL["seq"] == TRAIN_FLASH[2], f"phase 3l: train_4k's length {seq}")
+    torch.cuda.empty_cache()
+    # (a) remat on against off, one step at 1 x 4,096
+    res = {}
+    for remat in (True, False):
+        c = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, remat=remat))
+        resident = torch.cuda.memory_allocated()
+        r = driver.train(c, steps=1, batch=1, seq=seq, device=DEVICE, verbose=False)
+        res[remat] = {"loss": r["losses"][0], "params": r["state"].params, "step_s": r["step_s"][0],
+                      "peak_GiB": r["peak_bytes"] / 2**30, "resident_GiB": resident / 2**30}
+        del r
+        torch.cuda.empty_cache()
+    on, off = res[True], res[False]
+    check(math.isfinite(on["loss"]) and on["loss"] == off["loss"],
+          f"phase 3l: remat on / off losses {on['loss']} / {off['loss']}")
+    check(_tree_bits_equal(on["params"], off["params"]), "phase 3l: remat changed a param bit")
+    out["remat"] = {k: {f: v[f] for f in ("loss", "step_s", "peak_GiB", "resident_GiB")} for k, v in
+                    (("on", on), ("off", off))}
+    print(f"phase 3l remat (llama3.2-1b full width, one step at 1 x {seq}): loss {on['loss']:.6f} on and off, every "
+          f"param bit identical; peak {on['peak_GiB']:.2f} GiB with remat, {off['peak_GiB']:.2f} GiB without "
+          f"({off['resident_GiB']:.2f} GiB of the first run's params resident); step {on['step_s']:.3f} / "
+          f"{off['step_s']:.3f} s (the first step of each run)")
+    del res, on, off
+    torch.cuda.empty_cache()
+    # 8 steps at 2 x 4,096 with remat on
+    shapes, restore = _record_flash_shapes(ops)
+    sync()
+    ops.reset_launch_counts()
+    try:
+        r = driver.train(cfg, steps=TRAIN_FULL["steps"], batch=TRAIN_FULL["batch"], seq=seq, device=DEVICE,
+                         log_every=1)
+        sync()
+    finally:
+        restore()
+    counts = ops.launch_counts()
+    steps, n_layers = TRAIN_FULL["steps"], cfg.num_layers
+    losses = r["losses"]
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"phase 3l: losses {losses}")
+    check(counts["flash_attention_fwd"] == steps * (n_layers + recomputed_attention(cfg)) == steps * 32
+          and counts["flash_attention_dq"] == counts["flash_attention_dkv"] == steps * n_layers,
+          f"phase 3l: launches {counts}, not 32 forward and 16 of each backward kernel a step")
+    check(shapes == Counter({TRAIN_FLASH: counts["flash_attention_fwd"]}), f"phase 3l: flash shapes {dict(shapes)}")
+    check(sum(counts.values()) == counts["flash_attention_fwd"] + 2 * counts["flash_attention_dq"],
+          f"phase 3l: other kernels launched: {counts}")
+    tokens = TRAIN_FULL["batch"] * seq
+    steady = r["step_s"][1:]
+    out["full"] = {**TRAIN_FULL, "losses": losses, "step_s": r["step_s"], "steady_step_s": statistics.mean(steady),
+                   "tokens_per_s": tokens / statistics.mean(steady), "driver_tokens_per_s": r["tokens_per_s"],
+                   "peak_GiB": r["peak_bytes"] / 2**30, "launches": counts}
+    f = out["full"]
+    print(f"phase 3l full width (llama3.2-1b, {steps} steps at {TRAIN_FULL['batch']} x {seq}, remat, AdamW): losses "
+          f"{[round(x, 4) for x in losses]}; {f['steady_step_s']:.3f} s a step after the first "
+          f"({r['step_s'][0]:.3f} s), {f['tokens_per_s']:,.0f} tokens/s ({f['driver_tokens_per_s']:,.0f} over the "
+          f"run); peak {f['peak_GiB']:.2f} GiB; launches {json.dumps(counts)} at {TRAIN_FLASH}")
+    del r
+    torch.cuda.empty_cache()
+
+    small = reduced_config(cfg)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        # (b) the driver's checkpoints: stopped at 3, resumed to 6 twice
+        kw = dict(batch=TRAIN_CKPT["batch"], seq=TRAIN_CKPT["seq"], device=DEVICE, ckpt_every=TRAIN_CKPT["kill"],
+                  verbose=False)
+        root = os.path.join(tmp, "driver")
+        first = driver.train(small, steps=TRAIN_CKPT["kill"], ckpt_dir=root, **kw)
+        step_dir = os.path.join(root, f"step_{TRAIN_CKPT['kill']:010d}")
+        nbytes = sum(os.path.getsize(os.path.join(step_dir, n)) for n in os.listdir(step_dir))
+        t1 = time.perf_counter()
+        saved, extra = restore_pytree(step_dir, like=first["state"])
+        restore_s = time.perf_counter() - t1
+        check(_tree_bits_equal(saved, first["state"]) and extra == {"loss": first["losses"][-1]},
+              "phase 3l: the driver's checkpoint differs from the stopped state")
+        sync()
+        t1 = time.perf_counter()
+        save_pytree(os.path.join(tmp, "timed", "step"), first["state"], extra)
+        save_s = time.perf_counter() - t1
+        resumed = []
+        for i in range(2):
+            d = os.path.join(tmp, f"resume{i}")
+            shutil.copytree(step_dir, os.path.join(d, os.path.basename(step_dir)))
+            resumed.append(driver.train(small, steps=TRAIN_CKPT["steps"], ckpt_dir=d, **kw))
+        a, b = resumed
+        check(a["start"] == b["start"] == TRAIN_CKPT["kill"] and len(a["losses"]) == TRAIN_CKPT["steps"] - a["start"],
+              f"phase 3l: resumed at {a['start']}, {b['start']}")
+        check(a["losses"] == b["losses"] and _tree_bits_equal(a["state"], b["state"]),
+              f"phase 3l: two resumed runs differ: {a['losses']} / {b['losses']}")
+        out["checkpoint"] = {**TRAIN_CKPT, "bytes": nbytes, "save_s": save_s, "restore_s": restore_s,
+                             "losses": first["losses"], "resumed_losses": a["losses"]}
+        print(f"phase 3l checkpoints (reduced llama3.2-1b, {TRAIN_CKPT['batch']} x {TRAIN_CKPT['seq']}): stopped at "
+              f"{TRAIN_CKPT['kill']} (losses {[round(x, 4) for x in first['losses']]}), the checkpoint the stopped "
+              f"state bit for bit, {nbytes:,} B; save {1e3 * save_s:.1f} ms, restore {1e3 * restore_s:.1f} ms; "
+              f"resumed to {TRAIN_CKPT['steps']} twice, identical (losses {[round(x, 4) for x in a['losses']]})")
+        del first, saved, resumed, a, b
+
+        # (c) the example, killed and resumed
+        d = os.path.join(tmp, "example")
+        runs = {}
+        for label, kw in (("killed", dict(steps=EXAMPLE_RUN["kill"])),
+                          ("resumed", dict(steps=EXAMPLE_RUN["steps"], resume=True))):
+            sync()
+            ops.reset_launch_counts()
+            run = example.run(DEVICE, ckpt_dir=d, rnn_params=rnn_params, verbose=False, **kw)
+            sync()
+            runs[label] = (run, ops.launch_counts())
+            if label == "killed":
+                example.check_losses_fall(run)
+                tree, meta = run["server"].state_dict()
+                fresh = EchoPFLServer(run["server"].init_params, num_initial_clusters=2, seed=0,
+                                      rnn_params=rnn_params, device=DEVICE)
+                check(example.restore_server(fresh, d) == EXAMPLE_RUN["kill"], "phase 3l: no example checkpoint")
+                got, got_meta = fresh.state_dict()
+                check(got_meta == meta and _tree_bits_equal(got, tree),
+                      "phase 3l: the restored server state differs from the saved one")
+                del tree, got, fresh
+        out["example"] = {}
+        for label, (run, counts) in runs.items():
+            n = len(run["order"])
+            for name in LM_PATH + ("l1_distance",):
+                check(counts[name] > 0, f"phase 3l example {label}: kernel {name} never launched")
+            check(counts["flash_attention_dq"] == counts["flash_attention_dkv"],
+                  f"phase 3l example {label}: dq and dkv launches differ")
+            out["example"][label] = {"start": run["start"], "rounds": n, "wall_s": run["wall_s"],
+                                     "rounds_per_s": n / run["wall_s"], "assignment": run["assignment"],
+                                     "clusters": run["stats"]["clusters"], "broadcasts": run["stats"]["broadcasts"],
+                                     "merges": run["stats"]["merges"], "launches": counts}
+            e = out["example"][label]
+            print(f"phase 3l example {label} (rounds {run['start']}..{run['start'] + n}): {e['rounds_per_s']:.2f} "
+                  f"rounds/s ({e['wall_s']:.2f} s), clusters {e['clusters']}, broadcasts {e['broadcasts']}, merges "
+                  f"{e['merges']}, assignment {e['assignment']}, each client's first and last round loss "
+                  f"{ {i: (round(v[0], 4), round(v[-1], 4)) for i, v in run['losses'].items() if v} }; "
+                  f"launches {json.dumps({k: v for k, v in counts.items() if v})}")
+        check(out["example"]["resumed"]["start"] == EXAMPLE_RUN["kill"], "phase 3l: the example did not resume")
+        # the resumed half alone replays each client's stream from its start, which the restored server has
+        # trained on, so its first losses are low and it fails the example's assertion, as the reference's
+        # --resume does (ROADMAP queue 3); over the whole run, first losses of the killed half against the last
+        # of the resumed half, it must hold
+        killed, resumed = runs["killed"][0], runs["resumed"][0]
+        example.check_losses_fall({"losses": {i: [killed["losses"][i][0], resumed["losses"][i][-1]]
+                                              for i in killed["losses"]}})
+        print("phase 3l example: every client's loss fell in the killed half and from its first round to its last "
+              "over the whole run (the resumed half alone starts on batches the restored server has trained on)")
+        del runs
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["flash_shapes"] = shapes
+    out["wall"] = time.perf_counter() - t0
+    print(f"phase 3l: {out['wall']:.1f} s")
+    return out
+
+
 # ----------------------------------------------------------------- phase 3i
 def _synced(spent: Counter, step: str, fn, *a, **kw):
     """``fn(*a, **kw)`` on the host clock, the card synced before and after,
@@ -2825,8 +3067,9 @@ def zoo_agreement() -> None:
     Adafactor first step's sign flips where a gradient is rounding noise),
     none beyond 2.5 lr, or for ZOO_SENSITIVE 3 times the CPU's own counts
     from the perturbed weights. The card's flash forward must launch once an
-    attention layer in the forward, and the backward kernels once each in
-    the train step."""
+    attention layer in the forward, and in the train step once more for each
+    attention layer remat recomputes (those of the periods), the backward
+    kernels once each."""
     import dataclasses
 
     import numpy as np
@@ -2899,8 +3142,9 @@ def zoo_agreement() -> None:
                 sync()
                 launches = ops.launch_counts()
             runs[label] = (tree_leaves(state.params), {k: float(v) for k, v in m.items()})
-        check(launches["flash_attention_fwd"] == launches["flash_attention_dq"] == launches["flash_attention_dkv"]
-              == n_attn, f"zoo agreement {name}: train step launches {launches}")
+        check(launches["flash_attention_fwd"] == n_attn + recomputed_attention(cfg)
+              and launches["flash_attention_dq"] == launches["flash_attention_dkv"] == n_attn,
+              f"zoo agreement {name}: train step launches {launches}")
         (cl, cm), (gl, gm) = runs["cpu"], runs[DEVICE]
         lr = cfg.train.learning_rate
         for k in ("loss", "ce", "moe_aux"):
@@ -2923,6 +3167,99 @@ def zoo_agreement() -> None:
               + f"; aux {float(aux):.6f}; train loss {gm['loss']:.6f} against {cm['loss']:.6f}, params off "
               f"{off} / beyond 0.1 lr {big} of {total}, worst {worst:.3g}; flash forward launches {n_attn} a forward; "
               f"wall {time.perf_counter() - t0:.2f} s")
+
+
+def training_agreement(rnn_np: dict) -> None:
+    """Training, card against CPU: (1) the driver
+    (``repro_torch.launch.train.train``) at TRAIN_AGREEMENT's reduced archs
+    for 3 steps (batch 2, 16 tokens), weights from a CPU generator seeded
+    0: each loss within rtol 1e-5, the params by phase 4's zoo rule (at most
+    0.1% of the elements beyond atol 1e-6, 0.001% beyond 0.1 lr, none beyond
+    2.5 lr a step), and on the card per step one flash forward launch an
+    attention layer plus one a recomputed one, one of each backward kernel
+    an attention layer; (2) remat on against off on the card, 2 train steps
+    of each, every loss, metric, param and optimizer leaf bit for bit;
+    (3) the EchoPFL transformer-client example for EXAMPLE_AGREEMENT_ROUNDS
+    rounds, initial weights from a CPU generator and phase 4's broadcast RNN
+    handed to both: the same arrivals, and after every round the same
+    assignment, clusters, broadcasts and merges; each client's round losses
+    within EXAMPLE_LOSS_RTOL."""
+    import dataclasses
+
+    from repro_torch.common.pytrees import tree_leaves, tree_map
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data.lm import token_stream
+    from repro_torch.interop import tree_to_numpy
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as driver
+    from repro_torch.launch import train_async_pfl as example
+    from repro_torch.models.model import init_params
+    from repro_torch.models.steps import TrainState, make_optimizer, make_train_step
+
+    steps = 3
+    for name in TRAIN_AGREEMENT:
+        t0 = time.perf_counter()
+        cfg = reduced_config(get_config(name))
+        n_attn = sum(spec.mixer in ("attn", "attn_local") for spec in cfg.all_layers)
+        cpu = init_params(cfg, torch.Generator().manual_seed(0))
+        kw = dict(steps=steps, batch=2, seq=16, verbose=False)
+        want = driver.train(cfg, device="cpu", params=cpu, **kw)
+        ops.reset_launch_counts()
+        got = driver.train(cfg, device=DEVICE, params=tree_map(lambda t: t.to(DEVICE), cpu), **kw)
+        sync()
+        launches = ops.launch_counts()
+        check(launches["flash_attention_fwd"] == steps * (n_attn + recomputed_attention(cfg))
+              and launches["flash_attention_dq"] == launches["flash_attention_dkv"] == steps * n_attn,
+              f"training agreement {name}: launches {launches}")
+        for i, (a, b) in enumerate(zip(got["losses"], want["losses"])):
+            check(abs(a - b) <= 1e-5 * abs(b), f"training agreement {name}: step {i} loss {a} against {b}")
+        lr = cfg.train.learning_rate
+        off, big, total, worst = _params_off(tree_leaves(got["state"].params), tree_leaves(want["state"].params), lr)
+        check(off <= 1e-3 * total and big <= 1e-5 * total and worst <= 2.5 * lr * steps,
+              f"training agreement {name}: params off {off}, beyond 0.1 lr {big} of {total}, worst {worst}")
+        # remat on against off on the card
+        bits = {}
+        for remat in (True, False):
+            c = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, remat=remat))
+            opt = make_optimizer(c)
+            params = tree_map(lambda t: t.to(DEVICE), cpu)
+            state = TrainState(params, opt.init(params), torch.zeros((), dtype=torch.int32, device=DEVICE))
+            step, stream, metrics = make_train_step(c, opt), token_stream(c.vocab_size, seed=0, batch=2, seq=16), []
+            for _ in range(2):
+                state, m = step(state, next(stream))
+                metrics.append(m)
+            bits[remat] = (state, metrics)
+        (sa, ma), (sb, mb) = bits[True], bits[False]
+        check(_tree_bits_equal(sa, sb) and all(torch.equal(x[k], y[k]) for x, y in zip(ma, mb) for k in x),
+              f"training agreement {name}: remat changed a bit on the card")
+        print(f"training agreement ({name} reduced, {steps} driver steps, card vs CPU): losses "
+              f"{[round(x, 6) for x in got['losses']]} against {[round(x, 6) for x in want['losses']]}, params off "
+              f"{off} / beyond 0.1 lr {big} of {total}, worst {worst:.3g}; launches {json.dumps(launches)}; remat on "
+              f"and off on the card bit for bit over 2 steps; wall {time.perf_counter() - t0:.2f} s")
+    # the example, card against CPU
+    t0 = time.perf_counter()
+    init_np = tree_to_numpy(init_params(example.example_config(), torch.Generator().manual_seed(0)))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_example_")
+    try:
+        runs = {dev: example.run(dev, steps=EXAMPLE_AGREEMENT_ROUNDS, ckpt_dir=os.path.join(tmp, dev),
+                                 init_params=init_np, rnn_params=rnn_np, verbose=False) for dev in ("cpu", DEVICE)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    c, g = runs["cpu"], runs[DEVICE]
+    check(c["order"] == g["order"], "example agreement: arrival orders differ")
+    diverged = next((h["round"] for h, k in zip(g["history"], c["history"]) if h != k), None)
+    check(diverged is None, f"example agreement: decisions differ from round {diverged}")
+    check(c["server"].events == g["server"].events, "example agreement: server events differ")
+    gap = 0.0
+    for cid, want in c["losses"].items():
+        for a, b in zip(g["losses"][cid], want):
+            gap = max(gap, abs(a - b) / abs(b))
+    check(gap <= EXAMPLE_LOSS_RTOL, f"example agreement: round losses {gap} apart (relative)")
+    print(f"example agreement (train_async_pfl, {EXAMPLE_AGREEMENT_ROUNDS} rounds, card vs CPU): arrivals, "
+          f"assignments, clusters, broadcasts ({g['stats']['broadcasts']}) and merges ({g['stats']['merges']}) "
+          f"identical every round, {len(g['server'].events)} server events identical; round losses within "
+          f"{gap:.3g} (relative); wall CPU {c['wall_s']:.2f} s, card {g['wall_s']:.2f} s, "
+          f"phase {time.perf_counter() - t0:.2f} s")
 
 
 # ------------------------------------------------------------------ phase 5
@@ -3482,6 +3819,28 @@ def mla_flash_timing(zoo: dict) -> dict:
     return {"deepseek-v2-lite-16b MLA prefill": row}
 
 
+def train_flash_timing(training: dict) -> dict:
+    """The flash forward and backward at phase 3l's shape (TRAIN_FLASH:
+    llama3.2-1b at 2 x 4,096, causal), as ``lm_kernel_timings`` times the LM
+    shapes: device time, the plain version's, fp32 SDPA's forward and
+    autograd backward, the bounds ``2 (hd + dv)`` and ``2 (3 hd + 2 dv)``
+    flops a causal pair (fp32 on the CUDA cores, and split TF32 on the
+    tensor cores); launches: phase 3l's 8 steps (the backward's: dq's)."""
+    rows = lm_kernel_timings(TRAIN_FLASH, gen(23))
+    counts = training["full"]["launches"]
+    out = {}
+    for name, counter in (("flash_attention_fwd", "flash_attention_fwd"), ("flash_attention_bwd", "flash_attention_dq")):
+        r = dict(rows[name], shape=list(TRAIN_FLASH), launches=counts[counter])
+        out[name] = {"llama3.2-1b train": r}
+        print(f"timing {name} at llama3.2-1b train {TRAIN_FLASH}: device time kernel {r['ms']:.5f} ms, plain "
+              f"{r['plain_ms']:.5f} ms, library {r['library_ms']:.5f} ms; bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']}), split-TF32 tensor-core bound {r['bound_tc_ms']:.6f} ms; per call kernel "
+              f"{r['call_ms']:.4f} ms, plain {r['plain_call_ms']:.4f} ms, library {r['library_call_ms']:.4f} ms; "
+              f"launches in phase 3l {r['launches']}; max_abs_err {r['max_abs_err']:.3g}")
+    torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------------------------ phase 6
 def profile_window(label: str, run) -> None:
     """One run under ``torch.profiler`` (CUDA activity only). Device busy
@@ -3598,6 +3957,7 @@ def main() -> int:
     chaos = chaos_sweeps(rnn_params)
     serving = serving_phase(rnn_params)
     zoo = zoo_serving_phase()
+    training = training_phase(rnn_params)
     init_np, rnn_np = agreement()
     compressed_agreement(init_np, rnn_np)
     chaos_agreement(init_np, rnn_np)
@@ -3606,11 +3966,14 @@ def main() -> int:
     serving_agreement(rnn_np)
     pytree_agreement(init_np, rnn_np)
     zoo_agreement()
+    training_agreement(rnn_np)
     rows = (timing(counts, shapes, full, tiny) + [chain_row(coal, chaos)] + uplink_rows(sweep, per_event, full_topk)
             + lm_timing(tiny, full, cohort))
     flash_row = next(r for r in rows if r["name"] == "flash_attention_fwd")
     flash_row.update(gemma_flash_timing(serving))
     flash_row.update(mla_flash_timing(zoo))
+    for name, extra in train_flash_timing(training).items():
+        next(r for r in rows if r["name"] == name).update(extra)
     print(f"timing: {trace_sessions['kept']} profiler sessions kept, {trace_sessions['refused']} refused "
           f"(a partial or empty trace)")
     profiles(rnn_params, tiny["rnn"])
@@ -3624,6 +3987,7 @@ def main() -> int:
     print("serving: " + json.dumps({k: v for k, v in serving.items()
                                     if k in SERVE_CASES or k in ("decode_profile", "pytree", "wall")}))
     print("zoo serving: " + json.dumps({k: v for k, v in zoo.items() if k != "flash_shapes"}))
+    print("training: " + json.dumps({k: v for k, v in training.items() if k != "flash_shapes"}))
     print("restart: " + json.dumps({k: {f: v[f] for f in ("saved", "spent", "at", "unsteady", "bytes", "leaves")
                                        if f in v} for k, v in restart.items()}))
     print(json.dumps({"kernels": rows}))

@@ -12,8 +12,11 @@
 
 The files are the reference's: one ``leaves.npz`` a step, leaf paths in
 the strings ``jax.tree_util.keystr`` gives (a dict key as ``['key']``, a
-list or tuple index as ``[0]``; dict keys sorted, so ``'10'`` comes before
-``'2'``), so a checkpoint written by either package restores in the other.
+NamedTuple field as ``.field``, a list or plain tuple index as ``[0]``;
+dict keys sorted, so ``'10'`` comes before ``'2'``, NamedTuple fields in
+their order), so a checkpoint written by either package restores in the
+other: a ``TrainState`` saves as ``.params['embed']``,
+``.opt_state.mu['embed']``, ``.step``.
 Leaves may be tensors (on any device), numpy arrays or scalars; restored
 leaves are numpy arrays, which the caller moves to its device.
 """
@@ -32,6 +35,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.common.pytrees import is_namedtuple, rebuild_seq
+
 PyTree = Any
 _STEP_RE = re.compile(r"^step_(\d+)$")
 
@@ -41,6 +46,8 @@ def _flatten_with_paths(tree: PyTree, prefix: str = "") -> list[tuple[str, Any]]
     an empty subtree, as in JAX."""
     if isinstance(tree, dict):
         return [item for k in sorted(tree) for item in _flatten_with_paths(tree[k], f"{prefix}[{k!r}]")]
+    if is_namedtuple(tree):  # keystr's GetAttrKey
+        return [item for f, x in zip(tree._fields, tree) for item in _flatten_with_paths(x, f"{prefix}.{f}")]
     if isinstance(tree, (list, tuple)):
         return [item for i, x in enumerate(tree) for item in _flatten_with_paths(x, f"{prefix}[{i}]")]
     if tree is None:
@@ -151,7 +158,7 @@ def _rebuild(like: PyTree, leaves) -> PyTree:
     if isinstance(like, dict):
         return {k: _rebuild(like[k], leaves) for k in sorted(like)}
     if isinstance(like, (list, tuple)):
-        return type(like)(_rebuild(x, leaves) for x in like)
+        return rebuild_seq(like, [_rebuild(x, leaves) for x in like])
     if like is None:
         return None
     return next(leaves)

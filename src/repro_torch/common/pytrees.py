@@ -32,8 +32,18 @@ def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, x, *(r[i] for r in rest)) for i, x in enumerate(tree))
+        return rebuild_seq(tree, [tree_map(fn, x, *(r[i] for r in rest)) for i, x in enumerate(tree)])
     return fn(tree, *rest)
+
+
+def is_namedtuple(tree: PyTree) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
+def rebuild_seq(like: list | tuple, items: list) -> list | tuple:
+    """``items`` as a sequence of ``like``'s type: a NamedTuple (such as a
+    ``TrainState``) takes them as fields."""
+    return type(like)(*items) if is_namedtuple(like) else type(like)(items)
 
 
 def _skeleton(tree: PyTree):
@@ -41,7 +51,8 @@ def _skeleton(tree: PyTree):
     if isinstance(tree, dict):
         return ("d", tuple((k, _skeleton(tree[k])) for k in sorted(tree)))
     if isinstance(tree, (list, tuple)):
-        return ("l" if isinstance(tree, list) else "t", tuple(_skeleton(x) for x in tree))
+        kind = "l" if isinstance(tree, list) else type(tree) if is_namedtuple(tree) else "t"
+        return (kind, tuple(_skeleton(x) for x in tree))
     return "*"
 
 
@@ -53,7 +64,7 @@ def _build(skel, leaves: list) -> PyTree:
     if kind == "d":
         return {k: _build(s, leaves) for k, s in body}
     items = [_build(s, leaves) for s in body]
-    return items if kind == "l" else tuple(items)
+    return items if kind == "l" else tuple(items) if kind == "t" else kind(*items)
 
 
 def tree_unflatten(template: PyTree, leaves: list) -> PyTree:

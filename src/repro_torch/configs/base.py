@@ -9,7 +9,9 @@ A model is ``prefix`` (unrolled layers) followed by ``pattern`` repeated
 Attention is multi-head latent attention where the config has an
 :class:`MLASpec`. :meth:`ModelConfig.param_count` and
 :meth:`ModelConfig.active_param_count` are the reference's analytic counts;
-:func:`reduced_config` cuts a config to the width its CPU tests run at.
+:func:`reduced_config` cuts a config to the width its CPU tests run at;
+``SHAPES`` names the workload shapes (``train_4k`` is the training
+driver's).
 """
 from __future__ import annotations
 
@@ -177,6 +179,24 @@ class ModelConfig:
         if ffn == "none":
             return 0
         raise ValueError(ffn)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """A named workload shape: sequence length, global batch and the step
+    kind that runs it (the reference's)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
 
 
 ARCH_REGISTRY: dict[str, ModelConfig] = {}

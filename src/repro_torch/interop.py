@@ -13,6 +13,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.common.pytrees import rebuild_seq
+
 PyTree = Any
 
 
@@ -22,7 +24,7 @@ def tree_from_numpy(tree: PyTree, device="cpu") -> PyTree:
     if isinstance(tree, dict):
         return {k: tree_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_from_numpy(v, device) for v in tree)
+        return rebuild_seq(tree, [tree_from_numpy(v, device) for v in tree])
     return torch.tensor(np.asarray(tree, np.float32)).to(device)
 
 
@@ -30,6 +32,6 @@ def tree_to_numpy(tree: PyTree) -> PyTree:
     if isinstance(tree, dict):
         return {k: tree_to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_to_numpy(v) for v in tree)
+        return rebuild_seq(tree, [tree_to_numpy(v) for v in tree])
     return tree.detach().cpu().numpy()
 

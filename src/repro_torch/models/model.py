@@ -25,6 +25,7 @@ import math
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.pytrees import tree_map
 from repro_torch.configs.base import LayerSpec, ModelConfig
@@ -278,8 +279,15 @@ def forward(cfg: ModelConfig, params: PyTree, batch: dict, cache: PyTree | None 
     positions to logits: the same numbers as the full projection's last
     ``n`` rows, without the ``(B, S, V)`` tensor (prefill keeps one). The
     MoE aux loss is the sum over the MoE layers, prefix first, then
-    period by period. No remat: the reference's ``jax.checkpoint`` changes
-    memory only, and the port keeps every activation."""
+    period by period.
+
+    Remat: with ``cfg.train.remat``, while autograd records and outside
+    decode and cache collection (where the reference wraps its period in
+    ``jax.checkpoint``), each period runs under
+    ``torch.utils.checkpoint``: only its input is kept, and the backward
+    runs the period's forward again, the same kernels on the same shapes,
+    so the result and the gradients keep every bit. The prefix layers are
+    not wrapped, as in the reference."""
     decode = cache is not None
     collect = decode or return_cache
     pos0 = int(cache["len"]) if decode else 0
@@ -301,32 +309,39 @@ def forward(cfg: ModelConfig, params: PyTree, batch: dict, cache: PyTree | None 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: dict[str, Any] | None = {"len": pos0 + S} if collect else None
 
-    def layer(lp, spec, lc):
-        nonlocal x, aux
-        x, nc, a = _apply_layer(lp, spec, cfg, x, cache=lc, pos0=pos0, decode=decode, collect=collect)
-        if a is not None:
-            aux = aux + a
-        if decode:
-            _store(lc, nc)
-        return nc
+    def run(x, aux, layer_params, specs, layer_caches):
+        """The layers in order from ``x``: ``(x, aux, each layer's cache)``."""
+        ncs = []
+        for lp, spec, lc in zip(layer_params, specs, layer_caches):
+            x, nc, a = _apply_layer(lp, spec, cfg, x, cache=lc, pos0=pos0, decode=decode, collect=collect)
+            if a is not None:
+                aux = aux + a
+            if decode:
+                _store(lc, nc)
+            ncs.append(nc)
+        return x, aux, ncs
 
-    for i, spec in enumerate(cfg.prefix):
-        nc = layer(params["prefix"][i], spec, cache["prefix"][i] if decode else None)
+    if cfg.prefix:
+        x, aux, ncs = run(x, aux, params["prefix"], cfg.prefix, cache["prefix"] if decode else [None] * len(cfg.prefix))
         if collect and not decode:
-            new_cache.setdefault("prefix", []).append(nc)
+            new_cache["prefix"] = ncs
     if cfg.num_periods:
-        collected: dict[str, list] = {f"slot{i}": [] for i in range(len(cfg.pattern))}
+        slots = [f"slot{i}" for i in range(len(cfg.pattern))]
+        remat = cfg.train.remat and not collect and torch.is_grad_enabled()
+        collected = []
         for p in range(cfg.num_periods):
-            for i, spec in enumerate(cfg.pattern):
-                slot = f"slot{i}"
-                lp = tree_map(lambda t: t[p], params["blocks"][slot])
-                lc = tree_map(lambda t: t[p], cache["blocks"][slot]) if decode else None
-                nc = layer(lp, spec, lc)
-                if collect and not decode:
-                    collected[slot].append(nc)
+            # the period's slices are taken outside the checkpoint, so its gradients reach the stacked leaves
+            # through the same ops with remat on or off
+            lps = [tree_map(lambda t: t[p], params["blocks"][slot]) for slot in slots]
+            lcs = [tree_map(lambda t: t[p], cache["blocks"][slot]) for slot in slots] if decode else [None] * len(slots)
+            if remat:
+                x, aux, ncs = checkpoint(run, x, aux, lps, cfg.pattern, lcs, use_reentrant=False)
+            else:
+                x, aux, ncs = run(x, aux, lps, cfg.pattern, lcs)
+            collected.append(ncs)
         if collect and not decode:
-            new_cache["blocks"] = {slot: {k: torch.stack([nc[k] for nc in ncs]) for k in ncs[0]}
-                                   for slot, ncs in collected.items()}
+            new_cache["blocks"] = {slot: {k: torch.stack([ncs[i][k] for ncs in collected]) for k in collected[0][i]}
+                                   for i, slot in enumerate(slots)}
     if decode:  # written in place
         new_cache.update({k: cache[k] for k in ("prefix", "blocks") if k in cache})
     if last is not None:

@@ -8,9 +8,10 @@ step differentiates through the flash kernels (``kernels.ops.attention``)
 with autograd and returns detached params: nothing it hands out carries a
 graph, and no tensor of the state it was given is written. A leaf the
 loss does not reach (the embedding table, when embeddings are fed) gets a
-zero gradient, as the reference's ``jax.grad`` gives it.
-``cfg.train.remat`` is not carried out: it changes memory only, and the
-port keeps every activation.
+zero gradient, as the reference's ``jax.grad`` gives it. With
+``cfg.train.remat`` the forward keeps only each period's input and the
+backward recomputes the period (``models.model.forward``): the same bits,
+less memory.
 """
 from __future__ import annotations
 

@@ -20,7 +20,9 @@ Reduced gemma2's, deepseek-v2-lite's and jamba's decode against their
 teacher-forced full forward within 1e-4 (one flash forward an attention
 layer in the prefill, none in the decode), reduced hubert's forward card
 against CPU within 1e-4, and the pytree backend's assign as one
-``l1_distance`` launch.
+``l1_distance`` launch. Training: remat on and off bit for bit, a
+``TrainState`` saved from the card restored on the CPU, and the EchoPFL
+transformer-client example card against CPU.
 """
 import numpy as np
 import pytest
@@ -790,3 +792,79 @@ def test_cuda_pytree_assign_is_one_l1_launch(cuda_device):
     assert not created and counts["l1_distance"] == 1 and sum(counts.values()) == 1
     cl.aggregate(cid, tree())
     assert sum(ops.launch_counts().values()) == 1 and cl.plane is None
+
+
+@pytest.mark.cuda
+def test_cuda_remat_changes_no_bit(cuda_device):
+    """One train step of reduced llama3.2-1b on the card with remat on and
+    off: the loss, the metrics and every param and optimizer leaf bit for
+    bit; the flash forward launches twice an attention layer with remat (the
+    backward recomputes each period), once without, the backward once."""
+    import dataclasses
+
+    from repro_torch.common.pytrees import tree_leaves
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data.lm import token_stream
+    from repro_torch.models.model import init_params
+    from repro_torch.models.steps import TrainState, make_optimizer, make_train_step
+
+    base = reduced_config(get_config("llama3.2-1b"))
+    batch = next(token_stream(base.vocab_size, seed=0, batch=2, seq=16))
+    runs = {}
+    for remat in (True, False):
+        cfg = dataclasses.replace(base, train=dataclasses.replace(base.train, remat=remat))
+        params = init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0), device=cuda_device)
+        opt = make_optimizer(cfg)
+        state = TrainState(params, opt.init(params), torch.zeros((), dtype=torch.int32, device=cuda_device))
+        ops.reset_launch_counts()
+        runs[remat] = make_train_step(cfg, opt)(state, batch)
+        counts = ops.launch_counts()
+        assert counts["flash_attention_fwd"] == (2 if remat else 1) * cfg.num_layers
+        assert counts["flash_attention_dq"] == counts["flash_attention_dkv"] == cfg.num_layers
+    (a, ma), (b, mb) = runs[True], runs[False]
+    assert all(torch.equal(ma[k], mb[k]) for k in ma)
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+@pytest.mark.cuda
+def test_cuda_trainstate_checkpoint_restores_on_the_cpu(cuda_device, tmp_path):
+    """The training driver's ``TrainState`` saved from the card (2 steps,
+    a checkpoint at 2) restores on the CPU bit for bit, into the driver's
+    NamedTuples, and a CPU run resumes from it."""
+    from repro_torch.checkpoint import restore_pytree
+    from repro_torch.common.pytrees import tree_leaves
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.launch import train as driver
+    from repro_torch.models.steps import TrainState
+
+    cfg = reduced_config(get_config("llama3.2-1b"))
+    kw = dict(batch=2, seq=16, ckpt_dir=str(tmp_path), ckpt_every=2, verbose=False)
+    card = driver.train(cfg, steps=2, device=cuda_device, **kw)
+    like = driver.train(cfg, steps=0, device="cpu", batch=2, seq=16, verbose=False)["state"]
+    got, extra = restore_pytree(str(tmp_path / "step_0000000002"), like=like)
+    assert isinstance(got, TrainState) and extra == {"loss": card["losses"][-1]}
+    assert all(np.array_equal(a, b.cpu().numpy()) for a, b in zip(tree_leaves(got), tree_leaves(card["state"])))
+    resumed = driver.train(cfg, steps=3, device="cpu", **kw)
+    assert resumed["start"] == 2 and len(resumed["losses"]) == 1 and np.isfinite(resumed["losses"][0])
+
+
+@pytest.mark.cuda
+def test_cuda_example_matches_the_cpu(cuda_device, tmp_path):
+    """5 rounds of the EchoPFL transformer-client example on the card and
+    on the CPU, the same initial weights and broadcast RNN: the same
+    arrivals and decisions after every round, round losses within rtol
+    1e-4."""
+    from repro_torch.core.broadcast import pretrain_rnn
+    from repro_torch.interop import tree_to_numpy
+    from repro_torch.launch import train_async_pfl as example
+    from repro_torch.models.model import init_params
+
+    init = tree_to_numpy(init_params(example.example_config(), torch.Generator().manual_seed(0)))
+    rnn = {k: v.cpu().numpy() for k, v in pretrain_rnn(0, device=cuda_device).items()}
+    runs = {dev: example.run(dev, steps=5, ckpt_dir=str(tmp_path / str(dev)), init_params=init, rnn_params=rnn,
+                             verbose=False) for dev in ("cpu", cuda_device)}
+    c, g = runs["cpu"], runs[cuda_device]
+    assert c["order"] == g["order"] and c["history"] == g["history"]
+    assert c["server"].events == g["server"].events
+    for cid, want in c["losses"].items():
+        np.testing.assert_allclose(g["losses"][cid], want, rtol=1e-4)
