@@ -76,6 +76,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 3c. full width — the same run over a ``llama3.2-1b`` base drawn on the card
    (4 clients, seq_len 256, one local epoch, 720 s): flash kernels at
    ``(4, 32, 256, 64)``, wall time per upload, peak device memory;
+3m. the sharded plane — (a) phase 3's merging run (``hm=1.0``, phase 3's
+   RNN) with the server's plane on an 8-row-shard mesh of the one card
+   (``make_plane_mesh(8, devices=[cuda:0] * 8)``), ``mesh_min_rows=0``, and
+   the client fleet on a 4-shard mesh, then with the plane mesh alone,
+   each against the same run without meshes: events, assignments, client
+   versions, ``stats()`` (the feedback means, from segment sums added over
+   shards, within 1 ulp), final accuracy and curve identical and every
+   center bit for bit; launches by kernel name and the sharded calls, each
+   sharded call 8 launches (``l1_distance`` 8 a sharded assign beside the
+   predictor's 2 an upload and 1 a decision, the fused assign none), the
+   merge in place; (b) phase 3c's run on a 4 x 2 (rows x model dim) mesh,
+   the 783,360-float row in two 391,680-float chunks, against the same run
+   without a mesh: identical decisions, centers bit for bit, the assign's
+   distances' largest gap in ulps; each arm's wall time; then each sharded
+   entry point's time a call on both meshes beside its single-device call,
+   at the main path's most frequent shapes and the full width's assign;
 3e. the paper's comparison — the reference's Tab. 1 bench at one task and
    seed: all seven strategies on ``image_recognition`` (20 clients, 1800 s,
    at most 40 rounds, seed 0; EchoPFL with phase 3's broadcast RNN handed
@@ -1024,11 +1040,11 @@ def _record_shapes(ops):
         originals[name] = fn
         setattr(ops, name, rec)
 
-    wrap("l1_distance_pairwise", ops.l1_distance_pairwise, lambda x, c: (x.shape[0], c.shape[0], x.shape[1]))
-    wrap("assign_and_lerp", ops.assign_and_lerp, lambda u, c, b: (c.shape[0], c.shape[1]))
-    wrap("chi2_feedback", ops.chi2_feedback, lambda fp, ft, ss: tuple(fp.shape))
+    wrap("l1_distance_pairwise", ops.l1_distance_pairwise, lambda x, c, **_: (x.shape[0], c.shape[0], x.shape[1]))
+    wrap("assign_and_lerp", ops.assign_and_lerp, lambda u, c, b, **_: (c.shape[0], c.shape[1]))
+    wrap("chi2_feedback", ops.chi2_feedback, lambda fp, ft, ss, **_: tuple(fp.shape))
     wrap("chi2_feedback_segmented", ops.chi2_feedback_segmented,
-         lambda fp, ft, ss, seg, num_segments: (fp.shape[0], fp.shape[1], num_segments))
+         lambda fp, ft, ss, seg, num_segments, **_: (fp.shape[0], fp.shape[1], num_segments))
     wrap("merge_attention", ops.merge_attention, lambda vm, va, vt, out=None: (vm.shape[0],))
 
     def restore():
@@ -1306,11 +1322,190 @@ def full_width(rnn_params: dict):
                  num_clients=4, max_time=720, eval_interval=240, seq_len=256, n_train=4, n_test=2,
                  local_epochs=1, task=task, rnn_params=rnn_params)
     check(out["uploads"] >= 8, f"full width: {out['uploads']} uploads, fewer than 8")
-    del task
-    out.pop("strat")
+    out["events"] = list(out.pop("strat").events)  # phase 3m's 4 x 2 arms repeat this run
     out.pop("rep")
-    torch.cuda.empty_cache()
+    out["task"] = task  # the base phase 3m reuses and then frees
     return out
+
+
+# ----------------------------------------------------------------- phase 3m
+MESH_TASK, MESH_MAIN = "image_recognition", dict(num_clients=20, max_time=1500, seed=0, hm=1.0)  # phase 3's merging run
+MESH_FULL = dict(num_clients=4, max_time=720, eval_interval=240, seq_len=256, n_train=4, n_test=2, local_epochs=1)
+SHARDED_NAMES = ("l1_distance_pairwise", "chi2_feedback", "chi2_feedback_segmented")
+
+
+def _decisions(strat, rep) -> dict:
+    """What a meshed run must share with its run without a mesh."""
+    st = strat.stats()
+    return dict(events=list(strat.events), assignment=dict(strat.clustering.assignment),
+                client_versions=dict(strat.client_versions), fb=st.pop("cluster_feedback_mean"), stats=st,
+                centers={cid: c.center_vec.clone() for cid, c in strat.clustering.clusters.items()},
+                ledger=(rep.up_events, rep.down_events, rep.up_bytes, rep.down_bytes), curve=list(rep.curve),
+                final_acc=rep.final_acc, uploads=rep.extra["uploads"], decisions=strat._decisions)
+
+
+def _differences(a: dict, b: dict) -> list[str]:
+    """The fields where two runs' :func:`_decisions` differ (empty: the same
+    run, centers bit for bit, feedback means within 1 ulp)."""
+    out = [k for k in ("events", "assignment", "client_versions", "stats", "ledger", "curve", "final_acc")
+           if a[k] != b[k]]
+    if a["fb"].keys() != b["fb"].keys() or any(abs(a["fb"][c] - b["fb"][c]) > abs(b["fb"][c]) * 2.0 ** -23
+                                                for c in a["fb"]):
+        out.append(f"feedback means {a['fb']} / {b['fb']}")
+    if a["centers"].keys() != b["centers"].keys() or not all(
+            _same_bits(a["centers"][c], b["centers"][c]) for c in a["centers"]):
+        out.append("centers")
+    return out
+
+
+def _ulp_gap(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance in ulps between two fp32 tensors of one sign pattern."""
+    ia, ib = a.view(torch.int32).long(), b.view(torch.int32).long()
+    return int((ia - ib).abs().max()) if a.numel() else 0
+
+
+def _mesh_arm(run, label: str, **kw) -> dict:
+    """One arm of phase 3m: launch counts zeroed just before and read just
+    after, the assign's distances recorded."""
+    from repro_torch.kernels import ops
+
+    dists: list = []
+    assign = ops.assign_and_lerp
+
+    def rec(u, c, b, **akw):
+        out = assign(u, c, b, **akw)
+        dists.append(out[0].detach().cpu())
+        return out
+    ops.assign_and_lerp = rec
+    sync()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        strat, rep = run(**kw)
+        sync()
+    finally:
+        ops.assign_and_lerp = assign
+    wall = time.perf_counter() - t0
+    out = dict(label=label, wall=wall, counts=ops.launch_counts(), calls=ops.sharded_calls(), dists=dists,
+               **_decisions(strat, rep))
+    print(f"phase 3m {label}: {out['uploads']} uploads, {len(out['events'])} events, clusters "
+          f"{out['stats']['clusters']}, merges {out['stats']['merges']}, final_acc {out['final_acc']:.4f}, wall "
+          f"{wall:.2f} s; launches {json.dumps(out['counts'])}; sharded calls {json.dumps(out['calls'])}")
+    return out
+
+
+def _check_sharded_launches(arm: dict, shards: int, label: str, required=SHARDED_NAMES) -> None:
+    """Every sharded call made one launch a shard (and each of ``required``
+    ran sharded); the fused assign gave way to ``l1_distance`` a shard; the
+    merge ran where the run merged."""
+    counts, calls = arm["counts"], arm["calls"]
+    for name in SHARDED_NAMES:
+        check((calls[name] > 0 or name not in required) and counts[name] >= shards * calls[name],
+              f"{label}: {name} launched {counts[name]} times in {calls[name]} sharded calls")
+    want = shards * calls["assign_and_lerp"] + 2 * arm["uploads"] + arm["decisions"]
+    check(calls["assign_and_lerp"] > 0 and counts["l1_distance"] == want,
+          f"{label}: l1_distance launched {counts['l1_distance']} times, not {shards} a sharded assign and the "
+          f"predictor's ({want})")
+    check(counts["assign_and_lerp"] == 0, f"{label}: the fused assign launched {counts['assign_and_lerp']} times")
+    check(arm["stats"]["merges"] == 0 or counts["merge_attention"] >= arm["stats"]["merges"],
+          f"{label}: {arm['stats']['merges']} merges, {counts['merge_attention']} merge launches")
+
+
+def _sharded_call_ms(meshes: dict) -> dict:
+    """Per call (CUDA events, host overhead included) of each sharded entry
+    point beside its single-device call, at the main path's most frequent
+    shapes (PERF.md's table) and the full width's assign."""
+    from repro_torch.kernels import ops
+
+    g = gen(12)
+    u, cs, xs = randn(g, 25418), randn(g, 4, 25418), randn(g, 3, 25418)
+    uf, cf = randn(g, 783360), randn(g, 2, 783360)
+    fp, ft, ss = randn(g, 20, 10).abs() * 100, randn(g, 20, 10).abs() * 100 + 1, torch.softmax(randn(g, 20, 10), -1)
+    seg = torch.arange(20, device=DEVICE, dtype=torch.int32) % 4
+    cases = {
+        "assign_and_lerp (4, 25418)": lambda **kw: ops.assign_and_lerp(u, cs, 0.25, **kw),
+        "assign_and_lerp (2, 783360)": lambda **kw: ops.assign_and_lerp(uf, cf, 0.25, **kw),
+        "l1_distance_pairwise (3, 3, 25418)": lambda **kw: ops.l1_distance_pairwise(xs, xs, **kw),
+        "chi2_feedback (4, 10)": lambda **kw: ops.chi2_feedback(fp[:4], ft[:4], ss[:4], **kw),
+        "chi2_feedback_segmented (20, 10), S = 4": lambda **kw: ops.chi2_feedback_segmented(fp, ft, ss, seg, 4, **kw),
+    }
+    out = {}
+    for name, fn in cases.items():
+        row = {"single": call_ms(fn, iters=100)}
+        for label, mesh in meshes.items():
+            row[label] = call_ms(lambda: fn(mesh=mesh), iters=100)
+        out[name] = row
+        print(f"phase 3m per call {name}: single device {row['single']:.4f} ms, "
+              + ", ".join(f"{label} {row[label]:.4f} ms" for label in meshes))
+    return out
+
+
+def sharded_phase(rnn_params: dict, lm_rnn_params: dict, full: dict, smi: str) -> dict:
+    """Phase 3m: the EchoPFL server on sharded planes of the one card."""
+    from repro_torch.common.device import resolve_device
+    from repro_torch.fl.experiment import run_experiment
+    from repro_torch.fl.lm_task import run_lm_experiment
+    from repro_torch.launch.mesh import make_plane_mesh
+
+    t_phase = time.perf_counter()
+    card = resolve_device(DEVICE)
+
+    def mlp(**kw):
+        _, _, strat, rep = run_experiment(MESH_TASK, "echopfl", device=DEVICE, rnn_params=rnn_params,
+                                          **MESH_MAIN, **kw)
+        return strat, rep
+
+    rows_8 = make_plane_mesh(8, devices=[card] * 8)
+    single = _mesh_arm(mlp, "(a) no mesh")
+    both = _mesh_arm(mlp, "(a) plane 1 x 8, fleet 4", plane_mesh=rows_8,
+                     fleet_mesh=make_plane_mesh(4, devices=[card] * 4), mesh_min_rows=0)
+    plane = _mesh_arm(mlp, "(a) plane 1 x 8", plane_mesh=rows_8, mesh_min_rows=0)
+    check(single["stats"]["merges"] > 0, "phase 3m (a): the run without a mesh made no merge")
+    diff_plane = _differences(plane, single)
+    check(not diff_plane, f"phase 3m (a): the plane mesh alone changed {diff_plane}")
+    diff_both = _differences(both, single)
+    check(not diff_both, f"phase 3m (a): the plane and fleet meshes changed {diff_both}")
+    print(f"phase 3m (a) plane 1 x 8, and plane 1 x 8 with fleet 4, against no mesh: identical "
+          f"({len(single['events'])} events, {single['uploads']} uploads, centers bit for bit)")
+    for arm in (both, plane):
+        _check_sharded_launches(arm, 8, f"phase 3m {arm['label']}")
+
+    task = full.pop("task")
+
+    def lm(**kw):
+        _, _, strat, rep = run_lm_experiment("echopfl", seed=0, device=DEVICE, task=task, rnn_params=lm_rnn_params,
+                                             **MESH_FULL, **kw)
+        return strat, rep
+
+    lm_single = _mesh_arm(lm, "(b) llama3.2-1b no mesh")
+    check(lm_single["events"] == full["events"], "phase 3m (b): the run without a mesh is not phase 3c's")
+    lm_mesh = _mesh_arm(lm, "(b) llama3.2-1b plane 4 x 2", plane_mesh=make_plane_mesh(4, dim_shards=2,
+                                                                                       devices=[card] * 8),
+                        mesh_min_rows=0)
+    del task
+    torch.cuda.empty_cache()
+    diff_lm = _differences(lm_mesh, lm_single)
+    check(not diff_lm, f"phase 3m (b): the 4 x 2 plane changed {diff_lm}")
+    _check_sharded_launches(lm_mesh, 8, "phase 3m (b)", required=())
+    check(len(lm_mesh["dists"]) == len(lm_single["dists"]) > 0, "phase 3m (b): assign counts differ")
+    ulps = max(_ulp_gap(a, b) for a, b in zip(lm_mesh["dists"], lm_single["dists"]))
+    ulps_a = max(_ulp_gap(a, b) for a, b in zip(plane["dists"], single["dists"]))
+    check(ulps_a == 0, f"phase 3m (a): row-sharded distances {ulps_a} ulps from the single device's")
+    per_call = _sharded_call_ms({"1x8": rows_8, "4x2": make_plane_mesh(4, dim_shards=2, devices=[card] * 8)})
+    wall = time.perf_counter() - t_phase
+    print(f"phase 3m (b) llama3.2-1b, 783,360 floats a row in 2 x 391,680 on a 4 x 2 plane: identical decisions "
+          f"({len(lm_single['events'])} events, {lm_single['uploads']} uploads), centers bit for bit, assign "
+          f"distances at most {ulps} ulps from the single device's ({len(lm_single['dists'])} assigns)")
+    print(f"phase 3m wall: (a) no mesh {single['wall']:.2f} s, plane 1 x 8 and fleet 4 {both['wall']:.2f} s, plane "
+          f"1 x 8 {plane['wall']:.2f} s; (b) no mesh {lm_single['wall']:.2f} s, plane 4 x 2 {lm_mesh['wall']:.2f} s; "
+          f"phase {wall:.1f} s; card {smi}")
+    rows = {name: {"1x8": plane["counts"][name], "1x8_fleet4": both["counts"][name], "4x2": lm_mesh["counts"][name],
+                   "sharded_calls_1x8": plane["calls"].get(name, 0), "sharded_calls_4x2": lm_mesh["calls"].get(name, 0)}
+            for name in ("l1_distance", "l1_distance_pairwise", "assign_and_lerp", "chi2_feedback",
+                         "chi2_feedback_segmented", "merge_attention")}
+    return dict(rows=rows, wall=wall, dist_ulps_4x2=ulps, per_call_ms=per_call,
+                walls={a["label"]: a["wall"] for a in (single, both, plane, lm_single, lm_mesh)},
+                uploads={"a": single["uploads"], "b": lm_single["uploads"]})
 
 
 # ----------------------------------------------------------------- phase 3d
@@ -3949,6 +4144,7 @@ def main() -> int:
     coal = coalesced_path(rnn_params)
     tiny = lm_path()
     full = full_width(tiny["rnn"])
+    mesh = sharded_phase(rnn_params, tiny["rnn"], full, smi)
     paper = paper_comparison(rnn_params)
     cohort = full_width_sync()
     sweep = comm_sweep(rnn_params)
@@ -3974,6 +4170,9 @@ def main() -> int:
     flash_row.update(mla_flash_timing(zoo))
     for name, extra in train_flash_timing(training).items():
         next(r for r in rows if r["name"] == name).update(extra)
+    for row in rows:  # phase 3m's per-shard launches beside each row's own
+        if row["name"] in mesh["rows"]:
+            row["phase_3m"] = mesh["rows"][row["name"]]
     print(f"timing: {trace_sessions['kept']} profiler sessions kept, {trace_sessions['refused']} refused "
           f"(a partial or empty trace)")
     profiles(rnn_params, tiny["rnn"])
@@ -3988,6 +4187,7 @@ def main() -> int:
                                     if k in SERVE_CASES or k in ("decode_profile", "pytree", "wall")}))
     print("zoo serving: " + json.dumps({k: v for k, v in zoo.items() if k != "flash_shapes"}))
     print("training: " + json.dumps({k: v for k, v in training.items() if k != "flash_shapes"}))
+    print("sharded plane: " + json.dumps({k: v for k, v in mesh.items() if k != "rows"}))
     print("restart: " + json.dumps({k: {f: v[f] for f in ("saved", "spent", "at", "unsteady", "bytes", "leaves")
                                        if f in v} for k, v in restart.items()}))
     print(json.dumps({"kernels": rows}))

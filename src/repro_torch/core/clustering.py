@@ -14,6 +14,15 @@ chosen by the ``backend`` argument (the port reads no ``REPRO_PLANE``):
     backend's bit for bit; the predictor's statistics (:meth:`DynamicClustering.l1`)
     are ``tree_l1`` sums, as in the reference's tree path.
 
+With ``mesh=`` (a :class:`~repro_torch.launch.mesh.PlaneMesh`; plane
+backend only) the plane's rows spread over the mesh's devices, and the
+batched launches over at least ``mesh_min_rows`` rows (the assign's
+centers, the nearest-pair and nearest-center sweeps, and the server's
+feedback probes through :meth:`DynamicClustering._kernel_mesh_kwargs`)
+run a launch a shard. Below it the row store stays sharded and the
+launch runs on the first device; 0 forces sharded compute. Decisions and
+centers do not depend on the mesh (:mod:`repro_torch.kernels.plane_sharded`).
+
 The server sees one interface for both: ``store_upload`` and
 ``nearest_centers`` for the last uploads, ``Cluster.head`` and
 ``Cluster.anchor`` for what the branches and the predictor read, and
@@ -187,7 +196,7 @@ class Cluster:
         candidates.append(self._bcast_row if self._plane is not None else self._bcast_tree)
         for cand in candidates:
             if self._plane is not None:
-                if not _finite(self._plane.row_view(cand)):
+                if not _finite(self._plane.row(cand)):
                     continue  # this snapshot is itself corrupt: go older
                 self._plane.copy_row(cand, self._row)
                 self._center_cache = None
@@ -213,7 +222,8 @@ class DynamicClustering:
     """Server-side cluster registry with incremental init + refinement."""
 
     def __init__(self, num_initial: int, mix_rate: float = 0.5, hm: float = 2.0,
-                 *, backend: str = "plane", device: torch.device | str = "cpu"):
+                 *, backend: str = "plane", device: torch.device | str = "cpu", mesh=None,
+                 mesh_min_rows: int = 128):
         self.num_initial = num_initial
         self.mix_rate = mix_rate
         self.hm = hm  # merge trigger: merge when count > hm * num_initial
@@ -221,6 +231,10 @@ class DynamicClustering:
         self.backend = str(backend).lower()
         if self.backend not in BACKENDS:
             raise ValueError(f"clustering backend must be plane|pytree, got {backend!r}")
+        self.mesh = mesh if self.backend == "plane" else None
+        # below this many rows a batched launch runs on one device (the row
+        # store stays sharded); 0 forces sharded compute
+        self.mesh_min_rows = int(mesh_min_rows)
         self.plane: ParameterPlane | None = None  # built from the first center's structure
         # > 0 with an ingest guard: the snapshot rows each cluster carries
         # for center rollback (0 allocates nothing)
@@ -243,8 +257,16 @@ class DynamicClustering:
     def _ensure_plane(self, template: PyTree) -> None:
         if self.backend == "plane" and self.plane is None:
             self.plane = ParameterPlane(
-                template, capacity=max(8, 4 * self.num_initial), device=self.device
+                template, capacity=max(8, 4 * self.num_initial), device=self.device, mesh=self.mesh
             )
+
+    def _kernel_mesh_kwargs(self, nrows: int) -> dict:
+        """The mesh arguments of a batched launch over ``nrows`` rows: none
+        without a sharded plane or below ``mesh_min_rows``, so the
+        single-device call stays as it is."""
+        if self.plane is None or self.plane.mesh is None or nrows < self.mesh_min_rows:
+            return {}
+        return {"mesh": self.plane.mesh, "axis": self.plane.row_axis, "dim_axis": self.plane.dim_axis}
 
     def _new_cluster(self, center: PyTree | torch.Tensor) -> Cluster:
         """``center`` may be a tree or (plane mode) an already-flat row."""
@@ -328,25 +350,29 @@ class DynamicClustering:
             self.plane.free(u)
         return u is not None
 
-    def _upload_matrix(self, uploads: dict[Any, Any], clients: list) -> torch.Tensor:
+    def _upload_matrix(self, uploads: dict[Any, Any], clients: list, on_mesh: bool | str = False):
         """``(len(clients), N)``: the uploads of ``clients`` in ``uploads``
-        (plane rows, or trees in tree mode), flattened."""
+        (plane rows, or trees in tree mode), flattened; ``on_mesh="shard"``
+        gives a sharded launch's per-shard operand (:meth:`ParameterPlane.take`)."""
         if self.backend == "pytree":
             return torch.stack([tree_flat_vector(uploads[m]) for m in clients])
-        return self.plane.take([uploads[m] for m in clients])
+        return self.plane.take([uploads[m] for m in clients], on_mesh=on_mesh)
 
-    def _center_matrix(self, cids: list[int]) -> torch.Tensor:
+    def _center_matrix(self, cids: list[int], on_mesh: bool | str = False):
         if self.backend == "pytree":
             return torch.stack([self.clusters[c].center_vec for c in cids])
-        return self.plane.rows([self.clusters[c]._row for c in cids])
+        return self.plane.rows([self.clusters[c]._row for c in cids], on_mesh=on_mesh)
 
     def nearest_centers(self, clients: list, cids: list[int]) -> dict[Any, int]:
         """Each of ``clients`` with a last upload, to the L1-nearest of the
-        clusters ``cids``: one ``l1_distance_pairwise`` launch."""
+        clusters ``cids``: one ``l1_distance_pairwise`` launch (one a shard
+        under a mesh, the upload rows over it)."""
         have = [m for m in clients if m in self.uploads]
         if not have:
             return {}
-        D = K.l1_distance_pairwise(self._upload_matrix(self.uploads, have), self._center_matrix(cids)).cpu().numpy()
+        kw = self._kernel_mesh_kwargs(len(have))
+        U = self._upload_matrix(self.uploads, have, on_mesh="shard" if kw else False)
+        D = K.l1_distance_pairwise(U, self._center_matrix(cids, on_mesh=bool(kw)), **kw).cpu().numpy()
         return {m: cids[int(np.argmin(d))] for m, d in zip(have, D)}
 
     def l1(self, a: PyTree | torch.Tensor, b: PyTree | torch.Tensor) -> float:
@@ -384,8 +410,9 @@ class DynamicClustering:
             self._move(client_id, c.cluster_id)
             return c.cluster_id, True
         cids = sorted(self.clusters)
-        centers = self.plane.rows([self.clusters[c]._row for c in cids])
-        dists_d, _amin, blended = K.assign_and_lerp(u, centers, self.mix_rate)
+        kw = self._kernel_mesh_kwargs(len(cids))
+        centers = self._center_matrix(cids, on_mesh="shard" if kw else False)
+        dists_d, _amin, blended = K.assign_and_lerp(u, centers, self.mix_rate, **kw)
         dists = dists_d.cpu().numpy()  # the one host sync; argmin re-read from it
         cid = cids[int(np.argmin(dists))]
         # the blend is only valid against the center version it came from
@@ -458,12 +485,16 @@ class DynamicClustering:
         a, b = self.clusters[cid_a], self.clusters[cid_b]
         main, aux = (a, b) if a.size >= b.size else (b, a)
         if self.backend == "plane":
-            v_trained = self.plane.from_pytree(local_train_fn(main.center))  # from the pre-merge center
-            # no row copies: the kernel reads both rows in the plane and
-            # writes the merged center over the main row
-            v_m = self.plane.row_view(main._row)
-            K.merge_attention(v_m, self.plane.row_view(aux._row), v_trained, out=v_m)
-            main._center_cache = None
+            plane = self.plane
+            v_trained = plane.from_pytree(local_train_fn(main.center))  # from the pre-merge center
+            if not plane.dim_sharded and plane.row_device(main._row) == plane.row_device(aux._row):
+                # no row copies: the kernel reads both rows in the plane and
+                # writes the merged center over the main row
+                v_m = plane.row_view(main._row)
+                K.merge_attention(v_m, plane.row_view(aux._row), v_trained.to(v_m.device), out=v_m)
+                main._center_cache = None
+            else:  # rows split over the model axis or on two devices: whole rows on the first device
+                main.set_center_vec(K.merge_attention(plane.row(main._row), plane.row(aux._row), v_trained))
         else:
             v_trained = tree_flat_vector(local_train_fn(main.center))
             main.set_center_vec(K.merge_attention(main.center_vec, aux.center_vec, v_trained))
@@ -486,8 +517,9 @@ class DynamicClustering:
             cids = mature
         if len(cids) < 2:
             return None
-        vecs = self._center_matrix(cids)
-        dmat = K.l1_distance_pairwise(vecs, vecs).cpu().numpy()
+        kw = self._kernel_mesh_kwargs(len(cids))
+        vecs = self._center_matrix(cids, on_mesh=bool(kw))
+        dmat = K.l1_distance_pairwise(vecs, vecs, **kw).cpu().numpy()
         if self.backend == "pytree":
             dmat = dmat.astype(np.float64)  # the reference's tree path fills a float64 matrix, row by row
         off = dmat[~np.eye(len(cids), dtype=bool)]

@@ -32,6 +32,14 @@ retires clients that went dark for good.
 parameter trees (:mod:`repro_torch.core.clustering`'s tree mode, behind
 the same interface), and the coalesced loop takes the per-upload path, as
 the reference's does. ``stats()["plane_rows"]`` is then 0.
+
+``plane_mesh=`` (a :class:`~repro_torch.launch.mesh.PlaneMesh`) shards the
+plane's rows over the mesh, and the batched launches of at least
+``mesh_min_rows`` rows go a launch a shard: the assign, the segmented
+feedback, the reassignment and dissolve probes and the dissolve's L1
+sweep. The coalesced chain stays on the first device (its centers are
+gathered there, as the reference's are), and :meth:`state_dict` writes
+whole rows, so a checkpoint does not depend on the mesh.
 """
 from __future__ import annotations
 
@@ -97,13 +105,16 @@ class EchoPFLServer:
         enable_clustering: bool = True,
         enable_broadcast: bool = True,
         plane_backend: str = "plane",
+        plane_mesh=None,
+        mesh_min_rows: int = 128,
         seed: int = 0,
         device: str | torch.device = "cuda",
     ):
         self.device = resolve_device(device)
         self.init_params = init_params
         self.clustering = DynamicClustering(
-            num_initial_clusters, mix_rate=mix_rate, hm=hm, backend=plane_backend, device=self.device
+            num_initial_clusters, mix_rate=mix_rate, hm=hm, backend=plane_backend, device=self.device,
+            mesh=plane_mesh, mesh_min_rows=mesh_min_rows,
         )
         self.repo = ModelRepo()
         self.staleness = StalenessTracker()
@@ -666,7 +677,7 @@ class EchoPFLServer:
         seg_ids = np.asarray([si for si, _, _, _ in entries], np.int32)
         g, seg_sum = K.chi2_feedback_segmented(
             f_pred, f_true, s_soft, torch.from_numpy(seg_ids).to(self.device),
-            num_segments=len(cid_order),
+            num_segments=len(cid_order), **self.clustering._kernel_mesh_kwargs(len(entries)),
         )
         g, seg_sum = segmented_numpy(g, seg_sum)  # one device-to-host copy
         counts = np.bincount(seg_ids, minlength=len(cid_order))
@@ -706,9 +717,9 @@ class EchoPFLServer:
         }
         pairs = [(m, centers[c2]) for m, home, _ in flagged for c2 in others_of[home]]
         f_pred, f_true, s_soft = self._feedback_rows(pairs)
-        scores = K.chi2_feedback(f_pred, f_true, s_soft).cpu().numpy().reshape(
-            len(flagged), len(clusters) - 1
-        )
+        scores = K.chi2_feedback(
+            f_pred, f_true, s_soft, **self.clustering._kernel_mesh_kwargs(len(pairs))
+        ).cpu().numpy().reshape(len(flagged), len(clusters) - 1)
         moves = 0
         for (m, home, g), row in zip(flagged, scores):
             best_i = int(np.argmin(row))
@@ -796,9 +807,9 @@ class EchoPFLServer:
             f_pred, f_true, s_soft = self._feedback_rows(
                 [(m, centers[c]) for m in members for c in rest]
             )
-            scores = K.chi2_feedback(f_pred, f_true, s_soft).cpu().numpy().reshape(
-                len(members), len(rest)
-            )
+            scores = K.chi2_feedback(
+                f_pred, f_true, s_soft, **clustering._kernel_mesh_kwargs(len(f_pred))
+            ).cpu().numpy().reshape(len(members), len(rest))
             for m, row in zip(members, scores):
                 best_of[m] = rest[int(np.argmin(row))]
         elif members:

@@ -7,8 +7,12 @@ point for EchoPFL and the six baselines: the synchronous strategies run
 with ``coalesce_window=`` seconds the coalesced one; ``uplink=`` compresses
 the uploads (``"topk"``, ``"int8"`` or an ``UplinkConfig``); ``churn=``,
 ``faults=`` and ``guard=`` make an asynchronous run a chaos run
-(:class:`~repro_torch.fl.simulator.Simulator`). It runs on
-``device="cuda"`` unless the caller asks for the CPU.
+(:class:`~repro_torch.fl.simulator.Simulator`); ``plane_mesh=`` shards the
+EchoPFL server's parameter plane and ``fleet_mesh=`` the client fleet
+(a :class:`~repro_torch.launch.mesh.PlaneMesh` or a spec string such as
+``"8"`` or ``"4x2"``; None is off), with ``mesh_min_rows=`` the server's
+threshold for a sharded launch. It runs on ``device="cuda"`` unless the
+caller asks for the CPU.
 ``init_params=`` (MLP weights) and ``rnn_params=`` (pretrained broadcast
 RNN) hand over weights made elsewhere — e.g. the reference's, which torch
 cannot draw itself — instead of drawing them from ``seed``.
@@ -30,6 +34,7 @@ from repro_torch.fl.devices import PAPER_SIM_MIX, make_device_fleet
 from repro_torch.fl.network import NetworkModel
 from repro_torch.fl.simulator import Simulator
 from repro_torch.fl.tasks import MLP_TASK
+from repro_torch.launch.mesh import resolve_mesh
 
 PyTree = Any
 
@@ -90,6 +95,7 @@ def build_strategy(
     rnn_params: dict | None = None,
     device: str | torch.device = "cuda",
     sync_interval: float = 120.0,
+    plane_mesh=None,
     **server_kw,
 ):
     """The strategy ``name`` over ``clients``: ``echopfl`` (``server_kw``
@@ -98,7 +104,11 @@ def build_strategy(
     ``fedavg``, ``fedasyn``, ``fedsea``, ``clusterfl``, ``oort``,
     ``standalone``. Oort's latency hints are three ``round_time_fn()``
     draws a client, in list order, here at build time, as the reference
-    draws them. An unknown name raises ``KeyError``."""
+    draws them. An unknown name raises ``KeyError``. ``plane_mesh`` (a
+    :class:`~repro_torch.launch.mesh.PlaneMesh`) goes to the EchoPFL server's
+    plane; the baselines keep no plane and refuse one."""
+    if plane_mesh is not None and name in ("fedavg", "fedasyn", "fedsea", "clusterfl", "oort", "standalone"):
+        raise ValueError(f"plane_mesh: the {name} server keeps no parameter plane")
     sizes = {c.client_id: c.data.n for c in clients}
     if name == "fedavg":
         return FedAvg(init_params, sizes)
@@ -136,6 +146,7 @@ def build_strategy(
         rnn_params=rnn_params,
         seed=seed,
         device=device,
+        plane_mesh=plane_mesh,
         **server_kw,
     )
 
@@ -165,6 +176,8 @@ def run_experiment(
     churn: dict | None = None,
     faults: Any = None,
     guard: Any = None,
+    plane_mesh=None,
+    fleet_mesh=None,
     **strategy_kw,
 ):
     """Returns (task, clients, strategy, report). A synchronous strategy
@@ -178,8 +191,11 @@ def run_experiment(
     :class:`~repro_torch.fl.faults.FaultConfig` or ``FaultPlan``; ``guard``:
     ``None``/``"off"``, ``"on"`` or a
     :class:`~repro_torch.fl.guard.GuardConfig` (the asynchronous loops
-    only, as in the reference)."""
+    only, as in the reference). ``plane_mesh``, ``fleet_mesh``: see the
+    module docstring; ``mesh_min_rows`` rides ``strategy_kw`` to the
+    EchoPFL server."""
     dev = resolve_device(device)
+    plane_mesh, fleet_mesh = resolve_mesh(plane_mesh, dev), resolve_mesh(fleet_mesh, dev)
     task, clients, init_params = build_clients(
         task_name, num_clients, seed=seed, latent_clusters=latent_clusters,
         device_mix=device_mix, samples_per_client=samples_per_client,
@@ -188,13 +204,13 @@ def run_experiment(
     )
     strategy = build_strategy(
         strategy_name, init_params, clients, seed=seed, rnn_params=rnn_params,
-        device=dev, **strategy_kw,
+        device=dev, plane_mesh=plane_mesh, **strategy_kw,
     )
     sim = Simulator(
         clients, strategy,
         network=network or NetworkModel(),
         eval_interval=eval_interval, target_acc=target_acc, seed=seed, coalesce_window=coalesce_window,
-        uplink=uplink, churn=churn, faults=faults, guard=guard,
+        uplink=uplink, churn=churn, faults=faults, guard=guard, fleet_mesh=fleet_mesh,
     )
     report = sim.run(max_time=max_time, rounds=rounds, max_uploads=max_uploads)
     report.extra["task"] = task_name

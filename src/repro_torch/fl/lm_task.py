@@ -397,18 +397,24 @@ def run_lm_experiment(
     rnn_params: dict | None = None,
     coalesce_window: float = 0.0,
     uplink=None,
+    plane_mesh=None,
+    fleet_mesh=None,
     **strategy_kw,
 ):
     """End-to-end LM personalization run: a synchronous strategy runs
     ``rounds`` round barriers, an asynchronous one the event loop, per event
     or with ``coalesce_window`` > 0 coalesced; ``uplink`` compresses the
-    uploaded deltas (as in ``run_experiment``). Returns (task, clients,
-    strategy, report) like :func:`repro_torch.fl.experiment.run_experiment`."""
+    uploaded deltas, ``plane_mesh`` and ``fleet_mesh`` shard the server's
+    plane and the fleet (``mesh_min_rows`` rides ``strategy_kw``), as in
+    ``run_experiment``. Returns (task, clients, strategy, report) like
+    :func:`repro_torch.fl.experiment.run_experiment`."""
     from repro_torch.fl.experiment import build_strategy
     from repro_torch.fl.network import NetworkModel
     from repro_torch.fl.simulator import Simulator
+    from repro_torch.launch.mesh import resolve_mesh
 
     dev = resolve_device(device)
+    plane_mesh, fleet_mesh = resolve_mesh(plane_mesh, dev), resolve_mesh(fleet_mesh, dev)
     clients, task, init_delta = build_lm_clients(
         num_clients, seed=seed, latent_clusters=latent_clusters,
         base_round_time=base_round_time, local_epochs=local_epochs,
@@ -416,9 +422,9 @@ def run_lm_experiment(
         base_params=base_params, init_params=init_params,
     )
     strategy = build_strategy(strategy_name, init_delta, clients, seed=seed, rnn_params=rnn_params,
-                              device=dev, **strategy_kw)
+                              device=dev, plane_mesh=plane_mesh, **strategy_kw)
     sim = Simulator(clients, strategy, network=network or NetworkModel(), eval_interval=eval_interval,
-                    seed=seed, coalesce_window=coalesce_window, uplink=uplink)
+                    seed=seed, coalesce_window=coalesce_window, uplink=uplink, fleet_mesh=fleet_mesh)
     report = sim.run(max_time=max_time, rounds=rounds)
     report.extra["task"] = "lm"
     report.extra["latent_clusters"] = {c.client_id: c.data.latent_cluster for c in clients}

@@ -124,8 +124,10 @@ class Simulator:
         churn: dict[Any, list[tuple[float, float]]] | None = None,
         faults: Any = None,
         guard: Any = None,
+        fleet_mesh=None,
     ):
         self.clients = {c.client_id: c for c in clients}
+        self.fleet_mesh = fleet_mesh  # the client fleet's PlaneMesh (None: one device)
         self.strategy = strategy
         self.net = network or NetworkModel()
         # uplink compression: the config now, the codec with the fleet (it needs the model template)
@@ -184,7 +186,7 @@ class Simulator:
         if self._fleet is None:
             from repro_torch.fl.fleet import ClientFleet
 
-            self._fleet = ClientFleet(list(self.clients.values()), template, device=device)
+            self._fleet = ClientFleet(list(self.clients.values()), template, device=device, mesh=self.fleet_mesh)
         if self.uplink.mode != "none":
             if self._codec is None:
                 self._codec = UplinkCodec(template, list(self.clients), self.uplink, device=device)

@@ -1,15 +1,32 @@
-"""Single-device public API of the kernels (no mesh).
+"""Public API of the kernels, on one device or over a plane mesh.
 
 The protocol layer calls only these names. Each dispatches by the device
 of the tensors it is given: CPU tensors run the plain PyTorch version,
 CUDA tensors launch the hand-written kernel or raise.
+
+The four batched plane entry points (``l1_distance_pairwise``,
+``assign_and_lerp``, ``chi2_feedback``, ``chi2_feedback_segmented``) also
+take ``mesh=`` (a :class:`~repro_torch.launch.mesh.PlaneMesh`), ``axis``
+and ``dim_axis``, as the reference's do (``repro/kernels/ops.py:209-441``,
+``:638-677``). Without a mesh they are the single-device call unchanged.
+With one whose ``axis`` has more than one shard, or whose model axis is
+usable, the operands are padded to a shard multiple and split over the
+shards' devices (:func:`_to_mesh_rows`) and the kernel runs once a shard
+(:mod:`repro_torch.kernels.plane_sharded`). The model axis shards the L1
+kernels' dim only when its extent divides the width; it lends the chi2
+kernels rows. ``dim_axis=None`` turns model-axis compute off (the
+reference's ``REPRO_PLANE_MODEL_COMPUTE=off``): a dim-sharded row store
+then joins each row shard's dim chunks before the launch.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.assign_lerp import assign_and_lerp
-from repro_torch.kernels.chi2 import chi2_feedback, chi2_feedback_segmented
+from repro_torch.kernels import assign_lerp as _assign_lerp
+from repro_torch.kernels import chi2 as _chi2
+from repro_torch.kernels import l1 as _l1
+from repro_torch.kernels import plane_sharded
+from repro_torch.kernels.plane_sharded import MeshRows
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_with_lse
 from repro_torch.kernels.flash_attention_bwd import (
     flash_attention_bwd,
@@ -17,18 +34,18 @@ from repro_torch.kernels.flash_attention_bwd import (
     flash_attention_dq,
 )
 from repro_torch.kernels.ingest_chain import ingest_chain
-from repro_torch.kernels.l1 import l1_distance, l1_distance_pairwise, pairwise_l1
+from repro_torch.kernels.l1 import l1_distance, pairwise_l1
 from repro_torch.kernels.merge import merge_attention
 from repro_torch.kernels.uplink import uplink_int8_encode, uplink_topk_encode
 
 # every wrapper that launches a kernel, by the name its launch count goes under
 WRAPPERS = {
     "l1_distance": l1_distance,
-    "l1_distance_pairwise": l1_distance_pairwise,
-    "assign_and_lerp": assign_and_lerp,
+    "l1_distance_pairwise": _l1.l1_distance_pairwise,
+    "assign_and_lerp": _assign_lerp.assign_and_lerp,
     "ingest_chain": ingest_chain,
-    "chi2_feedback": chi2_feedback,
-    "chi2_feedback_segmented": chi2_feedback_segmented,
+    "chi2_feedback": _chi2.chi2_feedback,
+    "chi2_feedback_segmented": _chi2.chi2_feedback_segmented,
     "merge_attention": merge_attention,
     "uplink_int8_encode": uplink_int8_encode,
     "uplink_topk_encode": uplink_topk_encode,
@@ -63,22 +80,172 @@ class _Attention(torch.autograd.Function):
 def attention(q, k, v, *, causal=True, scale=None, window=None, softcap=None, q_pos0=0):
     """Training/prefill attention, ``(B, H, Sq, hd) x (B, KV, Sk, hd) x
     (B, KV, Sk, dv) -> (B, H, Sq, dv)``, differentiable in ``q``, ``k`` and
-    ``v``. One device, no mesh."""
+    ``v``. One device: the model meshes are not ported (ROADMAP queue 1
+    item 7)."""
     return _Attention.apply(q, k, v, causal, scale, window, softcap, q_pos0)
+
+
+# ------------------------------------------------------------ plane meshes
+def _mesh_active(mesh, axis: str) -> bool:
+    return mesh is not None and axis in mesh.axis_names and mesh.shape[axis] > 1
+
+
+def _model_axis_size(mesh, dim_axis) -> int:
+    """The model axis's extent for compute (1 when absent or turned off)."""
+    if mesh is None or dim_axis is None or dim_axis not in mesh.axis_names:
+        return 1
+    return mesh.shape[dim_axis]
+
+
+def _dim_shards(mesh, dim_axis, dim: int) -> int:
+    """Dim chunks of an L1 launch: the model axis's extent when it divides
+    ``dim``, else 1 (the plane's storage rule)."""
+    m = _model_axis_size(mesh, dim_axis)
+    return m if m > 1 and dim % m == 0 else 1
+
+
+def _row_devices(mesh, axis: str, joint: bool) -> list[torch.device]:
+    """The device of each row shard: over ``axis``, each row's first
+    device; jointly over (``axis``, model), every device plane-major."""
+    grid = mesh.devices if axis in mesh.axis_names else (mesh.devices[0],)
+    return [d for row in grid for d in row] if joint else [row[0] for row in grid]
+
+
+def _to_mesh_rows(mesh, axis: str, x, fill=0, *, row_axes=None, dim_axis=None) -> MeshRows:
+    """Pad a row-batched operand to a multiple of the shards over
+    ``row_axes`` (default ``(axis,)``) with ``fill`` and split it over their
+    devices; with ``dim_axis`` each shard's block also splits its last dim
+    over the model axis. A :class:`MeshRows` already laid out so passes
+    through; one whose row shards match but whose dim chunks do not is
+    re-chunked shard by shard (its rows never gather on one device)."""
+    axes = tuple(row_axes) if row_axes is not None else (axis,)
+    joint = len(axes) > 1
+    devs = _row_devices(mesh, axis, joint)
+    chunks = _model_axis_size(mesh, dim_axis) if dim_axis is not None else 1
+    if isinstance(x, MeshRows):
+        if x.joint == joint and len(x.parts) == len(devs):
+            if len(x.parts[0]) == chunks:
+                return x
+            if chunks == 1:
+                parts = [[torch.cat([p.to(d) for p in ps], dim=1)] for ps, d in zip(x.parts, devs)]
+                return MeshRows(parts, x.rows, joint)
+        x = x.gather(mesh.first_device)
+    rows = x.shape[0]
+    shards = len(devs)
+    per = max(1, -(-rows // shards))
+    if per * shards != rows:
+        pad = torch.full((per * shards - rows,) + tuple(x.shape[1:]), fill, dtype=x.dtype, device=x.device)
+        x = torch.cat([x, pad])
+    parts = []
+    for k, d in enumerate(devs):
+        block = x[k * per:(k + 1) * per]
+        if chunks > 1:  # row shard k's dim chunk m on devices[k][m]
+            parts.append([c.to(mesh.devices[k][m]).contiguous() for m, c in enumerate(torch.chunk(block, chunks, -1))])
+        else:
+            parts.append([block.to(d).contiguous()])
+    return MeshRows(parts, rows, joint)
+
+
+def _whole(x, mesh) -> torch.Tensor:
+    """A one-shard mesh's operand for the single-device launch."""
+    return x.gather(mesh.first_device) if isinstance(x, MeshRows) else x
+
+
+def l1_distance_pairwise(xs, centers: torch.Tensor, *, mesh=None, axis: str = "plane", dim_axis="model"):
+    """(M, N) x (C, N) -> (M, C) L1 matrix (merge candidates, reassignment
+    and dissolve sweeps), one launch, or one a shard under a mesh: the query
+    rows over ``axis`` and, when the model axis divides N, the dim over it
+    (the partial sums added over the model shards)."""
+    if mesh is None:
+        return _l1.l1_distance_pairwise(xs, centers)
+    ds = _dim_shards(mesh, dim_axis, centers.shape[-1])
+    if _mesh_active(mesh, axis) or ds > 1:
+        M = xs.shape[0]
+        da = dim_axis if ds > 1 else None
+        xs = _to_mesh_rows(mesh, axis, xs, dim_axis=da)
+        return plane_sharded.l1_pairwise_sharded(xs, centers, mesh, _l1.l1_distance_pairwise)[:M]
+    return _l1.l1_distance_pairwise(_whole(xs, mesh), centers)
+
+
+def assign_and_lerp(u: torch.Tensor, centers, beta: float, *, mesh=None, axis: str = "plane", dim_axis="model"):
+    """Fused Eq. 1 argmin + mixed-rate center blend: (dists (C,), idx () int32,
+    blended (N,)), one launch. Under a mesh the center rows go over
+    ``axis`` (and the dim over the model axis when it divides N): one
+    ``l1_distance`` launch a shard, the argmin and the winner's fetch on
+    the mesh's first device with no host read, and the two-op blend."""
+    if mesh is None:
+        return _assign_lerp.assign_and_lerp(u, centers, beta)
+    ds = _dim_shards(mesh, dim_axis, u.shape[-1])
+    if _mesh_active(mesh, axis) or ds > 1:
+        C = centers.shape[0]
+        da = dim_axis if ds > 1 else None
+        centers = _to_mesh_rows(mesh, axis, centers, dim_axis=da)
+        return plane_sharded.assign_lerp_sharded(u, centers, beta, mesh, l1_distance, valid_rows=C)
+    return _assign_lerp.assign_and_lerp(u, _whole(centers, mesh), beta)
+
+
+def _chi2_rows(mesh, axis, dim_axis):
+    """The row axes a chi2 launch spreads over: the model axis lends rows."""
+    ms = _model_axis_size(mesh, dim_axis)
+    return (axis, dim_axis) if ms > 1 else (axis,), ms
+
+
+def chi2_feedback(f_pred, f_true, s_soft, *, mesh=None, axis: str = "plane", dim_axis="model") -> torch.Tensor:
+    """Per-row Eq. 2/3 statistic, (M, J) -> (M,) in one launch (the
+    reassignment and dissolve probes), or one a shard under a mesh, the
+    rows over ``axis`` and the model axis jointly."""
+    if mesh is None:
+        return _chi2.chi2_feedback(f_pred, f_true, s_soft)
+    row_axes, ms = _chi2_rows(mesh, axis, dim_axis)
+    if _mesh_active(mesh, axis) or ms > 1:
+        M = f_pred.shape[0]
+        fp = _to_mesh_rows(mesh, axis, f_pred, row_axes=row_axes)
+        ft = _to_mesh_rows(mesh, axis, f_true, fill=1, row_axes=row_axes)
+        ss = _to_mesh_rows(mesh, axis, s_soft, row_axes=row_axes)
+        return plane_sharded.chi2_rows_sharded(fp, ft, ss, mesh, _chi2.chi2_feedback)[:M]
+    return _chi2.chi2_feedback(f_pred, f_true, s_soft)
+
+
+def chi2_feedback_segmented(f_pred, f_true, s_soft, seg_ids: torch.Tensor, num_segments: int, *, mesh=None,
+                            axis: str = "plane", dim_axis="model"):
+    """Every member of every cluster in one launch (the reference's
+    ``chi2_feedback_all``): (g (M,), seg_sum (S,)). Under a mesh the member
+    rows go over ``axis`` and the model axis jointly, padded rows in
+    segment -1, and the shards' segment sums are added in shard order."""
+    if mesh is None:
+        return _chi2.chi2_feedback_segmented(f_pred, f_true, s_soft, seg_ids, num_segments)
+    row_axes, ms = _chi2_rows(mesh, axis, dim_axis)
+    if _mesh_active(mesh, axis) or ms > 1:
+        M = f_pred.shape[0]
+        fp = _to_mesh_rows(mesh, axis, f_pred, row_axes=row_axes)
+        ft = _to_mesh_rows(mesh, axis, f_true, fill=1, row_axes=row_axes)
+        ss = _to_mesh_rows(mesh, axis, s_soft, row_axes=row_axes)
+        seg = _to_mesh_rows(mesh, axis, seg_ids, fill=-1, row_axes=row_axes)
+        g, seg_sum = plane_sharded.chi2_all_sharded(fp, ft, ss, seg, num_segments, mesh,
+                                                    _chi2.chi2_feedback_segmented)
+        return g[:M], seg_sum
+    return _chi2.chi2_feedback_segmented(f_pred, f_true, s_soft, seg_ids, num_segments)
 
 
 def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
+def sharded_calls() -> dict[str, int]:
+    """Calls of each entry point that ran over a mesh (a launch a shard each)."""
+    return {name: fn.calls for name, fn in plane_sharded.SHARDED.items()}
+
+
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    for fn in plane_sharded.SHARDED.values():
+        fn.calls = 0
 
 
 __all__ = [
     "assign_and_lerp", "attention", "chi2_feedback", "chi2_feedback_segmented", "flash_attention",
     "flash_attention_bwd", "flash_attention_with_lse", "ingest_chain", "l1_distance", "l1_distance_pairwise",
-    "launch_counts", "merge_attention", "pairwise_l1", "reset_launch_counts", "uplink_int8_encode",
+    "launch_counts", "merge_attention", "pairwise_l1", "reset_launch_counts", "sharded_calls", "uplink_int8_encode",
     "uplink_topk_encode",
 ]

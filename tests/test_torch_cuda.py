@@ -868,3 +868,65 @@ def test_cuda_example_matches_the_cpu(cuda_device, tmp_path):
     assert c["server"].events == g["server"].events
     for cid, want in c["losses"].items():
         np.testing.assert_allclose(g["losses"][cid], want, rtol=1e-4)
+
+
+MESH_SHAPES = {"1x8": (8, 1), "4x2": (4, 2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(MESH_SHAPES))
+@pytest.mark.parametrize("n", [25418, 4099])  # 4099: no model axis of 2 divides it, rows shard alone
+def test_cuda_sharded_ops_match_the_single_device_kernels(cuda_device, shape, n):
+    """The four batched plane ops on a mesh that repeats the one card, one
+    launch a shard, against the single-device kernels: distances (row
+    shards), blends, g and scores bit for bit; dim-sharded distances bit for
+    bit the chunks' kernel sums (``kernel_l1``) added in chunk order; segment
+    sums within 1 ulp."""
+    from test_torch_l1_order import kernel_l1
+
+    from repro_torch.launch.mesh import make_plane_mesh
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rows, dims = MESH_SHAPES[shape]
+    mesh = make_plane_mesh(rows, dim_shards=dims, devices=[dev] * (rows * dims))
+    shards = rows * dims
+    split = dims if n % dims == 0 else 1
+    rng = np.random.default_rng(n + rows)
+    xs_np, cs_np, u_np = _f32(rng, 11, n), _f32(rng, 5, n), _f32(rng, n)
+    xs, cs, u = (torch.from_numpy(a).to(dev) for a in (xs_np, cs_np, u_np))
+
+    def chunk_model(x, c):
+        parts = [kernel_l1(a, b) for a, b in zip(np.split(x, split), np.split(c, split))]
+        acc = np.float32(parts[0])
+        for p in parts[1:]:
+            acc = np.float32(acc + p)
+        return acc
+
+    ops.reset_launch_counts()
+    got = ops.l1_distance_pairwise(xs, cs, mesh=mesh)
+    assert ops.launch_counts()["l1_distance_pairwise"] == rows * split
+    want = ops.l1_distance_pairwise(xs, cs)
+    model = np.asarray([[chunk_model(x, c) for c in cs_np] for x in xs_np], np.float32)
+    assert got.cpu().numpy().tobytes() == model.tobytes()
+    if split == 1:
+        assert torch.equal(got, want)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+
+    ops.reset_launch_counts()
+    d, i, b = ops.assign_and_lerp(u, cs, 0.25, mesh=mesh)
+    counts = ops.launch_counts()
+    assert counts["l1_distance"] == rows * split and counts["assign_and_lerp"] == 0
+    ds, is_, bs = ops.assign_and_lerp(u, cs, 0.25)
+    assert int(i) == int(is_) and torch.equal(b, bs)
+    assert d.cpu().numpy().tobytes() == np.asarray([chunk_model(u_np, c) for c in cs_np], np.float32).tobytes()
+
+    fp, ft, ss = (torch.from_numpy(a).to(dev) for a in _feedback(rng, 13, 10))
+    ops.reset_launch_counts()
+    g = ops.chi2_feedback(fp, ft, ss, mesh=mesh)
+    assert ops.launch_counts()["chi2_feedback"] == shards
+    assert torch.equal(g, ops.chi2_feedback(fp, ft, ss))
+    seg = torch.from_numpy(np.repeat(np.arange(4), [2, 1, 6, 4]).astype(np.int32)).to(dev)
+    g2, s2 = ops.chi2_feedback_segmented(fp, ft, ss, seg, 4, mesh=mesh)
+    g1, s1 = ops.chi2_feedback_segmented(fp, ft, ss, seg, 4)
+    assert torch.equal(g2, g1)
+    np.testing.assert_array_max_ulp(s2.cpu().numpy(), s1.cpu().numpy(), maxulp=1)
