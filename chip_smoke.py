@@ -89,9 +89,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    merge in place; (b) phase 3c's run on a 4 x 2 (rows x model dim) mesh,
    the 783,360-float row in two 391,680-float chunks, against the same run
    without a mesh: identical decisions, centers bit for bit, the assign's
-   distances' largest gap in ulps; each arm's wall time; then each sharded
-   entry point's time a call on both meshes beside its single-device call,
-   at the main path's most frequent shapes and the full width's assign;
+   distances bit for bit the two chunks' L1 in the kernel's order added in
+   chunk order, and their largest gap in ulps from the single device's;
+   each arm's wall time; then each sharded entry point on both meshes,
+   first held to its single-device call on the same inputs (bit for bit,
+   dim-sharded distances bit for bit the chunk model, segment sums within
+   2 ulps), then timed a call beside it, at the main path's most frequent
+   shapes and the full width's assign;
 3e. the paper's comparison — the reference's Tab. 1 bench at one task and
    seed: all seven strategies on ``image_recognition`` (20 clients, 1800 s,
    at most 40 rounds, seed 0; EchoPFL with phase 3's broadcast RNN handed
@@ -1364,17 +1368,41 @@ def _ulp_gap(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((ia - ib).abs().max()) if a.numel() else 0
 
 
-def _mesh_arm(run, label: str, **kw) -> dict:
+def _chunk_l1(u, cs, m: int):
+    """The distances of a plane whose dim is in ``m`` chunks: each chunk's L1
+    in the kernel's order (``tests/test_torch_l1_order.py::kernel_l1``),
+    the chunks' sums added in chunk order (``plane_sharded``'s join)."""
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_l1_order import kernel_l1
+
+    out = []
+    for c in cs:
+        parts = [kernel_l1(a, b) for a, b in zip(np.split(u, m), np.split(c, m))]
+        acc = np.float32(parts[0])
+        for p in parts[1:]:
+            acc = np.float32(acc + p)
+        out.append(acc)
+    return np.asarray(out, np.float32)
+
+
+def _mesh_arm(run, label: str, keep_inputs: bool = False, **kw) -> dict:
     """One arm of phase 3m: launch counts zeroed just before and read just
-    after, the assign's distances recorded."""
+    after, the assign's distances recorded (and with ``keep_inputs`` its
+    upload and centers, gathered on the card)."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.plane_sharded import MeshRows
 
     dists: list = []
+    inputs: list = []
     assign = ops.assign_and_lerp
 
     def rec(u, c, b, **akw):
         out = assign(u, c, b, **akw)
         dists.append(out[0].detach().cpu())
+        if keep_inputs:
+            inputs.append((u.detach().clone(), c.gather(u.device) if isinstance(c, MeshRows) else c.clone()))
         return out
     ops.assign_and_lerp = rec
     sync()
@@ -1387,7 +1415,7 @@ def _mesh_arm(run, label: str, **kw) -> dict:
         ops.assign_and_lerp = assign
     wall = time.perf_counter() - t0
     out = dict(label=label, wall=wall, counts=ops.launch_counts(), calls=ops.sharded_calls(), dists=dists,
-               **_decisions(strat, rep))
+               inputs=inputs, **_decisions(strat, rep))
     print(f"phase 3m {label}: {out['uploads']} uploads, {len(out['events'])} events, clusters "
           f"{out['stats']['clusters']}, merges {out['stats']['merges']}, final_acc {out['final_acc']:.4f}, wall "
           f"{wall:.2f} s; launches {json.dumps(out['counts'])}; sharded calls {json.dumps(out['calls'])}")
@@ -1411,10 +1439,22 @@ def _check_sharded_launches(arm: dict, shards: int, label: str, required=SHARDED
           f"{label}: {arm['stats']['merges']} merges, {counts['merge_attention']} merge launches")
 
 
+def _pairwise_chunk_l1(xs: torch.Tensor, cs: torch.Tensor, m: int):
+    """:func:`_chunk_l1` for every query row: the (M, C) distances."""
+    import numpy as np
+
+    c = cs.cpu().numpy()
+    return np.stack([_chunk_l1(x, c, m) for x in xs.cpu().numpy()])
+
+
 def _sharded_call_ms(meshes: dict) -> dict:
     """Per call (CUDA events, host overhead included) of each sharded entry
     point beside its single-device call, at the main path's most frequent
-    shapes (PERF.md's table) and the full width's assign."""
+    shapes (PERF.md's table) and the full width's assign. Each meshed call's
+    output is first held to the single-device call's on the same inputs:
+    bit for bit (row-sharded distances, the argmin, the blended row, scores
+    and g), dim-sharded distances bit for bit :func:`_chunk_l1`'s, segment
+    sums within 2 ulps."""
     from repro_torch.kernels import ops
 
     g = gen(12)
@@ -1422,15 +1462,33 @@ def _sharded_call_ms(meshes: dict) -> dict:
     uf, cf = randn(g, 783360), randn(g, 2, 783360)
     fp, ft, ss = randn(g, 20, 10).abs() * 100, randn(g, 20, 10).abs() * 100 + 1, torch.softmax(randn(g, 20, 10), -1)
     seg = torch.arange(20, device=DEVICE, dtype=torch.int32) % 4
+    # name: (call, the kind of each output, the dim-chunk model of its distances)
     cases = {
-        "assign_and_lerp (4, 25418)": lambda **kw: ops.assign_and_lerp(u, cs, 0.25, **kw),
-        "assign_and_lerp (2, 783360)": lambda **kw: ops.assign_and_lerp(uf, cf, 0.25, **kw),
-        "l1_distance_pairwise (3, 3, 25418)": lambda **kw: ops.l1_distance_pairwise(xs, xs, **kw),
-        "chi2_feedback (4, 10)": lambda **kw: ops.chi2_feedback(fp[:4], ft[:4], ss[:4], **kw),
-        "chi2_feedback_segmented (20, 10), S = 4": lambda **kw: ops.chi2_feedback_segmented(fp, ft, ss, seg, 4, **kw),
+        "assign_and_lerp (4, 25418)": (lambda **kw: ops.assign_and_lerp(u, cs, 0.25, **kw), ("l1", "bits", "bits"),
+                                       lambda m: _pairwise_chunk_l1(u[None], cs, m)[0]),
+        "assign_and_lerp (2, 783360)": (lambda **kw: ops.assign_and_lerp(uf, cf, 0.25, **kw), ("l1", "bits", "bits"),
+                                        lambda m: _pairwise_chunk_l1(uf[None], cf, m)[0]),
+        "l1_distance_pairwise (3, 3, 25418)": (lambda **kw: ops.l1_distance_pairwise(xs, xs, **kw), ("l1",),
+                                               lambda m: _pairwise_chunk_l1(xs, xs, m)),
+        "chi2_feedback (4, 10)": (lambda **kw: ops.chi2_feedback(fp[:4], ft[:4], ss[:4], **kw), ("bits",), None),
+        "chi2_feedback_segmented (20, 10), S = 4": (
+            lambda **kw: ops.chi2_feedback_segmented(fp, ft, ss, seg, 4, **kw), ("bits", "seg"), None),
     }
     out = {}
-    for name, fn in cases.items():
+    for name, (fn, kinds, model) in cases.items():
+        want = fn()
+        want = want if isinstance(want, tuple) else (want,)
+        for label, mesh in meshes.items():
+            got = fn(mesh=mesh)
+            got = got if isinstance(got, tuple) else (got,)
+            for k, (a, b, kind) in enumerate(zip(got, want, kinds)):
+                m = mesh.shape.get("model", 1)  # every width here is even: a model axis splits it
+                if kind == "l1" and m > 1:
+                    ok = a.cpu().numpy().tobytes() == model(m).tobytes()
+                else:
+                    ok = _ulp_gap(a, b) <= 2 if kind == "seg" else _same_bits(a, b)
+                check(a.shape == b.shape and ok, f"phase 3m per call {name} on {label}: output {k} disagrees "
+                                                 f"with the single device's ({kind})")
         row = {"single": call_ms(fn, iters=100)}
         for label, mesh in meshes.items():
             row[label] = call_ms(lambda: fn(mesh=mesh), iters=100)
@@ -1479,15 +1537,17 @@ def sharded_phase(rnn_params: dict, lm_rnn_params: dict, full: dict, smi: str) -
 
     lm_single = _mesh_arm(lm, "(b) llama3.2-1b no mesh")
     check(lm_single["events"] == full["events"], "phase 3m (b): the run without a mesh is not phase 3c's")
-    lm_mesh = _mesh_arm(lm, "(b) llama3.2-1b plane 4 x 2", plane_mesh=make_plane_mesh(4, dim_shards=2,
-                                                                                       devices=[card] * 8),
-                        mesh_min_rows=0)
+    lm_mesh = _mesh_arm(lm, "(b) llama3.2-1b plane 4 x 2", keep_inputs=True,
+                        plane_mesh=make_plane_mesh(4, dim_shards=2, devices=[card] * 8), mesh_min_rows=0)
     del task
     torch.cuda.empty_cache()
     diff_lm = _differences(lm_mesh, lm_single)
     check(not diff_lm, f"phase 3m (b): the 4 x 2 plane changed {diff_lm}")
     _check_sharded_launches(lm_mesh, 8, "phase 3m (b)", required=())
     check(len(lm_mesh["dists"]) == len(lm_single["dists"]) > 0, "phase 3m (b): assign counts differ")
+    for k, (d, (u, c)) in enumerate(zip(lm_mesh["dists"], lm_mesh.pop("inputs"))):
+        check(d.numpy().tobytes() == _chunk_l1(u.cpu().numpy(), c.cpu().numpy(), 2).tobytes(),
+              f"phase 3m (b): assign {k}'s distances are not the two chunks' kernel sums added in order")
     ulps = max(_ulp_gap(a, b) for a, b in zip(lm_mesh["dists"], lm_single["dists"]))
     ulps_a = max(_ulp_gap(a, b) for a, b in zip(plane["dists"], single["dists"]))
     check(ulps_a == 0, f"phase 3m (a): row-sharded distances {ulps_a} ulps from the single device's")
@@ -1495,7 +1555,7 @@ def sharded_phase(rnn_params: dict, lm_rnn_params: dict, full: dict, smi: str) -
     wall = time.perf_counter() - t_phase
     print(f"phase 3m (b) llama3.2-1b, 783,360 floats a row in 2 x 391,680 on a 4 x 2 plane: identical decisions "
           f"({len(lm_single['events'])} events, {lm_single['uploads']} uploads), centers bit for bit, assign "
-          f"distances at most {ulps} ulps from the single device's ({len(lm_single['dists'])} assigns)")
+          f"distances bit for bit the chunks' kernel sums and at most {ulps} ulps from the single device's ({len(lm_single['dists'])} assigns)")
     print(f"phase 3m wall: (a) no mesh {single['wall']:.2f} s, plane 1 x 8 and fleet 4 {both['wall']:.2f} s, plane "
           f"1 x 8 {plane['wall']:.2f} s; (b) no mesh {lm_single['wall']:.2f} s, plane 4 x 2 {lm_mesh['wall']:.2f} s; "
           f"phase {wall:.1f} s; card {smi}")

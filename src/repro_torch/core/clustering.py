@@ -18,7 +18,7 @@ With ``mesh=`` (a :class:`~repro_torch.launch.mesh.PlaneMesh`; plane
 backend only) the plane's rows spread over the mesh's devices, and the
 batched launches over at least ``mesh_min_rows`` rows (the assign's
 centers, the nearest-pair and nearest-center sweeps, and the server's
-feedback probes through :meth:`DynamicClustering._kernel_mesh_kwargs`)
+feedback probes through :meth:`DynamicClustering.launch_kwargs`)
 run a launch a shard. Below it the row store stays sharded and the
 launch runs on the first device; 0 forces sharded compute. Decisions and
 centers do not depend on the mesh (:mod:`repro_torch.kernels.plane_sharded`).
@@ -260,13 +260,13 @@ class DynamicClustering:
                 template, capacity=max(8, 4 * self.num_initial), device=self.device, mesh=self.mesh
             )
 
-    def _kernel_mesh_kwargs(self, nrows: int) -> dict:
-        """The mesh arguments of a batched launch over ``nrows`` rows: none
-        without a sharded plane or below ``mesh_min_rows``, so the
-        single-device call stays as it is."""
+    def launch_kwargs(self, nrows: int) -> dict:
+        """The mesh arguments of a batched launch over ``nrows`` rows, here
+        and in the server's feedback probes: none without a sharded plane or
+        below ``mesh_min_rows``, so the single-device call stays as it is."""
         if self.plane is None or self.plane.mesh is None or nrows < self.mesh_min_rows:
             return {}
-        return {"mesh": self.plane.mesh, "axis": self.plane.row_axis, "dim_axis": self.plane.dim_axis}
+        return {"mesh": self.plane.mesh, "dim_axis": self.plane.dim_axis}
 
     def _new_cluster(self, center: PyTree | torch.Tensor) -> Cluster:
         """``center`` may be a tree or (plane mode) an already-flat row."""
@@ -370,7 +370,7 @@ class DynamicClustering:
         have = [m for m in clients if m in self.uploads]
         if not have:
             return {}
-        kw = self._kernel_mesh_kwargs(len(have))
+        kw = self.launch_kwargs(len(have))
         U = self._upload_matrix(self.uploads, have, on_mesh="shard" if kw else False)
         D = K.l1_distance_pairwise(U, self._center_matrix(cids, on_mesh=bool(kw)), **kw).cpu().numpy()
         return {m: cids[int(np.argmin(d))] for m, d in zip(have, D)}
@@ -410,7 +410,7 @@ class DynamicClustering:
             self._move(client_id, c.cluster_id)
             return c.cluster_id, True
         cids = sorted(self.clusters)
-        kw = self._kernel_mesh_kwargs(len(cids))
+        kw = self.launch_kwargs(len(cids))
         centers = self._center_matrix(cids, on_mesh="shard" if kw else False)
         dists_d, _amin, blended = K.assign_and_lerp(u, centers, self.mix_rate, **kw)
         dists = dists_d.cpu().numpy()  # the one host sync; argmin re-read from it
@@ -517,7 +517,7 @@ class DynamicClustering:
             cids = mature
         if len(cids) < 2:
             return None
-        kw = self._kernel_mesh_kwargs(len(cids))
+        kw = self.launch_kwargs(len(cids))
         vecs = self._center_matrix(cids, on_mesh=bool(kw))
         dmat = K.l1_distance_pairwise(vecs, vecs, **kw).cpu().numpy()
         if self.backend == "pytree":

@@ -16,12 +16,13 @@ kernel, which writes the merged center into the main row in place, and
 ``storage`` the whole store, for the uplink encodes, which advance a
 cohort's anchor and residual rows in place.
 
-Row shards (``mesh=``, a :class:`~repro_torch.launch.mesh.PlaneMesh`): the
-store is one ``(rows_local, dim_local)`` tensor a shard, on that shard's
-device. Row i lives in block ``i // rows_local``, as
-``PartitionSpec("plane", ...)`` lays rows out, and the ``model`` axis
-splits the dim when its extent divides it (else block r lives on the
-first device of mesh row r). Capacity is a multiple of the row shards
+The store is a grid of blocks, one ``(rows_local, dim_local)`` tensor a
+shard on that shard's device: one block, the whole buffer, without a mesh.
+Under a mesh (``mesh=``, a :class:`~repro_torch.launch.mesh.PlaneMesh`)
+row i lives in block ``i // rows_local``, as ``PartitionSpec("plane",
+...)`` lays rows out, and the ``model`` axis splits the dim when its
+extent divides it (else block r lives on the first device of mesh row
+r). Capacity is a multiple of the row shards
 and stays one through ``_grow``, which re-splits the store. Reads gather
 whole rows onto the mesh's first device (``take(on_mesh="shard")`` hands
 the batched kernels their per-shard operands instead); writes go in place
@@ -61,40 +62,39 @@ def l1_vec(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 class ParameterPlane:
-    """Preallocated ``(capacity, dim)`` row store for flat parameter vectors."""
+    """Preallocated ``(capacity, dim)`` row store for flat parameter vectors,
+    held as an R x M grid of blocks (1 x 1 without a mesh)."""
 
     def __init__(self, template: PyTree, capacity: int = 32, *, device: torch.device | str = "cpu",
-                 mesh=None, row_axis: str = "plane", dim_axis: str | None = "model"):
+                 mesh=None, dim_axis: str | None = "model"):
         self.spec = flatten_spec(template)
         self.dim = self.spec.dim
         self.device = torch.device(device)
         self.mesh = mesh
-        self.row_axis = row_axis
         self.dim_axis = dim_axis
         capacity = max(1, int(capacity))
-        self._blocks: list[list[torch.Tensor]] | None = None  # [row shard][dim chunk] under a mesh
-        if mesh is not None and row_axis in mesh.axis_names:
+        if mesh is None:
+            self._grid, self._row_shards, self._dim_shards = ((self.device,),), 1, 1
+        else:
             if mesh.first_device != self.device:
                 raise ValueError(f"plane on {self.device}, its mesh starts on {mesh.first_device}")
             self._grid = mesh.devices
-            self._row_shards = mesh.shape[row_axis]
+            self._row_shards = mesh.row_shards
             m = mesh.shape.get(dim_axis, 1) if dim_axis is not None else 1
             self._dim_shards = m if m > 1 and self.dim % m == 0 else 1
             capacity = -(-capacity // self._row_shards) * self._row_shards  # equal row shards
-            self._blocks = self._zero_blocks(capacity // self._row_shards)
-        else:
-            self._buf = torch.zeros((capacity, self.dim), dtype=torch.float32, device=self.device)
+        self._blocks = self._zero_blocks(capacity // self._row_shards)  # [row shard][dim chunk]
         self._free: list[int] = list(range(capacity - 1, -1, -1))
         self._used: set[int] = set()
 
     # ------------------------------------------------------------ row shards
     @property
     def sharded(self) -> bool:
-        return self._blocks is not None
+        return self.mesh is not None
 
     @property
     def dim_sharded(self) -> bool:
-        return self._blocks is not None and self._dim_shards > 1
+        return self._dim_shards > 1
 
     def _zero_blocks(self, rows_local: int) -> list[list[torch.Tensor]]:
         dl = self.dim // self._dim_shards
@@ -124,8 +124,6 @@ class ParameterPlane:
 
     def row_device(self, row: int) -> torch.device:
         """The device that holds ``row`` whole (the plane's, without a mesh)."""
-        if self._blocks is None:
-            return self.device
         if self._dim_shards > 1:
             raise ValueError("row_device: the row is split over the model axis")
         return self._blocks[self._owner(row)[0]][0].device
@@ -133,28 +131,22 @@ class ParameterPlane:
     # ---------------------------------------------------------------- sizing
     @property
     def capacity(self) -> int:
-        if self._blocks is not None:
-            return self._row_shards * self._rows_local
-        return self._buf.shape[0]
+        return self._row_shards * self._rows_local
 
     @property
     def num_allocated(self) -> int:
         return len(self._used)
 
     def _grow(self) -> None:
-        old_cap = self.capacity
-        if self._blocks is not None:
-            # capacity doubles: new block r holds the rows of old blocks 2r and 2r + 1 (zeros past the end)
-            old, R, rl = self._blocks, self._row_shards, self._rows_local
-            new = self._zero_blocks(2 * rl)
-            for r in range(R):
-                for m in range(self._dim_shards):
-                    for half, src_r in enumerate((2 * r, 2 * r + 1)):
-                        if src_r < R:
-                            new[r][m][half * rl:(half + 1) * rl].copy_(old[src_r][m])
-            self._blocks = new
-        else:
-            self._buf = torch.cat([self._buf, torch.zeros_like(self._buf)], dim=0)
+        # capacity doubles: new block r holds the rows of old blocks 2r and 2r + 1 (zeros past the end)
+        old_cap, old, R, rl = self.capacity, self._blocks, self._row_shards, self._rows_local
+        new = self._zero_blocks(2 * rl)
+        for r in range(R):
+            for m in range(self._dim_shards):
+                for half, src_r in enumerate((2 * r, 2 * r + 1)):
+                    if src_r < R:
+                        new[r][m][half * rl:(half + 1) * rl].copy_(old[src_r][m])
+        self._blocks = new
         self._free.extend(range(2 * old_cap - 1, old_cap - 1, -1))
 
     # ------------------------------------------------------------ allocation
@@ -167,12 +159,10 @@ class ParameterPlane:
         self._used.add(row)
         if value is not None:
             self.write(row, value)
-        elif self._blocks is not None:
+        else:
             r, local = self._owner(row)
             for block in self._blocks[r]:
                 block[local].zero_()
-        else:
-            self._buf[row].zero_()
         return row
 
     def alloc_many(self, n: int) -> list[int]:
@@ -184,12 +174,9 @@ class ParameterPlane:
             self._grow()
         rows = [self._free.pop() for _ in range(n)]
         self._used.update(rows)
-        if self._blocks is not None:
-            for r, (_, local) in self._by_owner(rows).items():
-                for block in self._blocks[r]:
-                    block.index_fill_(0, torch.tensor(local, dtype=torch.int64, device=block.device), 0.0)
-        else:
-            self._buf.index_fill_(0, self.index(rows), 0.0)
+        for r, (_, local) in self._by_owner(rows).items():
+            for block in self._blocks[r]:
+                block.index_fill_(0, torch.tensor(local, dtype=torch.int64, device=block.device), 0.0)
         return rows
 
     def free(self, row: int) -> None:
@@ -211,16 +198,13 @@ class ParameterPlane:
         vec = self.as_vec(value)
         if vec.shape != (self.dim,):
             raise ValueError(f"expected ({self.dim},) vector, got {tuple(vec.shape)}")
-        if self._blocks is not None:
-            r, local = self._owner(row)
-            for block, chunk in zip(self._blocks[r], self._chunks(vec)):
-                block[local].copy_(chunk)
-        else:
-            self._buf[row].copy_(vec)
+        r, local = self._owner(row)
+        for block, chunk in zip(self._blocks[r], self._chunks(vec)):
+            block[local].copy_(chunk)
 
     def write_rows(self, row_ids: Sequence[int], matrix: torch.Tensor) -> None:
-        """``matrix[i]`` lands in ``row_ids[i]`` (one in-place index copy, one
-        an owning shard under a mesh)."""
+        """``matrix[i]`` lands in ``row_ids[i]`` (one in-place index copy an
+        owning shard)."""
         ids = [int(r) for r in row_ids]
         if len(set(ids)) != len(ids):
             raise ValueError("write_rows: duplicate row ids in one batch")
@@ -228,13 +212,10 @@ class ParameterPlane:
         matrix = matrix.to(device=self.device, dtype=torch.float32)
         if tuple(matrix.shape) != (len(ids), self.dim):
             raise ValueError(f"expected ({len(ids)}, {self.dim}) matrix, got {tuple(matrix.shape)}")
-        if not ids:
-            return
-        if self._blocks is None:
-            self._buf.index_copy_(0, torch.tensor(ids, dtype=torch.int64, device=self.device), matrix)
-            return
-        for r, (pos, local) in self._by_owner(ids).items():
-            sub = matrix.index_select(0, torch.tensor(pos, dtype=torch.int64, device=self.device))
+        groups = self._by_owner(ids)
+        for r, (pos, local) in groups.items():
+            sub = matrix if len(groups) == 1 else matrix.index_select(
+                0, torch.tensor(pos, dtype=torch.int64, device=self.device))
             for block, chunk in zip(self._blocks[r], self._chunks(sub)):
                 block.index_copy_(0, torch.tensor(local, dtype=torch.int64, device=block.device),
                                   chunk.to(block.device).contiguous())
@@ -248,15 +229,15 @@ class ParameterPlane:
     def storage(self) -> torch.Tensor:
         """The ``(capacity, dim)`` row store itself, for a kernel that reads
         and writes rows by id in place (the uplink encodes); it goes stale
-        when the plane grows. None under a mesh: the store is in blocks."""
-        if self._blocks is not None:
+        when the plane grows. Not under a mesh: the store is in blocks."""
+        if self.sharded:
             raise ValueError("storage: a sharded plane has no single row store")
-        return self._buf
+        return self._blocks[0][0]
 
     def index(self, row_ids: Sequence[int]) -> torch.Tensor:
         """The allocated rows ``row_ids`` as an int64 tensor on the plane's
         device (the row ids of :attr:`storage`; not under a mesh)."""
-        if self._blocks is not None:
+        if self.sharded:
             raise ValueError("index: a sharded plane has no single row store")
         self._check_used(row_ids)
         return torch.tensor(list(row_ids), dtype=torch.int64, device=self.device)
@@ -266,8 +247,6 @@ class ParameterPlane:
         return self._row_copy(row)
 
     def _row_copy(self, row: int) -> torch.Tensor:
-        if self._blocks is None:
-            return self.row_view(row).clone()
         self._check_used((row,))
         r, local = self._owner(row)
         parts = [block[local] for block in self._blocks[r]]
@@ -282,12 +261,10 @@ class ParameterPlane:
         :meth:`row_device`; a plane whose dim is split has no whole row."""
         if row not in self._used:
             raise KeyError(f"row {row} is not allocated")
-        if self._blocks is not None:
-            if self._dim_shards > 1:
-                raise ValueError("row_view: the row is split over the model axis")
-            r, local = self._owner(row)
-            return self._blocks[r][0][local]
-        return self._buf[row]
+        if self._dim_shards > 1:
+            raise ValueError("row_view: the row is split over the model axis")
+        r, local = self._owner(row)
+        return self._blocks[r][0][local]
 
     def take(self, row_ids: Sequence[int], *, on_mesh: bool | str = False) -> torch.Tensor | MeshRows:
         """``(len(row_ids), dim)`` gather (a copy). Under a mesh ``on_mesh``
@@ -298,17 +275,17 @@ class ParameterPlane:
         padded with zeros to a multiple of the row shards, shard k holding
         the k-th block on its devices, in the store's dim chunks). Without
         a mesh ``on_mesh`` is ignored."""
-        n = len(row_ids)
-        if self._blocks is None:
-            if n == 0:
-                return torch.zeros((0, self.dim), dtype=torch.float32, device=self.device)
-            index = torch.tensor(list(row_ids), dtype=torch.long, device=self.device)
-            return self._buf.index_select(0, index)
-        if on_mesh == "shard":
+        if on_mesh == "shard" and self.sharded:
             return self._take_shards(list(row_ids))
-        dl = self.dim // self._dim_shards
+        groups = self._by_owner(row_ids)
+        if len(groups) == 1:  # one owner (always, without a mesh): a gather a dim chunk
+            [(r, (_, local))] = groups.items()
+            cols = [block.index_select(0, torch.tensor(local, dtype=torch.int64, device=block.device))
+                    .to(self.device) for block in self._blocks[r]]
+            return cols[0] if len(cols) == 1 else torch.cat(cols, dim=1)
+        n, dl = len(row_ids), self.dim // self._dim_shards
         cols = [torch.zeros((n, dl), dtype=torch.float32, device=self.device) for _ in range(self._dim_shards)]
-        for r, (pos, local) in self._by_owner(row_ids).items():
+        for r, (pos, local) in groups.items():
             dst = torch.tensor(pos, dtype=torch.int64, device=self.device)
             for col, block in zip(cols, self._blocks[r]):
                 src = torch.tensor(local, dtype=torch.int64, device=block.device)
@@ -341,9 +318,6 @@ class ParameterPlane:
     def lerp_row(self, row: int, value: PyTree | torch.Tensor, t: float) -> None:
         """row <- (1 - t) * row + t * value (the async mixing step; under a
         mesh a dim chunk at a time on its shard, the same elementwise bits)."""
-        if self._blocks is None:
-            self.write(row, lerp_vec(self._buf[row], self.as_vec(value), t))
-            return
         self._check_used((row,))
         r, local = self._owner(row)
         for block, chunk in zip(self._blocks[r], self._chunks(self.as_vec(value))):
@@ -352,9 +326,6 @@ class ParameterPlane:
     def copy_row(self, src: int, dst: int) -> None:
         if src not in self._used or dst not in self._used:
             raise KeyError(f"rows {src}, {dst} must be allocated")
-        if self._blocks is None:
-            self._buf[dst].copy_(self._buf[src])
-            return
         (rs, ls), (rd, ld) = self._owner(src), self._owner(dst)
         for a, b in zip(self._blocks[rs], self._blocks[rd]):
             b[ld].copy_(a[ls])

@@ -677,7 +677,7 @@ class EchoPFLServer:
         seg_ids = np.asarray([si for si, _, _, _ in entries], np.int32)
         g, seg_sum = K.chi2_feedback_segmented(
             f_pred, f_true, s_soft, torch.from_numpy(seg_ids).to(self.device),
-            num_segments=len(cid_order), **self.clustering._kernel_mesh_kwargs(len(entries)),
+            num_segments=len(cid_order), **self.clustering.launch_kwargs(len(entries)),
         )
         g, seg_sum = segmented_numpy(g, seg_sum)  # one device-to-host copy
         counts = np.bincount(seg_ids, minlength=len(cid_order))
@@ -718,7 +718,7 @@ class EchoPFLServer:
         pairs = [(m, centers[c2]) for m, home, _ in flagged for c2 in others_of[home]]
         f_pred, f_true, s_soft = self._feedback_rows(pairs)
         scores = K.chi2_feedback(
-            f_pred, f_true, s_soft, **self.clustering._kernel_mesh_kwargs(len(pairs))
+            f_pred, f_true, s_soft, **self.clustering.launch_kwargs(len(pairs))
         ).cpu().numpy().reshape(len(flagged), len(clusters) - 1)
         moves = 0
         for (m, home, g), row in zip(flagged, scores):
@@ -808,7 +808,7 @@ class EchoPFLServer:
                 [(m, centers[c]) for m in members for c in rest]
             )
             scores = K.chi2_feedback(
-                f_pred, f_true, s_soft, **clustering._kernel_mesh_kwargs(len(f_pred))
+                f_pred, f_true, s_soft, **clustering.launch_kwargs(len(f_pred))
             ).cpu().numpy().reshape(len(members), len(rest))
             for m, row in zip(members, scores):
                 best_of[m] = rest[int(np.argmin(row))]

@@ -56,7 +56,7 @@ class ClientFleet:
         self.num_classes = self.clients[0].num_classes
         self.task = getattr(self.clients[0], "task", None) or MLP_TASK
         self.spec = flatten_spec(template)
-        if mesh is not None and K % mesh.shape["plane"] != 0:
+        if mesh is not None and K % mesh.row_shards != 0:
             mesh = None  # the clients do not divide the row shards: one device
         self.mesh = mesh
         self._shard_devices = [self.device] if mesh is None else [row[0] for row in mesh.devices]

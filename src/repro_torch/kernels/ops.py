@@ -6,11 +6,12 @@ CUDA tensors launch the hand-written kernel or raise.
 
 The four batched plane entry points (``l1_distance_pairwise``,
 ``assign_and_lerp``, ``chi2_feedback``, ``chi2_feedback_segmented``) also
-take ``mesh=`` (a :class:`~repro_torch.launch.mesh.PlaneMesh`), ``axis``
-and ``dim_axis``, as the reference's do (``repro/kernels/ops.py:209-441``,
-``:638-677``). Without a mesh they are the single-device call unchanged.
-With one whose ``axis`` has more than one shard, or whose model axis is
-usable, the operands are padded to a shard multiple and split over the
+take ``mesh=`` (a :class:`~repro_torch.launch.mesh.PlaneMesh`) and
+``dim_axis``, as the reference's do (``repro/kernels/ops.py:209-441``,
+``:638-677``; rows always spread over the mesh's ``plane`` axis). Without
+a mesh they are the single-device call unchanged. With one whose
+``plane`` axis has more than one shard, or whose model axis is usable,
+the operands are padded to a shard multiple and split over the
 shards' devices (:func:`_to_mesh_rows`) and the kernel runs once a shard
 (:mod:`repro_torch.kernels.plane_sharded`). The model axis shards the L1
 kernels' dim only when its extent divides the width; it lends the chi2
@@ -86,8 +87,8 @@ def attention(q, k, v, *, causal=True, scale=None, window=None, softcap=None, q_
 
 
 # ------------------------------------------------------------ plane meshes
-def _mesh_active(mesh, axis: str) -> bool:
-    return mesh is not None and axis in mesh.axis_names and mesh.shape[axis] > 1
+def _mesh_active(mesh) -> bool:
+    return mesh is not None and mesh.row_shards > 1
 
 
 def _model_axis_size(mesh, dim_axis) -> int:
@@ -104,23 +105,21 @@ def _dim_shards(mesh, dim_axis, dim: int) -> int:
     return m if m > 1 and dim % m == 0 else 1
 
 
-def _row_devices(mesh, axis: str, joint: bool) -> list[torch.device]:
-    """The device of each row shard: over ``axis``, each row's first
-    device; jointly over (``axis``, model), every device plane-major."""
-    grid = mesh.devices if axis in mesh.axis_names else (mesh.devices[0],)
-    return [d for row in grid for d in row] if joint else [row[0] for row in grid]
+def _row_devices(mesh, joint: bool) -> list[torch.device]:
+    """The device of each row shard: over ``plane``, each mesh row's first
+    device; jointly over (``plane``, model), every device plane-major."""
+    return [d for row in mesh.devices for d in row] if joint else [row[0] for row in mesh.devices]
 
 
-def _to_mesh_rows(mesh, axis: str, x, fill=0, *, row_axes=None, dim_axis=None) -> MeshRows:
-    """Pad a row-batched operand to a multiple of the shards over
-    ``row_axes`` (default ``(axis,)``) with ``fill`` and split it over their
-    devices; with ``dim_axis`` each shard's block also splits its last dim
-    over the model axis. A :class:`MeshRows` already laid out so passes
-    through; one whose row shards match but whose dim chunks do not is
-    re-chunked shard by shard (its rows never gather on one device)."""
-    axes = tuple(row_axes) if row_axes is not None else (axis,)
-    joint = len(axes) > 1
-    devs = _row_devices(mesh, axis, joint)
+def _to_mesh_rows(mesh, x, fill=0, *, joint: bool = False, dim_axis=None) -> MeshRows:
+    """Pad a row-batched operand to a multiple of the row shards (over
+    ``plane``, or over ``plane`` and the model axis jointly) with ``fill``
+    and split it over their devices; with ``dim_axis`` each shard's block
+    also splits its last dim over the model axis. A :class:`MeshRows`
+    already laid out so passes through; one whose row shards match but
+    whose dim chunks do not is re-chunked shard by shard (its rows never
+    gather on one device)."""
+    devs = _row_devices(mesh, joint)
     chunks = _model_axis_size(mesh, dim_axis) if dim_axis is not None else 1
     if isinstance(x, MeshRows):
         if x.joint == joint and len(x.parts) == len(devs):
@@ -151,76 +150,76 @@ def _whole(x, mesh) -> torch.Tensor:
     return x.gather(mesh.first_device) if isinstance(x, MeshRows) else x
 
 
-def l1_distance_pairwise(xs, centers: torch.Tensor, *, mesh=None, axis: str = "plane", dim_axis="model"):
+def l1_distance_pairwise(xs, centers: torch.Tensor, *, mesh=None, dim_axis="model"):
     """(M, N) x (C, N) -> (M, C) L1 matrix (merge candidates, reassignment
     and dissolve sweeps), one launch, or one a shard under a mesh: the query
-    rows over ``axis`` and, when the model axis divides N, the dim over it
+    rows over ``plane`` and, when the model axis divides N, the dim over it
     (the partial sums added over the model shards)."""
     if mesh is None:
         return _l1.l1_distance_pairwise(xs, centers)
     ds = _dim_shards(mesh, dim_axis, centers.shape[-1])
-    if _mesh_active(mesh, axis) or ds > 1:
+    if _mesh_active(mesh) or ds > 1:
         M = xs.shape[0]
         da = dim_axis if ds > 1 else None
-        xs = _to_mesh_rows(mesh, axis, xs, dim_axis=da)
+        xs = _to_mesh_rows(mesh, xs, dim_axis=da)
         return plane_sharded.l1_pairwise_sharded(xs, centers, mesh, _l1.l1_distance_pairwise)[:M]
     return _l1.l1_distance_pairwise(_whole(xs, mesh), centers)
 
 
-def assign_and_lerp(u: torch.Tensor, centers, beta: float, *, mesh=None, axis: str = "plane", dim_axis="model"):
+def assign_and_lerp(u: torch.Tensor, centers, beta: float, *, mesh=None, dim_axis="model"):
     """Fused Eq. 1 argmin + mixed-rate center blend: (dists (C,), idx () int32,
     blended (N,)), one launch. Under a mesh the center rows go over
-    ``axis`` (and the dim over the model axis when it divides N): one
+    ``plane`` (and the dim over the model axis when it divides N): one
     ``l1_distance`` launch a shard, the argmin and the winner's fetch on
     the mesh's first device with no host read, and the two-op blend."""
     if mesh is None:
         return _assign_lerp.assign_and_lerp(u, centers, beta)
     ds = _dim_shards(mesh, dim_axis, u.shape[-1])
-    if _mesh_active(mesh, axis) or ds > 1:
+    if _mesh_active(mesh) or ds > 1:
         C = centers.shape[0]
         da = dim_axis if ds > 1 else None
-        centers = _to_mesh_rows(mesh, axis, centers, dim_axis=da)
+        centers = _to_mesh_rows(mesh, centers, dim_axis=da)
         return plane_sharded.assign_lerp_sharded(u, centers, beta, mesh, l1_distance, valid_rows=C)
     return _assign_lerp.assign_and_lerp(u, _whole(centers, mesh), beta)
 
 
-def _chi2_rows(mesh, axis, dim_axis):
-    """The row axes a chi2 launch spreads over: the model axis lends rows."""
-    ms = _model_axis_size(mesh, dim_axis)
-    return (axis, dim_axis) if ms > 1 else (axis,), ms
+def _chi2_joint(mesh, dim_axis) -> bool:
+    """Whether a chi2 launch spreads its rows over the model axis too (it
+    lends rows: the chi2 kernels have no dim to split)."""
+    return _model_axis_size(mesh, dim_axis) > 1
 
 
-def chi2_feedback(f_pred, f_true, s_soft, *, mesh=None, axis: str = "plane", dim_axis="model") -> torch.Tensor:
+def chi2_feedback(f_pred, f_true, s_soft, *, mesh=None, dim_axis="model") -> torch.Tensor:
     """Per-row Eq. 2/3 statistic, (M, J) -> (M,) in one launch (the
     reassignment and dissolve probes), or one a shard under a mesh, the
-    rows over ``axis`` and the model axis jointly."""
+    rows over ``plane`` and the model axis jointly."""
     if mesh is None:
         return _chi2.chi2_feedback(f_pred, f_true, s_soft)
-    row_axes, ms = _chi2_rows(mesh, axis, dim_axis)
-    if _mesh_active(mesh, axis) or ms > 1:
+    joint = _chi2_joint(mesh, dim_axis)
+    if _mesh_active(mesh) or joint:
         M = f_pred.shape[0]
-        fp = _to_mesh_rows(mesh, axis, f_pred, row_axes=row_axes)
-        ft = _to_mesh_rows(mesh, axis, f_true, fill=1, row_axes=row_axes)
-        ss = _to_mesh_rows(mesh, axis, s_soft, row_axes=row_axes)
+        fp = _to_mesh_rows(mesh, f_pred, joint=joint)
+        ft = _to_mesh_rows(mesh, f_true, fill=1, joint=joint)
+        ss = _to_mesh_rows(mesh, s_soft, joint=joint)
         return plane_sharded.chi2_rows_sharded(fp, ft, ss, mesh, _chi2.chi2_feedback)[:M]
     return _chi2.chi2_feedback(f_pred, f_true, s_soft)
 
 
 def chi2_feedback_segmented(f_pred, f_true, s_soft, seg_ids: torch.Tensor, num_segments: int, *, mesh=None,
-                            axis: str = "plane", dim_axis="model"):
+                            dim_axis="model"):
     """Every member of every cluster in one launch (the reference's
     ``chi2_feedback_all``): (g (M,), seg_sum (S,)). Under a mesh the member
-    rows go over ``axis`` and the model axis jointly, padded rows in
+    rows go over ``plane`` and the model axis jointly, padded rows in
     segment -1, and the shards' segment sums are added in shard order."""
     if mesh is None:
         return _chi2.chi2_feedback_segmented(f_pred, f_true, s_soft, seg_ids, num_segments)
-    row_axes, ms = _chi2_rows(mesh, axis, dim_axis)
-    if _mesh_active(mesh, axis) or ms > 1:
+    joint = _chi2_joint(mesh, dim_axis)
+    if _mesh_active(mesh) or joint:
         M = f_pred.shape[0]
-        fp = _to_mesh_rows(mesh, axis, f_pred, row_axes=row_axes)
-        ft = _to_mesh_rows(mesh, axis, f_true, fill=1, row_axes=row_axes)
-        ss = _to_mesh_rows(mesh, axis, s_soft, row_axes=row_axes)
-        seg = _to_mesh_rows(mesh, axis, seg_ids, fill=-1, row_axes=row_axes)
+        fp = _to_mesh_rows(mesh, f_pred, joint=joint)
+        ft = _to_mesh_rows(mesh, f_true, fill=1, joint=joint)
+        ss = _to_mesh_rows(mesh, s_soft, joint=joint)
+        seg = _to_mesh_rows(mesh, seg_ids, fill=-1, joint=joint)
         g, seg_sum = plane_sharded.chi2_all_sharded(fp, ft, ss, seg, num_segments, mesh,
                                                     _chi2.chi2_feedback_segmented)
         return g[:M], seg_sum

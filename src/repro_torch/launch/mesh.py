@@ -40,6 +40,11 @@ class PlaneMesh:
         return dict(zip(self.axis_names, extents))
 
     @property
+    def row_shards(self) -> int:
+        """The ``plane`` axis's extent: the shards that rows spread over."""
+        return len(self.devices)
+
+    @property
     def first_device(self) -> torch.device:
         """Where the mesh's joins land and its small operands live."""
         return self.devices[0][0]
@@ -118,10 +123,3 @@ def resolve_mesh(mesh: PlaneMesh | str | None, device: torch.device | str) -> Pl
         raise ValueError(f"the mesh starts on {mesh.first_device}, the run is on {device}")
     return mesh
 
-
-def batch_axes(mesh) -> tuple[str, ...]:
-    return ("pod", "data") if "pod" in mesh.axis_names else ("data",)
-
-
-def axis_size(mesh, name: str) -> int:
-    return mesh.shape[name] if name in mesh.axis_names else 1

@@ -27,7 +27,7 @@ from repro_torch.core.clustering import DynamicClustering
 from repro_torch.core.plane import ParameterPlane
 from repro_torch.kernels import ops
 from repro_torch.kernels.plane_sharded import MeshRows
-from repro_torch.launch.mesh import axis_size, make_plane_mesh, mesh_from_spec, parse_spec, resolve_mesh
+from repro_torch.launch.mesh import make_plane_mesh, mesh_from_spec, parse_spec, resolve_mesh
 from torch_threads import one_intra_op_thread  # noqa: F401  (autouse: this module's tests on one thread)
 
 CPU = torch.device("cpu")
@@ -71,7 +71,7 @@ def test_mesh_spec_grammar():
     assert m.axis_names == ("plane",) and m.shape == {"plane": 8}
     m = mesh_from_spec("4x2", [CPU] * 8)
     assert m.axis_names == ("plane", "model") and m.shape == {"plane": 4, "model": 2}
-    assert axis_size(m, "model") == 2 and axis_size(m, "data") == 1
+    assert m.row_shards == 4 and m.first_device == CPU
     assert mesh_from_spec("auto", [CPU] * 8).shape == {"plane": 8}
     assert mesh_from_spec("auto", [CPU]) is None  # one device: no mesh
     # the entry points' form: on the CPU a spec repeats the cpu device; auto is one CPU
@@ -216,7 +216,7 @@ class TestShardedOps:
             seen.append(x.shape[0])
             return ops.l1_distance_pairwise(x, c)
 
-        xs = ops._to_mesh_rows(mesh, "plane", _t(_rand(10, 5, 300)), dim_axis="model" if "model" in mesh.shape else None)
+        xs = ops._to_mesh_rows(mesh, _t(_rand(10, 5, 300)), dim_axis="model" if "model" in mesh.shape else None)
         from repro_torch.kernels import plane_sharded
 
         plane_sharded.l1_pairwise_sharded(xs, _t(_rand(11, 3, 300)), mesh, local)
@@ -301,7 +301,7 @@ class TestShardedPlane:
         centers = _t(_rand(99, 3, 300))
         shard = plane.take(rows, on_mesh="shard")
         da = "model" if plane.dim_sharded else None
-        assert ops._to_mesh_rows(mesh, "plane", shard, dim_axis=da) is shard  # passes straight through
+        assert ops._to_mesh_rows(mesh, shard, dim_axis=da) is shard  # passes straight through
         got = ops.l1_distance_pairwise(shard, centers, mesh=mesh)
         want = ops.l1_distance_pairwise(plane.take(rows), centers, mesh=mesh)
         torch.testing.assert_close(got, want, rtol=0, atol=0)
@@ -309,7 +309,7 @@ class TestShardedPlane:
         if not plane.dim_sharded:
             torch.testing.assert_close(got, single, rtol=0, atol=0)
         else:  # model compute off: each row shard joins its dim chunks on its own device, then one launch
-            rejoined = ops._to_mesh_rows(mesh, "plane", shard)
+            rejoined = ops._to_mesh_rows(mesh, shard)
             assert len(rejoined.parts) == len(shard.parts) and all(len(p) == 1 for p in rejoined.parts)
             off = ops.l1_distance_pairwise(shard, centers, mesh=mesh, dim_axis=None)
             torch.testing.assert_close(off, single, rtol=0, atol=0)
