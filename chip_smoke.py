@@ -175,6 +175,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    to 300 (its own assertion on the killed half and over the whole run, the
    restored server state the saved one bit for bit, launches by name,
    rounds per second);
+3n. model meshes — the dense decoders on meshes that repeat the card,
+   one process driving every shard (``repro_torch.launch.sharded``):
+   llama3.2-1b at full width served (16 x 512, 4 tokens) on the pod mesh
+   (16 x 16 = 256 shards) against no mesh (prefill logits within
+   SERVE_ATOL, tokens under the margin rule, 16 x 16 x 16 flash forward
+   launches at the shard shape (1, 2, 512, 64) over 1 KV head, the mesh
+   arm's peak at most 1.25 x the unmeshed arm's: each block lives once on
+   the card) and trained (2 steps at 16 x 256, remat) against no mesh
+   (losses within 1e-5 relative, first-step gradients within 1e-4 of each
+   leaf's max |g|, the launches the mesh and remat predict); reduced
+   llama3.2-1b and tiny_lm on the multipod mesh (2 x 16 x 16) stopped after
+   2 steps and resumed (bit for bit), and on the smoke mesh (bit for bit
+   the unmeshed serve and train); prefill s, decode tokens/s, s a step,
+   tokens/s and the peaks;
 3i. restart (run last, after phase 6, with phase 4's restart agreement,
    so that the timed and profiled phases follow the same run as before
    it) — the fault plan's server kill and restore
@@ -233,7 +247,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    gemma2-2b prefill shapes with its softcap, where no library call
    applies, and at phase 3k's MLA prefill shape beside fp32 SDPA, the
    flash forward and backward at phase 3l's training shape beside fp32
-   SDPA's,
+   SDPA's, and at phase 3n's per-shard shapes (the forward at the pod
+   prefill's, both at the pod training step's),
    ``l1_distance`` and
    ``assign_and_lerp`` also at the full-width run's; the segmented chi2 also
    at the 128-client fleet's refine, (128, 10) with S = 16, and at (1, 1) with
@@ -410,6 +425,12 @@ TRAIN_FLASH = (2, 32, 4096, 64, 8, 4096, 64)  # (B, H, Sq, hd, KV, Sk, dv) of it
 TRAIN_CKPT = dict(batch=8, seq=64, kill=3, steps=6)
 # the EchoPFL transformer-client example: killed at round 150 (a checkpoint every 50), resumed to its 300
 EXAMPLE_RUN = dict(kill=150, steps=300)
+# phase 3n: llama3.2-1b on the pod mesh over the card, (a) served, (b) trained; (c) reduced archs, multipod and smoke
+MESH_SERVE = dict(batch=16, prompt=512, gen=4)
+MESH_TRAIN = dict(batch=16, seq=256, steps=2)
+MESH_REDUCED = ("llama3.2-1b", "tiny_lm")
+MESH_RESUME = dict(batch=32, seq=32)  # 32 rows: one a data shard of the multipod mesh
+MESH_SMOKE_SERVE = dict(batch=2, prompt=16, gen=4)
 # phase 4's training agreement: the driver at these reduced archs for 3 steps, card against CPU, and the example
 TRAIN_AGREEMENT = ("llama3.2-1b", "deepseek-v2-lite-16b")
 EXAMPLE_AGREEMENT_ROUNDS = 40
@@ -2663,6 +2684,205 @@ def training_phase(rnn_params: dict) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 3n
+def _pod_on_card(multi_pod: bool = False):
+    """The pod (16 x 16) or multipod (2 x 16 x 16) mesh over the one card."""
+    from repro_torch.common.device import resolve_device
+    from repro_torch.launch.mesh import make_production_mesh
+
+    return make_production_mesh(multi_pod=multi_pod, devices=[resolve_device(DEVICE)] * (512 if multi_pod else 256))
+
+
+def _record_first_grads():
+    """Keep the first train step's gradients (whole leaves in tree order, as
+    the step hands them to the clipping): through ``_sharded_update`` under
+    a model mesh, through ``clip_by_global_norm`` without one."""
+    from repro_torch.common.pytrees import tree_leaves
+    from repro_torch.launch import sharded
+    from repro_torch.models import steps
+
+    kept: list = []
+    update, clip = steps._sharded_update, steps.clip_by_global_norm
+
+    def rec_update(cfg, opt, state, grads):
+        if not kept:
+            kept.extend(tree_leaves(sharded.gather_tree(grads)))
+        return update(cfg, opt, state, grads)
+
+    def rec_clip(grads, max_norm):
+        if not kept:
+            kept.extend(tree_leaves(grads))
+        return clip(grads, max_norm)
+
+    steps._sharded_update, steps.clip_by_global_norm = rec_update, rec_clip
+
+    def restore():
+        steps._sharded_update, steps.clip_by_global_norm = update, clip
+
+    return kept, restore
+
+
+def model_mesh_phase() -> dict:
+    """The dense decoders on model meshes that repeat the card (phase 3n).
+    (a) llama3.2-1b at full width (1.236 B parameters, fp32, weights from a
+    generator seeded 0 on the card, depth uncut) served through
+    ``repro_torch.launch.serve.serve`` at MESH_SERVE on the pod mesh (16 x 16
+    over the card, 256 shards) and without a mesh: prefill logits within
+    SERVE_ATOL, tokens under the margin rule, MESH_SERVE's flash forward
+    launches a prefill 16 layers x 16 x 16, the mesh arm's peak (from the
+    prefill on, the placed weights included) at most 1.25 x the unmeshed
+    arm's. (b) The same weights trained through ``repro_torch.launch.train.
+    train`` at MESH_TRAIN on the pod mesh and without one: each step's loss
+    within 1e-5 relative, the first step's gradients within 1e-4 of each
+    leaf's max |g|, the flash launches a step the mesh and remat predict.
+    (c) Reduced llama3.2-1b and tiny_lm on the multipod mesh (2 x 16 x 16,
+    512 shards): driver steps stopped after 2 and resumed to 3, the resumed
+    step bit for bit the uninterrupted run's, which steps the state at 2 on
+    the stream's first batch (a resumed run draws from the stream's start,
+    as the reference's); and on the smoke mesh, serving and training bit
+    for bit the unmeshed runs. The gradients are the ones the train step
+    hands to the clipping (``_record_first_grads``)."""
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data.lm import token_stream
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve, sharded
+    from repro_torch.launch import train as driver
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import dist
+    from repro_torch.models.steps import make_train_step
+
+    t0 = time.perf_counter()
+    out = {}
+    cfg = get_config("llama3.2-1b")
+    layers, tp, dp = cfg.num_layers, 16, 16
+    pod = _pod_on_card()
+    torch.cuda.empty_cache()
+    # (a) serving
+    arms = {}
+    for label, mesh in (("pod", pod), ("none", None)):
+        shapes, restore = _record_flash_shapes(ops)
+        try:
+            r = serve.serve(cfg, device=DEVICE, keep_logits=True, verbose=False, mesh=mesh, **MESH_SERVE)
+        finally:
+            restore()
+        arms[label] = {"tokens": torch.as_tensor(r["tokens"]), "logits": torch.stack(r["logits"]),
+                       "prefill_s": r["prefill_s"], "decode_s": r["decode_s"], "peak": r["peak_bytes"],
+                       "launches": r["launches"], "shapes": shapes}
+        del r
+        torch.cuda.empty_cache()
+    got, want = arms["pod"], arms["none"]
+    err = (got["logits"][0] - want["logits"][0]).abs().max().item()
+    check(err <= SERVE_ATOL, f"phase 3n (a): prefill logits {err:.3g} from the unmeshed run's")
+    exempt = margin_rule(got["tokens"], want["logits"][:-1], cfg.vocab_size, SERVE_ATOL, "phase 3n (a)")
+    pre = got["launches"]["prefill"]
+    want_fwd = layers * dp * tp
+    check(pre["flash_attention_fwd"] == want_fwd, f"phase 3n (a): {pre['flash_attention_fwd']} flash forward "
+          f"launches a prefill, not {layers} layers x {dp} x {tp}")
+    shard = (MESH_SERVE["batch"] // dp, cfg.num_heads // tp, MESH_SERVE["prompt"], cfg.resolved_head_dim, 1,
+             MESH_SERVE["prompt"], cfg.resolved_head_dim)
+    check(got["shapes"] == Counter({shard: want_fwd}), f"phase 3n (a): shard shapes {dict(got['shapes'])}")
+    ratio = got["peak"] / want["peak"]
+    check(ratio <= 1.25, f"phase 3n (a): the mesh arm's peak is {ratio:.3f} x the unmeshed arm's")
+    tokens = MESH_SERVE["batch"] * MESH_SERVE["gen"]
+    out["serve"] = {**MESH_SERVE, "max_abs_err": err, "exempt": exempt, "flash_prefill": pre["flash_attention_fwd"],
+                    "shard_shape": list(shard), "peak_ratio": ratio,
+                    **{f"{k}_{f}": v[f] for k, v in arms.items() for f in ("prefill_s", "decode_s")},
+                    **{f"{k}_decode_tok_s": tokens / v["decode_s"] for k, v in arms.items()},
+                    **{f"{k}_peak_GiB": v["peak"] / 2**30 for k, v in arms.items()}}
+    s = out["serve"]
+    print(f"phase 3n (a) llama3.2-1b served at {MESH_SERVE} on the pod mesh (16 x 16 over the card): prefill logits "
+          f"{err:.3g} from the unmeshed run's, tokens equal where the margin exceeds {SERVE_ATOL} ({exempt} "
+          f"exempt); {pre['flash_attention_fwd']} flash forward launches at {shard}; prefill {s['pod_prefill_s']:.3f} "
+          f"s (unmeshed {s['none_prefill_s']:.3f} s), decode {s['pod_decode_tok_s']:.2f} tokens/s (unmeshed "
+          f"{s['none_decode_tok_s']:.2f}); peak {s['pod_peak_GiB']:.2f} GiB ({ratio:.3f} x the unmeshed "
+          f"{s['none_peak_GiB']:.2f} GiB)")
+    del arms, got, want
+    torch.cuda.empty_cache()
+    # (b) training
+    runs = {}
+    for label, mesh in (("pod", pod), ("none", None)):
+        shapes, restore = _record_flash_shapes(ops)
+        grads, restore_grads = _record_first_grads()
+        sync()
+        ops.reset_launch_counts()
+        try:
+            r = driver.train(cfg, device=DEVICE, verbose=False, mesh=mesh, **MESH_TRAIN)
+            sync()
+        finally:
+            restore()
+            restore_grads()
+        runs[label] = {"losses": r["losses"], "step_s": r["step_s"], "tokens_per_s": r["tokens_per_s"],
+                       "peak_GiB": r["peak_bytes"] / 2**30, "launches": ops.launch_counts(), "shapes": shapes,
+                       "grads": grads}
+        del r
+        torch.cuda.empty_cache()
+    got, want = runs["pod"], runs["none"]
+    g_err = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                for a, b in zip(got.pop("grads"), want.pop("grads")))
+    check(g_err <= 1e-4, f"phase 3n (b): first-step gradients {g_err:.3g} of a leaf's max |g| apart")
+    for a, b in zip(got["losses"], want["losses"]):
+        check(math.isfinite(a) and abs(a - b) <= 1e-5 * abs(b), f"phase 3n (b): losses {got['losses']} against "
+              f"{want['losses']}")
+    steps = MESH_TRAIN["steps"]
+    fwd = steps * dp * tp * (layers + recomputed_attention(cfg))
+    c = got["launches"]
+    check(c["flash_attention_fwd"] == fwd and c["flash_attention_dq"] == c["flash_attention_dkv"]
+          == steps * dp * tp * layers, f"phase 3n (b): launches {c}, not {fwd} forward and "
+          f"{steps * dp * tp * layers} of each backward kernel")
+    train_shard = (MESH_TRAIN["batch"] // dp, cfg.num_heads // tp, MESH_TRAIN["seq"], cfg.resolved_head_dim, 1,
+                   MESH_TRAIN["seq"], cfg.resolved_head_dim)
+    check(got["shapes"] == Counter({train_shard: fwd}), f"phase 3n (b): shard shapes {dict(got['shapes'])}")
+    tokens = MESH_TRAIN["batch"] * MESH_TRAIN["seq"]
+    out["train"] = {**MESH_TRAIN, "grad_rel_err": g_err, "shard_shape": list(train_shard),
+                    "launches": {k: v for k, v in c.items() if v},
+                    **{f"{k}_{f}": v[f] for k, v in runs.items() for f in ("losses", "step_s", "peak_GiB")},
+                    **{f"{k}_tokens_per_s": tokens / statistics.mean(v["step_s"]) for k, v in runs.items()}}
+    t = out["train"]
+    print(f"phase 3n (b) llama3.2-1b trained at {MESH_TRAIN} on the pod mesh: losses {t['pod_losses']} (unmeshed "
+          f"{t['none_losses']}), first-step gradients within {g_err:.3g} of each leaf's max |g|; launches "
+          f"{json.dumps(t['launches'])} at {train_shard}; {statistics.mean(t['pod_step_s']):.3f} s a step, "
+          f"{t['pod_tokens_per_s']:,.0f} tokens/s (unmeshed {statistics.mean(t['none_step_s']):.3f} s, "
+          f"{t['none_tokens_per_s']:,.0f} tokens/s); peak {t['pod_peak_GiB']:.2f} GiB (unmeshed "
+          f"{t['none_peak_GiB']:.2f} GiB)")
+    del runs
+    torch.cuda.empty_cache()
+    # (c) reduced archs: multipod resume, smoke against no mesh
+    multi, smoke = _pod_on_card(multi_pod=True), make_smoke_mesh([pod.first_device])
+    out["reduced"] = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        for arch in MESH_REDUCED:
+            rc = get_config(arch) if arch == "tiny_lm" else reduced_config(get_config(arch))
+            kw = dict(batch=MESH_RESUME["batch"], seq=MESH_RESUME["seq"], device=DEVICE, verbose=False)
+            ck = os.path.join(tmp, arch)
+            first = driver.train(rc, steps=2, mesh=multi, ckpt_dir=ck, ckpt_every=1, **kw)
+            resumed = driver.train(rc, steps=3, mesh=multi, ckpt_dir=ck, ckpt_every=1, **kw)
+            check(resumed["start"] == 2, f"phase 3n (c) {arch}: resumed from step {resumed['start']}")
+            # the uninterrupted run's third step: the state at 2 stepped on the stream's first batch
+            with dist.use_mesh(multi):
+                state, metrics = make_train_step(rc)(sharded.shard_state(rc, first["state"], multi),
+                                                     next(token_stream(rc.vocab_size, seed=0, **{
+                                                         k: MESH_RESUME[k] for k in ("batch", "seq")})))
+            check(resumed["losses"] == [float(metrics["loss"])]
+                  and _tree_bits_equal(resumed["state"], sharded.gather_state(state)),
+                  f"phase 3n (c) {arch}: the resumed step is not the stopped state's step bit for bit")
+            a = serve.serve(rc, device=DEVICE, keep_logits=True, verbose=False, **MESH_SMOKE_SERVE)
+            b = serve.serve(rc, device=DEVICE, keep_logits=True, verbose=False, mesh=smoke, **MESH_SMOKE_SERVE)
+            ta = driver.train(rc, steps=2, **kw)
+            tb = driver.train(rc, steps=2, mesh=smoke, **kw)
+            check((a["tokens"] == b["tokens"]).all() and _tree_bits_equal(a["logits"], b["logits"])
+                  and ta["losses"] == tb["losses"] and _tree_bits_equal(ta["state"], tb["state"]),
+                  f"phase 3n (c) {arch}: the smoke mesh is not the unmeshed run bit for bit")
+            losses = first["losses"] + resumed["losses"]
+            step_s = statistics.mean(first["step_s"] + resumed["step_s"])
+            out["reduced"][arch] = {"losses": losses, "multipod_step_s": step_s}
+            print(f"phase 3n (c) {arch}: multipod (2 x 16 x 16 over the card) losses {[round(x, 5) for x in losses]}, "
+                  f"stopped at 2 and resumed: the resumed step bit for bit the uninterrupted run's; {step_s:.3f} s a "
+                  f"step; smoke mesh serving and training bit for bit the unmeshed runs")
+    out["wall"] = time.perf_counter() - t0
+    print(f"phase 3n: {out['wall']:.1f} s")
+    return out
+
+
 # ----------------------------------------------------------------- phase 3i
 def _synced(spent: Counter, step: str, fn, *a, **kw):
     """``fn(*a, **kw)`` on the host clock, the card synced before and after,
@@ -4096,6 +4316,35 @@ def train_flash_timing(training: dict) -> dict:
     return out
 
 
+def mesh_flash_timing(meshes: dict) -> dict:
+    """The flash forward and backward at phase 3n's per-shard shapes (one
+    batch shard's row, 2 query heads over 1 KV head), as
+    ``lm_kernel_timings`` times the LM shapes: the forward at the serving
+    prefill's shard and both at the training step's; launches: phase 3n's
+    (the backward's: dq's)."""
+    out = {"flash_attention_fwd": {}, "flash_attention_bwd": {}}
+    g = gen(29)
+    for label, part, names in (("llama3.2-1b pod prefill shard", "serve", ("flash_attention_fwd",)),
+                               ("llama3.2-1b pod train shard", "train", ("flash_attention_fwd", "flash_attention_bwd"))):
+        shape = tuple(meshes[part]["shard_shape"])
+        rows = lm_kernel_timings(shape, g)
+        for name in names:
+            if part == "serve":
+                launches = meshes["serve"]["flash_prefill"]
+            else:
+                launches = meshes["train"]["launches"]["flash_attention_fwd" if name.endswith("fwd") else
+                                                        "flash_attention_dq"]
+            r = dict(rows[name], shape=list(shape), launches=launches)
+            out[name][label] = r
+            print(f"timing {name} at {label} {shape}: device time kernel {r['ms']:.5f} ms, plain "
+                  f"{r['plain_ms']:.5f} ms, library {r['library_ms']:.5f} ms; bound {r['bound_ms']:.6f} ms "
+                  f"({r['bound_by']}); per call kernel {r['call_ms']:.4f} ms, plain {r['plain_call_ms']:.4f} ms, "
+                  f"library {r['library_call_ms']:.4f} ms; launches in phase 3n {launches}; "
+                  f"max_abs_err {r['max_abs_err']:.3g}")
+    torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------------------------ phase 6
 def profile_window(label: str, run) -> None:
     """One run under ``torch.profiler`` (CUDA activity only). Device busy
@@ -4214,6 +4463,7 @@ def main() -> int:
     serving = serving_phase(rnn_params)
     zoo = zoo_serving_phase()
     training = training_phase(rnn_params)
+    meshes = model_mesh_phase()
     init_np, rnn_np = agreement()
     compressed_agreement(init_np, rnn_np)
     chaos_agreement(init_np, rnn_np)
@@ -4228,8 +4478,9 @@ def main() -> int:
     flash_row = next(r for r in rows if r["name"] == "flash_attention_fwd")
     flash_row.update(gemma_flash_timing(serving))
     flash_row.update(mla_flash_timing(zoo))
-    for name, extra in train_flash_timing(training).items():
-        next(r for r in rows if r["name"] == name).update(extra)
+    for timed in (train_flash_timing(training), mesh_flash_timing(meshes)):
+        for name, extra in timed.items():
+            next(r for r in rows if r["name"] == name).update(extra)
     for row in rows:  # phase 3m's per-shard launches beside each row's own
         if row["name"] in mesh["rows"]:
             row["phase_3m"] = mesh["rows"][row["name"]]
@@ -4248,6 +4499,7 @@ def main() -> int:
     print("zoo serving: " + json.dumps({k: v for k, v in zoo.items() if k != "flash_shapes"}))
     print("training: " + json.dumps({k: v for k, v in training.items() if k != "flash_shapes"}))
     print("sharded plane: " + json.dumps({k: v for k, v in mesh.items() if k != "rows"}))
+    print("model meshes: " + json.dumps(meshes))
     print("restart: " + json.dumps({k: {f: v[f] for f in ("saved", "spent", "at", "unsteady", "bytes", "leaves")
                                        if f in v} for k, v in restart.items()}))
     print(json.dumps({"kernels": rows}))

@@ -26,6 +26,19 @@ def tree_leaves(tree: PyTree) -> list:
     return [tree]
 
 
+def tree_flatten_with_names(tree: PyTree, names: tuple = ()) -> list[tuple[tuple, Any]]:
+    """``(names, leaf)`` in tree order, ``names`` the path's entries as the
+    reference's sharding rules read them (``getattr(entry, "key", None)``):
+    a dict key as itself, a list index or NamedTuple field as None."""
+    if isinstance(tree, dict):
+        return [item for k in sorted(tree) for item in tree_flatten_with_names(tree[k], names + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [item for x in tree for item in tree_flatten_with_names(x, names + (None,))]
+    if tree is None:
+        return []
+    return [(names, tree)]
+
+
 def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
     """Apply ``fn`` leafwise over trees of one structure (dict keys come
     back sorted, as the reference's unflatten returns them)."""
@@ -40,9 +53,26 @@ def is_namedtuple(tree: PyTree) -> bool:
     return isinstance(tree, tuple) and hasattr(tree, "_fields")
 
 
+class TaggedSeq(tuple):
+    """A tuple that carries a tag, ``meta`` (hashable; a sharded tree's
+    layout), and keeps it through ``tree_map`` and ``tree_unflatten``."""
+
+    def __new__(cls, items=(), meta=None):
+        self = super().__new__(cls, items)
+        self.meta = meta
+        return self
+
+    def rebuild(self, items):
+        """``items`` in a sequence of this one's type and tag."""
+        return type(self)(items, self.meta)
+
+
 def rebuild_seq(like: list | tuple, items: list) -> list | tuple:
     """``items`` as a sequence of ``like``'s type: a NamedTuple (such as a
-    ``TrainState``) takes them as fields."""
+    ``TrainState``) takes them as fields, a :class:`TaggedSeq` keeps its
+    tag."""
+    if isinstance(like, TaggedSeq):
+        return like.rebuild(items)
     return type(like)(*items) if is_namedtuple(like) else type(like)(items)
 
 
@@ -51,7 +81,10 @@ def _skeleton(tree: PyTree):
     if isinstance(tree, dict):
         return ("d", tuple((k, _skeleton(tree[k])) for k in sorted(tree)))
     if isinstance(tree, (list, tuple)):
-        kind = "l" if isinstance(tree, list) else type(tree) if is_namedtuple(tree) else "t"
+        if isinstance(tree, TaggedSeq):
+            kind = (type(tree), tree.meta)
+        else:
+            kind = "l" if isinstance(tree, list) else type(tree) if is_namedtuple(tree) else "t"
         return (kind, tuple(_skeleton(x) for x in tree))
     return "*"
 
@@ -64,6 +97,8 @@ def _build(skel, leaves: list) -> PyTree:
     if kind == "d":
         return {k: _build(s, leaves) for k, s in body}
     items = [_build(s, leaves) for s in body]
+    if isinstance(kind, tuple):  # a TaggedSeq: (its class, its tag)
+        return kind[0](items, kind[1])
     return items if kind == "l" else tuple(items) if kind == "t" else kind(*items)
 
 

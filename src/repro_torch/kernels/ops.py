@@ -38,6 +38,7 @@ from repro_torch.kernels.ingest_chain import ingest_chain
 from repro_torch.kernels.l1 import l1_distance, pairwise_l1
 from repro_torch.kernels.merge import merge_attention
 from repro_torch.kernels.uplink import uplink_int8_encode, uplink_topk_encode
+from repro_torch.models.dist import Ranks, kv_group
 
 # every wrapper that launches a kernel, by the name its launch count goes under
 WRAPPERS = {
@@ -81,9 +82,30 @@ class _Attention(torch.autograd.Function):
 def attention(q, k, v, *, causal=True, scale=None, window=None, softcap=None, q_pos0=0):
     """Training/prefill attention, ``(B, H, Sq, hd) x (B, KV, Sk, hd) x
     (B, KV, Sk, dv) -> (B, H, Sq, dv)``, differentiable in ``q``, ``k`` and
-    ``v``. One device: the model meshes are not ported (ROADMAP queue 1
-    item 7)."""
-    return _Attention.apply(q, k, v, causal, scale, window, softcap, q_pos0)
+    ``v``: one flash launch (and under autograd the two backward ones).
+
+    Under a model mesh (the reference's ``shard_map`` branch,
+    ``repro/kernels/ops.py:125-180``) one batch shard's heads are split
+    over the ``model`` axis: ``q`` comes as :class:`~repro_torch.models.
+    dist.Ranks` of ``(B, H / tp, Sq, hd)``, one part a rank, and so does the
+    output. ``k`` and ``v`` are Ranks too where the KV heads split, else
+    whole: each rank then slices its KV group (``dist.kv_group``). The
+    kernel runs once a rank, on the rank's contiguous operands and device.
+    Plain tensors (no mesh, a one-device mesh, or heads the model axis does
+    not divide) take the single launch."""
+    opts = (causal, scale, window, softcap, q_pos0)
+    if not isinstance(q, Ranks):
+        return _Attention.apply(q, k, v, *opts)
+    heads = q[0].shape[1] * len(q)
+    outs = []
+    for m, qm in enumerate(q):
+        if isinstance(k, Ranks):
+            km, vm = k[m], v[m]
+        else:
+            kv0, kv_n = kv_group(m, qm.shape[1], heads, k.shape[1])
+            km, vm = k[:, kv0: kv0 + kv_n], v[:, kv0: kv0 + kv_n]
+        outs.append(_Attention.apply(qm, km.to(qm.device), vm.to(qm.device), *opts))
+    return Ranks(outs)
 
 
 # ------------------------------------------------------------ plane meshes

@@ -1,5 +1,13 @@
-"""Plane meshes: the server's parameter plane and the client fleet sharded
-over devices (counterpart of the plane half of ``repro.launch.mesh``).
+"""Device meshes (counterpart of ``repro.launch.mesh``): the model meshes
+of the serve and train drivers, and the plane meshes of the server's
+parameter plane and the client fleet.
+
+A :class:`ModelMesh` has the axes ``("data", "model")`` (``pod``: 16 x 16)
+or ``("pod", "data", "model")`` (``multipod``: 2 x 16 x 16); ``smoke`` is
+a 1 x 1 mesh of the same axes. The batch spreads over ``("pod", "data")``
+and heads, FFN width and vocabulary over ``model``
+(:mod:`repro_torch.launch.shardings` holds each leaf's placement,
+:mod:`repro_torch.launch.sharded` the per-shard compute).
 
 A :class:`PlaneMesh` is a grid of devices with the axes ``("plane",)`` or
 ``("plane", "model")``: rows (cluster centers, broadcast anchors, last
@@ -14,12 +22,13 @@ A device list may name one device several times, as JAX's forced host
 device count does: eight ``cpu`` shards on one CPU, or an 8-shard mesh on
 one card, run every shard's launches, padding and joins for real.
 
-The model meshes of the serve and train drivers (``pod``, ``multipod``)
-are not here: they wait for ROADMAP queue 1 item 7.
+A model mesh is driven the same way: one process holds each parameter
+block once a device and runs every shard's launches and joins.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Sequence
 
 import torch
@@ -123,3 +132,84 @@ def resolve_mesh(mesh: PlaneMesh | str | None, device: torch.device | str) -> Pl
         raise ValueError(f"the mesh starts on {mesh.first_device}, the run is on {device}")
     return mesh
 
+
+
+# ------------------------------------------------------------- model meshes
+@dataclasses.dataclass(frozen=True)
+class ModelMesh:
+    """A grid of devices over ``axis_names`` (``data`` and ``model``, with
+    ``pod`` first on a multipod mesh). ``devices`` lists them row-major over
+    the axes, so the device of batch shard ``b`` (``pod`` and ``data``
+    flattened, ``pod`` major) and model rank ``m`` is ``devices[b * M + m]``.
+    A device may appear several times."""
+
+    axis_names: tuple[str, ...]
+    extents: tuple[int, ...]
+    devices: tuple[torch.device, ...]
+
+    @property
+    def shape(self) -> dict[str, int]:
+        """Axis name -> extent, as ``jax.sharding.Mesh.shape``."""
+        return dict(zip(self.axis_names, self.extents))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.extents)
+
+    @property
+    def first_device(self) -> torch.device:
+        return self.devices[0]
+
+    def device(self, batch_shard: int, rank: int) -> torch.device:
+        """The device of batch shard ``batch_shard`` and model rank ``rank``."""
+        return self.devices[batch_shard * axis_size(self, "model") + rank]
+
+    def __repr__(self) -> str:
+        return f"ModelMesh({self.shape}, {sorted({str(d) for d in self.devices})})"
+
+
+def _model_mesh(extents: tuple[int, ...], axes: tuple[str, ...],
+                devices: Sequence[torch.device | str] | None) -> ModelMesh:
+    devs = [torch.device(d) for d in (_cards() if devices is None else devices)]
+    need = math.prod(extents)
+    if len(devs) < need:
+        raise ValueError(f"a {' x '.join(map(str, extents))} mesh needs {need} devices, "
+                         f"{len(devs)} {'visible cards' if devices is None else 'given'}")
+    return ModelMesh(axes, extents, tuple(devs[:need]))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         devices: Sequence[torch.device | str] | None = None) -> ModelMesh:
+    """The pod mesh, 16 x 16 over ``("data", "model")``, or with
+    ``multi_pod`` 2 x 16 x 16 over ``("pod", "data", "model")``, taken in
+    order from ``devices`` (default: every visible card)."""
+    if multi_pod:
+        return _model_mesh((2, 16, 16), ("pod", "data", "model"), devices)
+    return _model_mesh((16, 16), ("data", "model"), devices)
+
+
+def make_smoke_mesh(devices: Sequence[torch.device | str] | None = None) -> ModelMesh:
+    """A 1 x 1 mesh with the production axis names: the one-device path."""
+    return _model_mesh((1, 1), ("data", "model"), devices)
+
+
+def resolve_model_mesh(name: str, device: torch.device | str) -> ModelMesh:
+    """The drivers' ``--mesh smoke|pod|multipod`` over the visible cards, or
+    on the CPU over the one ``cpu`` device repeated."""
+    dev = torch.device(device)
+    multi = name == "multipod"
+    if name not in ("smoke", "pod", "multipod"):
+        raise KeyError(name)
+    need = 1 if name == "smoke" else 512 if multi else 256
+    devices = [dev] * need if dev.type == "cpu" or name == "smoke" else None
+    if name == "smoke":
+        return make_smoke_mesh(devices)
+    return make_production_mesh(multi_pod=multi, devices=devices)
+
+
+def batch_axes(mesh) -> tuple[str, ...]:
+    return ("pod", "data") if "pod" in mesh.axis_names else ("data",)
+
+
+def axis_size(mesh, name: str) -> int:
+    return mesh.shape[name] if name in mesh.axis_names else 1

@@ -9,8 +9,16 @@ buffers (counterpart of ``repro.launch.serve``).
 Weights are drawn on the device from a ``torch.Generator`` seeded 0;
 prompts from ``numpy.random.default_rng(0)``. The prefill's caches are
 grafted into ``init_cache`` buffers with a margin of ``gen + 8``; then each
-step feeds the last greedy token. One card only: ``--mesh smoke`` is the
-one mesh (``pod`` and ``multipod`` are not ported).
+step feeds the last greedy token.
+
+``--mesh smoke`` serves on one device. ``--mesh pod`` (16 x 16) and
+``--mesh multipod`` (2 x 16 x 16) place the parameters by
+``launch.shardings.param_shardings`` and the decode buffers by
+``cache_shardings`` over the visible cards (with ``--device cpu``, over
+the CPU repeated), and run every shard (``launch.sharded``); they serve
+the dense decoders. A caller may pass ``serve(..., mesh=)`` a mesh that
+repeats one card: ``make_production_mesh(devices=[torch.device("cuda",
+0)] * 256)``.
 """
 from __future__ import annotations
 
@@ -25,6 +33,10 @@ from repro_torch.common.device import resolve_device
 from repro_torch.common.pytrees import tree_map
 from repro_torch.configs import ARCH_REGISTRY
 from repro_torch.configs.base import ModelConfig, reduced_config
+from repro_torch.launch import sharded
+from repro_torch.launch.mesh import resolve_model_mesh
+from repro_torch.launch.shardings import param_shardings_flat
+from repro_torch.models import dist
 from repro_torch.models.model import graft, init_cache, init_params
 from repro_torch.models.steps import make_prefill_step, make_serve_step
 
@@ -43,7 +55,9 @@ def prefill(cfg: ModelConfig, params: PyTree, prompts: torch.Tensor, gen: int) -
     logits, pre_cache = make_prefill_step(cfg)(params, {"tokens": prompts})
     B, L = prompts.shape
     cache = init_cache(cfg, B, ctx_len=L, margin=gen + 8, device=prompts.device)
-    return logits, tree_map(graft, cache, pre_cache)
+    cache = tree_map(graft, cache, pre_cache)
+    mesh = dist.sharded_mesh()
+    return logits, (cache if mesh is None else sharded.shard_cache(cfg, cache, mesh))
 
 
 def greedy(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
@@ -69,42 +83,65 @@ def decode(cfg: ModelConfig, params: PyTree, cache: PyTree, logits: torch.Tensor
     return torch.cat(out, dim=1), kept
 
 
+def place_params(cfg: ModelConfig, params: PyTree, mesh) -> PyTree:
+    """``params`` as a step under ``mesh`` takes them: cut by
+    ``param_shardings`` on a mesh of more than one device (after
+    :func:`~repro_torch.launch.sharded.check_arch`), else as they are."""
+    if mesh is None or mesh.size == 1:
+        return params
+    sharded.check_arch(cfg)
+    return sharded.shard_tree(params, param_shardings_flat(cfg, mesh, params), mesh)
+
+
 def serve(cfg: ModelConfig, *, batch: int, prompt: int, gen: int, device="cuda", params: PyTree | None = None,
-          keep_logits: bool = False, verbose: bool = True) -> dict:
+          keep_logits: bool = False, verbose: bool = True, mesh=None) -> dict:
     """Draw the weights (unless given), prefill ``batch`` random prompts of
-    ``prompt`` tokens and decode ``gen`` tokens. Returns the params, the
-    prompts, the tokens, the prefill seconds, the decode seconds and the
-    kernel launches of each part (``kernels.ops.launch_counts`` deltas);
-    with ``keep_logits`` also the prefill's last-position logits ``(B, V)``
-    and each decode step's."""
+    ``prompt`` tokens and decode ``gen`` tokens, on one device or over a
+    mesh (``mesh=``: a :class:`~repro_torch.launch.mesh.ModelMesh` starting
+    on ``device``, or ``"smoke"``, ``"pod"`` or ``"multipod"`` over the
+    visible cards, the CPU repeated on ``cpu``). Returns the params (as placed), the prompts, the tokens,
+    the prefill seconds, the decode seconds, the kernel launches of each
+    part (``kernels.ops.launch_counts`` deltas) and, on the card,
+    ``peak_bytes`` (``max_memory_allocated`` from the prefill on, the
+    placed weights included); with ``keep_logits`` also the prefill's
+    last-position logits ``(B, V)`` and each decode step's."""
     from repro_torch.kernels import ops
 
     if cfg.is_encoder:
         raise SystemExit("encoder-only arch has no decode step")
     dev = resolve_device(device)
+    if isinstance(mesh, str):
+        mesh = resolve_model_mesh(mesh, dev)
+    if mesh is not None and mesh.first_device != dev:
+        raise ValueError(f"the mesh starts on {mesh.first_device}, the run is on {dev}")
     if params is None:
         params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    params = place_params(cfg, params, mesh)
     rng = np.random.default_rng(0)
     prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, prompt))).to(dev)
     sync(dev)
-    c0 = ops.launch_counts()
-    t0 = time.perf_counter()
-    logits, cache = prefill(cfg, params, prompts, gen)
-    sync(dev)
-    t_prefill = time.perf_counter() - t0
-    c1 = ops.launch_counts()
-    t0 = time.perf_counter()
-    toks, step_logits = decode(cfg, params, cache, logits, gen, keep_logits=keep_logits)
-    toks = toks.cpu().numpy()  # waits for the last step
-    t_decode = time.perf_counter() - t0
-    c2 = ops.launch_counts()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    with dist.use_mesh(mesh):
+        c0 = ops.launch_counts()
+        t0 = time.perf_counter()
+        logits, cache = prefill(cfg, params, prompts, gen)
+        sync(dev)
+        t_prefill = time.perf_counter() - t0
+        c1 = ops.launch_counts()
+        t0 = time.perf_counter()
+        toks, step_logits = decode(cfg, params, cache, logits, gen, keep_logits=keep_logits)
+        toks = toks.cpu().numpy()  # waits for the last step
+        t_decode = time.perf_counter() - t0
+        c2 = ops.launch_counts()
     del cache
     if verbose:
         print(f"prefill: {batch}x{prompt} in {t_prefill:.2f}s")
         print(f"decode:  {batch}x{gen} tokens in {t_decode:.2f}s ({batch * gen / t_decode:,.0f} tok/s)")
         print(f"sample: {toks[0, :12].tolist()}")
     out = {"params": params, "prompts": prompts, "tokens": toks, "prefill_s": t_prefill, "decode_s": t_decode,
-           "launches": {"prefill": {k: c1[k] - c0[k] for k in c0}, "decode": {k: c2[k] - c1[k] for k in c1}}}
+           "launches": {"prefill": {k: c1[k] - c0[k] for k in c0}, "decode": {k: c2[k] - c1[k] for k in c1}},
+           "peak_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None}
     if keep_logits:
         out["logits"] = [logits[:, -1]] + step_logits
     return out
@@ -120,13 +157,10 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.mesh != "smoke":
-        raise NotImplementedError(f"repro_torch: the {args.mesh} mesh is not ported yet (ROADMAP queue 1 item 7: "
-                                  f"meshes); --mesh smoke serves on one device")
     cfg = ARCH_REGISTRY[args.arch]
     if args.reduced:
         cfg = reduced_config(cfg)
-    return serve(cfg, batch=args.batch, prompt=args.prompt, gen=args.gen, device=args.device)
+    return serve(cfg, batch=args.batch, prompt=args.prompt, gen=args.gen, device=args.device, mesh=args.mesh)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,75 @@
+"""The registered model mesh (counterpart of ``repro.models.dist``).
+
+The serve and train drivers register their :class:`~repro_torch.launch.
+mesh.ModelMesh` here; the step functions read it and, on a mesh of more
+than one device, run each batch shard and model rank in turn
+(:mod:`repro_torch.launch.sharded`). Unset, or on a one-device mesh, every
+step is the single-device code path.
+
+The reference's ``constrain`` has no counterpart: it pins a GSPMD layout
+where XLA would otherwise choose one. The port lays every block out itself,
+and the points it pins are where the port joins the row-parallel partial
+sums (``launch.sharded.join_sum``).
+"""
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+from repro_torch.common.pytrees import TaggedSeq
+
+_MESH = None
+
+
+class Ranks(TaggedSeq):
+    """A value split over the ``model`` axis: ``ranks[m]`` is rank m's part,
+    on rank m's device (a weight's column or row block, an activation's
+    heads). ``tree_map`` maps over the parts and keeps the type."""
+
+
+def join_sum(partials: list[torch.Tensor], device: torch.device) -> torch.Tensor:
+    """The row-parallel join: rank partial sums added in rank order on
+    ``device``, ``((p_0 + p_1) + p_2) + ...``."""
+    acc = partials[0].to(device)
+    for p in partials[1:]:
+        acc = acc + p.to(device)
+    return acc
+
+
+def join_cat(parts: list[torch.Tensor], device: torch.device, dim: int) -> torch.Tensor:
+    """The column-parallel join: rank parts concatenated in rank order."""
+    return torch.cat([p.to(device) for p in parts], dim=dim)
+
+
+def kv_group(rank: int, h_local: int, heads: int, kv_heads: int) -> tuple[int, int]:
+    """``(first KV head, count)`` that model rank ``rank`` reads when its
+    ``h_local`` query heads are split but the ``kv_heads`` are not
+    (``repro/kernels/ops.py:159-166``): ``max(1, h_local // G)`` heads from
+    ``rank * h_local // G``, G the query heads a KV head serves."""
+    group = heads // kv_heads
+    return rank * h_local // group, max(1, h_local // group)
+
+
+def set_mesh(mesh) -> None:
+    global _MESH
+    _MESH = mesh
+
+
+def current_mesh():
+    return _MESH
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    prev = _MESH
+    set_mesh(mesh)
+    try:
+        yield
+    finally:
+        set_mesh(prev)
+
+
+def sharded_mesh():
+    """The registered mesh when it has more than one device, else None."""
+    return _MESH if _MESH is not None and _MESH.size > 1 else None

@@ -12,7 +12,9 @@ Activations are ``(..., S, d)``. A weight of the dense attention may carry
 one extra leading client axis ``C`` (the LM task's per-client merged query
 projection); activations are then ``(C, n, S, d)`` and the product runs as
 a batched matmul over ``C``. The MLA, MoE, Mamba and xLSTM layers take
-``(B, S, d)`` only.
+``(B, S, d)`` only. Under a model mesh the attention and the dense FFN take
+one batch shard ``(B, S, d)`` and weights whose split leaves are
+:class:`~repro_torch.models.dist.Ranks` (``launch.sharded.view``).
 
 The MoE dispatch, the Mamba scan, the mLSTM chunk scan and the sLSTM
 recurrence are plain PyTorch, as the reference's are plain ``jnp`` and
@@ -27,6 +29,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.dist import Ranks, join_cat, join_sum
 
 PyTree = Any
 
@@ -68,17 +71,25 @@ def rms_norm(params: PyTree, x: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 # ------------------------------------------------------- rotary embeddings
-def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: (..., S, H, hd), rotated by halves (not interleaved); positions
-    (S,). Angles in fp32, as the reference computes them."""
-    hd = x.shape[-1]
+def rope_tables(positions: torch.Tensor, hd: int, theta: float, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rotation's ``(cos, sin)``, each ``(S, 1, hd / 2)``: angles in
+    fp32, as the reference computes them."""
     half = hd // 2
-    freq = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32, device=device) / half)
     angles = positions[..., None].to(torch.float32) * freq  # (S, half)
-    cos = torch.cos(angles)[..., None, :]
-    sin = torch.sin(angles)[..., None, :]
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+
+def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: (..., S, H, hd) rotated by halves (not interleaved)."""
+    half = x.shape[-1] // 2
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd), rotated by halves; positions (S,)."""
+    return rotate(x, *rope_tables(positions, x.shape[-1], theta, x.device))
 
 
 # --------------------------------------------------------------- attention
@@ -165,6 +176,10 @@ def apply_attention(params: PyTree, x: torch.Tensor, cfg: ModelConfig, *, local:
 
     if cfg.mla is not None:
         return _apply_mla(params, x, cfg, cache=cache, pos0=pos0, return_cache=return_cache)
+    if isinstance(params["wq"], Ranks):
+        if cache is not None:
+            raise ValueError("a context cache is not taken under a model mesh")
+        return _apply_attention_ranks(params, x, cfg, local=local, pos0=pos0, return_cache=return_cache)
     S, d = x.shape[-2], x.shape[-1]
     q = project(x, params["wq"], 3)  # (..., S, H, hd)
     k = project(x, params["wk"], 3)
@@ -186,6 +201,56 @@ def apply_attention(params: PyTree, x: torch.Tensor, cfg: ModelConfig, *, local:
                       softcap=cfg.attn_logit_softcap, q_pos0=pos0)  # (B', H, S, hd)
     out = out.transpose(1, 2).reshape(-1, S, out.shape[1] * out.shape[-1]) @ params["wo"].reshape(-1, d)
     return out.reshape(*x.shape[:-2], S, d), (new_entries if return_cache else None)
+
+
+def rank_qkv(params: PyTree, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+    """Column-parallel projections of one batch shard: ``q`` as :class:`Ranks`
+    of each rank's heads ``(B, S, H / tp, hd)``, rotated (the rotation's
+    tables made once for every rank); ``k`` and ``v`` Ranks where the KV
+    heads split, else projected once, whole."""
+    tables = None if cfg.is_encoder else rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta, x.device)
+
+    def rot(t: torch.Tensor) -> torch.Tensor:
+        return t if tables is None else rotate(t, *(c.to(t.device) for c in tables))
+
+    xs = [x.to(w.device) for w in params["wq"]]
+    q = Ranks(rot(project(xm, w, 3)) for xm, w in zip(xs, params["wq"]))
+    if isinstance(params["wk"], Ranks):
+        k = Ranks(rot(project(xm, w, 3)) for xm, w in zip(xs, params["wk"]))
+        v = Ranks(project(xm, w, 3) for xm, w in zip(xs, params["wv"]))
+    else:
+        k = rot(project(x, params["wk"], 3))
+        v = project(x, params["wv"], 3)
+    return q, k, v
+
+
+def row_parallel(outs, wo: Ranks, device: torch.device) -> torch.Tensor:
+    """Each rank's attention output ``(B, S, H / tp, dv)`` times its rows of
+    ``wo``, the partial sums joined in rank order."""
+    d = wo[0].shape[-1]
+    return join_sum([o.reshape(*o.shape[:2], -1) @ w.reshape(-1, d) for o, w in zip(outs, wo)], device)
+
+
+def _apply_attention_ranks(params: PyTree, x: torch.Tensor, cfg: ModelConfig, *, local: bool, pos0: int,
+                           return_cache: bool):
+    """:func:`apply_attention` on one batch shard ``(B, S, d)`` with the heads
+    split over the model axis (Megatron's layout): each rank projects its
+    heads, the flash kernel runs once a rank
+    (:func:`repro_torch.kernels.ops.attention` on :class:`Ranks`), and each
+    rank's output meets its rows of ``wo``; the partial sums join in rank
+    order. The cache entries come back whole over the KV heads."""
+    from repro_torch.kernels import ops as K
+
+    S = x.shape[-2]
+    q, k, v = rank_qkv(params, x, cfg, pos0 + torch.arange(S, device=x.device))
+    heads_first = lambda t: Ranks(p.transpose(1, 2) for p in t) if isinstance(t, Ranks) else t.transpose(1, 2)  # noqa: E731
+    out = K.attention(heads_first(q), heads_first(k), heads_first(v), causal=cfg.causal, scale=attention_scale(cfg),
+                      window=cfg.sliding_window if local else None, softcap=cfg.attn_logit_softcap, q_pos0=pos0)
+    mix = row_parallel([o.transpose(1, 2) for o in out], params["wo"], x.device)
+    if not return_cache:
+        return mix, None
+    whole = lambda t: join_cat(t, x.device, 2) if isinstance(t, Ranks) else t  # noqa: E731
+    return mix, {"k": whole(k), "v": whole(v)}
 
 
 def _apply_mla(params: PyTree, x: torch.Tensor, cfg: ModelConfig, *, cache: PyTree | None, pos0: int,
@@ -232,6 +297,15 @@ def init_dense_ffn(generator: torch.Generator, d: int, d_ff: int, lead=()) -> Py
 
 
 def apply_dense_ffn(params: PyTree, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU. Under a model mesh (``wg``, ``wu`` as :class:`Ranks` of
+    column blocks, ``wd`` of the matching row blocks) each rank computes its
+    slice of the hidden width and the partial sums join in rank order."""
+    if isinstance(params["wg"], Ranks):
+        partials = []
+        for wg, wu, wd in zip(params["wg"], params["wu"], params["wd"]):
+            xm = x.to(wg.device)
+            partials.append((torch.nn.functional.silu(xm @ wg) * (xm @ wu)) @ wd)
+        return join_sum(partials, x.device)
     gate = torch.nn.functional.silu(x @ params["wg"])
     up = x @ params["wu"]
     return (gate * up) @ params["wd"]

@@ -17,7 +17,11 @@ takes ``{"tokens": (B, S)}`` or ``{"embeds": (B, S, d)}`` (pixtral's and
 hubert's frontend stubs; an encoder adds sinusoidal positions), or tokens
 ``(C, n, S)`` together with client-batched weights: ``embed (C, V, d)``
 and, in ``blocks``, a per-client ``wq (P, C, d, H, hd)`` (the LM task's
-merged deltas, dense attention only).
+merged deltas, dense attention only). Under a model mesh the step
+functions call ``forward`` once a batch shard, with weights whose
+model-split leaves are :class:`~repro_torch.models.dist.Ranks`
+(``launch.sharded.view``): the embedding and the LM head split over the
+vocabulary, the attention over the heads, the dense FFN over its width.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.common.pytrees import tree_map
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models.dist import Ranks, join_cat, join_sum, kv_group
 
 PyTree = Any
 
@@ -155,6 +160,8 @@ def _attn_decode(mp: PyTree, h: torch.Tensor, cfg: ModelConfig, local: bool, cac
     takes :func:`_mla_decode_absorbed`."""
     if cfg.mla is not None:
         return _mla_decode_absorbed(mp, h, cfg, cache, pos0)
+    if isinstance(mp["wq"], Ranks):
+        return _attn_decode_ranks(mp, h, cfg, local, cache, pos0)
     q = L.project(h, mp["wq"], 3)  # (B, 1, H, hd)
     k = L.project(h, mp["wk"], 3)
     v = L.project(h, mp["wv"], 3)
@@ -170,6 +177,57 @@ def _attn_decode(mp: PyTree, h: torch.Tensor, cfg: ModelConfig, local: bool, cac
     )
     B, S = out.shape[:2]
     return out.reshape(B, S, -1) @ mp["wo"].reshape(-1, h.shape[-1]), {"k": k_buf, "v": v_buf}
+
+
+def _attn_decode_ranks(mp: PyTree, h: torch.Tensor, cfg: ModelConfig, local: bool, cache: PyTree, pos0: int):
+    """:func:`_attn_decode` on one batch shard with the heads split over the
+    model axis: each rank projects its query heads, the new token's k and v
+    (whole over the KV heads) go into the shard's buffers at ``pos0``, and
+    each rank attends over its KV heads of the buffer (its block where the
+    KV heads split, else its group, ``dist.kv_group``); the ranks' outputs
+    meet their rows of ``wo`` and the partial sums join in rank order."""
+    positions = pos0 + torch.arange(h.shape[1], device=h.device)
+    q, k, v = L.rank_qkv(mp, h, cfg, positions)
+    whole = lambda t: join_cat(t, h.device, 2) if isinstance(t, Ranks) else t  # noqa: E731
+    k_buf, v_buf = cache["k"], cache["v"]
+    k_buf[:, pos0: pos0 + h.shape[1]] = whole(k).to(k_buf.dtype)
+    v_buf[:, pos0: pos0 + h.shape[1]] = whole(v).to(v_buf.dtype)
+    heads, kv_heads = sum(p.shape[2] for p in q), k_buf.shape[2]
+    outs = []
+    for m, qm in enumerate(q):
+        if isinstance(k, Ranks):
+            kv0, n = m * k[m].shape[2], k[m].shape[2]
+        else:
+            kv0, n = kv_group(m, qm.shape[2], heads, kv_heads)
+        kb = k_buf[:, :, kv0: kv0 + n].to(device=qm.device, dtype=h.dtype)
+        vb = v_buf[:, :, kv0: kv0 + n].to(device=qm.device, dtype=h.dtype)
+        outs.append(L.attention_scores_reference(
+            qm, kb, vb, causal=True, scale=L.attention_scale(cfg), window=cfg.sliding_window if local else None,
+            softcap=cfg.attn_logit_softcap, q_pos0=pos0))
+    return L.row_parallel(outs, mp["wo"], h.device), {"k": k_buf, "v": v_buf}
+
+
+def _embed_ranks(embed: Ranks, tokens: torch.Tensor) -> torch.Tensor:
+    """The vocab-parallel lookup: rank m holds rows ``[m V / tp, (m + 1) V /
+    tp)`` and looks up the tokens in its range (zeros elsewhere); the rows
+    join by the rank-order sum, which is each token's one nonzero row."""
+    vl = embed[0].shape[0]
+    parts = []
+    for m, e in enumerate(embed):
+        local = tokens.to(e.device) - m * vl
+        hit = (local >= 0) & (local < vl)
+        rows = e[local.clamp(0, vl - 1)]
+        parts.append(torch.where(hit[..., None], rows, torch.zeros((), dtype=rows.dtype, device=rows.device)))
+    return join_sum(parts, tokens.device)
+
+
+def _head(x: torch.Tensor, w, tied: bool) -> torch.Tensor:
+    """The LM head: ``x @ embed.T`` (tied) or ``x @ lm_head``; split over the
+    vocabulary under a model mesh, the ranks' logits concatenated in rank
+    order."""
+    if isinstance(w, Ranks):
+        return join_cat([_head(x.to(wm.device), wm, tied) for wm in w], x.device, -1)
+    return L.project(x, w.transpose(-1, -2) if tied else w, 2)
 
 
 def _mla_decode_absorbed(mp: PyTree, h: torch.Tensor, cfg: ModelConfig, cache: PyTree, pos0: int):
@@ -292,15 +350,18 @@ def forward(cfg: ModelConfig, params: PyTree, batch: dict, cache: PyTree | None 
     collect = decode or return_cache
     pos0 = int(cache["len"]) if decode else 0
     embed = params["embed"]
+    device = (embed[0] if isinstance(embed, Ranks) else embed).device
     if "tokens" in batch:
-        tokens = torch.as_tensor(batch["tokens"], device=embed.device).long()
-        if embed.dim() == 3:  # per-client embedding (C, V, d)
+        tokens = torch.as_tensor(batch["tokens"], device=device).long()
+        if isinstance(embed, Ranks):
+            x = _embed_ranks(embed, tokens)
+        elif embed.dim() == 3:  # per-client embedding (C, V, d)
             rows = torch.arange(embed.shape[0], device=tokens.device).reshape(-1, *([1] * (tokens.dim() - 1)))
             x = embed[rows, tokens]
         else:
             x = embed[tokens]
     else:
-        x = torch.as_tensor(batch["embeds"], device=embed.device)
+        x = torch.as_tensor(batch["embeds"], device=device)
     if cfg.query_pre_attn_scalar is not None:  # gemma scales embeddings, in the input's dtype
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     if cfg.is_encoder:
@@ -347,10 +408,7 @@ def forward(cfg: ModelConfig, params: PyTree, batch: dict, cache: PyTree | None 
     if last is not None:
         x = x[..., -last:, :]
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
-    if cfg.tie_embeddings:
-        logits = L.project(x, embed.transpose(-1, -2), 2)
-    else:
-        logits = L.project(x, params["lm_head"], 2)
+    logits = _head(x, embed if cfg.tie_embeddings else params["lm_head"], cfg.tie_embeddings)
     if cfg.final_logit_softcap is not None:
         cap = cfg.final_logit_softcap
         logits = cap * torch.tanh(logits / cap)

@@ -12,6 +12,14 @@ zero gradient, as the reference's ``jax.grad`` gives it. With
 ``cfg.train.remat`` the forward keeps only each period's input and the
 backward recomputes the period (``models.model.forward``): the same bits,
 less memory.
+
+Under a registered model mesh of more than one device (``models.dist``)
+the steps take params placed on it (``launch.sharded``) and run each batch
+shard in turn, the heads, FFN width and vocabulary split over the model
+ranks inside ``forward``: the train step adds the shards' gradients block
+by block in shard order and updates each block once; prefill and eval join
+the logits (and prefill the caches) over the shards; the serve step takes
+buffers placed by ``launch.sharded.shard_cache``.
 """
 from __future__ import annotations
 
@@ -21,6 +29,8 @@ import torch
 
 from repro_torch.common.pytrees import tree_leaves, tree_map, tree_unflatten
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import sharded
+from repro_torch.models import dist
 from repro_torch.models.model import forward
 from repro_torch.optim.adafactor import adafactor
 from repro_torch.optim.optimizers import Optimizer, adamw, apply_updates, clip_by_global_norm, momentum
@@ -43,16 +53,25 @@ def make_optimizer(cfg: ModelConfig) -> Optimizer:
     return adamw(t.learning_rate)
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab: int) -> torch.Tensor:
-    """Mean next-token cross entropy in fp32; labels outside ``[0, vocab)``
-    (the padded vocab's tail) are masked out."""
+def _ce_terms(logits: torch.Tensor, labels: torch.Tensor, vocab: int):
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     labels = labels.long()
     gold = torch.gather(logits, -1, labels.clamp(0, logits.shape[-1] - 1)[..., None])[..., 0]
     valid = (labels >= 0) & (labels < vocab)
-    ce = torch.where(valid, logz - gold, torch.zeros((), device=logits.device))
+    return torch.where(valid, logz - gold, torch.zeros((), device=logits.device)), valid
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Mean next-token cross entropy in fp32; labels outside ``[0, vocab)``
+    (the padded vocab's tail) are masked out."""
+    ce, valid = _ce_terms(logits, labels, vocab)
     return torch.sum(ce) / torch.clamp_min(torch.sum(valid), 1)
+
+
+def ce_sum(logits: torch.Tensor, labels: torch.Tensor, vocab: int) -> torch.Tensor:
+    """:func:`cross_entropy`'s numerator: the sum over the valid labels."""
+    return torch.sum(_ce_terms(logits, labels, vocab)[0])
 
 
 def _on(batch: dict, device) -> dict:
@@ -79,19 +98,107 @@ def _grads(cfg: ModelConfig, params: PyTree, batch: dict):
     return {k: v.detach() for k, v in metrics.items()}, tree_unflatten(params, grads)
 
 
+def _mesh_of(params: PyTree):
+    """The registered model mesh when it has more than one device; the params
+    must then be held in its blocks (``launch.sharded.shard_state``)."""
+    mesh = dist.sharded_mesh()
+    if mesh is not None and not (isinstance(params, sharded.ShardedTree) and params.layout.mesh is mesh):
+        raise TypeError("under a model mesh the step takes params placed on it (launch.sharded.shard_state)")
+    return mesh
+
+
+def _sharded_grads(cfg: ModelConfig, params: sharded.ShardedTree, batch: dict, mesh):
+    """(metrics, gradient blocks) of the loss at ``params`` over a model
+    mesh: each batch shard's forward and backward in turn, its loss the
+    shard's share of the global mean (its cross-entropy sum over the whole
+    batch's valid labels), the gradients added block by block in shard
+    order."""
+    first = mesh.first_device
+    leaves = [t.detach().requires_grad_(True) for t in params]
+    req = sharded.ShardedTree(leaves, params.layout)
+    labels = batch["labels"].long()
+    count = torch.clamp_min(torch.sum((labels >= 0) & (labels < cfg.vocab_size)), 1)
+    B = labels.shape[0]
+    grads, metrics = None, None
+    for b, rows in enumerate(sharded.batch_shards(mesh, B)):
+        dev = mesh.device(b, 0)
+        part = {k: v[rows].to(dev) for k, v in batch.items()}
+        logits, aux, _ = forward(cfg, sharded.view(req, b), part)
+        ce = ce_sum(logits, part["labels"], cfg.vocab_size) / count.to(dev)
+        aux = aux * ((rows.stop - rows.start) / B)
+        loss = ce + 0.01 * aux
+        g = torch.autograd.grad(loss, leaves, allow_unused=True)
+        g = [torch.zeros_like(p) if gi is None else gi for p, gi in zip(leaves, g)]
+        grads = g if grads is None else [a + x for a, x in zip(grads, g)]
+        m = {"loss": loss.detach().to(first), "ce": ce.detach().to(first), "moe_aux": aux.detach().to(first)}
+        metrics = m if metrics is None else {k: metrics[k] + m[k] for k in m}
+    return metrics, sharded.ShardedTree(grads, params.layout)
+
+
+def _update_by_device(opt: Optimizer, grads, opt_state, params):
+    """The optimizer's update block by block, one call for each device that
+    holds blocks (the state's scalars, the step, moved there), so each block
+    is updated once, where it lives."""
+    homes = params.layout.homes
+    devices = list(dict.fromkeys(homes))
+
+    def pick(tree, dev):
+        if isinstance(tree, sharded.ShardedTree):
+            return [t for t, h in zip(tree, homes) if h == dev]
+        if isinstance(tree, torch.Tensor):
+            return tree.to(dev)
+        return type(tree)(*(pick(x, dev) for x in tree))
+
+    def merge(parts, like):
+        if isinstance(like, sharded.ShardedTree):
+            its = {d: iter(p) for d, p in zip(devices, parts)}
+            return like.rebuild([next(its[h]) for h in homes])
+        if isinstance(like, torch.Tensor):
+            return parts[0].to(like.device)
+        return type(like)(*(merge([p[i] for p in parts], x) for i, x in enumerate(like)))
+
+    outs = [opt.update(pick(grads, d), pick(opt_state, d), pick(params, d)) for d in devices]
+    return merge([o[0] for o in outs], grads), merge([o[1] for o in outs], opt_state)
+
+
+def _sharded_update(cfg: ModelConfig, opt: Optimizer, state: TrainState, grads: sharded.ShardedTree):
+    """Clip by the global norm (the blocks' squares added in order), then the
+    optimizer: AdamW and momentum block by block; Adafactor, whose factored
+    moments and update RMS span a whole leaf, on the gathered leaves, its
+    updates and slots cut again."""
+    mesh = grads.layout.mesh
+    gn = torch.sqrt(sharded.sq_norm(grads))
+    scale = torch.clamp_max(1.0 / (gn + 1e-12), 1.0)
+    grads = grads.rebuild([g * scale.to(g.device) for g in grads])
+    if cfg.train.optimizer != "adafactor":
+        updates, opt_state = _update_by_device(opt, grads, state.opt_state, state.params)
+    else:
+        whole, opt_state = opt.update(sharded.gather_tree(grads), sharded.gather_state(state.opt_state))
+        updates = sharded.shard_tree(whole, grads.layout.specs, mesh)
+        opt_state = sharded.shard_state(cfg, opt_state, mesh)
+    return apply_updates(state.params, updates), opt_state
+
+
 def make_train_step(cfg: ModelConfig, optimizer: Optimizer | None = None):
     """Returns ``train_step(state, batch) -> (state, metrics)``.
     ``cfg.train.microbatches > 1`` splits the batch and accumulates fp32
     gradients (and metrics) as ``acc + g / n`` over the microbatches in
     order; then gradients are clipped to global norm 1.0 and the optimizer
-    steps."""
+    steps. Under a model mesh (``models.dist``) the state is held in blocks
+    (``launch.sharded.shard_state``): each microbatch's gradients come from
+    :func:`_sharded_grads` and :func:`_sharded_update` clips and steps."""
     opt = optimizer or make_optimizer(cfg)
     n_micro = max(1, cfg.train.microbatches)
 
     def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
-        batch = _on(batch, _device_of(state.params))
+        mesh = _mesh_of(state.params)
+        batch = _on(batch, _device_of(state.params) if mesh is None else mesh.first_device)
+
+        def grad_fn(b: dict):
+            return _grads(cfg, state.params, b) if mesh is None else _sharded_grads(cfg, state.params, b, mesh)
+
         if n_micro == 1:
-            metrics, grads = _grads(cfg, state.params, batch)
+            metrics, grads = grad_fn(batch)
         else:
             b = next(iter(batch.values())).shape[0]
             if b % n_micro:
@@ -100,15 +207,18 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer | None = None):
             metrics = None
             for i in range(n_micro):
                 mb = {k: v.reshape(n_micro, b // n_micro, *v.shape[1:])[i] for k, v in batch.items()}
-                m, g = _grads(cfg, state.params, mb)
+                m, g = grad_fn(mb)
                 grads = tree_map(lambda a, x: a + x.to(torch.float32) / n_micro, grads, g)
                 if metrics is None:
                     metrics = {k: torch.zeros((), dtype=torch.float32, device=v.device) for k, v in m.items()}
                 metrics = {k: metrics[k] + m[k] / n_micro for k in metrics}
         with torch.no_grad():
-            grads = clip_by_global_norm(grads, 1.0)
-            updates, opt_state = opt.update(grads, state.opt_state, state.params)
-            params = apply_updates(state.params, updates)
+            if mesh is not None:
+                params, opt_state = _sharded_update(cfg, opt, state, grads)
+            else:
+                grads = clip_by_global_norm(grads, 1.0)
+                updates, opt_state = opt.update(grads, state.opt_state, state.params)
+                params = apply_updates(state.params, updates)
         new_state = TrainState(params=params, opt_state=opt_state, step=state.step + 1)
         return new_state, dict(metrics, step=new_state.step)
 
@@ -118,8 +228,9 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer | None = None):
 def make_eval_step(cfg: ModelConfig):
     @torch.no_grad()
     def eval_step(params: PyTree, batch: dict) -> dict:
-        batch = _on(batch, _device_of(params))
-        logits, _, _ = forward(cfg, params, batch)
+        mesh = _mesh_of(params)
+        batch = _on(batch, mesh.first_device if mesh is not None else _device_of(params))
+        logits = _sharded_forward(cfg, params, batch, mesh)[0] if mesh is not None else forward(cfg, params, batch)[0]
         ce = cross_entropy(logits, batch["labels"], cfg.vocab_size)
         pred = torch.argmax(logits, dim=-1)
         acc = torch.mean((pred == batch["labels"].long()).to(torch.float32))
@@ -136,10 +247,38 @@ def make_prefill_step(cfg: ModelConfig):
 
     @torch.no_grad()
     def prefill(params: PyTree, batch: dict) -> tuple[torch.Tensor, PyTree]:
+        mesh = _mesh_of(params)
+        if mesh is not None:
+            return _sharded_forward(cfg, params, batch, mesh, return_cache=True, last=1)
         logits, _, cache = forward(cfg, params, batch, return_cache=True, last=1)
         return logits, cache
 
     return prefill
+
+
+def _sharded_forward(cfg: ModelConfig, params: sharded.ShardedTree, batch: dict, mesh, **kw):
+    """``forward`` once a batch shard; the logits and (with ``return_cache``)
+    each cache leaf concatenated over the shards in order along its batch
+    dim, on the mesh's first device: ``(logits, cache or None)``."""
+    first = mesh.first_device
+    x = next(iter(batch.values()))
+    logits, caches = [], []
+    for b, rows in enumerate(sharded.batch_shards(mesh, x.shape[0])):
+        part = {k: torch.as_tensor(v)[rows].to(mesh.device(b, 0)) for k, v in batch.items()}
+        out, _, cache = forward(cfg, sharded.view(params, b), part, **kw)
+        logits.append(out.to(first))
+        caches.append(cache)
+    logits = torch.cat(logits)
+    if not kw.get("return_cache"):
+        return logits, None
+    cache = {"len": caches[0]["len"]}
+    if "prefix" in caches[0]:
+        cache["prefix"] = tree_map(lambda *t: torch.cat([c.to(first) for c in t], dim=0),
+                                   *[c["prefix"] for c in caches])
+    if "blocks" in caches[0]:
+        cache["blocks"] = tree_map(lambda *t: torch.cat([c.to(first) for c in t], dim=1),
+                                   *[c["blocks"] for c in caches])
+    return logits, cache
 
 
 def make_serve_step(cfg: ModelConfig):
@@ -147,7 +286,26 @@ def make_serve_step(cfg: ModelConfig):
 
     @torch.no_grad()
     def serve(params: PyTree, cache: PyTree, batch: dict) -> tuple[torch.Tensor, PyTree]:
+        mesh = _mesh_of(params)
+        if mesh is not None:
+            return _sharded_serve(cfg, params, cache, batch, mesh)
         logits, _, new_cache = forward(cfg, params, batch, cache=cache)
         return logits, new_cache
 
     return serve
+
+
+def _sharded_serve(cfg: ModelConfig, params: sharded.ShardedTree, cache: dict, batch: dict, mesh):
+    """One decode step over a model mesh: each batch shard reads its rows of
+    the buffers (``launch.sharded.shard_cache``'s placement), decodes, and
+    writes them back; the logits join in shard order."""
+    first = mesh.first_device
+    tokens = torch.as_tensor(batch["tokens"])
+    logits = []
+    for b, rows in enumerate(sharded.batch_shards(mesh, tokens.shape[0])):
+        dev = mesh.device(b, 0)
+        local = sharded.cache_rows(cache, rows, dev)
+        out, _, local = forward(cfg, sharded.view(params, b), {"tokens": tokens[rows].to(dev)}, cache=local)
+        sharded.store_rows(cache, rows, local)
+        logits.append(out.to(first))
+    return torch.cat(logits), {"len": cache["len"] + 1, "buffers": cache["buffers"]}
