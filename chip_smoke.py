@@ -5,7 +5,19 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero; nothing is caught and passed over):
+``python3 chip_smoke.py --phase model_mesh`` (or ``zoo_mesh``) builds the
+kernels, runs the flash checks and then phase 3n (or 3o) alone with its
+phase 5 rows.
+
+Phases (any failure exits non-zero; nothing is caught and passed over).
+After phase 3b two side processes on the same card (``--side a`` and
+``--side b``, started by the whole run) take phases 3e, 3g, 3h and 4,
+which drive small tasks and leave the card idle most of the time, while
+this process runs phases 3c, 3m, 3f, 3g's full-width top-k run, 3n and 3i;
+the side processes' logs follow, and a side process that fails fails the
+run. The phases that time or profile the device (3j, 3k, 3l, 3o, 5, 6)
+come after both have ended. A card whose compute mode takes one process
+runs the side phases in this process instead.
 
 1. probe — the card's name and power limit, CUDA and nvcc versions; build
    the hand-written kernels from ``src/repro_torch/csrc`` and time the build;
@@ -185,13 +197,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the card) and trained (2 steps at 16 x 256, remat) against no mesh
    (losses within 1e-5 relative, first-step gradients within 1e-4 of each
    leaf's max |g|, the launches the mesh and remat predict); reduced
-   llama3.2-1b and tiny_lm on the multipod mesh (2 x 16 x 16) stopped after
-   2 steps and resumed (bit for bit), and on the smoke mesh (bit for bit
-   the unmeshed serve and train); prefill s, decode tokens/s, s a step,
-   tokens/s and the peaks;
-3i. restart (run last, after phase 6, with phase 4's restart agreement,
-   so that the timed and profiled phases follow the same run as before
-   it) — the fault plan's server kill and restore
+   llama3.2-1b and tiny_lm on the multipod mesh (2 x 16
+   x 16) stopped after 2 steps and resumed (bit for bit), and on the smoke
+   mesh (bit for bit the unmeshed serve and train); prefill s, decode
+   tokens/s, s a step, tokens/s and the peaks;
+3o. the zoo on model meshes — the MoE, MLA and recurrent archs on meshes
+   that repeat the card (``zoo_mesh_phase``): deepseek-v2-lite-16b at full
+   width (depth uncut) served 16 x 256 and two decode steps on the pod mesh
+   against no mesh, dropless and at capacity 1.25, routed as the unmeshed
+   run (prefill logits within SERVE_ATOL, tokens under the margin rule,
+   27 x 16 x 16 flash forward launches at MLA's shard (1, 1, 256, 192),
+   value width 128; the idle share of a mesh prefill); one period of
+   xlstm-1.3b at full width served 2 x 64 with 4 tokens (logits within
+   XLSTM_MESH_ATOL; two planted faults, the sLSTM's ``h`` joined out of
+   rank order and the mLSTM's row-parallel ``wq`` against the wrong input
+   blocks, must each move the prefill's logits past it); 16 of granite-moe-3b-a800m's 32 layers at full width
+   trained 2 steps at 16 x 128 (losses 1e-5 relative, first-step gradients
+   1e-4, the flash launches a batch shard and layer); reduced deepseek,
+   granite, jamba and xlstm (one period) on the multipod mesh (resume bit
+   for bit) and
+   the smoke mesh (bit for bit the unmeshed runs);
+3i. restart (after phase 3n; its card-against-CPU agreement in side
+   process a) — the fault plan's server kill and restore
    (``ServerRestartPlan``): ``tests/test_faults.py``'s run (``har``, 8
    clients with 48 samples, ``uplink="topk"``, faults at seed 5, 900 s,
    killed at 30 uploads) per event and at a 30 s window, and phase 3c's
@@ -247,8 +274,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    gemma2-2b prefill shapes with its softcap, where no library call
    applies, and at phase 3k's MLA prefill shape beside fp32 SDPA, the
    flash forward and backward at phase 3l's training shape beside fp32
-   SDPA's, and at phase 3n's per-shard shapes (the forward at the pod
-   prefill's, both at the pod training step's),
+   SDPA's, at phase 3n's per-shard shapes (the forward at the pod
+   prefill's, both at the pod training step's) and at phase 3o's (the
+   forward at deepseek's MLA shard, both at granite's batch shard),
    ``l1_distance`` and
    ``assign_and_lerp`` also at the full-width run's; the segmented chi2 also
    at the 128-client fleet's refine, (128, 10) with S = 16, and at (1, 1) with
@@ -267,12 +295,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    back-to-back calls between CUDA events, host overhead included
    (``call_ms`` and its two siblings; the merge also in place, as the server
    calls it);
-6. profile — short runs of the main path, of the coalesced path, of
-   both LM paths, of phase 3f's full-width FedAvg run, of phase 3g's
-   EchoPFL top-k arm (its first 1,200 s) and of phase 3h's coalesced
-   guard-on defense arm (seed 0) under
-   ``torch.profiler``: device busy time, the device's idle share and the
-   kernels that take the time.
+6. profile — short runs of the main path (300 s), of the coalesced path
+   (300 uploads), of both LM paths (900 s, 720 s), of phase 3f's
+   full-width FedAvg run, of phase 3g's EchoPFL top-k arm (its first
+   1,200 s) and of phase 3h's coalesced guard-on defense arm (seed 0,
+   1,800 s) under ``torch.profiler``: device busy time, the device's idle
+   share and the kernels that take the time.
 
 The last lines are one JSON object with the kernel table, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -280,10 +308,12 @@ outside a checkout of the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import argparse
 import hashlib
 import json
 import math
 import os
+import pickle
 import re
 import shutil
 import statistics
@@ -293,6 +323,7 @@ import tempfile
 import time
 from collections import Counter
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -366,6 +397,8 @@ FLASH_CASES = (
     ("hd 12: 4-byte copies", 2, 4, 2, 70, 70, 12, 12, {}),
     # hubert-xlarge's non-causal encoder attention, head width 80 in the 128 bucket
     ("hubert-xlarge heads, non-causal", 2, 16, 16, 200, 200, 80, 80, dict(causal=False)),
+    # phase 3o's granite-moe-3b-a800m batch shard on the pod mesh (heads replicated: 24 over 8 KV heads)
+    ("granite-moe-3b-a800m pod batch shard", 1, 24, 8, 128, 128, 64, 64, {}),
 )
 # forward-only checks at phase 3j's prefill shapes (gemma2-2b: 8 heads over 4, head width 256, softcap 50,
 # scale 1/16), on the local layers' window of 4,096 and on the global layers' none; at 4,200 the window bites
@@ -374,11 +407,13 @@ GEMMA_PREFILL = dict(causal=True, softcap=50.0, scale=256 ** -0.5)
 # 192 ** -0.5, causal): (B, H, KV, Sq, Sk, hd, dv)
 MLA_PREFILL = (2, 16, 16, 512, 512, 192, 128)
 MLA_OPTS = dict(causal=True, scale=192 ** -0.5)
+MLA_SHARD = (1, 1, 1, 256, 256, 192, 128)  # phase 3o's pod shard: a row and a head
 FLASH_FWD_CASES = tuple(
     (f"gemma2-2b prefill {B}x{S}{' local' if w else ' global'}", B, 8, 4, S, S, 256, 256,
      dict(GEMMA_PREFILL, window=w) if w else GEMMA_PREFILL)
     for B, S in ((4, 512), (2, 4200)) for w in (4096, None)) + (
-    ("deepseek-v2-lite-16b MLA prefill 2x512", *MLA_PREFILL, MLA_OPTS),)
+    ("deepseek-v2-lite-16b MLA prefill 2x512", *MLA_PREFILL, MLA_OPTS),
+    ("deepseek-v2-lite-16b MLA pod shard (phase 3o)", *MLA_SHARD, MLA_OPTS))
 
 
 # phase 3e: the reference's Tab. 1 bench (benchmarks/bench_accuracy_time.py) at one task and seed
@@ -423,7 +458,7 @@ TRAIN_FULL = dict(batch=2, seq=4096, steps=8)
 TRAIN_FLASH = (2, 32, 4096, 64, 8, 4096, 64)  # (B, H, Sq, hd, KV, Sk, dv) of its flash launches
 # the driver's checkpoints at reduced llama3.2-1b (the driver's default batch and length): stopped at 3, resumed to 6
 TRAIN_CKPT = dict(batch=8, seq=64, kill=3, steps=6)
-# the EchoPFL transformer-client example: killed at round 150 (a checkpoint every 50), resumed to its 300
+# the EchoPFL transformer-client example: killed at round 150 (a checkpoint every 50), resumed to 300
 EXAMPLE_RUN = dict(kill=150, steps=300)
 # phase 3n: llama3.2-1b on the pod mesh over the card, (a) served, (b) trained; (c) reduced archs, multipod and smoke
 MESH_SERVE = dict(batch=16, prompt=512, gen=4)
@@ -431,6 +466,23 @@ MESH_TRAIN = dict(batch=16, seq=256, steps=2)
 MESH_REDUCED = ("llama3.2-1b", "tiny_lm")
 MESH_RESUME = dict(batch=32, seq=32)  # 32 rows: one a data shard of the multipod mesh
 MESH_SMOKE_SERVE = dict(batch=2, prompt=16, gen=4)
+# phase 3o: (a) deepseek-v2-lite-16b served on the pod mesh, a row a data shard; (b) xlstm-1.3b served at batch 2
+# (one batch shard, on every rank); (c) granite-moe-3b-a800m trained on the pod mesh, depth cut to 16 of its 32
+# layers (the functional AdamW step holds the old and new params and moments, the gradients and the updates at
+# once: 8 x 13.2 GB uncut); (d) the reduced archs' multipod resume, one period each (the MoE archs a row a data
+# shard, the recurrent ones at batch 2: one shard, every layer over the 16 ranks)
+# two decode steps (the second reads the cache rows the first wrote): on the mesh some 300,000 launches a step
+ZOO_MESH_SERVE = dict(batch=16, prompt=256, gen=2)
+XLSTM_MESH_SERVE = dict(batch=2, prompt=64, gen=4)
+# xlstm-1.3b's random-weight stack amplifies rounding some 20 times a period (one ulp on the embeddings moves the
+# unmeshed logits 5.9e-4 at one period, 1.2e-2 at two, on the CPU: scripts/xlstm_mesh_gap.py), so its card arm runs
+# one period (8 blocks: 7 mLSTM, 1 sLSTM) at full width. The bound is 10 x the one-period mesh-against-no-mesh gap on
+# the CPU (5.31e-4); 3 x that did not hold on the card, whose sums round otherwise (2.88e-3; PERF.md)
+XLSTM_MESH_PERIODS = 1
+XLSTM_MESH_ATOL = 5.3e-3
+ZOO_MESH_TRAIN = dict(batch=16, seq=128, steps=2, periods=16)
+ZOO_MESH_REDUCED = ("deepseek-v2-lite-16b", "granite-moe-3b-a800m", "jamba-1.5-large-398b", "xlstm-1.3b")
+ZOO_MESH_RESUME = dict(batch=32, seq=8, periods=1)
 # phase 4's training agreement: the driver at these reduced archs for 3 steps, card against CPU, and the example
 TRAIN_AGREEMENT = ("llama3.2-1b", "deepseek-v2-lite-16b")
 EXAMPLE_AGREEMENT_ROUNDS = 40
@@ -2078,7 +2130,7 @@ def _beside(label: str, mine: dict, stored: dict, exact: tuple) -> None:
         check(same, f"{label}: {key} {mine[key]} differs from the stored bench's {stored[key]}")
 
 
-def chaos_sweeps(rnn_params: dict) -> dict:
+def chaos_sweeps(rnn_params: dict, parts: tuple = ("faults", "defense")) -> dict:
     """Phase 3h: the reference's fault and defense sweeps at rate 0.1, seeds
     0-2, on the card: ``bench_faults.py``'s retry and drop arms (``har``, 32
     clients, 2,400 s, 30 s windows) and ``bench_defense.py``'s guard-on and
@@ -2086,13 +2138,14 @@ def chaos_sweeps(rnn_params: dict) -> dict:
     is printed beside ``BENCH_faults.json``'s and ``BENCH_defense.json``'s;
     FAULT_EXACT and DEFENSE_EXACT must equal them. Every guard-on run ends
     with finite centers and no NaN in its curve, and its coalesced runs
-    launch the chain with the norm statistic (and never without)."""
+    launch the chain with the norm statistic (and never without). ``parts``
+    picks the sweeps (``merge_chaos`` joins two parts' results)."""
     stored_f = json.loads((ROOT / "BENCH_faults.json").read_text())["by_rate"][str(CHAOS_RATE)]
     stored_d = json.loads((ROOT / "BENCH_defense.json").read_text())["by_rate"][str(CHAOS_RATE)]
     out: dict = {"faults": {}, "defense": {}}
     host: Counter = Counter()
     walls, with_norm = 0.0, 0
-    for policy in ("retry", "drop"):
+    for policy in ("retry", "drop") if "faults" in parts else ():
         runs = [chaos_run(FAULT_SWEEP["clients"], s, FAULT_SWEEP["windows"]["coalesced"], FAULT_SWEEP["horizon"],
                           _fault_plan(CHAOS_RATE, policy, seed=s), None, rnn_params) for s in CHAOS_SEEDS]
         arm = _mean_arm(runs)
@@ -2103,7 +2156,7 @@ def chaos_sweeps(rnn_params: dict) -> dict:
         for r in runs:
             host.update(r["host"])
             walls += r["wall_s"]
-    for wname, window in DEFENSE_SWEEP["windows"].items():
+    for wname, window in DEFENSE_SWEEP["windows"].items() if "defense" in parts else ():
         for arm_name, guard in (("guard_off", "off"), ("guard_on", "on")):
             runs = [chaos_run(DEFENSE_SWEEP["clients"], s, window, DEFENSE_SWEEP["horizon"],
                               _fault_plan(0.0, poison=CHAOS_RATE, seed=s), guard, rnn_params) for s in CHAOS_SEEDS]
@@ -2127,8 +2180,19 @@ def chaos_sweeps(rnn_params: dict) -> dict:
     out["wall_s"] = walls
     out["host"] = dict(host)
     out["chains_with_stats"] = with_norm
-    print(f"chaos sweeps: {walls:.2f} s of runs")
+    print(f"chaos sweeps ({', '.join(parts)}): {walls:.2f} s of runs")
     return out
+
+
+def merge_chaos(*outs: dict) -> dict:
+    """One ``chaos_sweeps`` result from those of its parts."""
+    host: Counter = Counter()
+    for o in outs:
+        host.update(o["host"])
+    return {"faults": {k: v for o in outs for k, v in o["faults"].items()},
+            "defense": {k: v for o in outs for k, v in o["defense"].items()},
+            "wall_s": sum(o["wall_s"] for o in outs), "host": dict(host),
+            "chains_with_stats": sum(o["chains_with_stats"] for o in outs)}
 
 
 # ----------------------------------------------------------------- phase 3j
@@ -2230,8 +2294,8 @@ def decode_profile(cfg, params, steps: int = 8, kw: dict = SERVE_CASES["a"]) -> 
 
     prof, wall = _device_trace(run)
     events = _device_events(prof)
-    busy = sum(e.time_range.elapsed_us() for e in events) / 1e6
-    per = _device_us(prof)
+    busy = sum(e.us for e in events) / 1e6
+    per = _device_us(events)
     out = {"kernels_a_step": len(events) / steps, "busy_ms_a_step": 1e3 * busy / steps,
            "wall_ms_a_step": 1e3 * wall / steps, "idle_share": 1 - busy / wall}
     print(f"decode profile ({cfg.name}, batch {kw['batch']}, {steps} steps after a {kw['prompt']}-token prefill): "
@@ -2338,6 +2402,28 @@ class Routing:
             return probs.gather(-1, indices), indices
 
         self.layers.top_k = rep
+
+    def pin(self, chosen: list) -> None:
+        """``replay``, keeping beside each call the tokens the free top-k
+        would route otherwise (another set of experts) and their k-th over
+        next margins (``moved``)."""
+        it = iter(chosen)
+        self.calls = []
+
+        def rep(probs, k):
+            indices = next(it)
+            values, free = self.top_k(probs, k + 1)
+            moved = (free[..., :k].sort(-1).values != indices.sort(-1).values).any(-1)
+            self.calls.append((int(moved.sum()), (values[..., k - 1] - values[..., k])[moved]))
+            return probs.gather(-1, indices), indices
+
+        self.layers.top_k = rep
+
+    def moved(self) -> tuple[int, float]:
+        """After ``pin``: the token-layers the free routing would move, and
+        the largest of their margins."""
+        margins = [m for _, m in self.calls if m.numel()]
+        return sum(n for n, _ in self.calls), max((float(m.max()) for m in margins), default=0.0)
 
     def restore(self) -> None:
         self.layers.top_k = self.top_k
@@ -2693,25 +2779,27 @@ def _pod_on_card(multi_pod: bool = False):
     return make_production_mesh(multi_pod=multi_pod, devices=[resolve_device(DEVICE)] * (512 if multi_pod else 256))
 
 
-def _record_first_grads():
+def _record_first_grads(host: bool = False):
     """Keep the first train step's gradients (whole leaves in tree order, as
     the step hands them to the clipping): through ``_sharded_update`` under
-    a model mesh, through ``clip_by_global_norm`` without one."""
+    a model mesh, through ``clip_by_global_norm`` without one; with
+    ``host`` as copies in host memory, off the card's budget."""
     from repro_torch.common.pytrees import tree_leaves
     from repro_torch.launch import sharded
     from repro_torch.models import steps
 
     kept: list = []
     update, clip = steps._sharded_update, steps.clip_by_global_norm
+    where = torch.device("cpu") if host else None
 
     def rec_update(cfg, opt, state, grads):
         if not kept:
-            kept.extend(tree_leaves(sharded.gather_tree(grads)))
+            kept.extend(tree_leaves(sharded.gather_tree(grads, where)))
         return update(cfg, opt, state, grads)
 
     def rec_clip(grads, max_norm):
         if not kept:
-            kept.extend(tree_leaves(grads))
+            kept.extend(t.to(where) if host else t for t in tree_leaves(grads))
         return clip(grads, max_norm)
 
     steps._sharded_update, steps.clip_by_global_norm = rec_update, rec_clip
@@ -2880,6 +2968,335 @@ def model_mesh_phase() -> dict:
                   f"step; smoke mesh serving and training bit for bit the unmeshed runs")
     out["wall"] = time.perf_counter() - t0
     print(f"phase 3n: {out['wall']:.1f} s")
+    return out
+
+
+# ----------------------------------------------------------------- phase 3o
+def _prefill_idle_share(cfg, params, mesh, kw: dict) -> dict:
+    """One more prefill at ``kw``'s shape under the profiler: device kernels,
+    busy and wall time, and the device's idle share."""
+    from repro_torch.launch import serve
+    from repro_torch.models import dist
+
+    prompts = torch.randint(0, cfg.vocab_size, (kw["batch"], kw["prompt"]),
+                            generator=torch.Generator().manual_seed(1)).to(DEVICE)
+
+    def run():
+        t0 = time.perf_counter()
+        with dist.use_mesh(mesh):
+            serve.prefill(cfg, params, prompts, kw["gen"])
+        sync()
+        return time.perf_counter() - t0
+
+    prof, wall = _device_trace(run)
+    events = _device_events(prof)
+    busy = sum(e.us for e in events) / 1e6
+    return {"kernels": len(events), "busy_s": busy, "wall_s": wall, "idle_share": 1 - busy / wall}
+
+
+def _reversed_ranks(name: str, leaves: tuple):
+    """A planted fault for a control: ``models.layers.<name>`` takes the
+    rank parts of its params' ``leaves`` in reversed rank order. Returns
+    the undo."""
+    from repro_torch.models import layers
+
+    real = getattr(layers, name)
+
+    def faulty(params, *a, **kw):
+        return real(dict(params, **{k: params[k].rebuild(params[k][::-1]) for k in leaves}), *a, **kw)
+
+    setattr(layers, name, faulty)
+    return lambda: setattr(layers, name, real)
+
+
+def zoo_mesh_phase() -> dict:
+    """The MoE, MLA and recurrent archs on meshes that repeat the card.
+    (a) deepseek-v2-lite-16b at full width (15.71 B parameters, fp32, depth
+    uncut, weights from a generator seeded 0 on the card) served through
+    ``repro_torch.launch.serve.serve`` at ZOO_MESH_SERVE (a row a data
+    shard) without a mesh and on the pod mesh (256 shards), dropless and
+    at the default capacity 1.25, the arms in turn; the mesh arm's blocks
+    are views of the unmeshed arm's leaves (``shard_tree`` on a mesh that
+    repeats their device), so the card holds the weights once. Each mesh arm
+    routes as its unmeshed arm did (``Routing``, replayed call by call):
+    prefill logits within SERVE_ATOL, tokens under the margin rule, and the
+    tokens its free routing would move printed with their margins; 27
+    layers x 16 batch shards x 16 ranks flash forward launches a prefill at
+    MLA's shard (1, 1, 256, 192), value width 128, and the decode step's
+    logits within SERVE_ATOL where its tokens agree; prefill s, decode
+    tokens/s, peaks and the device's idle share of a mesh prefill. (b)
+    xlstm-1.3b at full width and one period (XLSTM_MESH_PERIODS) served at
+    XLSTM_MESH_SERVE (batch 2: one batch shard, on every rank) on the pod
+    mesh against no mesh: every logit within XLSTM_MESH_ATOL, tokens under
+    the margin rule at that tolerance, no kernel of ours launched; then two
+    controls that the bound can fail, each a mesh prefill with a planted
+    fault (``_reversed_ranks``) whose logits must land beyond
+    XLSTM_MESH_ATOL: the sLSTM's ``wgx``, ``wgh`` and ``gbias`` parts in
+    reversed rank order (each step's ``h`` joined out of rank order) and
+    the mLSTM's ``wq`` parts reversed (its row-parallel partial products
+    against the wrong input blocks). (c)
+    granite-moe-3b-a800m at full width and ZOO_MESH_TRAIN's depth trained
+    through ``repro_torch.launch.train.train`` without a mesh and on the
+    pod mesh, the mesh arm routed as the unmeshed arm (each step's forward
+    and remat recomputation): losses within 1e-5 relative, first-step
+    gradients within 1e-4 of each leaf's max |g|, the flash launches the
+    mesh and remat predict at the batch shard's (1, 24, 128, 64) over 8 KV
+    heads. (d) Reduced deepseek, granite, jamba and xlstm (one period each)
+    on the multipod mesh: driver steps stopped after 2 and resumed to 3, the resumed step
+    bit for bit the stopped state's step on the stream's first batch; and
+    on the smoke mesh, serving and training bit for bit the unmeshed runs."""
+    import dataclasses
+
+    from repro_torch.common.pytrees import tree_leaves
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data.lm import token_stream
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve, sharded
+    from repro_torch.launch import train as driver
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.shardings import param_shardings_flat
+    from repro_torch.models import dist
+    from repro_torch.models.model import forward
+    from repro_torch.models.steps import make_train_step
+
+    t0 = time.perf_counter()
+    out = {}
+    pod = _pod_on_card()
+    tp = dp = 16
+    torch.cuda.empty_cache()
+    # (a) deepseek-v2-lite-16b served
+    base = get_config("deepseek-v2-lite-16b")
+    kw = ZOO_MESH_SERVE
+    params, arms = None, {}
+    t1 = time.perf_counter()
+    for label in ("dropless", "capacity"):
+        cfg = dataclasses.replace(base, moe_dropless=label == "dropless")
+        routing = Routing()
+        routing.record()
+        try:
+            r = serve.serve(cfg, device=DEVICE, params=params, keep_logits=True, verbose=False, **kw)
+        finally:
+            routing.restore()
+        params = r["params"]
+        arms[("none", label)] = {"tokens": torch.as_tensor(r["tokens"]), "logits": torch.stack(r["logits"]),
+                                 "prefill_s": r["prefill_s"], "decode_s": r["decode_s"], "peak": r["peak_bytes"],
+                                 "launches": r["launches"], "calls": [c[0] for c in routing.calls]}
+        del r
+    out["deepseek_weights_s"] = time.perf_counter() - t1 - sum(a["prefill_s"] + a["decode_s"] for a in arms.values())
+    placed = sharded.shard_tree(params, param_shardings_flat(base, pod, params), pod)
+    del params
+    for label in ("dropless", "capacity"):
+        cfg = dataclasses.replace(base, moe_dropless=label == "dropless")
+        routing = Routing()
+        routing.pin(arms[("none", label)]["calls"])
+        shapes, restore = _record_flash_shapes(ops)
+        try:
+            r = serve.serve(cfg, device=DEVICE, params=placed, keep_logits=True, verbose=False, mesh=pod, **kw)
+        finally:
+            restore()
+            routing.restore()
+        arms[("pod", label)] = {"tokens": torch.as_tensor(r["tokens"]), "logits": torch.stack(r["logits"]),
+                                "prefill_s": r["prefill_s"], "decode_s": r["decode_s"], "peak": r["peak_bytes"],
+                                "launches": r["launches"], "shapes": shapes, "free": routing.moved()}
+        del r
+    profile = _prefill_idle_share(base, placed, pod, kw)
+    del placed
+    torch.cuda.empty_cache()
+    want_fwd = base.num_layers * dp * tp
+    shard = (kw["batch"] // dp, base.num_heads // tp, kw["prompt"], base.mla.qk_nope_head_dim
+             + base.mla.qk_rope_head_dim, 1, kw["prompt"], base.mla.v_head_dim)
+    out["deepseek"] = {}
+    for label in ("dropless", "capacity"):
+        got, want = arms[("pod", label)], arms[("none", label)]
+        exempt = margin_rule(got["tokens"], want["logits"][:-1], base.vocab_size, SERVE_ATOL, f"phase 3o (a) {label}")
+        # the decode step's logits too where the tokens it was fed agree
+        same = (got["tokens"] == want["tokens"]).all(dim=1).to(got["logits"].device)
+        err = max((got["logits"][0] - want["logits"][0]).abs().max().item(),
+                  (got["logits"][1:, same] - want["logits"][1:, same]).abs().max().item() if bool(same.any()) else 0.0)
+        check(err <= SERVE_ATOL, f"phase 3o (a) {label}: logits {err:.3g} from the unmeshed run's")
+        pre = got["launches"]["prefill"]
+        check(pre["flash_attention_fwd"] == want_fwd and sum(pre.values()) == want_fwd,
+              f"phase 3o (a) {label}: prefill launches {pre}, not {base.num_layers} layers x {dp} x {tp} flash "
+              f"forwards")
+        check(got["shapes"] == Counter({shard: want_fwd}), f"phase 3o (a) {label}: shard shapes {dict(got['shapes'])}")
+        check(sum(got["launches"]["decode"].values()) == 0, f"phase 3o (a) {label}: decode launched "
+                                                            f"{got['launches']['decode']}")
+        tokens = kw["batch"] * kw["gen"]
+        row = {"max_abs_err": err, "exempt": exempt, "flash_prefill": pre["flash_attention_fwd"],
+               "free_rerouted": got["free"][0], "free_margin_max": got["free"][1],
+               **{f"{k}_prefill_s": arms[(k, label)]["prefill_s"] for k in ("pod", "none")},
+               **{f"{k}_decode_tok_s": tokens / arms[(k, label)]["decode_s"] for k in ("pod", "none")},
+               **{f"{k}_peak_GiB": arms[(k, label)]["peak"] / 2**30 for k in ("pod", "none")}}
+        out["deepseek"][label] = row
+        print(f"phase 3o (a) deepseek-v2-lite-16b {label} served at {kw} on the pod mesh (16 x 16 over the card), "
+              f"routed as the unmeshed run: prefill and decode logits {err:.3g} from its, tokens equal where the margin exceeds "
+              f"{SERVE_ATOL} ({exempt} exempt); free routing would move {got['free'][0]} token-layers (top-k "
+              f"margins up to {got['free'][1]:.3g}); {pre['flash_attention_fwd']} flash forward launches at {shard}; "
+              f"prefill {row['pod_prefill_s']:.3f} s (unmeshed {row['none_prefill_s']:.3f} s), decode "
+              f"{row['pod_decode_tok_s']:.2f} tokens/s (unmeshed {row['none_decode_tok_s']:.2f}); peak "
+              f"{row['pod_peak_GiB']:.2f} GiB (unmeshed {row['none_peak_GiB']:.2f} GiB)")
+    out["deepseek"]["shard_shape"] = list(shard)
+    out["deepseek"]["prefill_profile"] = profile
+    print(f"phase 3o (a) mesh prefill under the profiler: {profile['kernels']} device kernels, busy "
+          f"{profile['busy_s']:.3f} s of {profile['wall_s']:.3f} s, idle share {profile['idle_share']:.4f}; weights "
+          f"drawn in {out['deepseek_weights_s']:.2f} s")
+    del arms
+    torch.cuda.empty_cache()
+    # (b) xlstm-1.3b served
+    cfg = dataclasses.replace(get_config("xlstm-1.3b"), num_periods=XLSTM_MESH_PERIODS)
+    kw = XLSTM_MESH_SERVE
+    res = {}
+    params = None
+    for label, mesh in (("none", None), ("pod", pod)):
+        r = serve.serve(cfg, device=DEVICE, params=params, keep_logits=True, verbose=False, mesh=mesh, **kw)
+        if params is None:
+            params, r_prompts = r["params"], r["prompts"]
+        res[label] = {"tokens": torch.as_tensor(r["tokens"]), "logits": torch.stack(r["logits"]),
+                      "prefill_s": r["prefill_s"], "decode_s": r["decode_s"], "peak": r["peak_bytes"],
+                      "launches": r["launches"]}
+        del r
+    with torch.no_grad():  # the model's own conditioning: one ulp on the embeddings, teacher-forced
+        batch = {"tokens": torch.cat([r_prompts, res["none"]["tokens"].to(DEVICE)], dim=1)}
+        base_logits = forward(cfg, params, batch, last=kw["gen"] + 1)[0]
+        nudged = dict(params, embed=torch.nextafter(params["embed"], torch.full_like(params["embed"], math.inf)))
+        spread = (forward(cfg, nudged, batch, last=kw["gen"] + 1)[0] - base_logits).abs().max().item()
+        del nudged, base_logits
+    got, want = res["pod"], res["none"]
+    err = (got["logits"] - want["logits"]).abs().max().item()
+    check(err <= XLSTM_MESH_ATOL, f"phase 3o (b): xlstm-1.3b logits {err:.3g} from the unmeshed run's, over "
+                                  f"{XLSTM_MESH_ATOL}")
+    faults = {}
+    for name, fn, leaves in (("slstm_h_out_of_rank_order", "_apply_slstm_ranks", ("wgx", "wgh", "gbias")),
+                             ("mlstm_wq_rows_reversed", "apply_mlstm", ("wq",))):
+        restore = _reversed_ranks(fn, leaves)
+        try:
+            r = serve.serve(cfg, device=DEVICE, params=params, keep_logits=True, verbose=False, mesh=pod,
+                            **dict(kw, gen=1))
+        finally:
+            restore()
+        faults[name] = (r["logits"][0] - want["logits"][0]).abs().max().item()
+        del r
+        check(faults[name] > XLSTM_MESH_ATOL, f"phase 3o (b): the planted fault {name} moved the prefill's logits "
+                                              f"only {faults[name]:.3g}, within {XLSTM_MESH_ATOL}")
+    del params
+    torch.cuda.empty_cache()
+    exempt = margin_rule(got["tokens"], want["logits"][:-1], cfg.vocab_size, XLSTM_MESH_ATOL, "phase 3o (b)")
+    launched = {k: v for part in got["launches"].values() for k, v in part.items() if v}
+    check(not launched, f"phase 3o (b): xlstm-1.3b launched {launched}")
+    out["xlstm"] = {**kw, "max_abs_err": err, "bound": XLSTM_MESH_ATOL, "one_ulp_spread": spread, "exempt": exempt,
+                    "planted_faults": faults,
+                    **{f"{k}_prefill_s": v["prefill_s"] for k, v in res.items()},
+                    **{f"{k}_decode_tok_s": kw["batch"] * kw["gen"] / v["decode_s"] for k, v in res.items()},
+                    **{f"{k}_peak_GiB": v["peak"] / 2**30 for k, v in res.items()}}
+    x = out["xlstm"]
+    print(f"phase 3o (b) xlstm-1.3b ({cfg.num_layers} of 48 blocks, {cfg.param_count():,} parameters) served at "
+          f"{kw} on the pod mesh: logits (prefill and {kw['gen']} steps) {err:.3g} "
+          f"from the unmeshed run's (bound {XLSTM_MESH_ATOL}; one ulp on the embeddings moves the unmeshed "
+          f"teacher-forced logits {spread:.3g}), tokens equal where the margin exceeds it ({exempt} exempt); planted "
+          f"faults move the prefill's logits past the bound: "
+          f"{', '.join(f'{k} {v:.3g}' for k, v in faults.items())}; no "
+          f"kernel of ours; prefill {x['pod_prefill_s']:.3f} s (unmeshed {x['none_prefill_s']:.3f} s), "
+          f"decode {x['pod_decode_tok_s']:.2f} tokens/s (unmeshed {x['none_decode_tok_s']:.2f}); peak "
+          f"{x['pod_peak_GiB']:.2f} GiB (unmeshed {x['none_peak_GiB']:.2f} GiB)")
+    del res
+    # (c) granite-moe-3b-a800m trained
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m"), num_periods=ZOO_MESH_TRAIN["periods"])
+    kw = {k: ZOO_MESH_TRAIN[k] for k in ("batch", "seq", "steps")}
+    runs, chosen = {}, None
+    for label, mesh in (("none", None), ("pod", pod)):
+        routing = Routing()
+        if chosen is None:
+            routing.record()
+        else:
+            routing.pin(chosen)
+        shapes, restore = _record_flash_shapes(ops)
+        grads, restore_grads = _record_first_grads(host=True)
+        sync()
+        ops.reset_launch_counts()
+        try:
+            r = driver.train(cfg, device=DEVICE, verbose=False, mesh=mesh, **kw)
+            sync()
+        finally:
+            restore()
+            restore_grads()
+            routing.restore()
+        if chosen is None:
+            chosen = [c[0] for c in routing.calls]
+        runs[label] = {"losses": r["losses"], "step_s": r["step_s"], "peak_GiB": r["peak_bytes"] / 2**30,
+                       "launches": ops.launch_counts(), "shapes": shapes, "grads": grads,
+                       "free": routing.moved() if label == "pod" else None}
+        del r
+        torch.cuda.empty_cache()
+    got, want = runs["pod"], runs["none"]
+    g_err = max(((a.to(DEVICE) - b.to(DEVICE)).abs().max() / b.to(DEVICE).abs().max().clamp_min(1e-30)).item()
+                for a, b in zip(got.pop("grads"), want.pop("grads")))  # leaf by leaf on the card
+    check(g_err <= 1e-4, f"phase 3o (c): first-step gradients {g_err:.3g} of a leaf's max |g| apart")
+    for a, b in zip(got["losses"], want["losses"]):
+        check(math.isfinite(a) and abs(a - b) <= 1e-5 * abs(b), f"phase 3o (c): losses {got['losses']} against "
+              f"{want['losses']}")
+    steps, layers = kw["steps"], cfg.num_layers
+    fwd = steps * dp * (layers + recomputed_attention(cfg))
+    c = got["launches"]
+    check(c["flash_attention_fwd"] == fwd and c["flash_attention_dq"] == c["flash_attention_dkv"]
+          == steps * dp * layers, f"phase 3o (c): launches {c}, not {fwd} forward and {steps * dp * layers} of each "
+          f"backward kernel (heads replicated: one launch a batch shard and layer)")
+    train_shard = (kw["batch"] // dp, cfg.num_heads, kw["seq"], cfg.resolved_head_dim, cfg.num_kv_heads, kw["seq"],
+                   cfg.resolved_head_dim)
+    check(got["shapes"] == Counter({train_shard: fwd}), f"phase 3o (c): shard shapes {dict(got['shapes'])}")
+    tokens = kw["batch"] * kw["seq"]
+    out["granite"] = {**kw, "periods": cfg.num_periods, "params": cfg.param_count(),
+                      "grad_rel_err": g_err, "shard_shape": list(train_shard),
+                      "launches": {k: v for k, v in c.items() if v}, "free_rerouted": got["free"][0],
+                      "free_margin_max": got["free"][1],
+                      **{f"{k}_{f}": v[f] for k, v in runs.items() for f in ("losses", "step_s", "peak_GiB")},
+                      **{f"{k}_tokens_per_s": tokens / statistics.mean(v["step_s"]) for k, v in runs.items()}}
+    t = out["granite"]
+    print(f"phase 3o (c) granite-moe-3b-a800m ({cfg.num_layers} of 32 layers, {t['params']:,} parameters) trained "
+          f"at {kw} on the pod mesh, routed as the unmeshed run: losses {t['pod_losses']} (unmeshed "
+          f"{t['none_losses']}), first-step gradients within {g_err:.3g} of each leaf's max |g|; free routing would "
+          f"move {t['free_rerouted']} token-layers (margins up to {t['free_margin_max']:.3g}); launches "
+          f"{json.dumps(t['launches'])} at {train_shard}; {statistics.mean(t['pod_step_s']):.3f} s a step, "
+          f"{t['pod_tokens_per_s']:,.0f} tokens/s (unmeshed {statistics.mean(t['none_step_s']):.3f} s, "
+          f"{t['none_tokens_per_s']:,.0f} tokens/s); peak {t['pod_peak_GiB']:.2f} GiB (unmeshed "
+          f"{t['none_peak_GiB']:.2f} GiB)")
+    del runs
+    torch.cuda.empty_cache()
+    # (d) reduced archs: multipod resume, smoke against no mesh
+    multi, smoke = _pod_on_card(multi_pod=True), make_smoke_mesh([pod.first_device])
+    out["reduced"] = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_mesh_") as tmp:
+        for arch in ZOO_MESH_REDUCED:
+            rc = dataclasses.replace(reduced_config(get_config(arch)), num_periods=ZOO_MESH_RESUME["periods"])
+            rows = ZOO_MESH_RESUME["batch"] if rc.moe is not None and rc.mamba is None else 2
+            kw = dict(batch=rows, seq=ZOO_MESH_RESUME["seq"], device=DEVICE, verbose=False)
+            ck = os.path.join(tmp, arch)
+            first = driver.train(rc, steps=2, mesh=multi, ckpt_dir=ck, ckpt_every=1, **kw)
+            resumed = driver.train(rc, steps=3, mesh=multi, ckpt_dir=ck, ckpt_every=1, **kw)
+            check(resumed["start"] == 2, f"phase 3o (d) {arch}: resumed from step {resumed['start']}")
+            with dist.use_mesh(multi):
+                state, metrics = make_train_step(rc)(sharded.shard_state(rc, first["state"], multi),
+                                                     next(token_stream(rc.vocab_size, seed=0, batch=rows,
+                                                                       seq=ZOO_MESH_RESUME["seq"])))
+            check(resumed["losses"] == [float(metrics["loss"])]
+                  and _tree_bits_equal(resumed["state"], sharded.gather_state(state)),
+                  f"phase 3o (d) {arch}: the resumed step is not the stopped state's step bit for bit")
+            a = serve.serve(rc, device=DEVICE, keep_logits=True, verbose=False, **MESH_SMOKE_SERVE)
+            b = serve.serve(rc, device=DEVICE, keep_logits=True, verbose=False, mesh=smoke, **MESH_SMOKE_SERVE)
+            ta = driver.train(rc, steps=2, **kw)
+            tb = driver.train(rc, steps=2, mesh=smoke, **kw)
+            check((a["tokens"] == b["tokens"]).all() and _tree_bits_equal(a["logits"], b["logits"])
+                  and ta["losses"] == tb["losses"] and _tree_bits_equal(ta["state"], tb["state"]),
+                  f"phase 3o (d) {arch}: the smoke mesh is not the unmeshed run bit for bit")
+            losses = first["losses"] + resumed["losses"]
+            step_s = statistics.mean(first["step_s"] + resumed["step_s"])
+            out["reduced"][arch] = {"batch": rows, "losses": losses, "multipod_step_s": step_s}
+            print(f"phase 3o (d) {arch} (batch {rows}): multipod (2 x 16 x 16 over the card) losses "
+                  f"{[round(x, 5) for x in losses]}, stopped at 2 and resumed: the resumed step bit for bit the "
+                  f"uninterrupted run's; {step_s:.3f} s a step; smoke mesh serving and training bit for bit the "
+                  f"unmeshed runs")
+            del first, resumed, state, a, b, ta, tb
+    out["wall"] = time.perf_counter() - t0
+    print(f"phase 3o: {out['wall']:.1f} s")
     return out
 
 
@@ -3167,25 +3584,31 @@ def restart_phase(rnn_params: dict, lm_rnn_params: dict) -> dict:
 
 
 # ------------------------------------------------------------------ phase 4
-def agreement():
+def agreement_inputs() -> tuple[list, dict]:
+    """Phase 4's ``har`` weights, as numpy: the MLP from a CPU generator
+    seeded 0 and the broadcast RNN pretrained on the CPU."""
+    from repro_torch.configs.paper_tasks import PAPER_TASKS
+    from repro_torch.core.broadcast import pretrain_rnn
+    from repro_torch.models.mlp import init_mlp
+
+    init = init_mlp(PAPER_TASKS["har"], torch.Generator().manual_seed(0))
+    rnn = pretrain_rnn(0, device="cpu")
+    return [{k: v.numpy() for k, v in layer.items()} for layer in init], {k: v.numpy() for k, v in rnn.items()}
+
+
+def agreement(init_np: list, rnn_np: dict) -> None:
     """``har`` (8 clients, 900 s) on the card against the CPU, per event and
     coalesced at a 45 s window: identical ledgers, server events and
     assignments, accuracy curves within 0.02; and at a 1e-9 s window on the
     card against the per-event run on the card: identical events,
     assignments and centers (bit for bit)."""
-    from repro_torch.configs.paper_tasks import PAPER_TASKS
-    from repro_torch.core.broadcast import pretrain_rnn
     from repro_torch.fl.experiment import run_experiment
-    from repro_torch.models.mlp import init_mlp
 
-    init = init_mlp(PAPER_TASKS["har"], torch.Generator().manual_seed(0))
-    rnn = pretrain_rnn(0, device="cpu")
     out = {}
     for dev, window in (("cpu", 0.0), (DEVICE, 0.0), ("cpu", 45.0), (DEVICE, 45.0), (DEVICE, 1e-9)):
         t0 = time.perf_counter()
         _, _, strat, rep = run_experiment("har", "echopfl", num_clients=8, max_time=900, seed=0, device=dev,
-                                          init_params=[{k: v.numpy() for k, v in l.items()} for l in init],
-                                          rnn_params={k: v.numpy() for k, v in rnn.items()}, coalesce_window=window)
+                                          init_params=init_np, rnn_params=rnn_np, coalesce_window=window)
         out[dev, window] = (strat, rep, time.perf_counter() - t0)
     for window in (0.0, 45.0):
         (sc, rc, tc), (sg, rg, tg) = out["cpu", window], out[DEVICE, window]
@@ -3209,7 +3632,6 @@ def agreement():
           "agreement: the 1e-9 s window's centers differ from the per-event run's on the card")
     print("agreement (har, card): the 1e-9 s window equals the per-event run (events, assignments, curve, bytes, "
           "centers bit for bit)")
-    return [{k: v.numpy() for k, v in layer.items()} for layer in init], {k: v.numpy() for k, v in rnn.items()}
 
 
 def compressed_agreement(init_np: list, rnn_np: dict) -> None:
@@ -3756,18 +4178,33 @@ def call_ms(fn, iters: int = 200, reps: int = 5) -> float:
     return statistics.median(per)
 
 
-def _device_events(prof):
-    """The device events of a trace, less the head sentinels of ``_device_trace``."""
+class DeviceEvent(NamedTuple):
+    name: str
+    us: float  # duration
+
+
+def _device_events(prof) -> list[DeviceEvent]:
+    """The device events of a trace, less the head sentinels of
+    ``_device_trace``, read from the profiler's raw results: ``prof.events()``
+    would first parse every event of the trace, host calls included, into
+    ``FunctionEvent`` trees (some 80 us an event on the host, against some
+    5 us here), for the same names and the same durations."""
     from torch.autograd import DeviceType
 
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name]
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            name = e.name()
+            if "spin_kernel" not in name:
+                out.append(DeviceEvent(name, (e.end_ns() - e.start_ns()) / 1e3))
+    return out
 
 
-def _device_us(prof) -> Counter:
-    """Device time (us) by kernel name in a profiler trace."""
+def _device_us(events: list[DeviceEvent]) -> Counter:
+    """Device time (us) by kernel name."""
     per: Counter = Counter()
-    for e in _device_events(prof):
-        per[e.name] += e.time_range.elapsed_us()
+    for e in events:
+        per[e.name] += e.us
     return per
 
 
@@ -3814,7 +4251,7 @@ def device_ms(fn, iters: int = 100, sessions: int = 6) -> float:
     for _ in range(sessions):
         prof, _ = _device_trace(lambda: [fn() for _ in range(iters)])
         events = _device_events(prof)
-        by_count.setdefault(len(events), []).append(sum(e.time_range.elapsed_us() for e in events))
+        by_count.setdefault(len(events), []).append(sum(e.us for e in events))
         top = max(by_count)
         if top > 0 and top % iters == 0 and len(by_count[top]) == 2:
             kept = sum(len(v) for v in by_count.values())
@@ -4250,22 +4687,30 @@ def gemma_flash_timing(serving: dict) -> dict:
 def mla_flash_timing(zoo: dict) -> dict:
     """The flash forward at phase 3k's MLA prefill shape (deepseek-v2-lite-16b:
     16 heads, head width 192 in the 256 bucket, value width 128, causal,
-    scale 192 ** -0.5): device time, the plain version's, the bound ``2 (hd +
-    dv)`` flops a causal pair (fp32 on the CUDA cores, and split TF32 on the
-    tensor cores) and the launches at that shape in phase 3k. The library
-    call is fp32 ``scaled_dot_product_attention`` with the same scale, where
-    it takes a value width other than the head width (else none, with the
-    reason)."""
+    scale 192 ** -0.5), with the launches at that shape in phase 3k
+    (``mla_fwd_timing``)."""
+    B, H, KV, Sq, Sk, hd, dv = MLA_PREFILL
+    key = (B, H, Sq, hd, KV, Sk, dv)
+    return {"deepseek-v2-lite-16b MLA prefill": mla_fwd_timing(MLA_PREFILL, zoo["flash_shapes"][key],
+                                                               "deepseek-v2-lite-16b MLA prefill", "phase 3k", gen(19))}
+
+
+def mla_fwd_timing(shape: tuple, launches: int, label: str, phase: str, g) -> dict:
+    """The flash forward at an MLA shape ``(B, H, KV, Sq, Sk, hd, dv)``
+    (causal, scale 192 ** -0.5): device time, the plain version's, the bound
+    ``2 (hd + dv)`` flops a causal pair (fp32 on the CUDA cores, and split
+    TF32 on the tensor cores) and ``launches``. The library call is fp32
+    ``scaled_dot_product_attention`` with the same scale, where it takes a
+    value width other than the head width (else none, with the reason)."""
     from repro_torch.kernels import flash_attention as F
     from repro_torch.kernels import ops
 
-    g = gen(19)
-    B, H, KV, Sq, Sk, hd, dv = MLA_PREFILL
+    B, H, KV, Sq, Sk, hd, dv = shape
     q, k, v, _ = flash_inputs(g, B, H, KV, Sq, Sk, hd, dv)
     o, lse = ops.flash_attention_with_lse(q, k, v, **MLA_OPTS)
     o_p, lse_p = F.flash_attention_with_lse_plain(q, k, v, **MLA_OPTS)
-    torch.testing.assert_close(o, o_p, rtol=1e-5, atol=1e-5, msg=lambda m: f"MLA prefill o: {m}")
-    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-5, msg=lambda m: f"MLA prefill lse: {m}")
+    torch.testing.assert_close(o, o_p, rtol=1e-5, atol=1e-5, msg=lambda m: f"{label} o: {m}")
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-5, msg=lambda m: f"{label} lse: {m}")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib, lib_note = (lambda: sdpa(q, k, v, is_causal=True, scale=MLA_OPTS["scale"])), "fp32 SDPA, dv != hd"
     try:
@@ -4282,16 +4727,42 @@ def mla_flash_timing(zoo: dict) -> dict:
     row.update(bound_pair(4 * (q.numel() + k.numel() + v.numel() + o.numel() + lse.numel()), 2 * (hd + dv) * pairs,
                           split_tf32=True),
                max_abs_err=max((o - o_p).abs().max().item(), (lse - lse_p).abs().max().item()),
-               shape=list(key), launches=zoo["flash_shapes"][key], opts="causal, scale 192 ** -0.5, hd 192, dv 128")
+               shape=list(key), launches=launches, opts="causal, scale 192 ** -0.5, hd 192, dv 128")
     lib_ms = "none" if row["library_ms"] is None else f"{row['library_ms']:.5f} ms"
-    print(f"timing flash_attention_fwd at deepseek-v2-lite-16b MLA prefill {key}: device time kernel {row['ms']:.5f} ms, "
+    print(f"timing flash_attention_fwd at {label} {key}: device time kernel {row['ms']:.5f} ms, "
           f"plain {row['plain_ms']:.5f} ms, library {lib_ms} ({lib_note}); bound {row['bound_ms']:.6f} ms "
           f"({row['bound_by']}), split-TF32 tensor-core bound {row['bound_tc_ms']:.6f} ms; per call kernel "
-          f"{row['call_ms']:.4f} ms; launches at this shape in phase 3k {row['launches']}; "
+          f"{row['call_ms']:.4f} ms; launches at this shape in {phase} {row['launches']}; "
           f"max_abs_err {row['max_abs_err']:.3g}")
     del q, k, v, o, lse, o_p, lse_p
     torch.cuda.empty_cache()
-    return {"deepseek-v2-lite-16b MLA prefill": row}
+    return row
+
+
+def zoo_mesh_flash_timing(zoo_mesh: dict) -> dict:
+    """The flash kernels at phase 3o's per-shard shapes: the forward at
+    deepseek-v2-lite-16b's MLA pod shard (one row, one head; ``mla_fwd_timing``),
+    forward and backward at granite-moe-3b-a800m's batch shard (24 heads over
+    8 KV, ``lm_kernel_timings``); launches: phase 3o's (a prefill's of the
+    capacity arm; the training's, the backward's dq's)."""
+    out = {"flash_attention_fwd": {}, "flash_attention_bwd": {}}
+    g = gen(31)
+    ds = zoo_mesh["deepseek"]
+    out["flash_attention_fwd"]["deepseek-v2-lite-16b pod prefill shard"] = mla_fwd_timing(
+        MLA_SHARD, ds["capacity"]["flash_prefill"], "deepseek-v2-lite-16b pod prefill shard", "a phase 3o prefill", g)
+    gr = zoo_mesh["granite"]
+    shape = tuple(gr["shard_shape"])
+    rows = lm_kernel_timings(shape, g)
+    for name, counter in (("flash_attention_fwd", "flash_attention_fwd"), ("flash_attention_bwd", "flash_attention_dq")):
+        r = dict(rows[name], shape=list(shape), launches=gr["launches"][counter])
+        out[name]["granite-moe-3b-a800m pod train shard"] = r
+        print(f"timing {name} at granite-moe-3b-a800m pod train shard {shape}: device time kernel {r['ms']:.5f} ms, "
+              f"plain {r['plain_ms']:.5f} ms, library {r['library_ms']:.5f} ms; bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']}); per call kernel {r['call_ms']:.4f} ms, plain {r['plain_call_ms']:.4f} ms, "
+              f"library {r['library_call_ms']:.4f} ms; launches in phase 3o {r['launches']}; "
+              f"max_abs_err {r['max_abs_err']:.3g}")
+    torch.cuda.empty_cache()
+    return out
 
 
 def train_flash_timing(training: dict) -> dict:
@@ -4364,16 +4835,17 @@ def profile_window(label: str, run) -> None:
     ops.reset_launch_counts()
     prof, (uploads, wall) = _device_trace(timed)
     launched = ops.launch_counts()
-    per = _device_us(prof)
+    events = _device_events(prof)
+    per = _device_us(events)
     busy = sum(per.values()) / 1e6
     check(busy > 0, f"profile {label}: the profiler saw no device time")
     ours = sum(v for k, v in per.items() if any(n in k for n in PORT_KERNEL_NAMES)) / 1e6
     flash = sum(v for k, v in per.items() if "flash_" in k) / 1e6
-    n_kernels = len(_device_events(prof))
+    n_kernels = len(events)
     print(f"profile ({label}, {uploads} uploads): wall {wall:.3f} s under the profiler, device busy {busy:.4f} s, "
           f"idle share {1 - busy / wall:.4f}, {n_kernels} kernels; the port's CUDA kernels {ours:.5f} s "
           f"({100 * ours / busy:.2f}% of busy), of which flash attention {flash:.5f} s ({100 * flash / busy:.2f}%)")
-    seen = Counter(e.name for e in _device_events(prof))
+    seen = Counter(e.name for e in events)
     print("  kernels in the trace / launched: " + ", ".join(
         f"{kernel} {sum(v for k, v in seen.items() if kernel in k)}/{launched[wrapper]}"
         for kernel, wrapper in (("assign_lerp_kernel", "assign_and_lerp"), ("ingest_chain_kernel", "ingest_chain"),
@@ -4438,7 +4910,154 @@ def profiles(rnn_params: dict, lm_rnn_params: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------- side processes
+def side_part(part: str, rnn_params: dict, lm_rnn_params: dict) -> dict:
+    """One side process's phases, in order: phases 3e, 3g, 3h and 4 drive
+    small tasks (``har``, ``image_recognition``, ``tiny_lm``, the reduced
+    archs) that leave the card idle most of the time. Returns what the main
+    run's later phases read."""
+    t0 = time.perf_counter()
+
+    def mark(label: str) -> None:
+        print(f"[side {part}: {time.perf_counter() - t0:.1f} s] {label} done", flush=True)
+
+    out = {}
+    if part == "a":
+        out["paper"] = paper_comparison(rnn_params)
+        mark("paper_comparison")
+        out["chaos"] = chaos_sweeps(rnn_params, ("faults",))
+        mark("chaos_sweeps (faults)")
+        init_np, rnn_np = agreement_inputs()
+        agreement(init_np, rnn_np)
+        mark("agreement")
+        compressed_agreement(init_np, rnn_np)
+        mark("compressed_agreement")
+        baseline_agreement()
+        mark("baseline_agreement")
+        pytree_agreement(init_np, rnn_np)
+        mark("pytree_agreement")
+        restart_agreement(init_np, rnn_np)
+        mark("restart_agreement")
+    else:
+        out["sweep"] = comm_sweep(rnn_params)
+        mark("comm_sweep")
+        out["per_event"] = per_event_encodes(rnn_params)
+        mark("per_event_encodes")
+        out["chaos"] = chaos_sweeps(rnn_params, ("defense",))
+        mark("chaos_sweeps (defense)")
+        init_np, rnn_np = agreement_inputs()
+        chaos_agreement(init_np, rnn_np)
+        mark("chaos_agreement")
+        lm_agreement(lm_rnn_params)
+        mark("lm_agreement")
+        serving_agreement(rnn_np)
+        mark("serving_agreement")
+        zoo_agreement()
+        mark("zoo_agreement")
+        training_agreement(rnn_np)
+        mark("training_agreement")
+    torch.cuda.empty_cache()
+    return out
+
+
+class SideRuns:
+    """``side_part("a")`` and ``side_part("b")``, each in a process of its
+    own on the same card, beside the main run's host-bound phases; joined
+    before the phases that time or profile the device. Where the card does
+    not take a second process (a compute mode other than Default), the
+    parts run in this process at the join. The inputs, logs and results
+    live in a directory under ``build/`` that ``close`` removes."""
+
+    PARTS = ("a", "b")
+
+    def __init__(self, rnn_params: dict, lm_rnn_params: dict):
+        self.inputs = (rnn_params, lm_rnn_params)
+        self.procs: dict = {}
+        mode = sh("nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader").strip()
+        self.inline = mode != "Default"
+        (ROOT / "build").mkdir(exist_ok=True)
+        self.dir = Path(tempfile.mkdtemp(prefix="chip_smoke_side_", dir=ROOT / "build"))
+        if self.inline:
+            print(f"side processes: compute mode {mode}; phases 3e, 3g, 3h and 4 run in this process at the join")
+            return
+        with open(self.dir / "inputs.pkl", "wb") as f:
+            pickle.dump(self.inputs, f)
+        for part in self.PARTS:
+            with open(self.dir / f"{part}.log", "wb") as log:
+                self.procs[part] = subprocess.Popen(
+                    [sys.executable, "-u", str(ROOT / "chip_smoke.py"), "--side", part, str(self.dir)],
+                    stdout=log, stderr=subprocess.STDOUT, cwd=ROOT)
+        print(f"side processes: {', '.join(f'{k} (pid {p.pid})' for k, p in self.procs.items())} started")
+
+    def join(self) -> dict:
+        """Each part's result (through JSON, as from a side process); its
+        log printed; a part that failed fails the run."""
+        out, failed = {}, []
+        for part in self.PARTS:
+            if self.inline:
+                out[part] = json.loads(json.dumps(side_part(part, *self.inputs)))
+                continue
+            rc = self.procs[part].wait()
+            print(f"---- side process {part}: exit {rc} ----")
+            print((self.dir / f"{part}.log").read_text(errors="replace"), end="", flush=True)
+            if rc:
+                failed.append(part)
+            else:
+                out[part] = json.loads((self.dir / f"{part}.json").read_text())
+        self.close()
+        check(not failed, f"side process {', '.join(failed)} failed")
+        return out
+
+    def close(self) -> None:
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def side_main(part: str, where: str) -> int:
+    """A side process: ``side_part`` with the main run's inputs, its result
+    written as JSON beside them. One intra-op thread: two side processes
+    with a thread a core each beside the main run oversubscribe the host's
+    cores many times over (phase 4's CPU runs took 4-14 x as long on the
+    H100's host)."""
+    torch.set_num_threads(1)
+    with open(Path(where) / "inputs.pkl", "rb") as f:
+        rnn_params, lm_rnn_params = pickle.load(f)
+    out = side_part(part, rnn_params, lm_rnn_params)
+    (Path(where) / f"{part}.json").write_text(json.dumps(out))
+    return 0
+
+
+# ``--phase NAME``: a model-mesh phase alone, with its flash rows (the phases that take no other phase's output)
+PHASES = {"model_mesh": ("model_mesh_phase", "mesh_flash_timing"),
+          "zoo_mesh": ("zoo_mesh_phase", "zoo_mesh_flash_timing")}
+
+
+def one_phase(name: str) -> int:
+    """The card, the kernels' build and the flash checks, then the phase
+    ``PHASES[name]`` and its phase 5 rows; prints the seconds after each
+    part and the phase's numbers as JSON, not the contract's lines. Exits
+    non-zero on any failed check, as the whole smoke does."""
+    t0 = time.perf_counter()
+    probe()
+    flash_checks()
+    print(f"[{time.perf_counter() - t0:.1f} s] build and flash checks")
+    phase, rows = (globals()[f] for f in PHASES[name])
+    out = phase()
+    print(f"[{time.perf_counter() - t0:.1f} s] {phase.__name__}")
+    print(f"{name}: " + json.dumps(out))
+    print("rows: " + json.dumps(rows(out)))
+    return 0
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description="The port's main paths and kernels on one CUDA card.")
+    parser.add_argument("--phase", choices=sorted(PHASES), help="run this model-mesh phase alone")
+    parser.add_argument("--side", nargs=2, metavar=("PART", "DIR"),
+                        help="run side process PART (a or b) with the inputs in DIR (the whole run starts these)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
         return 2
@@ -4446,39 +5065,60 @@ def main() -> int:
     from repro_torch.common.device import resolve_device
 
     resolve_device("cuda")  # TF32 off, fp32 throughout
+    if args.phase:
+        return one_phase(args.phase)
+    if args.side:
+        return side_main(*args.side)
     t0 = time.perf_counter()
+
+    def mark(label: str) -> None:
+        print(f"[{time.perf_counter() - t0:.1f} s] {label} done", flush=True)
+
     smi = probe()
+    mark("probe")
     kernel_phase()
+    mark("kernel_phase")
     counts, shapes, _, rnn_params = main_path()
+    mark("main_path")
     coal = coalesced_path(rnn_params)
+    mark("coalesced_path")
     tiny = lm_path()
-    full = full_width(tiny["rnn"])
-    mesh = sharded_phase(rnn_params, tiny["rnn"], full, smi)
-    paper = paper_comparison(rnn_params)
-    cohort = full_width_sync()
-    sweep = comm_sweep(rnn_params)
-    per_event = per_event_encodes(rnn_params)
-    full_topk = full_width_topk(tiny["rnn"])
-    chaos = chaos_sweeps(rnn_params)
+    mark("lm_path")
+    sides = SideRuns(rnn_params, tiny["rnn"])
+    try:
+        # beside the side processes: the phases that neither time nor profile the device
+        full = full_width(tiny["rnn"])
+        mark("full_width")
+        mesh = sharded_phase(rnn_params, tiny["rnn"], full, smi)
+        mark("sharded_phase")
+        cohort = full_width_sync()
+        mark("full_width_sync")
+        full_topk = full_width_topk(tiny["rnn"])
+        mark("full_width_topk")
+        meshes = model_mesh_phase()
+        mark("model_mesh_phase")
+        restart = restart_phase(rnn_params, tiny["rnn"])
+        mark("restart_phase")
+        side = sides.join()
+    finally:
+        sides.close()
+    mark("side processes (phases 3e, 3g, 3h and 4)")
+    paper, sweep, per_event = side["a"]["paper"], side["b"]["sweep"], side["b"]["per_event"]
+    chaos = merge_chaos(side["a"]["chaos"], side["b"]["chaos"])
     serving = serving_phase(rnn_params)
+    mark("serving_phase")
     zoo = zoo_serving_phase()
+    mark("zoo_serving_phase")
     training = training_phase(rnn_params)
-    meshes = model_mesh_phase()
-    init_np, rnn_np = agreement()
-    compressed_agreement(init_np, rnn_np)
-    chaos_agreement(init_np, rnn_np)
-    baseline_agreement()
-    lm_agreement(tiny["rnn"])
-    serving_agreement(rnn_np)
-    pytree_agreement(init_np, rnn_np)
-    zoo_agreement()
-    training_agreement(rnn_np)
+    mark("training_phase")
+    zoo_meshes = zoo_mesh_phase()
+    mark("zoo_mesh_phase")
     rows = (timing(counts, shapes, full, tiny) + [chain_row(coal, chaos)] + uplink_rows(sweep, per_event, full_topk)
             + lm_timing(tiny, full, cohort))
     flash_row = next(r for r in rows if r["name"] == "flash_attention_fwd")
     flash_row.update(gemma_flash_timing(serving))
     flash_row.update(mla_flash_timing(zoo))
-    for timed in (train_flash_timing(training), mesh_flash_timing(meshes)):
+    for timed in (train_flash_timing(training), mesh_flash_timing(meshes), zoo_mesh_flash_timing(zoo_meshes)):
         for name, extra in timed.items():
             next(r for r in rows if r["name"] == name).update(extra)
     for row in rows:  # phase 3m's per-shard launches beside each row's own
@@ -4486,10 +5126,9 @@ def main() -> int:
             row["phase_3m"] = mesh["rows"][row["name"]]
     print(f"timing: {trace_sessions['kept']} profiler sessions kept, {trace_sessions['refused']} refused "
           f"(a partial or empty trace)")
+    mark("timing")
     profiles(rnn_params, tiny["rnn"])
-    # the restart last: phases 5 and 6 follow the same run as before it
-    restart = restart_phase(rnn_params, tiny["rnn"])
-    restart_agreement(init_np, rnn_np)
+    mark("profiles")
     print(f"total {time.perf_counter() - t0:.1f} s")
     print("paper comparison: " + json.dumps(paper))
     print("comm sweep: " + json.dumps(sweep))
@@ -4500,6 +5139,7 @@ def main() -> int:
     print("training: " + json.dumps({k: v for k, v in training.items() if k != "flash_shapes"}))
     print("sharded plane: " + json.dumps({k: v for k, v in mesh.items() if k != "rows"}))
     print("model meshes: " + json.dumps(meshes))
+    print("zoo meshes: " + json.dumps(zoo_meshes))
     print("restart: " + json.dumps({k: {f: v[f] for f in ("saved", "spent", "at", "unsteady", "bytes", "leaves")
                                        if f in v} for k, v in restart.items()}))
     print(json.dumps({"kernels": rows}))

@@ -49,8 +49,9 @@ def report(label: str, run, units: int) -> None:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     prof, _ = C._device_trace(run)
-    busy = sum(C._device_us(prof).values()) / 1e6
-    kernels = len(C._device_events(prof))
+    events = C._device_events(prof)
+    busy = sum(e.us for e in events) / 1e6
+    kernels = len(events)
     calls, self_s, top = host_ops(run)
     print(f"{label}: wall {wall:.3f} s, device busy {busy:.4f} s (idle share {1 - busy / wall:.4f}), {kernels} "
           f"kernels ({kernels / units:.1f} a shard-layer-rank), {calls} aten calls ({calls / units:.1f} a "

@@ -15,10 +15,12 @@ step feeds the last greedy token.
 ``--mesh multipod`` (2 x 16 x 16) place the parameters by
 ``launch.shardings.param_shardings`` and the decode buffers by
 ``cache_shardings`` over the visible cards (with ``--device cpu``, over
-the CPU repeated), and run every shard (``launch.sharded``); they serve
-the dense decoders. A caller may pass ``serve(..., mesh=)`` a mesh that
+the CPU repeated), and run every shard (``launch.sharded``), for every
+decoder of the zoo. A caller may pass ``serve(..., mesh=)`` a mesh that
 repeats one card: ``make_production_mesh(devices=[torch.device("cuda",
-0)] * 256)``.
+0)] * 256)``, and params placed on it already (``launch.sharded.
+shard_tree``: on a mesh that repeats the params' device its blocks are
+views of the leaves).
 """
 from __future__ import annotations
 
@@ -85,11 +87,12 @@ def decode(cfg: ModelConfig, params: PyTree, cache: PyTree, logits: torch.Tensor
 
 def place_params(cfg: ModelConfig, params: PyTree, mesh) -> PyTree:
     """``params`` as a step under ``mesh`` takes them: cut by
-    ``param_shardings`` on a mesh of more than one device (after
-    :func:`~repro_torch.launch.sharded.check_arch`), else as they are."""
+    ``param_shardings`` on a mesh of more than one device (params placed on
+    ``mesh`` already are taken as they are), else as they are."""
     if mesh is None or mesh.size == 1:
         return params
-    sharded.check_arch(cfg)
+    if isinstance(params, sharded.ShardedTree) and params.layout.mesh is mesh:
+        return params
     return sharded.shard_tree(params, param_shardings_flat(cfg, mesh, params), mesh)
 
 

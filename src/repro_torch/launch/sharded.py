@@ -16,8 +16,12 @@ its cut dims, so ``tree_map`` over trees of one layout (params, gradients,
 AdamW's moments) runs block by block. :func:`gather_tree` joins the blocks
 into whole leaves (checkpoints, the reference's files); :func:`view`
 gives one batch shard's compute tree: a leaf cut over ``model`` becomes
-:class:`~repro_torch.models.dist.Ranks` of its rank blocks, a ZeRO leaf
-(cut over ``data``) is concatenated in shard order first.
+:class:`~repro_torch.models.dist.Ranks` of its rank blocks, tagged with the
+cut dim of the layer's leaf, a ZeRO leaf (cut over ``data``) is
+concatenated in shard order first, and a stacked leaf whose period would
+be a copy or would mix layers (the expert stacks cut on the period dim) is
+read one period at a time (:class:`Periods`). The cuts the compute knows
+are listed in ``KNOWN_SPLITS``; any other raises, naming the leaf.
 """
 from __future__ import annotations
 
@@ -108,8 +112,10 @@ class ShardedTree(TaggedSeq):
 
 def shard_tree(tree: PyTree, specs: list[tuple], mesh) -> ShardedTree:
     """Cut every leaf of ``tree`` by its spec (``specs`` in tree order) and
-    put each block on its home device. A block that is a whole leaf already
-    there is that tensor; a cut along the leading dims is a view of it."""
+    put each block on its home device. A block already on its home device
+    is a view of its leaf (the whole leaf, or a strided narrow of it), so
+    placing a tree on a mesh that repeats its device copies nothing; a
+    block bound for another device is copied there."""
     layout = Layout(tree, specs, mesh)
     blocks = []
     for t, leaf in zip(tree_leaves(tree), layout.leaves):
@@ -119,7 +125,7 @@ def shard_tree(tree: PyTree, specs: list[tuple], mesh) -> ShardedTree:
             for dim, (i, n, s) in enumerate(zip(multi, size, leaf.splits)):
                 if s > 1:
                     block = block.narrow(dim, i * n, n)
-            blocks.append(block.to(layout.homes[leaf.index(multi)]).contiguous())
+            blocks.append(block.to(layout.homes[leaf.index(multi)]))
     return ShardedTree(blocks, layout)
 
 
@@ -180,42 +186,126 @@ def gather_tree(tree: ShardedTree, device: torch.device | None = None) -> PyTree
     return tree_unflatten(tree.layout.template, leaves)
 
 
-def view(tree: ShardedTree, b: int) -> PyTree:
-    """Batch shard ``b``'s compute tree: a leaf cut over ``model`` as
-    :class:`Ranks` of its rank parts (each on that rank's device), any
-    other whole on the shard's first device; dims cut over ``data`` (ZeRO)
-    joined in shard order."""
+# the model splits the compute knows: leaf name -> the dims of the layer's own leaf (a stacked ``blocks`` leaf's
+# dims past the period dim) that the model axis may cut. A cut of the period dim itself is known for every leaf:
+# each layer reads its whole leaf from the rank that holds it.
+KNOWN_SPLITS = {
+    "embed": (0,), "lm_head": (1,),                           # vocabulary
+    "wq": (1,), "wk": (1,), "wv": (1,), "wo": (0,),           # attention and MLA heads; mLSTM's q/k/v input width
+    "w_dkv": (1,), "w_ukv": (1,),                             # MLA: the latent's columns, the up-projection's heads
+    "wg": (1,), "wu": (1,), "wd": (0,),                       # dense FFN and shared experts: the hidden width
+    "w_in": (1,), "conv_w": (1,), "conv_b": (0,), "w_x": (0,), "w_dt": (1,), "dt_bias": (0,), "A_log": (0,),
+    "D": (0,), "w_out": (0,),                                 # Mamba: d_inner
+    "w_up": (1,), "w_i": (0,), "w_f": (0,), "w_down": (0,),   # mLSTM: d_inner
+    "wgx": (2,), "wgh": (2,), "gbias": (1,), "ffn_up": (1,), "ffn_down": (0,),  # sLSTM: channels
+}
+KNOWN_EXPERT_SPLITS = {"wg": (0,), "wu": (0,)}                # an MoE layer's expert stacks: wg, wu over the experts
+
+
+def _split_name(names: tuple) -> str:
+    return next((k for k in reversed(names) if isinstance(k, str) and k in KNOWN_SPLITS), "")
+
+
+def check_split(names: tuple, shape: tuple, spec: tuple, dim: int) -> int | None:
+    """The layer-leaf dim that the model axis cuts in a leaf at ``names``
+    cut over ``model`` on ``dim``: None for the period dim of a stacked
+    leaf, else that dim less the period dim. Raise, naming the leaf and
+    its spec, for a cut the compute does not know."""
+    stacked = "blocks" in names
+    if stacked and dim == 0:
+        return None
+    local = dim - stacked
+    name = _split_name(names)
+    expert = "ffn" in names and "shared" not in names and len(shape) - stacked == 3
+    known = KNOWN_EXPERT_SPLITS.get(name, ()) if expert else KNOWN_SPLITS.get(name, ())
+    if local not in known:
+        path = "/".join(str(k) for k in names if k is not None)
+        raise ValueError(f"repro_torch: leaf {path} {tuple(shape)} is placed {tuple(spec)}: the model axis cuts its "
+                         f"dim {dim}, a split the sharded compute does not know")
+    return local
+
+
+class Reads:
+    """The reads of one tree's blocks that the views of one step share: a
+    region is read once a device (the views of batch shards on one device
+    read their model ranks' parts once), a stacked leaf's period once a
+    device and only while that period runs."""
+
+    def __init__(self, tree: ShardedTree):
+        self.tree, self.held, self.period, self.current = tree, {}, None, {}
+
+    def get(self, i: int, region, device: torch.device, period: int | None = None) -> torch.Tensor:
+        if period is None:
+            cache = self.held
+        else:
+            if period != self.period:
+                self.period, self.current = period, {}
+            cache = self.current
+        key = (i, region, device)
+        if key not in cache:
+            cache[key] = read(self.tree, i, region, device)
+        return cache[key]
+
+
+class Periods:
+    """A stacked ``blocks`` leaf of a view that is read one period at a time:
+    ``leaf[p]`` is period p's layer leaf, whole (the model axis cuts the
+    period dim, or cuts nothing but ``data``) or as :class:`Ranks` of its
+    model ranks' parts. Taken where the whole stacked leaf would be a copy
+    (its blocks joined over ``data``) or would mix layers (rows of the
+    period dim on different ranks)."""
+
+    def __init__(self, reads: Reads, i: int, b: int, model_dim: int | None):
+        self.reads, self.i, self.b, self.model_dim = reads, i, b, model_dim
+
+    def __getitem__(self, p: int):
+        tree = self.reads.tree
+        leaf, mesh = tree.layout.leaves[self.i], tree.layout.mesh
+        region = list(_whole(leaf))
+        region[0] = (p, p + 1)
+        if self.model_dim is None:
+            return self.reads.get(self.i, tuple(region), mesh.device(self.b, 0), p)[0]
+        tp = axis_size(mesh, "model")
+        n = leaf.shape[self.model_dim] // tp
+        parts = []
+        for m in range(tp):
+            region[self.model_dim] = (m * n, (m + 1) * n)
+            parts.append(self.reads.get(self.i, tuple(region), mesh.device(self.b, m), p)[0])
+        return Ranks(parts, self.model_dim - 1)
+
+
+def view(tree: ShardedTree, b: int, reads: Reads | None = None) -> PyTree:
+    """Batch shard ``b``'s compute tree. A leaf cut over ``model`` comes as
+    :class:`Ranks` of its rank parts (each on that rank's device) tagged
+    with the layer leaf's cut dim (``check_split``, which raises for a cut
+    the compute does not know), any other whole on the shard's first
+    device; dims cut over ``data`` (ZeRO) are joined in shard order. A
+    stacked leaf whose period would be a copy or mix layers comes as
+    :class:`Periods`. ``reads`` shares the reads among the views of one
+    step (default: this view's own)."""
     mesh = tree.layout.mesh
+    reads = Reads(tree) if reads is None else reads
     tp = axis_size(mesh, "model")
+    names = [n for n, _ in tree_flatten_with_names(tree.layout.template)]
     leaves = []
     for i, leaf in enumerate(tree.layout.leaves):
         model_dim = next((d for d, ax in enumerate(leaf.axes) if "model" in ax), None)
+        local = None if model_dim is None else check_split(names[i], leaf.shape, tree.layout.specs[i], model_dim)
+        stacked = "blocks" in names[i]
+        if stacked and (leaf.splits[0] > 1 or any(s > 1 for d, s in enumerate(leaf.splits) if d != model_dim)):
+            leaves.append(Periods(reads, i, b, None if local is None else model_dim))
+            continue
         if model_dim is None:
-            leaves.append(read(tree, i, _whole(leaf), mesh.device(b, 0)))
+            leaves.append(reads.get(i, _whole(leaf), mesh.device(b, 0)))
             continue
         n = leaf.shape[model_dim] // tp
         parts = []
         for m in range(tp):
             region = list(_whole(leaf))
             region[model_dim] = (m * n, (m + 1) * n)
-            parts.append(read(tree, i, tuple(region), mesh.device(b, m)))
-        leaves.append(Ranks(parts))
+            parts.append(reads.get(i, tuple(region), mesh.device(b, m)))
+        leaves.append(Ranks(parts, local))
     return tree_unflatten(tree.layout.template, leaves)
-
-
-# ------------------------------------------------------------- what splits
-def check_arch(cfg) -> None:
-    """Raise for an arch with layers the model meshes do not split yet:
-    MoE, MLA, Mamba, mLSTM and sLSTM (ROADMAP queue 1 item 10)."""
-    kinds = {layer.mixer for layer in cfg.all_layers if layer.mixer not in ("attn", "attn_local")}
-    kinds |= {"moe" for layer in cfg.all_layers if layer.ffn == "moe"}
-    if cfg.mla is not None:
-        kinds.add("mla")
-    if kinds:
-        raise NotImplementedError(
-            f"repro_torch: {cfg.name} has {', '.join(sorted(kinds))} layers, which a model mesh does not split yet "
-            f"(ROADMAP queue 1 item 10: tensor parallelism for MoE, MLA, Mamba, mLSTM and sLSTM); "
-            f"--mesh smoke runs it on one device")
 
 
 # ------------------------------------------------------------- batch shards

@@ -70,8 +70,6 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int, device="cuda", 
     if mesh is not None and mesh.first_device != dev:
         raise ValueError(f"the mesh starts on {mesh.first_device}, the run is on {dev}")
     meshed = mesh is not None and mesh.size > 1
-    if meshed:
-        sharded.check_arch(cfg)
     if params is None:
         params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     if verbose:

@@ -25,7 +25,9 @@ _MESH = None
 class Ranks(TaggedSeq):
     """A value split over the ``model`` axis: ``ranks[m]`` is rank m's part,
     on rank m's device (a weight's column or row block, an activation's
-    heads). ``tree_map`` maps over the parts and keeps the type."""
+    heads). ``tree_map`` maps over the parts and keeps the type and the
+    tag: a weight's ``meta`` is the dim of the layer's leaf that the parts
+    cut (``launch.sharded.view``)."""
 
 
 def join_sum(partials: list[torch.Tensor], device: torch.device) -> torch.Tensor:
@@ -40,6 +42,17 @@ def join_sum(partials: list[torch.Tensor], device: torch.device) -> torch.Tensor
 def join_cat(parts: list[torch.Tensor], device: torch.device, dim: int) -> torch.Tensor:
     """The column-parallel join: rank parts concatenated in rank order."""
     return torch.cat([p.to(device) for p in parts], dim=dim)
+
+
+def gathered(tree, device: torch.device):
+    """A layer's params with every :class:`Ranks` weight joined whole on
+    ``device`` along its cut dim (the compute that does not split a layer
+    takes its leaves so)."""
+    if isinstance(tree, dict):
+        return {k: gathered(v, device) for k, v in tree.items()}
+    if isinstance(tree, Ranks):
+        return join_cat(list(tree), device, tree.meta)
+    return tree
 
 
 def kv_group(rank: int, h_local: int, heads: int, kv_heads: int) -> tuple[int, int]:

@@ -29,7 +29,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.dist import Ranks, join_cat, join_sum
+from repro_torch.models.dist import Ranks, gathered, join_cat, join_sum
 
 PyTree = Any
 
@@ -56,6 +56,26 @@ def project(x: torch.Tensor, w: torch.Tensor, base_ndim: int) -> torch.Tensor:
     C, d, out = w.shape[0], w.shape[1], w.shape[2:]
     y = torch.bmm(x.reshape(C, -1, d), w.reshape(C, d, -1))
     return y.reshape(*x.shape[:-1], *out)
+
+
+def project_cols(x: torch.Tensor, w, device: torch.device) -> torch.Tensor:
+    """``x (..., d) @ w (d, n)``; for ``w`` as :class:`Ranks` of column
+    blocks, each rank's product joined in rank order (a block may straddle
+    a cut the caller makes later, as MLA's latent/rope and the halves of
+    Mamba's and the mLSTM's up projections)."""
+    if isinstance(w, Ranks):
+        return join_cat([x.to(wm.device) @ wm for wm in w], device, -1)
+    return x @ w
+
+
+def project_rows(x: torch.Tensor, w, device: torch.device) -> torch.Tensor:
+    """``x (..., n) @ w (n, d)``; for ``w`` as :class:`Ranks` of row blocks,
+    each rank's rows against ``x``'s matching columns, the partial sums
+    joined in rank order."""
+    if not isinstance(w, Ranks):
+        return x @ w
+    n = w[0].shape[0]
+    return join_sum([x[..., m * n: (m + 1) * n].to(wm.device) @ wm for m, wm in enumerate(w)], device)
 
 
 # ---------------------------------------------------------------- norms
@@ -264,6 +284,10 @@ def _apply_mla(params: PyTree, x: torch.Tensor, cfg: ModelConfig, *, cache: PyTr
     entries."""
     from repro_torch.kernels import ops as K
 
+    if isinstance(params["wq"], Ranks):
+        if cache is not None:
+            raise ValueError("a context cache is not taken under a model mesh")
+        return _apply_mla_ranks(params, x, cfg, pos0=pos0, return_cache=return_cache)
     m = cfg.mla
     S, d = x.shape[1], x.shape[2]
     nope = m.qk_nope_head_dim
@@ -285,6 +309,42 @@ def _apply_mla(params: PyTree, x: torch.Tensor, cfg: ModelConfig, *, cache: PyTr
                       scale=(nope + m.qk_rope_head_dim) ** -0.5, q_pos0=pos0)  # (B, H, S, v)
     out = out.transpose(1, 2).reshape(x.shape[0], S, -1) @ params["wo"].reshape(-1, d)
     return out, (new_entries if return_cache else None)
+
+
+def _apply_mla_ranks(params: PyTree, x: torch.Tensor, cfg: ModelConfig, *, pos0: int, return_cache: bool):
+    """:func:`_apply_mla` on one batch shard with the heads split over the
+    model axis: ``w_dkv``'s column blocks joined in rank order into the
+    whole latent before ``kv_norm`` and the RoPE key are cut at
+    ``kv_lora_rank`` (a block may straddle that cut); each rank projects its
+    query heads and up-projects the latent into its keys and values; the
+    flash forward kernel runs once a rank (head width nope + rope, value
+    width v); ``wo`` is row-parallel, the partial sums joined in rank order.
+    The cache entries are the whole latent and RoPE key."""
+    from repro_torch.kernels import ops as K
+
+    m = cfg.mla
+    S, dev = x.shape[1], x.device
+    nope, rope_dim = m.qk_nope_head_dim, m.qk_rope_head_dim
+    positions = pos0 + torch.arange(S, device=dev)
+    dkv = project_cols(x, params["w_dkv"], dev)  # (B, S, lora + rope)
+    ckv = rms_norm(params["kv_norm"], dkv[..., : m.kv_lora_rank], cfg.norm_eps)
+    k_rope = rope(dkv[..., m.kv_lora_rank:][:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+    tables = rope_tables(positions, rope_dim, cfg.rope_theta, dev)
+    qs, ks, vs = [], [], []
+    for wq, w_ukv in zip(params["wq"], params["w_ukv"]):
+        dm = wq.device
+        q = project(x.to(dm), wq, 3)  # (B, S, H / tp, nope + rope)
+        q = torch.cat([q[..., :nope], rotate(q[..., nope:], *(t.to(dm) for t in tables))], dim=-1)
+        ukv = project(ckv.to(dm), w_ukv, 3)  # (B, S, H / tp, nope + v)
+        k_nope = ukv[..., :nope]
+        k = torch.cat([k_nope, k_rope.to(dm)[:, :, None, :].expand(*k_nope.shape[:3], rope_dim)], dim=-1)
+        qs.append(q.transpose(1, 2))
+        ks.append(k.transpose(1, 2))
+        vs.append(ukv[..., nope:].transpose(1, 2))
+    out = K.attention(Ranks(qs), Ranks(ks), Ranks(vs), causal=cfg.causal, scale=(nope + rope_dim) ** -0.5,
+                      q_pos0=pos0)
+    mix = row_parallel([o.transpose(1, 2) for o in out], params["wo"], dev)
+    return mix, ({"ckv": ckv, "krope": k_rope} if return_cache else None)
 
 
 # -------------------------------------------------------------- dense FFN
@@ -337,6 +397,28 @@ def top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return values[..., :k], indices[..., :k]
 
 
+def _route(probs: torch.Tensor, cfg: ModelConfig, capacity_factor: float):
+    """The reference's routing of ``n`` groups of ``g`` tokens from the
+    router's fp32 softmax ``probs (n, g, E)``: each (token, k) pair's expert
+    and normalised weight ``(n, g K)`` in ``lax.top_k``'s order, its place
+    in the expert's queue (token-major, then k) and whether it is kept
+    (place below ``C``); ``C`` and the Switch aux loss, ``density`` counting
+    the pairs before the drop. Returns ``(expert, weight, slot, keep, C,
+    aux)``."""
+    n, g, E = probs.shape
+    K = cfg.moe.top_k
+    C = g if cfg.moe_dropless else max(1, int(math.ceil(K * g * capacity_factor / E)))
+    topw, topi = top_k(probs, K)  # (n, g, K)
+    topw = topw / (torch.sum(topw, dim=-1, keepdim=True) + 1e-9)
+    onehot = torch.nn.functional.one_hot(topi, E)  # (n, g, K, E)
+    flat = onehot.reshape(n, g * K, E)
+    expert = topi.reshape(n, g * K)
+    slot = (torch.cumsum(flat, dim=1) - flat).gather(-1, expert[..., None])[..., 0]  # place in the expert's queue
+    density = torch.mean(torch.sum(onehot.to(torch.float32), dim=2), dim=1)  # (n, E)
+    aux = E * torch.mean(torch.sum(density * torch.mean(probs, dim=1), dim=-1)) / K
+    return expert, topw.reshape(n, g * K), slot, slot < C, C, aux
+
+
 def apply_moe_ffn(params: PyTree, x: torch.Tensor, cfg: ModelConfig, capacity_factor: float = 1.25,
                   group_size: int = 4096) -> tuple[torch.Tensor, torch.Tensor]:
     """GShard-style top-k MoE over ``x (B, S, d)``; returns ``(y, aux)``.
@@ -367,16 +449,7 @@ def apply_moe_ffn(params: PyTree, x: torch.Tensor, cfg: ModelConfig, capacity_fa
     n = T // g
     xg = x.reshape(T, D)[: n * g].reshape(n, g, D)
     logits = (xg @ params["router"].to(xg.dtype)).to(torch.float32)
-    probs = torch.softmax(logits, dim=-1)  # (n, g, E)
-    topw, topi = top_k(probs, K)  # (n, g, K)
-    topw = topw / (torch.sum(topw, dim=-1, keepdim=True) + 1e-9)
-    C = g if cfg.moe_dropless else max(1, int(math.ceil(K * g * capacity_factor / E)))
-
-    onehot = torch.nn.functional.one_hot(topi, E)  # (n, g, K, E)
-    flat = onehot.reshape(n, g * K, E)
-    expert = topi.reshape(n, g * K)
-    slot = (torch.cumsum(flat, dim=1) - flat).gather(-1, expert[..., None])[..., 0]  # place in the expert's queue
-    keep = slot < C
+    expert, topw, slot, keep, C, aux = _route(torch.softmax(logits, dim=-1), cfg, capacity_factor)
     slot = torch.where(keep, slot, C)
     group = torch.arange(n, device=x.device)[:, None].expand(n, g * K)
     token = torch.arange(g * K, device=x.device) // K
@@ -384,12 +457,8 @@ def apply_moe_ffn(params: PyTree, x: torch.Tensor, cfg: ModelConfig, capacity_fa
     h = torch.nn.functional.silu(expert_in @ params["wg"]) * (expert_in @ params["wu"])
     expert_out = h @ params["wd"]  # (n, E, C, d)
     rows = expert_out[group, expert, slot.clamp(max=C - 1)]  # (n, g K, d)
-    w = (topw.reshape(n, g * K) * keep).to(rows.dtype)
+    w = (topw * keep).to(rows.dtype)
     out = (rows * w[..., None]).reshape(n, g, K, D).sum(dim=2)
-
-    density = torch.mean(torch.sum(onehot.to(torch.float32), dim=2), dim=1)  # (n, E)
-    router_prob = torch.mean(probs, dim=1)
-    aux = E * torch.mean(torch.sum(density * router_prob, dim=-1)) / K
 
     out = out.reshape(n * g, D)
     if n * g < T:  # tokens past the last whole group
@@ -398,6 +467,95 @@ def apply_moe_ffn(params: PyTree, x: torch.Tensor, cfg: ModelConfig, capacity_fa
     if moe.num_shared:
         y = y + apply_dense_ffn(params["shared"], x)
     return y, aux
+
+
+def apply_moe_ffn_shards(params: list[PyTree], xs: list[torch.Tensor], cfg: ModelConfig,
+                         capacity_factor: float = 1.25, group_size: int = 4096) -> tuple[list[torch.Tensor], torch.Tensor]:
+    """:func:`apply_moe_ffn` over the batch shards of one step together:
+    ``xs[b] (B_b, S, d)`` is shard b's rows, ``params[b]`` its view of the
+    layer; returns each shard's output and the one aux loss (on the first
+    shard's device). One shard with whole weights is
+    :func:`apply_moe_ffn` itself.
+
+    The routing follows the reference's groups over the **whole** batch:
+    each shard's router probabilities (the router replicated) are joined in
+    shard order, so the ``g = min(group_size, T)`` tokens of a group run in
+    token order across the shards; the top-k choices, each expert's
+    capacity ``C``, the pairs' queue places, the drops and the aux loss's
+    density and router probability come from the group, as without a mesh.
+    Then each shard dispatches only its own kept pairs into an ``(E, C_s,
+    d)`` buffer (``C_s`` the most kept pairs an expert takes from one shard,
+    read once a layer) and combines its own tokens. An expert's rows are
+    independent, so where in the buffer a pair sits does not change its
+    output. Where ``wg``/``wu`` split over the experts (:class:`Ranks` of
+    expert groups: expert parallelism) each rank runs its experts' gate and
+    up products on its part of the buffer and their ``h`` join over the
+    experts in rank order for the whole ``wd`` (a ``wd`` split on the period
+    dim comes whole from the rank that holds it). The shared experts take
+    :func:`apply_dense_ffn`."""
+    if len(xs) == 1 and not isinstance(params[0]["wg"], Ranks):
+        y, aux = apply_moe_ffn(params[0], xs[0], cfg, capacity_factor, group_size)
+        return [y], aux
+    moe = cfg.moe
+    E, K = moe.num_experts, moe.top_k
+    dev, D = xs[0].device, xs[0].shape[-1]
+    sizes = [x.shape[0] * x.shape[1] for x in xs]
+    T = sum(sizes)
+    g = min(group_size, T)
+    n = T // g
+    probs = join_cat([torch.softmax((x.reshape(-1, D) @ p["router"].to(x.dtype)).to(torch.float32), dim=-1)
+                      for p, x in zip(params, xs)], dev, 0)[: n * g].reshape(n, g, E)
+    expert, topw, _, keep, _, aux = _route(probs, cfg, capacity_factor)
+    keep = keep.reshape(n * g, K)
+    expert = expert.reshape(n * g, K)
+    weight = topw.reshape(n * g, K) * keep
+
+    # each shard's kept pairs, token-major then k, placed in its experts' queues
+    counts = _token_splits(sizes, n * g)
+    shards = []
+    for x, e, k in zip(xs, expert.split(counts), keep.split(counts)):
+        e, k = e.to(x.device).reshape(-1), k.to(x.device).reshape(-1)
+        mine = torch.nn.functional.one_hot(e, E) * k[:, None]
+        place = (torch.cumsum(mine, dim=0) - mine).gather(-1, e[:, None])[:, 0]
+        shards.append((e, k, place, torch.sum(mine, dim=0)))
+    width = max(1, int(torch.stack([s[3].to(dev) for s in shards]).max()))  # C_s: one read a layer
+
+    ys = []
+    for p, x, t, (e, k, place, _), w in zip(params, xs, counts, shards, weight.split(counts)):
+        xt = x.reshape(-1, D)
+        out = []
+        if t:
+            spot = torch.where(k, place, width)
+            token = torch.arange(t * K, device=x.device) // K
+            buf = xt.new_zeros((E, width + 1, D)).index_put((e, spot), xt[token])[:, :width]
+            if isinstance(p["wg"], Ranks):  # expert parallel: each rank its experts, h joined over them in rank order
+                per = E // len(p["wg"])
+                hs = []
+                for r, (wg, wu) in enumerate(zip(p["wg"], p["wu"])):
+                    part = buf[r * per: (r + 1) * per].to(wg.device)
+                    hs.append(torch.nn.functional.silu(part @ wg) * (part @ wu))
+                h = join_cat(hs, x.device, 0)
+            else:
+                h = torch.nn.functional.silu(buf @ p["wg"]) * (buf @ p["wu"])
+            rows = (h @ p["wd"])[e, spot.clamp(max=width - 1)]  # (t K, d)
+            out.append((rows * w.to(x.device).reshape(-1)[:, None].to(rows.dtype)).reshape(t, K, D).sum(dim=1))
+        if t < xt.shape[0]:  # tokens past the last whole group
+            out.append(xt.new_zeros((xt.shape[0] - t, D)))
+        y = torch.cat(out).reshape(x.shape)
+        if moe.num_shared:
+            y = y + apply_dense_ffn(p["shared"], x)
+        ys.append(y)
+    return ys, aux
+
+
+def _token_splits(sizes: list[int], inside: int) -> list[int]:
+    """How many of the first ``inside`` tokens (those in whole groups) each
+    shard of ``sizes`` tokens holds, in shard order."""
+    out, start = [], 0
+    for size in sizes:
+        out.append(min(size, max(0, inside - start)))
+        start += size
+    return out
 
 
 # ------------------------------------------------------------------ Mamba
@@ -439,13 +597,14 @@ def _mamba_conv(params: PyTree, x_in: torch.Tensor, conv_state: torch.Tensor | N
     return out + params["conv_b"][None, None, :], xp[:, -(dc - 1):, :]
 
 
-def _mamba_ssm_inputs(params: PyTree, xc: torch.Tensor, mb):
+def _mamba_ssm_inputs(params: PyTree, xc: torch.Tensor, mb, proj: torch.Tensor | None = None):
     """The discretized ``dA = exp(dt A)``, ``dBx = dt B x`` ``(B, S, Di,
     ds)`` and ``C (B, S, ds)``, in fp32; ``dt = softplus(x W_x W_dt +
-    dt_bias)``."""
+    dt_bias)``. ``proj`` is ``xc @ W_x`` where it comes joined from the
+    model ranks' partial sums; else it is computed here."""
     dt_rank = params["w_dt"].shape[0]
     ds = mb.d_state
-    proj = xc @ params["w_x"]
+    proj = xc @ params["w_x"] if proj is None else proj
     dt_r, Bs, Cs = proj[..., :dt_rank], proj[..., dt_rank: dt_rank + ds], proj[..., dt_rank + ds:]
     pre = (dt_r @ params["w_dt"]).to(torch.float32) + params["dt_bias"].to(torch.float32)
     dt = torch.logaddexp(pre, torch.zeros((), device=pre.device))  # softplus, as jax.nn.softplus computes it
@@ -493,42 +652,91 @@ def _mamba_chunk(h_prev: torch.Tensor, dA: torch.Tensor, dBx: torch.Tensor, Cs: 
     return h_all[:, -1], torch.einsum("bcis,bcs->bci", h_all, Cs)
 
 
+def _mamba_scan(params: PyTree, xc: torch.Tensor, mb, h: torch.Tensor, scan_chunk: int, decode: bool,
+                proj: torch.Tensor | None = None):
+    """The selective scan over the conv's output ``xc (B, S, Di)`` from the
+    state ``h (B, Di, ds)``: one step in decode, else chunks of
+    ``scan_chunk`` and a ragged tail; returns the last state and ``y (B, S,
+    Di)`` before the skip. ``proj`` as :func:`_mamba_ssm_inputs` takes it."""
+    cut = (lambda a, b: None) if proj is None else (lambda a, b: proj[:, a:b])  # noqa: E731
+    if decode:
+        dA, dBx, Cs = _mamba_ssm_inputs(params, xc, mb, proj)
+        h = h * dA[:, 0] + dBx[:, 0]
+        return h, torch.einsum("bis,bs->bi", h, Cs[:, 0])[:, None, :]
+    S = xc.shape[1]
+    ck = min(scan_chunk, S)
+    n = S // ck
+    dA, dBx, Cs = _mamba_ssm_inputs(params, xc[:, : n * ck], mb, cut(0, n * ck))
+    ys = []
+    for i in range(n):
+        part = slice(i * ck, (i + 1) * ck)
+        h, y_c = _mamba_chunk(h, dA[:, part], dBx[:, part], Cs[:, part])
+        ys.append(y_c)
+    if n * ck < S:  # ragged tail
+        h, y_c = _mamba_chunk(h, *_mamba_ssm_inputs(params, xc[:, n * ck:], mb, cut(n * ck, S)))
+        ys.append(y_c)
+    return h, torch.cat(ys, dim=1)
+
+
 def apply_mamba(params: PyTree, x: torch.Tensor, cfg: ModelConfig, *, cache: PyTree | None = None,
                 scan_chunk: int = 256):
     """Mamba over ``x (B, S, d)``; returns ``(out, {"conv": (B, dc - 1,
     Di), "ssm": (B, Di, ds)})``. A decode step (``cache`` given and ``S ==
     1``) advances the state once; otherwise the scan runs in chunks of
     ``scan_chunk`` (a Python loop over the reference's ``lax.scan``), a
-    ragged tail as one more chunk, from the cache's state or zeros."""
+    ragged tail as one more chunk, from the cache's state or zeros. Under a
+    model mesh with ``d_inner`` split (:class:`Ranks`) see
+    :func:`_apply_mamba_ranks`."""
+    if isinstance(params["conv_w"], Ranks):
+        return _apply_mamba_ranks(params, x, cfg, cache=cache, scan_chunk=scan_chunk)
     mb = cfg.mamba
     B, S, _ = x.shape
     xz = x @ params["w_in"]
     x_in, z = xz.chunk(2, dim=-1)
-    if cache is not None and S == 1:
-        xc, conv_state = _mamba_conv(params, x_in, cache["conv"])
-        xc = torch.nn.functional.silu(xc)
-        dA, dBx, Cs = _mamba_ssm_inputs(params, xc, mb)
-        h = cache["ssm"] * dA[:, 0] + dBx[:, 0]
-        y = torch.einsum("bis,bs->bi", h, Cs[:, 0])[:, None, :]
-    else:
-        xc, conv_state = _mamba_conv(params, x_in, cache["conv"] if cache else None)
-        xc = torch.nn.functional.silu(xc)
-        h = cache["ssm"] if cache else torch.zeros((B, x_in.shape[-1], mb.d_state), device=x.device)
-        ck = min(scan_chunk, S)
-        n = S // ck
-        dA, dBx, Cs = _mamba_ssm_inputs(params, xc[:, : n * ck], mb)
-        ys = []
-        for i in range(n):
-            part = slice(i * ck, (i + 1) * ck)
-            h, y_c = _mamba_chunk(h, dA[:, part], dBx[:, part], Cs[:, part])
-            ys.append(y_c)
-        if n * ck < S:  # ragged tail
-            h, y_c = _mamba_chunk(h, *_mamba_ssm_inputs(params, xc[:, n * ck:], mb))
-            ys.append(y_c)
-        y = torch.cat(ys, dim=1)
+    xc, conv_state = _mamba_conv(params, x_in, cache["conv"] if cache else None)
+    xc = torch.nn.functional.silu(xc)
+    h = cache["ssm"] if cache else torch.zeros((B, x_in.shape[-1], mb.d_state), device=x.device)
+    h, y = _mamba_scan(params, xc, mb, h, scan_chunk, cache is not None and S == 1)
     y = y.to(x.dtype) + params["D"].to(x.dtype)[None, None, :] * xc
     out = (y * torch.nn.functional.silu(z)) @ params["w_out"]
     return out, {"conv": conv_state, "ssm": h}
+
+
+def _apply_mamba_ranks(params: PyTree, x: torch.Tensor, cfg: ModelConfig, *, cache: PyTree | None,
+                       scan_chunk: int):
+    """:func:`apply_mamba` on one batch shard with ``d_inner`` split over the
+    model axis. ``w_in``'s column blocks join in rank order and ``x_in``,
+    ``z`` are cut from the whole (with 2 Di split in tp blocks, the lower
+    ranks hold ``x_in``, the upper ``z``: rank m's channels of either sit
+    in another rank's block). The conv, ``dt``, the scan and the skip run
+    on each rank's channels; ``w_x`` is row-parallel, its partial sums
+    joined in rank order before ``dt``, ``B`` and ``C`` are cut; ``w_dt``
+    is column-parallel and ``w_out`` row-parallel. The cache's channels
+    join in rank order."""
+    mb = cfg.mamba
+    B, S, _ = x.shape
+    dev = x.device
+    x_in, z = project_cols(x, params["w_in"], dev).chunk(2, dim=-1)
+    tp = len(params["conv_w"])
+    n = x_in.shape[-1] // tp
+    local = [{k: params[k][m] for k in ("conv_w", "conv_b", "w_dt", "dt_bias", "A_log", "D")} for m in range(tp)]
+    chans = [slice(m * n, (m + 1) * n) for m in range(tp)]
+    xcs, convs = [], []
+    for pm, ch in zip(local, chans):
+        dm = pm["conv_w"].device
+        xc, conv = _mamba_conv(pm, x_in[..., ch].to(dm), cache["conv"][..., ch].to(dm) if cache else None)
+        xcs.append(torch.nn.functional.silu(xc))
+        convs.append(conv)
+    proj = join_sum([xc @ w for xc, w in zip(xcs, params["w_x"])], dev)
+    outs, states = [], []
+    for pm, ch, xc, w_out in zip(local, chans, xcs, params["w_out"]):
+        dm = xc.device
+        h = cache["ssm"][:, ch].to(dm) if cache else torch.zeros((B, n, mb.d_state), device=dm)
+        h, y = _mamba_scan(pm, xc, mb, h, scan_chunk, cache is not None and S == 1, proj.to(dm))
+        y = y.to(x.dtype) + pm["D"].to(x.dtype)[None, None, :] * xc
+        outs.append((y * torch.nn.functional.silu(z[..., ch].to(dm))) @ w_out)
+        states.append(h)
+    return join_sum(outs, dev), {"conv": join_cat(convs, dev, -1), "ssm": join_cat(states, dev, 1)}
 
 
 # ------------------------------------------------------------------ mLSTM
@@ -593,19 +801,41 @@ def apply_mlstm(params: PyTree, x: torch.Tensor, cfg: ModelConfig, *, cache: PyT
     (B, h, hd, hd), "n": (B, h, hd), "m": (B, h)})``, all fp32. Chunks of
     ``chunk`` in a Python loop (the reference's ``lax.scan``), a ragged
     tail as one more chunk; from the cache's state, else ``C = n = 0`` and
-    ``m = -1e30``. A decode step is a chunk of one."""
+    ``m = -1e30``. A decode step is a chunk of one.
+
+    Under a model mesh (``d_inner`` split, :class:`Ranks`): ``w_up``'s
+    column blocks join in rank order before ``x_in`` and ``z`` are cut (the
+    lower ranks hold ``x_in``); ``wq``, ``wk``, ``wv`` (cut on their input
+    dim inside each head's block), ``w_i``, ``w_f`` and ``w_down`` are
+    row-parallel, their partial sums joined in rank order. The chunk scan
+    runs whole on the shard (its few heads are not split), so ``out_norm``
+    normalizes the whole ``d_inner`` vector on the shard's device, as
+    without a mesh: the RMS needs every channel's square, and the vector is
+    there already."""
     B, S, d = x.shape
+    dev = x.device
     h = cfg.num_heads
-    x_in, z = (x @ params["w_up"]).chunk(2, dim=-1)
+    x_in, z = project_cols(x, params["w_up"], dev).chunk(2, dim=-1)
     di = x_in.shape[-1]
     hd = di // h
     xh = x_in.reshape(B, S, h, hd)
-    q = torch.einsum("bshk,hkl->bshl", xh, params["wq"]) * (hd ** -0.5)
-    k = torch.einsum("bshk,hkl->bshl", xh, params["wk"])
-    v = torch.einsum("bshk,hkl->bshl", xh, params["wv"])
+
+    def heads(w):
+        """The block-diagonal per-head product; for ``w`` split over the model
+        axis on its input dim, each rank's partial product inside every
+        head, joined in rank order."""
+        if not isinstance(w, Ranks):
+            return torch.einsum("bshk,hkl->bshl", xh, w)
+        n = w[0].shape[1]
+        return join_sum([torch.einsum("bshk,hkl->bshl", xh[..., m * n: (m + 1) * n].to(wm.device), wm)
+                         for m, wm in enumerate(w)], dev)
+
+    q = heads(params["wq"]) * (hd ** -0.5)
+    k = heads(params["wk"])
+    v = heads(params["wv"])
     xf = x_in.to(torch.float32)
-    i_log = xf @ params["w_i"]  # (B, S, h)
-    f_log = torch.nn.functional.logsigmoid(xf @ params["w_f"] + params["f_bias"])
+    i_log = project_rows(xf, params["w_i"], dev)  # (B, S, h)
+    f_log = torch.nn.functional.logsigmoid(project_rows(xf, params["w_f"], dev) + params["f_bias"])
     if cache is None:
         carry = (torch.zeros((B, h, hd, hd), device=x.device), torch.zeros((B, h, hd), device=x.device),
                  torch.full((B, h), -1e30, device=x.device))
@@ -619,7 +849,7 @@ def apply_mlstm(params: PyTree, x: torch.Tensor, cfg: ModelConfig, *, cache: PyT
         outs.append(out)
     out = torch.cat(outs, dim=1).reshape(B, S, di).to(x.dtype)
     out = rms_norm(params["out_norm"], out, cfg.norm_eps) * torch.nn.functional.silu(z)
-    return out @ params["w_down"], {"C": carry[0], "n": carry[1], "m": carry[2]}
+    return project_rows(out, params["w_down"], dev), {"C": carry[0], "n": carry[1], "m": carry[2]}
 
 
 # ------------------------------------------------------------------ sLSTM
@@ -643,8 +873,14 @@ def apply_slstm(params: PyTree, x: torch.Tensor, cfg: ModelConfig, *, cache: PyT
     (one Python step a token; the recurrence runs through ``h``, so it has
     no parallel form), then the block's GELU (tanh) FFN, added. Returns
     ``(out, {"c", "n", "m", "h"})``, each ``(B, d)``: ``c``, ``n``, ``m``
-    fp32 (``n`` starts at 1e-6), ``h`` in the input's dtype. One device:
-    the reference's channel-sharded ``shard_map`` form needs a mesh."""
+    fp32 (``n`` starts at 1e-6), ``h`` in the input's dtype. Under a model
+    mesh with the channels split and more than one token, the reference's
+    channel-sharded ``shard_map`` form (:func:`_apply_slstm_ranks`); a
+    decode step runs this recurrence on the joined leaves, as the
+    reference's does."""
+    if isinstance(params["wgx"], Ranks) and x.shape[1] > 1:
+        return _apply_slstm_ranks(params, x, cfg, cache=cache)
+    params = gathered(params, x.device)
     B, S, d = x.shape
     if cache is None:
         c = torch.zeros((B, d), device=x.device)
@@ -658,16 +894,60 @@ def apply_slstm(params: PyTree, x: torch.Tensor, cfg: ModelConfig, *, cache: PyT
     hs = []
     for t in range(S):
         gates = (gx[:, t] + (h @ wh).reshape(B, 4, d) + params["gbias"]).to(torch.float32)
-        i_l, f_l, z_l, o_l = gates.unbind(1)
-        f_log = torch.nn.functional.logsigmoid(f_l)
-        m_new = torch.maximum(f_log + m, i_l)
-        i_g = torch.exp(i_l - m_new)
-        f_g = torch.exp(f_log + m - m_new)
-        c = f_g * c + i_g * torch.tanh(z_l)
-        n = f_g * n + i_g
-        h = (torch.sigmoid(o_l) * c / torch.clamp_min(n, 1e-6)).to(h.dtype)
-        m = m_new
+        c, n, m, h_new = _slstm_step(gates, c, n, m)
+        h = h_new.to(h.dtype)
         hs.append(h)
     out = torch.stack(hs, dim=1)
     up = torch.nn.functional.gelu(out @ params["ffn_up"], approximate="tanh")
     return out + up @ params["ffn_down"], {"c": c, "n": n, "m": m, "h": h}
+
+
+def _slstm_step(gates: torch.Tensor, c, n, m):
+    """One step of the stabilized exponential gating from the fp32 gates
+    ``(B, 4, d)`` (i, f, z, o): the new ``c``, ``n``, ``m`` and ``h``."""
+    i_l, f_l, z_l, o_l = gates.unbind(1)
+    f_log = torch.nn.functional.logsigmoid(f_l)
+    m_new = torch.maximum(f_log + m, i_l)
+    i_g = torch.exp(i_l - m_new)
+    f_g = torch.exp(f_log + m - m_new)
+    c = f_g * c + i_g * torch.tanh(z_l)
+    n = f_g * n + i_g
+    return c, n, m_new, torch.sigmoid(o_l) * c / torch.clamp_min(n, 1e-6)
+
+
+def _apply_slstm_ranks(params: PyTree, x: torch.Tensor, cfg: ModelConfig, *, cache: PyTree | None):
+    """The reference's channel-sharded sLSTM (``shard_map`` over ``model``,
+    ``repro/models/layers.py:632-661``) on one batch shard: rank m holds its
+    channels of all four gates (``wgx``, ``wgh`` and ``gbias`` cut on their
+    last dim) and its channels' ``c``, ``n``, ``m``; each step every rank
+    reads the whole ``h``, and the ranks' new ``h`` join in rank order (the
+    reference's ``all_gather``). The FFN runs on the joined output."""
+    B, S, d = x.shape
+    dev = x.device
+    tp = len(params["wgx"])
+    n_c = d // tp
+    chans = [slice(m * n_c, (m + 1) * n_c) for m in range(tp)]
+    devs = [w.device for w in params["wgx"]]
+    if cache is None:
+        c = [torch.zeros((B, n_c), device=dm) for dm in devs]
+        n = [torch.full((B, n_c), 1e-6, device=dm) for dm in devs]
+        m = [torch.zeros((B, n_c), device=dm) for dm in devs]
+        h = torch.zeros((B, d), dtype=x.dtype, device=dev)
+    else:
+        c, n, m = ([cache[k][:, ch].to(dm) for ch, dm in zip(chans, devs)] for k in ("c", "n", "m"))
+        h = cache["h"]
+    gx = [project(x.to(dm), w, 3) for w, dm in zip(params["wgx"], devs)]  # (B, S, 4, d / tp)
+    wh = [w.reshape(d, 4 * n_c) for w in params["wgh"]]
+    hs = []
+    for t in range(S):
+        parts = []
+        for r in range(tp):
+            gates = (gx[r][:, t] + (h.to(devs[r]) @ wh[r]).reshape(B, 4, n_c) + params["gbias"][r]).to(torch.float32)
+            c[r], n[r], m[r], h_r = _slstm_step(gates, c[r], n[r], m[r])
+            parts.append(h_r.to(h.dtype))
+        h = join_cat(parts, dev, -1)
+        hs.append(h)
+    out = torch.stack(hs, dim=1)
+    up = torch.nn.functional.gelu(project_cols(out, params["ffn_up"], dev), approximate="tanh")
+    state = {k: join_cat(v, dev, -1) for k, v in (("c", c), ("n", n), ("m", m))}
+    return out + project_rows(up, params["ffn_down"], dev), {**state, "h": h}

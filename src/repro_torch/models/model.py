@@ -240,65 +240,105 @@ def _mla_decode_absorbed(mp: PyTree, h: torch.Tensor, cfg: ModelConfig, cache: P
     reference's ``_mla_decode_absorbed`` is plain ``jnp``."""
     m = cfg.mla
     nope = m.qk_nope_head_dim
-    q = L.project(h, mp["wq"], 3)  # (B, 1, H, nope + rope)
+    ranked = isinstance(mp["wq"], Ranks)
     positions = pos0 + torch.arange(h.shape[1], device=h.device)
-    q_nope, q_rope = q[..., :nope], L.rope(q[..., nope:], positions, cfg.rope_theta)
-    dkv = L.project(h, mp["w_dkv"], 2)
+    dkv = L.project_cols(h, mp["w_dkv"], h.device)
     ckv_new = L.rms_norm(mp["kv_norm"], dkv[..., : m.kv_lora_rank], cfg.norm_eps)
     krope_new = L.rope(dkv[..., m.kv_lora_rank:][:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
     ckv_buf, krope_buf = cache["ckv"], cache["krope"]
     ckv_buf[:, pos0: pos0 + h.shape[1]] = ckv_new.to(ckv_buf.dtype)
     krope_buf[:, pos0: pos0 + h.shape[1]] = krope_new.to(krope_buf.dtype)
-    w_uk, w_uv = mp["w_ukv"][..., :nope], mp["w_ukv"][..., nope:]  # (lora, H, nope), (lora, H, v)
+    tables = L.rope_tables(positions, m.qk_rope_head_dim, cfg.rope_theta, h.device)
+    seen = (torch.arange(ckv_buf.shape[1], device=h.device) <= pos0)[None, None, None, :]
+    if not ranked:
+        out = _mla_absorbed_heads(mp["wq"], mp["w_ukv"], h, cfg, ckv_buf, krope_buf, tables, seen)
+        out = out.reshape(*out.shape[:2], -1) @ mp["wo"].reshape(-1, h.shape[-1])
+    else:  # each rank its heads against the whole buffers, wo row-parallel
+        outs = []
+        for wq, w_ukv in zip(mp["wq"], mp["w_ukv"]):
+            dm = wq.device
+            outs.append(_mla_absorbed_heads(wq, w_ukv, h.to(dm), cfg, ckv_buf.to(dm), krope_buf.to(dm),
+                                            tuple(t.to(dm) for t in tables), seen.to(dm)))
+        out = L.row_parallel(outs, mp["wo"], h.device)
+    return out, {"ckv": ckv_buf, "krope": krope_buf}
+
+
+def _mla_absorbed_heads(wq: torch.Tensor, w_ukv: torch.Tensor, h: torch.Tensor, cfg: ModelConfig,
+                        ckv_buf: torch.Tensor, krope_buf: torch.Tensor, tables, seen: torch.Tensor) -> torch.Tensor:
+    """The absorbed attention of the heads ``wq`` and ``w_ukv`` hold over the
+    latent buffers, the query's RoPE ``tables`` and the buffer slots it
+    ``seen`` given: ``(B, 1, heads, v)`` before ``wo``."""
+    m = cfg.mla
+    nope = m.qk_nope_head_dim
+    q = L.project(h, wq, 3)  # (B, 1, H, nope + rope)
+    q_nope, q_rope = q[..., :nope], L.rotate(q[..., nope:], *tables)
+    w_uk, w_uv = w_ukv[..., :nope], w_ukv[..., nope:]  # (lora, H, nope), (lora, H, v)
     q_abs = torch.einsum("bshk,rhk->bshr", q_nope, w_uk)
     ckv = ckv_buf.to(q_abs.dtype)
     s_nope = torch.einsum("bshr,btr->bhst", q_abs, ckv)
     s_rope = torch.einsum("bshk,btk->bhst", q_rope, krope_buf.to(q_rope.dtype))
     s = (s_nope + s_rope).to(torch.float32) * (nope + m.qk_rope_head_dim) ** -0.5
-    t_pos = torch.arange(ckv_buf.shape[1], device=h.device)
-    s = torch.where((t_pos <= pos0)[None, None, None, :], s, torch.full((), -1e30, device=s.device))
+    s = torch.where(seen, s, torch.full((), -1e30, device=s.device))
     p = torch.softmax(s, dim=-1)
     o_lat = torch.einsum("bhst,btr->bshr", p.to(ckv.dtype), ckv)
-    out = torch.einsum("bshr,rhk->bshk", o_lat, w_uv)
-    out = out.reshape(*out.shape[:2], -1) @ mp["wo"].reshape(-1, h.shape[-1])
-    return out, {"ckv": ckv_buf, "krope": krope_buf}
+    return torch.einsum("bshr,rhk->bshk", o_lat, w_uv)
 
 
-def _apply_layer(lp: PyTree, spec: LayerSpec, cfg: ModelConfig, x: torch.Tensor, *, cache, pos0: int,
-                 decode: bool, collect: bool):
-    """Pre-norm mixer and FFN with residuals (and gemma's post-norms);
-    returns ``(x, the mixer's cache or None, the MoE aux loss or None)``.
-    Attention in decode mode writes its buffers in place; the recurrent
-    mixers return their new state, which the caller stores."""
-    h = L.rms_norm(lp["norm1"], x, cfg.norm_eps)
+def _mixer(mp: PyTree, spec: LayerSpec, cfg: ModelConfig, h: torch.Tensor, *, cache, pos0: int, decode: bool,
+           collect: bool):
     if spec.mixer in ("attn", "attn_local"):
         local = spec.mixer == "attn_local"
         if decode:
-            mix, new_cache = _attn_decode(lp["mixer"], h, cfg, local, cache, pos0)
-        else:
-            mix, new_cache = L.apply_attention(lp["mixer"], h, cfg, local=local, pos0=pos0, return_cache=collect)
-    elif spec.mixer == "mamba":
-        mix, new_cache = L.apply_mamba(lp["mixer"], h, cfg, cache=cache)
-    elif spec.mixer == "mlstm":
-        mix, new_cache = L.apply_mlstm(lp["mixer"], h, cfg, cache=cache)
-    elif spec.mixer == "slstm":
-        mix, new_cache = L.apply_slstm(lp["mixer"], h, cfg, cache=cache)
-    else:
-        raise ValueError(spec.mixer)
-    if cfg.use_post_norm:
-        mix = L.rms_norm(lp["post_norm1"], mix, cfg.norm_eps)
-    x = x + mix
+            return _attn_decode(mp, h, cfg, local, cache, pos0)
+        return L.apply_attention(mp, h, cfg, local=local, pos0=pos0, return_cache=collect)
+    if spec.mixer == "mamba":
+        return L.apply_mamba(mp, h, cfg, cache=cache)
+    if spec.mixer == "mlstm":
+        return L.apply_mlstm(mp, h, cfg, cache=cache)
+    if spec.mixer == "slstm":
+        return L.apply_slstm(mp, h, cfg, cache=cache)
+    raise ValueError(spec.mixer)
+
+
+def _apply_layer_shards(lps: list[PyTree], spec: LayerSpec, cfg: ModelConfig, xs: list[torch.Tensor], *,
+                        caches: list, pos0: int, decode: bool, collect: bool):
+    """Pre-norm mixer and FFN with residuals (and gemma's post-norms) on
+    each batch shard of ``xs`` (one without a mesh), ``lps`` the shards'
+    views of the layer; returns ``(xs, each shard's mixer cache or None,
+    the MoE aux loss or None)``. The mixers and a dense FFN run shard by
+    shard; an MoE FFN routes the shards together
+    (:func:`~repro_torch.models.layers.apply_moe_ffn_shards`). Attention in
+    decode mode writes its buffers in place; the recurrent mixers return
+    their new state, which the caller stores."""
+    outs, new_caches = [], []
+    for lp, x, cache in zip(lps, xs, caches):
+        mix, new_cache = _mixer(lp["mixer"], spec, cfg, L.rms_norm(lp["norm1"], x, cfg.norm_eps), cache=cache,
+                                pos0=pos0, decode=decode, collect=collect)
+        if cfg.use_post_norm:
+            mix = L.rms_norm(lp["post_norm1"], mix, cfg.norm_eps)
+        outs.append(x + mix)
+        new_caches.append(new_cache)
+    xs = outs
     aux = None
     if spec.ffn != "none":
-        h2 = L.rms_norm(lp["norm2"], x, cfg.norm_eps)
+        h2s = [L.rms_norm(lp["norm2"], x, cfg.norm_eps) for lp, x in zip(lps, xs)]
         if spec.ffn == "dense":
-            f = L.apply_dense_ffn(lp["ffn"], h2)
+            fs = [L.apply_dense_ffn(lp["ffn"], h2) for lp, h2 in zip(lps, h2s)]
         else:
-            f, aux = L.apply_moe_ffn(lp["ffn"], h2, cfg)
+            fs, aux = L.apply_moe_ffn_shards([lp["ffn"] for lp in lps], h2s, cfg)
         if cfg.use_post_norm:
-            f = L.rms_norm(lp["post_norm2"], f, cfg.norm_eps)
-        x = x + f
-    return x, new_cache, aux
+            fs = [L.rms_norm(lp["post_norm2"], f, cfg.norm_eps) for lp, f in zip(lps, fs)]
+        xs = [x + f for x, f in zip(xs, fs)]
+    return xs, new_caches, aux
+
+
+def _apply_layer(lp: PyTree, spec: LayerSpec, cfg: ModelConfig, x: torch.Tensor, *, cache, pos0: int, decode: bool,
+                 collect: bool):
+    """:func:`_apply_layer_shards` on one batch: ``(x, the mixer's cache or
+    None, the MoE aux loss or None)``."""
+    xs, caches, aux = _apply_layer_shards([lp], spec, cfg, [x], caches=[cache], pos0=pos0, decode=decode,
+                                          collect=collect)
+    return xs[0], caches[0], aux
 
 
 def _store(buffers: PyTree, new: PyTree) -> None:
@@ -320,6 +360,30 @@ def _sinusoidal(seq: int, d: int, dtype) -> torch.Tensor:
     pe[:, 0::2] = torch.sin(angle)
     pe[:, 1::2] = torch.cos(angle[:, : d // 2])
     return pe.to(dtype)
+
+
+def _embed(cfg: ModelConfig, params: PyTree, batch: dict) -> torch.Tensor:
+    """The input activations of one batch (shard): token embeddings (split
+    over the vocabulary under a model mesh, per client with client-batched
+    weights) or the fed embeddings, gemma's scale, an encoder's positions."""
+    embed = params["embed"]
+    device = (embed[0] if isinstance(embed, Ranks) else embed).device
+    if "tokens" in batch:
+        tokens = torch.as_tensor(batch["tokens"], device=device).long()
+        if isinstance(embed, Ranks):
+            x = _embed_ranks(embed, tokens)
+        elif embed.dim() == 3:  # per-client embedding (C, V, d)
+            rows = torch.arange(embed.shape[0], device=tokens.device).reshape(-1, *([1] * (tokens.dim() - 1)))
+            x = embed[rows, tokens]
+        else:
+            x = embed[tokens]
+    else:
+        x = torch.as_tensor(batch["embeds"], device=device)
+    if cfg.query_pre_attn_scalar is not None:  # gemma scales embeddings, in the input's dtype
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    if cfg.is_encoder:
+        x = x + _sinusoidal(x.shape[-2], cfg.d_model, x.dtype).to(x.device)[None]
+    return x
 
 
 def forward(cfg: ModelConfig, params: PyTree, batch: dict, cache: PyTree | None = None,
@@ -346,46 +410,50 @@ def forward(cfg: ModelConfig, params: PyTree, batch: dict, cache: PyTree | None 
     runs the period's forward again, the same kernels on the same shapes,
     so the result and the gradients keep every bit. The prefix layers are
     not wrapped, as in the reference."""
-    decode = cache is not None
-    collect = decode or return_cache
-    pos0 = int(cache["len"]) if decode else 0
-    embed = params["embed"]
-    device = (embed[0] if isinstance(embed, Ranks) else embed).device
-    if "tokens" in batch:
-        tokens = torch.as_tensor(batch["tokens"], device=device).long()
-        if isinstance(embed, Ranks):
-            x = _embed_ranks(embed, tokens)
-        elif embed.dim() == 3:  # per-client embedding (C, V, d)
-            rows = torch.arange(embed.shape[0], device=tokens.device).reshape(-1, *([1] * (tokens.dim() - 1)))
-            x = embed[rows, tokens]
-        else:
-            x = embed[tokens]
-    else:
-        x = torch.as_tensor(batch["embeds"], device=device)
-    if cfg.query_pre_attn_scalar is not None:  # gemma scales embeddings, in the input's dtype
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
-    if cfg.is_encoder:
-        x = x + _sinusoidal(x.shape[-2], cfg.d_model, x.dtype).to(x.device)[None]
-    S = x.shape[-2]
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    new_cache: dict[str, Any] | None = {"len": pos0 + S} if collect else None
+    logits, aux, caches = forward_shards(cfg, [params], [batch], None if cache is None else [cache],
+                                         return_cache=return_cache, last=last)
+    return logits[0], aux, caches[0]
 
-    def run(x, aux, layer_params, specs, layer_caches):
-        """The layers in order from ``x``: ``(x, aux, each layer's cache)``."""
+
+def forward_shards(cfg: ModelConfig, params: list[PyTree], batches: list[dict], caches: list | None = None,
+                   return_cache: bool = False, last: int | None = None):
+    """:func:`forward` over the batch shards of one step in lockstep, layer
+    by layer: ``params[b]`` is shard b's view (``launch.sharded.view``),
+    ``batches[b]`` its rows, ``caches[b]`` its decode buffers. Returns each
+    shard's logits, the one MoE aux loss (an MoE layer routes the shards'
+    tokens as one batch, as the reference groups them) and each shard's
+    new cache. With one shard and whole weights it is :func:`forward`."""
+    decode = caches is not None
+    collect = decode or return_cache
+    pos0 = int(caches[0]["len"]) if decode else 0
+    xs = [_embed(cfg, p, b) for p, b in zip(params, batches)]
+    S = xs[0].shape[-2]
+    aux = torch.zeros((), dtype=torch.float32, device=xs[0].device)
+    new_caches = [{"len": pos0 + S} if collect else None for _ in xs]
+    shards = range(len(xs))
+
+    def run(xs, aux, layer_params, specs, layer_caches):
+        """The layers in order from ``xs``: ``(xs, aux, each layer's caches
+        over the shards)``."""
         ncs = []
-        for lp, spec, lc in zip(layer_params, specs, layer_caches):
-            x, nc, a = _apply_layer(lp, spec, cfg, x, cache=lc, pos0=pos0, decode=decode, collect=collect)
+        for i, spec in enumerate(specs):
+            xs, nc, a = _apply_layer_shards([lp[i] for lp in layer_params], spec, cfg, xs,
+                                            caches=[lc[i] for lc in layer_caches], pos0=pos0, decode=decode,
+                                            collect=collect)
             if a is not None:
                 aux = aux + a
             if decode:
-                _store(lc, nc)
+                for lc, c in zip(layer_caches, nc):
+                    _store(lc[i], c)
             ncs.append(nc)
-        return x, aux, ncs
+        return xs, aux, ncs
 
     if cfg.prefix:
-        x, aux, ncs = run(x, aux, params["prefix"], cfg.prefix, cache["prefix"] if decode else [None] * len(cfg.prefix))
+        pre = [caches[b]["prefix"] if decode else [None] * len(cfg.prefix) for b in shards]
+        xs, aux, ncs = run(xs, aux, [p["prefix"] for p in params], cfg.prefix, pre)
         if collect and not decode:
-            new_cache["prefix"] = ncs
+            for b in shards:
+                new_caches[b]["prefix"] = [nc[b] for nc in ncs]
     if cfg.num_periods:
         slots = [f"slot{i}" for i in range(len(cfg.pattern))]
         remat = cfg.train.remat and not collect and torch.is_grad_enabled()
@@ -393,23 +461,28 @@ def forward(cfg: ModelConfig, params: PyTree, batch: dict, cache: PyTree | None 
         for p in range(cfg.num_periods):
             # the period's slices are taken outside the checkpoint, so its gradients reach the stacked leaves
             # through the same ops with remat on or off
-            lps = [tree_map(lambda t: t[p], params["blocks"][slot]) for slot in slots]
-            lcs = [tree_map(lambda t: t[p], cache["blocks"][slot]) for slot in slots] if decode else [None] * len(slots)
+            lps = [[tree_map(lambda t: t[p], v["blocks"][slot]) for slot in slots] for v in params]
+            lcs = ([[tree_map(lambda t: t[p], caches[b]["blocks"][slot]) for slot in slots] for b in shards]
+                   if decode else [[None] * len(slots) for _ in shards])
             if remat:
-                x, aux, ncs = checkpoint(run, x, aux, lps, cfg.pattern, lcs, use_reentrant=False)
+                xs, aux, ncs = checkpoint(run, xs, aux, lps, cfg.pattern, lcs, use_reentrant=False)
             else:
-                x, aux, ncs = run(x, aux, lps, cfg.pattern, lcs)
+                xs, aux, ncs = run(xs, aux, lps, cfg.pattern, lcs)
             collected.append(ncs)
         if collect and not decode:
-            new_cache["blocks"] = {slot: {k: torch.stack([ncs[i][k] for ncs in collected]) for k in collected[0][i]}
-                                   for i, slot in enumerate(slots)}
-    if decode:  # written in place
-        new_cache.update({k: cache[k] for k in ("prefix", "blocks") if k in cache})
-    if last is not None:
-        x = x[..., -last:, :]
-    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
-    logits = _head(x, embed if cfg.tie_embeddings else params["lm_head"], cfg.tie_embeddings)
-    if cfg.final_logit_softcap is not None:
-        cap = cfg.final_logit_softcap
-        logits = cap * torch.tanh(logits / cap)
-    return logits, aux, new_cache
+            for b in shards:
+                new_caches[b]["blocks"] = {slot: {k: torch.stack([ncs[i][b][k] for ncs in collected])
+                                                  for k in collected[0][i][b]} for i, slot in enumerate(slots)}
+    logits = []
+    for b, (v, x) in enumerate(zip(params, xs)):
+        if decode:  # written in place
+            new_caches[b].update({k: caches[b][k] for k in ("prefix", "blocks") if k in caches[b]})
+        if last is not None:
+            x = x[..., -last:, :]
+        x = L.rms_norm(v["final_norm"], x, cfg.norm_eps)
+        out = _head(x, v["embed"] if cfg.tie_embeddings else v["lm_head"], cfg.tie_embeddings)
+        if cfg.final_logit_softcap is not None:
+            cap = cfg.final_logit_softcap
+            out = cap * torch.tanh(out / cap)
+        logits.append(out)
+    return logits, aux, new_caches

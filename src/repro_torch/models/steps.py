@@ -15,11 +15,14 @@ less memory.
 
 Under a registered model mesh of more than one device (``models.dist``)
 the steps take params placed on it (``launch.sharded``) and run each batch
-shard in turn, the heads, FFN width and vocabulary split over the model
-ranks inside ``forward``: the train step adds the shards' gradients block
-by block in shard order and updates each block once; prefill and eval join
-the logits (and prefill the caches) over the shards; the serve step takes
-buffers placed by ``launch.sharded.shard_cache``.
+shard in turn, the heads, FFN width, experts, ``d_inner``, channels and
+vocabulary split over the model ranks inside ``forward``; an arch with MoE
+layers runs its batch shards together, layer by layer
+(``models.model.forward_shards``), since its routing groups the whole
+batch's tokens. The train step adds the groups' gradients block by block
+in order and updates each block once; prefill and eval join the logits
+(and prefill the caches) over the shards; the serve step takes buffers
+placed by ``launch.sharded.shard_cache``.
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ from repro_torch.common.pytrees import tree_leaves, tree_map, tree_unflatten
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import sharded
 from repro_torch.models import dist
-from repro_torch.models.model import forward
+from repro_torch.models.model import forward, forward_shards
 from repro_torch.optim.adafactor import adafactor
 from repro_torch.optim.optimizers import Optimizer, adamw, apply_updates, clip_by_global_norm, momentum
 
@@ -107,30 +110,43 @@ def _mesh_of(params: PyTree):
     return mesh
 
 
+def _shard_groups(cfg: ModelConfig, mesh, batch: int) -> list[list[tuple[int, slice]]]:
+    """The batch shards ``(b, rows)`` that run together in one forward
+    (``models.model.forward_shards``): all of them in one group where the
+    arch has MoE layers, whose routing groups the whole batch's tokens
+    (capacity, queue places, drops and the aux loss), else each alone."""
+    shards = list(enumerate(sharded.batch_shards(mesh, batch)))
+    if any(spec.ffn == "moe" for spec in cfg.all_layers):
+        return [shards]
+    return [[s] for s in shards]
+
+
 def _sharded_grads(cfg: ModelConfig, params: sharded.ShardedTree, batch: dict, mesh):
     """(metrics, gradient blocks) of the loss at ``params`` over a model
-    mesh: each batch shard's forward and backward in turn, its loss the
-    shard's share of the global mean (its cross-entropy sum over the whole
-    batch's valid labels), the gradients added block by block in shard
-    order."""
+    mesh: each group of batch shards (:func:`_shard_groups`) forward and
+    backward in turn, its loss the shards' cross-entropy sums over the
+    whole batch's valid labels, added in shard order, plus the group's MoE
+    aux loss; the gradients added block by block in group order."""
     first = mesh.first_device
     leaves = [t.detach().requires_grad_(True) for t in params]
     req = sharded.ShardedTree(leaves, params.layout)
     labels = batch["labels"].long()
     count = torch.clamp_min(torch.sum((labels >= 0) & (labels < cfg.vocab_size)), 1)
-    B = labels.shape[0]
     grads, metrics = None, None
-    for b, rows in enumerate(sharded.batch_shards(mesh, B)):
-        dev = mesh.device(b, 0)
-        part = {k: v[rows].to(dev) for k, v in batch.items()}
-        logits, aux, _ = forward(cfg, sharded.view(req, b), part)
-        ce = ce_sum(logits, part["labels"], cfg.vocab_size) / count.to(dev)
-        aux = aux * ((rows.stop - rows.start) / B)
-        loss = ce + 0.01 * aux
+    for group in _shard_groups(cfg, mesh, labels.shape[0]):
+        reads = sharded.Reads(req)
+        parts = [{k: v[rows].to(mesh.device(b, 0)) for k, v in batch.items()} for b, rows in group]
+        logits, aux, _ = forward_shards(cfg, [sharded.view(req, b, reads) for b, _ in group], parts)
+        ce = None
+        for out, part in zip(logits, parts):
+            c = (ce_sum(out, part["labels"], cfg.vocab_size) / count.to(out.device)).to(first)
+            ce = c if ce is None else ce + c
+        loss = ce + 0.01 * aux.to(first)
+        del reads, logits
         g = torch.autograd.grad(loss, leaves, allow_unused=True)
         g = [torch.zeros_like(p) if gi is None else gi for p, gi in zip(leaves, g)]
         grads = g if grads is None else [a + x for a, x in zip(grads, g)]
-        m = {"loss": loss.detach().to(first), "ce": ce.detach().to(first), "moe_aux": aux.detach().to(first)}
+        m = {"loss": loss.detach(), "ce": ce.detach(), "moe_aux": aux.detach().to(first)}
         metrics = m if metrics is None else {k: metrics[k] + m[k] for k in m}
     return metrics, sharded.ShardedTree(grads, params.layout)
 
@@ -257,17 +273,19 @@ def make_prefill_step(cfg: ModelConfig):
 
 
 def _sharded_forward(cfg: ModelConfig, params: sharded.ShardedTree, batch: dict, mesh, **kw):
-    """``forward`` once a batch shard; the logits and (with ``return_cache``)
-    each cache leaf concatenated over the shards in order along its batch
-    dim, on the mesh's first device: ``(logits, cache or None)``."""
+    """``forward`` over each group of batch shards (:func:`_shard_groups`);
+    the logits and (with ``return_cache``) each cache leaf concatenated
+    over the shards in order along its batch dim, on the mesh's first
+    device: ``(logits, cache or None)``."""
     first = mesh.first_device
     x = next(iter(batch.values()))
     logits, caches = [], []
-    for b, rows in enumerate(sharded.batch_shards(mesh, x.shape[0])):
-        part = {k: torch.as_tensor(v)[rows].to(mesh.device(b, 0)) for k, v in batch.items()}
-        out, _, cache = forward(cfg, sharded.view(params, b), part, **kw)
-        logits.append(out.to(first))
-        caches.append(cache)
+    for group in _shard_groups(cfg, mesh, x.shape[0]):
+        reads = sharded.Reads(params)
+        parts = [{k: torch.as_tensor(v)[rows].to(mesh.device(b, 0)) for k, v in batch.items()} for b, rows in group]
+        outs, _, cs = forward_shards(cfg, [sharded.view(params, b, reads) for b, _ in group], parts, **kw)
+        logits += [out.to(first) for out in outs]
+        caches += cs
     logits = torch.cat(logits)
     if not kw.get("return_cache"):
         return logits, None
@@ -296,16 +314,21 @@ def make_serve_step(cfg: ModelConfig):
 
 
 def _sharded_serve(cfg: ModelConfig, params: sharded.ShardedTree, cache: dict, batch: dict, mesh):
-    """One decode step over a model mesh: each batch shard reads its rows of
-    the buffers (``launch.sharded.shard_cache``'s placement), decodes, and
-    writes them back; the logits join in shard order."""
+    """One decode step over a model mesh: each group of batch shards
+    (:func:`_shard_groups`) reads its rows of the buffers
+    (``launch.sharded.shard_cache``'s placement), decodes, and writes them
+    back; the logits join in shard order."""
     first = mesh.first_device
     tokens = torch.as_tensor(batch["tokens"])
     logits = []
-    for b, rows in enumerate(sharded.batch_shards(mesh, tokens.shape[0])):
-        dev = mesh.device(b, 0)
-        local = sharded.cache_rows(cache, rows, dev)
-        out, _, local = forward(cfg, sharded.view(params, b), {"tokens": tokens[rows].to(dev)}, cache=local)
-        sharded.store_rows(cache, rows, local)
-        logits.append(out.to(first))
+    for group in _shard_groups(cfg, mesh, tokens.shape[0]):
+        reads = sharded.Reads(params)
+        devs = [mesh.device(b, 0) for b, _ in group]
+        local = [sharded.cache_rows(cache, rows, dev) for (_, rows), dev in zip(group, devs)]
+        outs, _, local = forward_shards(cfg, [sharded.view(params, b, reads) for b, _ in group],
+                                        [{"tokens": tokens[rows].to(dev)} for (_, rows), dev in zip(group, devs)],
+                                        caches=local)
+        for (_, rows), lc, out in zip(group, local, outs):
+            sharded.store_rows(cache, rows, lc)
+            logits.append(out.to(first))
     return torch.cat(logits), {"len": cache["len"] + 1, "buffers": cache["buffers"]}

@@ -24,193 +24,40 @@ with ZeRO (``dp_shard_params``).
 """
 import dataclasses
 import os
-import pickle
-import subprocess
-import sys
-import textwrap
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.common.pytrees import tree_leaves
+from repro_torch.common.pytrees import tree_flatten_with_names, tree_leaves
 from repro_torch.configs import ARCH_REGISTRY
 from repro_torch.configs.base import reduced_config
 from repro_torch.data.lm import token_stream
-from repro_torch.interop import tree_to_numpy
 from repro_torch.kernels import ops
 from repro_torch.launch import sharded
 from repro_torch.launch import serve as port_serve
 from repro_torch.launch import train as port_train
-from repro_torch.launch.mesh import ModelMesh, make_smoke_mesh
+from repro_torch.launch.mesh import make_smoke_mesh
 from repro_torch.launch.shardings import param_shardings_flat
 from repro_torch.models import dist
-from repro_torch.models.model import forward, init_params
+from repro_torch.models.model import forward
 from repro_torch.models.steps import TrainState, _sharded_forward, make_optimizer, make_prefill_step, make_train_step
+from torch_model_mesh_common import (B, CPU, S, case_config, config, inputs, port_mesh, port_run, reference_runs,
+                                     weights)
 from torch_threads import one_intra_op_thread  # noqa: F401  (autouse: this module's tests on one thread)
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CPU = torch.device("cpu")
-MESHES = {"2x4": ((2, 4), ("data", "model")), "2x2x2": ((2, 2, 2), ("pod", "data", "model"))}
+MESHES = ("2x4", "2x2x2")
 CASES = ("llama3.2-1b", "gemma2-2b", "tiny_lm", "command-r-35b")
-B, S, GEN = 4, 16, 3
-
-
-def config(arch: str):
-    return case_config(ARCH_REGISTRY, reduced_config, arch)
-
-
-def case_config(registry, reduce, arch: str):
-    """The case's config from ``registry`` (the port's or the reference's):
-    reduced but tiny_lm, command-r-35b with ZeRO."""
-    cfg = registry[arch]
-    if arch != "tiny_lm":
-        cfg = reduce(cfg)
-    if arch == "command-r-35b":
-        cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, dp_shard_params=True))
-    return cfg
-
-
-def port_mesh(name: str) -> ModelMesh:
-    shape, axes = MESHES[name]
-    return ModelMesh(axes, shape, (CPU,) * int(np.prod(shape)))
-
-
-def inputs(cfg) -> dict:
-    rng = np.random.default_rng(1)
-    return {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
-            "labels": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
-
-
-def weights(cfg):
-    return init_params(cfg, torch.Generator().manual_seed(0))
-
-
-# ----------------------------------------------------------------- the port
-def port_run(arch: str, mesh_name: str | None) -> dict:
-    """Forward logits, prefill logits, GEN greedy tokens and one train step
-    (loss, params) of the port, on ``mesh_name`` or unmeshed."""
-    cfg = config(arch)
-    data = inputs(cfg)
-    params = weights(cfg)
-    mesh = port_mesh(mesh_name) if mesh_name else None
-    placed = params if mesh is None else sharded.shard_tree(params, param_shardings_flat(cfg, mesh, params), mesh)
-    tokens = torch.from_numpy(data["tokens"]).long()
-    out = {}
-    with dist.use_mesh(mesh):
-        with torch.no_grad():
-            if mesh is None:
-                out["forward"] = forward(cfg, placed, {"tokens": tokens})[0]
-            else:
-                out["forward"] = _sharded_forward(cfg, placed, {"tokens": tokens}, mesh)[0]
-        logits, cache = port_serve.prefill(cfg, placed, tokens, GEN)
-        out["prefill"] = logits[:, -1]
-        out["tokens"] = port_serve.decode(cfg, placed, cache, logits, GEN)[0].numpy()
-        opt = make_optimizer(cfg)
-        state = TrainState(params, opt.init(params), torch.zeros((), dtype=torch.int32))
-        if mesh is not None:
-            state = sharded.shard_state(cfg, state, mesh)
-        state, metrics = make_train_step(cfg, opt)(state, data)
-    out["loss"] = float(metrics["loss"])
-    out["params"] = tree_to_numpy(sharded.gather_state(state).params)
-    out["forward"], out["prefill"] = out["forward"].numpy(), out["prefill"].numpy()
-    return out
-
-
-# ------------------------------------------------------------ the reference
-_REFERENCE = textwrap.dedent(
-    """
-    import os, pickle, sys
-    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
-    import jax, jax.numpy as jnp
-    import numpy as np
-    from jax.sharding import AxisType
-    from repro.configs import ARCH_REGISTRY
-    from repro.configs.base import reduced_config
-    from repro.launch.shardings import batch_shardings, cache_shardings, param_shardings, replicated
-    from repro.models import dist
-    from repro.models.model import forward, init_cache
-    from repro.models.steps import TrainState, make_optimizer, make_prefill_step, make_serve_step, make_train_step
-
-    sys.path.insert(0, "tests")
-    from test_torch_model_mesh import GEN, MESHES, case_config
-
-    assert len(jax.devices()) == 8
-    with open(sys.argv[1], "rb") as f:
-        cases = pickle.load(f)
-    results = {}
-    for (arch, mesh_name), (params_np, data) in cases.items():
-        cfg = case_config(ARCH_REGISTRY, reduced_config, arch)
-        shape, axes = MESHES[mesh_name]
-        mesh = jax.make_mesh(shape, axes, axis_types=(AxisType.Auto,) * len(axes))
-        dist.set_mesh(mesh)
-        params = jax.tree_util.tree_map(jnp.asarray, params_np)
-        p_sh = param_shardings(cfg, mesh, params)
-        params = jax.device_put(params, p_sh)
-        b_sh = batch_shardings(cfg, None, mesh, data)
-        batch = jax.device_put({k: jnp.asarray(v) for k, v in data.items()}, b_sh)
-        out = {}
-        with mesh:
-            out["forward"] = np.asarray(jax.jit(lambda p, b: forward(cfg, p, b)[0])(params, {"tokens": batch["tokens"]}))
-            logits, pre = jax.jit(make_prefill_step(cfg))(params, {"tokens": batch["tokens"]})
-            out["prefill"] = np.asarray(logits[:, -1])
-            B, L = data["tokens"].shape
-            cache = init_cache(cfg, B, ctx_len=L, margin=GEN + 8)
-
-            def graft(fixed, p):
-                if fixed.shape == p.shape:
-                    return p
-                axis = next(i for i, (a, b) in enumerate(zip(fixed.shape, p.shape)) if a != b)
-                pad = [(0, 0)] * fixed.ndim
-                pad[axis] = (0, fixed.shape[axis] - p.shape[axis])
-                return jnp.pad(p, pad)
-
-            cache = jax.tree_util.tree_map(graft, cache, pre)
-            cache = jax.device_put(cache, cache_shardings(cfg, mesh, cache, B))
-            serve = jax.jit(make_serve_step(cfg))
-            tok = jnp.argmax(logits[:, -1, : cfg.vocab_size], axis=-1)[:, None]
-            toks = []
-            for _ in range(GEN):
-                toks.append(np.asarray(tok))
-                logits, cache = serve(params, cache, {"tokens": tok})
-                tok = jnp.argmax(logits[:, -1, : cfg.vocab_size], axis=-1)[:, None]
-            out["tokens"] = np.concatenate(toks, axis=1)
-            opt = make_optimizer(cfg)
-            state = TrainState(params, opt.init(params), jnp.zeros((), jnp.int32))
-            state_sh = TrainState(p_sh, param_shardings(cfg, mesh, state.opt_state), replicated(mesh))
-            state = jax.device_put(state, state_sh)
-            step = jax.jit(make_train_step(cfg, opt), in_shardings=(state_sh, b_sh), out_shardings=(state_sh, None))
-            state, metrics = step(state, batch)
-            out["loss"] = float(metrics["loss"])
-            out["params"] = jax.tree_util.tree_map(np.asarray, state.params)
-        dist.set_mesh(None)
-        results[(arch, mesh_name)] = out
-    with open(sys.argv[2], "wb") as f:
-        pickle.dump(results, f)
-    """
-)
+GEN = 3
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Every case, the port's sharded run, its unmeshed run and the
     reference's sharded run (one child interpreter for all)."""
-    d = tmp_path_factory.mktemp("model_mesh")
-    cases = {}
-    for arch in CASES:
-        cfg = config(arch)
-        for mesh_name in MESHES:
-            cases[(arch, mesh_name)] = (tree_to_numpy(weights(cfg)), inputs(cfg))
-    with open(d / "in.pkl", "wb") as f:
-        pickle.dump(cases, f)
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in ("src", os.environ.get("PYTHONPATH", "")) if p),
-               JAX_PLATFORMS="cpu")
-    proc = subprocess.run([sys.executable, "-c", _REFERENCE, str(d / "in.pkl"), str(d / "out.pkl")],
-                          capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
-    assert proc.returncode == 0, f"stdout:\n{proc.stdout}\nstderr:\n{proc.stderr}"
-    with open(d / "out.pkl", "rb") as f:
-        ref = pickle.load(f)
-    return {"reference": ref, "port": {key: port_run(*key) for key in cases},
+    keys = [(arch, mesh) for arch in CASES for mesh in MESHES]
+    ref = reference_runs(keys, tmp_path_factory.mktemp("model_mesh"))
+    return {"reference": ref, "port": {key: port_run(*key) for key in keys},
             "single": {arch: port_run(arch, None) for arch in CASES}}
 
 
@@ -325,13 +172,21 @@ def test_sharded_run_resumes_bit_for_bit_and_its_checkpoint_restores_anywhere(tm
 
 
 def test_outside_the_slice_a_mesh_raises_naming_the_roadmap_item():
+    """Every arch of the zoo runs on a mesh now; what still raises is a
+    split the sharded compute does not know: the view names the leaf and
+    its spec (here the MoE router, replicated by the rules, cut over the
+    experts by hand)."""
+    cfg = reduced_config(ARCH_REGISTRY["granite-moe-3b-a800m"])
     mesh = port_mesh("2x4")
-    for arch in ("granite-moe-3b-a800m", "deepseek-v2-lite-16b", "jamba-1.5-large-398b", "xlstm-1.3b"):
-        cfg = reduced_config(ARCH_REGISTRY[arch])
-        with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-            port_serve.serve(cfg, batch=2, prompt=4, gen=1, device="cpu", mesh=mesh, verbose=False)
-        with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-            port_train.train(cfg, steps=1, batch=2, seq=4, device="cpu", mesh=mesh, verbose=False)
+    params = weights(cfg)
+    specs = param_shardings_flat(cfg, mesh, params)
+    names = [n for n, _ in tree_flatten_with_names(params)]
+    i = names.index(("blocks", "slot0", "ffn", "router"))
+    specs[i] = (None, None, "model")
+    with pytest.raises(ValueError, match=r"blocks/slot0/ffn/router \(2, 64, 4\) is placed \(None, None, 'model'\)"):
+        sharded.view(sharded.shard_tree(params, specs, mesh), 0)
+    out = port_serve.serve(cfg, batch=2, prompt=4, gen=1, device="cpu", mesh=mesh, verbose=False)
+    assert out["tokens"].shape == (2, 1)
 
 
 def test_each_shard_launches_the_flash_kernel_once_a_layer():

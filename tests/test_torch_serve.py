@@ -172,16 +172,22 @@ def test_serve_cli_runs_reduced_on_the_cpu(arch, capsys):
 def test_serve_cli_meshes_beyond_one_card_raise(mesh):
     """``--mesh pod`` and ``multipod`` serve a dense decoder over the CPU
     repeated, the batch split over every data shard: the parameters are
-    placed in blocks and the tokens are the one-device run's. An arch whose
-    layers a mesh does not split yet raises, naming its ROADMAP item."""
+    placed in blocks and the tokens are the one-device run's. So do the
+    archs with MoE, MLA, Mamba, mLSTM and sLSTM layers (none raises now):
+    the MoE archs with the batch split over every data shard, the recurrent
+    archs at batch 2 (one shard, every layer over the 16 model ranks)."""
     batch = 16 if mesh == "pod" else 32
     args = ["--arch", "gemma2-2b", "--reduced", "--batch", str(batch), "--prompt", "8", "--gen", "2", "--device", "cpu"]
     out = port_serve.main(args + ["--mesh", mesh])
     assert isinstance(out["params"], ShardedTree) and out["params"].layout.mesh.size == batch * 16
     assert out["tokens"].shape == (batch, 2)
     np.testing.assert_array_equal(out["tokens"], port_serve.main(args)["tokens"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        port_serve.main(["--arch", "granite-moe-3b-a800m", "--reduced", "--mesh", mesh, "--device", "cpu"])
+    for arch in ("deepseek-v2-lite-16b", "granite-moe-3b-a800m", "jamba-1.5-large-398b", "xlstm-1.3b"):
+        rows = batch if "moe" in arch or "deepseek" in arch else 2
+        args = ["--arch", arch, "--reduced", "--batch", str(rows), "--prompt", "8", "--gen", "2", "--device", "cpu"]
+        out = port_serve.main(args + ["--mesh", mesh])
+        assert isinstance(out["params"], ShardedTree) and out["tokens"].shape == (rows, 2)
+        np.testing.assert_array_equal(out["tokens"], port_serve.main(args)["tokens"])
 
 
 def test_serve_refuses_an_encoder():

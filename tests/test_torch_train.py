@@ -219,8 +219,11 @@ def test_embedding_input_arch_exits_with_the_references_message(monkeypatch):
 def test_meshes_other_than_smoke_raise(mesh, capsys):
     """``--mesh pod`` and ``multipod`` train a dense decoder one step over
     the CPU repeated, the batch split over every data shard, to the
-    one-device run's loss; an arch whose layers a mesh does not split yet
-    raises, naming its ROADMAP item."""
+    one-device run's loss; and every arch with MoE, MLA, Mamba, mLSTM or
+    sLSTM layers (none raises now): the MoE archs with the batch split over
+    every data shard, routed as one group, the recurrent archs at batch 2
+    (one shard, every layer over the 16 model ranks), each to the
+    one-device run's loss."""
     batch = "16" if mesh == "pod" else "32"
     args = ["--arch", "llama3.2-1b", "--reduced", "--device", "cpu", "--steps", "1", "--batch", batch, "--seq", "8"]
     out = driver.main(args + ["--mesh", mesh])
@@ -229,8 +232,11 @@ def test_meshes_other_than_smoke_raise(mesh, capsys):
     assert abs(out["losses"][0] - plain["losses"][0]) <= 1e-6 * plain["losses"][0]
     for a, b in zip(tree_leaves(out["state"]), tree_leaves(plain["state"])):
         torch.testing.assert_close(a, b, rtol=0, atol=5e-5)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        driver.main(["--arch", "xlstm-1.3b", "--reduced", "--mesh", mesh, "--device", "cpu", "--steps", "1"])
+    for arch in ("deepseek-v2-lite-16b", "granite-moe-3b-a800m", "jamba-1.5-large-398b", "xlstm-1.3b"):
+        rows = batch if "moe" in arch or "deepseek" in arch else "2"
+        args = ["--arch", arch, "--reduced", "--device", "cpu", "--steps", "1", "--batch", rows, "--seq", "8"]
+        got, want = driver.main(args + ["--mesh", mesh]), driver.main(args)
+        assert abs(got["losses"][0] - want["losses"][0]) <= 1e-5 * want["losses"][0], arch
 
 
 def test_cli_trains_reduced_on_the_cpu(tmp_path, capsys):

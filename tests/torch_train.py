@@ -125,15 +125,16 @@ def with_remat(cfg, remat: bool):
 
 
 def _layer_calls(monkeypatch) -> list:
-    """Count ``models.model._apply_layer`` calls (one a layer a forward)."""
+    """Count ``models.model._apply_layer_shards`` calls (one a layer a
+    forward)."""
     calls = []
-    apply_layer = port_model._apply_layer
+    apply_layer = port_model._apply_layer_shards
 
     def counted(*a, **kw):
         calls.append(1)
         return apply_layer(*a, **kw)
 
-    monkeypatch.setattr(port_model, "_apply_layer", counted)
+    monkeypatch.setattr(port_model, "_apply_layer_shards", counted)
     return calls
 
 
