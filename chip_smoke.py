@@ -309,6 +309,7 @@ outside a checkout of the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import atexit
 import hashlib
 import json
 import math
@@ -328,10 +329,13 @@ from typing import NamedTuple
 import torch
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.launch.mesh import H100_BF16_FLOPS_PER_S as BF16_FLOPS_PER_S  # noqa: E402
+from repro_torch.launch.mesh import H100_FP32_FLOPS_PER_S as FP32_FLOPS_PER_S  # noqa: E402
+from repro_torch.launch.mesh import H100_HBM_BYTES_PER_S as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.launch.mesh import H100_TF32_FLOPS_PER_S as TF32_FLOPS_PER_S  # noqa: E402
+
 DEVICE = "cuda"
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
-TF32_FLOPS_PER_S = 495e12  # H100 SXM dense TF32 on the tensor cores
 
 KERNELS = {  # row name -> (CUDA source, the TPU kernel's pallas_call it replaces)
     "l1_distance": ("src/repro_torch/csrc/l1.cu", "src/repro/kernels/l1_distance.py:51"),
@@ -583,8 +587,13 @@ def kernel_resources() -> None:
             check(u.get("LOCAL", 0) == 0 and u.get("STACK", 0) == 0,
                   f"{_kernel_label(n)} spills ({u.get('STACK')} B stack, {u.get('LOCAL')} B local)")
     print(f"flash kernels: {len(flash)} instantiations, every one with HMMA; none at head width 64 spills")
-    fwd256 = [n for n in flash if "flash_fwd_kernel" in n and "Li256E" in n]
+    fwd256 = [n for n in flash if "flash_fwd_kernel" in n and "Li256E" in n and "bfloat16" not in n]
     check(len(fwd256) == 1, "cuobjdump found no flash_fwd_kernel<256> (gemma2-2b's head width) in the library")
+    bf16 = [n for n in usage if "bfloat16" in n]
+    check(any("flash_fwd_kernel" in n for n in bf16) and any("flash_dkv_kernel" in n for n in bf16)
+          and any("l1_rows_kernel" in n for n in bf16) and any("merge_kernel" in n for n in bf16),
+          "cuobjdump found no bf16 instantiation of the flash, L1 or merge kernels")
+    print(f"bf16 instantiations: {len(bf16)} kernels (flash {sum('flash_' in n for n in bf16)})")
     u = usage[fwd256[0]]
     spill = u.get("LOCAL", 0) or u.get("STACK", 0)
     print(f"flash_fwd_kernel<256> (gemma2-2b's head width, phase 3j's prefill): registers {u.get('REG')}, shared "
@@ -2613,6 +2622,7 @@ def training_phase(rnn_params: dict) -> dict:
     from repro_torch.launch import train as driver
     from repro_torch.launch import train_async_pfl as example
     from repro_torch.checkpoint import restore_pytree, save_pytree
+    from repro_torch.common.pytrees import tree_leaves
 
     t0 = time.perf_counter()
     out = {}
@@ -2665,7 +2675,9 @@ def training_phase(rnn_params: dict) -> dict:
           f"phase 3l: other kernels launched: {counts}")
     tokens = TRAIN_FULL["batch"] * seq
     steady = r["step_s"][1:]
+    state_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(r["state"]))  # the state it placed
     out["full"] = {**TRAIN_FULL, "losses": losses, "step_s": r["step_s"], "steady_step_s": statistics.mean(steady),
+                   "state_bytes": state_bytes,
                    "tokens_per_s": tokens / statistics.mean(steady), "driver_tokens_per_s": r["tokens_per_s"],
                    "peak_GiB": r["peak_bytes"] / 2**30, "launches": counts}
     f = out["full"]
@@ -3804,6 +3816,38 @@ def baseline_agreement():
               f"accuracy gap {gap:.4f}, final {rg.final_acc:.4f}; wall CPU {tc:.2f} s, card {tg:.2f} s")
 
 
+def loop_agreement(init_np: list, rnn_np: dict) -> None:
+    """The loop client backend (``client_backend="loop"``: one
+    ``SimClient.local_train`` / ``evaluate`` a client, the strategy's own
+    ``feedback_fn`` probes) on ``har`` (8 clients): EchoPFL per event at
+    900 s and FedAvg at 5 rounds, the card's loop against the CPU's loop
+    (identical ledgers and decisions, accuracy curves within 0.02) and
+    against the card's fleet (identical ledgers and decisions)."""
+    from repro_torch.fl.experiment import run_experiment
+
+    for name, kw in (("echopfl", dict(max_time=900, rnn_params=rnn_np)), ("fedavg", dict(rounds=5))):
+        out = {}
+        for dev, backend in (("cpu", "loop"), (DEVICE, "loop"), (DEVICE, "fleet")):
+            t0 = time.perf_counter()
+            _, _, strat, rep = run_experiment("har", name, num_clients=8, seed=0, device=dev, init_params=init_np,
+                                              client_backend=backend, **kw)
+            out[dev, backend] = (strat, rep, time.perf_counter() - t0)
+        decisions = (lambda s: (s.events, s.clustering.assignment)) if name == "echopfl" else (lambda s: s.stats())
+        (sc, rc, tc), (sl, rl, tl), (sf, rf, tf) = out["cpu", "loop"], out[DEVICE, "loop"], out[DEVICE, "fleet"]
+        for label, (sa, ra), (sb, rb) in (("card loop vs CPU loop", (sl, rl), (sc, rc)),
+                                          ("card loop vs card fleet", (sl, rl), (sf, rf))):
+            for field in ("up_events", "down_events", "up_bytes", "down_bytes", "duration", "up_series", "down_series"):
+                check(getattr(ra, field) == getattr(rb, field), f"loop agreement {name}, {label}: {field} differs")
+            check(decisions(sa) == decisions(sb), f"loop agreement {name}, {label}: decisions differ")
+            check([t for t, _ in ra.curve] == [t for t, _ in rb.curve], f"loop agreement {name}, {label}: eval times")
+        gap = max(abs(a - b) for (_, a), (_, b) in zip(rl.curve, rc.curve))
+        check(gap <= 0.02, f"loop agreement {name}: card loop vs CPU loop accuracy curves differ by {gap}")
+        fleet_gap = max(abs(a - b) for (_, a), (_, b) in zip(rl.curve, rf.curve))
+        print(f"loop agreement {name} (har, 8 clients): card loop = CPU loop and = card fleet in ledger and "
+              f"decisions; accuracy gap {gap:.4f} to the CPU, {fleet_gap:.4f} to the fleet; final {rl.final_acc:.4f}; "
+              f"wall CPU loop {tc:.2f} s, card loop {tl:.2f} s, card fleet {tf:.2f} s")
+
+
 def lm_agreement(rnn_params: dict):
     """The tiny_lm LM run on the card and on the CPU, base, initial delta
     and broadcast RNN handed over: identical ledgers, server events and
@@ -4817,6 +4861,250 @@ def mesh_flash_timing(meshes: dict) -> dict:
 
 
 # ------------------------------------------------------------------ phase 6
+# ------------------------------------------------------- phase 5: bf16 rows
+# the bf16 instantiations (the reference's kernel bodies cast bf16 inputs to fp32): their tolerance against
+# the plain version on the same bf16 inputs, as stated in tests/test_torch_bf16_kernels.py; the L1 and flash
+# ones are the reference's own bf16 tolerances (tests/test_kernels.py:14, :69)
+BF16_TOL = {
+    "l1_distance": "rtol 3e-3", "l1_distance_pairwise": "rtol 3e-3", "pairwise_l1": "rtol 3e-3",
+    "assign_and_lerp": "distances rtol 3e-3, index equal, blended row bit for bit",
+    "chi2_feedback": "rtol 1e-5, atol 1e-6", "chi2_feedback_segmented": "rtol 1e-5, atol 1e-6 (sums atol 1e-5)",
+    "merge_attention": "bit for bit", "flash_attention_fwd": "atol = rtol = 2e-2",
+    "flash_attention_bwd": "atol = rtol = 2e-2",
+}
+BF16_SERVER = ("l1_distance", "l1_distance_pairwise", "assign_and_lerp", "chi2_feedback", "chi2_feedback_segmented",
+               "merge_attention")
+BF16_STEP = dict(periods=2, batch=2, seq=512)  # phase 5's bf16 train step: llama3.2-1b at full width, 2 periods
+BF16_FLASH = (2, 32, 512, 64, 8, 512, 64)  # (B, H, Sq, hd, KV, Sk, dv): its flash launches
+BF16_PAIRWISE = (4, 783360)  # pairwise_l1 at the full-width LM delta rows
+
+
+def _bf16_server_inputs(name: str, shape: tuple, g) -> tuple:
+    """Random bf16 inputs of one server kernel at one shape (``_server_case``'s shapes)."""
+    bf = torch.bfloat16
+    if name in ("l1_distance", "l1_distance_pairwise"):
+        m, c, n = shape
+        xs, cs = randn(g, m, n).to(bf), randn(g, c, n).to(bf)
+        return (xs[0].contiguous(), cs) if name == "l1_distance" else (xs, cs)
+    if name == "assign_and_lerp":
+        c, n = shape
+        return randn(g, n).to(bf), randn(g, c, n).to(bf)
+    if name in ("chi2_feedback", "chi2_feedback_segmented"):
+        m, j = shape[:2]
+        fp = (torch.rand((m, j), generator=g, device=DEVICE) * 30).to(bf)
+        ft = (torch.rand((m, j), generator=g, device=DEVICE) * 30 + 1.0).to(bf)
+        ss = torch.softmax(randn(g, m, j), dim=-1).to(bf)
+        if name == "chi2_feedback":
+            return fp, ft, ss
+        return fp, ft, ss, torch.arange(m, device=DEVICE, dtype=torch.int32) % shape[2], shape[2]
+    (n,) = shape
+    return randn(g, n).to(bf), randn(g, n).to(bf), randn(g, n).to(bf)
+
+
+def _server_flops(name: str, shape: tuple) -> float:
+    """The operations of one server kernel call at ``shape``, as the fp32 rows
+    count them (``_server_case``)."""
+    if name in ("l1_distance", "l1_distance_pairwise"):
+        m, c, n = shape
+        return 3 * m * c * n
+    if name == "pairwise_l1":
+        m, n = shape
+        return 3 * m * m * n
+    if name == "assign_and_lerp":
+        c, n = shape
+        return 3 * c * n + c + 3 * n
+    if name.startswith("chi2"):
+        return 9 * shape[0] * shape[1] + (shape[0] if name.endswith("segmented") else 0)
+    return 10 * shape[0]
+
+
+def _bf16_call(name: str):
+    from repro_torch.kernels import assign_lerp, chi2, l1, merge, ops
+
+    kernel = {"l1_distance": ops.l1_distance, "l1_distance_pairwise": ops.l1_distance_pairwise,
+              "assign_and_lerp": lambda u, c: ops.assign_and_lerp(u, c, 0.25), "chi2_feedback": ops.chi2_feedback,
+              "chi2_feedback_segmented": ops.chi2_feedback_segmented, "merge_attention": ops.merge_attention,
+              "pairwise_l1": ops.pairwise_l1}[name]
+    plain = {"l1_distance": l1.l1_distance_plain, "l1_distance_pairwise": l1.l1_distance_pairwise_plain,
+             "assign_and_lerp": lambda u, c: assign_lerp.assign_and_lerp_plain(u, c, 0.25),
+             "chi2_feedback": chi2.chi2_feedback_plain, "chi2_feedback_segmented": chi2.chi2_feedback_segmented_plain,
+             "merge_attention": lambda *a: merge.merge_attention_plain(*a)[0],
+             "pairwise_l1": l1.pairwise_l1_plain}[name]
+    return kernel, plain
+
+
+def _bf16_check(name: str, args: tuple) -> float:
+    """The bf16 instantiation against its plain version at BF16_TOL, and (but
+    the merge and flash, whose output is bf16) bit for bit against the fp32
+    kernel on the inputs cast to fp32: it is that kernel on converted loads.
+    Returns the largest absolute difference to the plain version."""
+    kernel, plain = _bf16_call(name)
+    got, want = kernel(*args), plain(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    if name == "assign_and_lerp":
+        torch.testing.assert_close(got[0], want[0], rtol=3e-3, atol=0, msg=lambda m: f"bf16 {name}: {m}")
+        check(int(got[1]) == int(want[1]) and torch.equal(got[2], want[2]), f"bf16 {name}: index or blend differs")
+    elif name == "merge_attention":
+        check(got[0].dtype == torch.bfloat16 and torch.equal(got[0].view(torch.int16), want[0].view(torch.int16)),
+              f"bf16 {name}: not the plain version bit for bit")
+    else:
+        rtol, atol = (1e-5, 1e-6) if name.startswith("chi2") else (3e-3, 0.0)
+        for i, (a, b) in enumerate(zip(got, want)):
+            torch.testing.assert_close(a, b, rtol=rtol, atol=atol if i == 0 else 1e-5,
+                                       msg=lambda m: f"bf16 {name}: {m}")
+    if name != "merge_attention":
+        f32 = kernel(*(a.float() if isinstance(a, torch.Tensor) and a.dtype == torch.bfloat16 else a for a in args))
+        f32 = f32 if isinstance(f32, tuple) else (f32,)
+        check(all(torch.equal(a, b) for a, b in zip(got, f32)),
+              f"bf16 {name}: not the fp32 kernel's bits on the inputs cast to fp32")
+    return max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want) if a.is_floating_point())
+
+
+def bf16_drive(shapes) -> dict:
+    """Phase 5's bf16 path, every bf16 launch counter zeroed just before and
+    read just after: (a) llama3.2-1b at full width, depth cut to 2 periods,
+    its params drawn at bf16 (``init_params(dtype=)``), one train step
+    through ``launch.train.train`` at 2 x 512 (the flash forward, dq and dkv
+    at bf16); (b) the server's kernel calls of one upload and one refine at
+    the main path's shapes, and ``pairwise_l1`` at the full-width delta
+    rows, on bf16 rows (no path of the system holds bf16 plane rows: the
+    reference's planes are fp32 too). Each bf16 instantiation must launch,
+    and the step's loss be finite."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as driver
+    from repro_torch.models.model import init_params
+
+    cfg = get_config("llama3.2-1b")
+    cfg = dataclasses.replace(cfg, num_periods=BF16_STEP["periods"])
+    params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0), device=DEVICE, dtype=torch.bfloat16)
+    g = gen(29)
+    calls = [(name, _bf16_server_inputs(name, shapes[name].most_common(1)[0][0], g)) for name in BF16_SERVER]
+    calls.append(("pairwise_l1", (randn(g, *BF16_PAIRWISE).to(torch.bfloat16),)))
+    sync()
+    ops.reset_launch_counts()
+    r = driver.train(cfg, steps=1, batch=BF16_STEP["batch"], seq=BF16_STEP["seq"], device=DEVICE, params=params,
+                     verbose=False)
+    for name, args in calls:
+        _bf16_call(name)[0](*args)
+    sync()
+    counts = ops.launch_counts_bf16()
+    check(all(counts[k] > 0 for k in counts), f"phase 5 bf16 path: a bf16 instantiation never launched: {counts}")
+    check(math.isfinite(r["losses"][0]), f"phase 5 bf16 step: loss {r['losses'][0]}")
+    check(sum(ops.launch_counts().values()) == 0, f"phase 5 bf16 path launched fp32 kernels: {ops.launch_counts()}")
+    print(f"phase 5 bf16 path: llama3.2-1b full width, {BF16_STEP['periods']} periods, bf16 params, one train step "
+          f"at {BF16_STEP['batch']} x {BF16_STEP['seq']}: loss {r['losses'][0]:.4f}, {r['step_s'][0]:.3f} s; server "
+          f"calls on bf16 rows; bf16 launches {json.dumps(counts)}")
+    del r, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def bf16_rows(shapes, counts) -> list[dict]:
+    """A row a bf16 instantiation, beside the fp32 rows: checked against
+    its plain version (BF16_TOL) and the fp32 kernel, then timed at the
+    shapes the fp32 rows use (the server kernels at the main path's, flash
+    at phase 5's bf16 train step's, ``pairwise_l1`` at the full-width
+    delta's). ``bound_ms``: 2 bytes an input element, outputs at their
+    dtype; operations at the fp32 CUDA-core rate for the server kernels and
+    at the bf16 tensor-core peak for flash. ``library_ms``: ``torch.cdist``
+    on the bf16 rows for L1 (None if it refuses bf16), bf16 SDPA and its
+    autograd backward for flash; ``fp32_ms``: the fp32 kernel on the inputs
+    cast to fp32, in the same call; ``launches``: :func:`bf16_drive`'s."""
+    from repro_torch.kernels import flash_attention as F
+    from repro_torch.kernels import flash_attention_bwd as FB
+    from repro_torch.kernels import ops
+
+    g = gen(31)
+    rows = []
+    for name in BF16_SERVER + ("pairwise_l1",):
+        shape = BF16_PAIRWISE if name == "pairwise_l1" else shapes[name].most_common(1)[0][0]
+        args = (randn(g, *shape).to(torch.bfloat16),) if name == "pairwise_l1" else _bf16_server_inputs(name, shape, g)
+        err = _bf16_check(name, args)
+        kernel, plain = _bf16_call(name)
+        lib = None
+        if name in ("l1_distance", "l1_distance_pairwise", "pairwise_l1"):
+            x = args[0][None] if name == "l1_distance" else args[0]
+            y = args[0] if name == "pairwise_l1" else args[1]
+            try:
+                torch.cdist(x, y, p=1)
+                lib = lambda x=x, y=y: torch.cdist(x, y, p=1)  # noqa: E731
+            except RuntimeError as e:
+                print(f"  torch.cdist refuses bf16 rows: {str(e).splitlines()[0]}")
+        outs = kernel(*args)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        nbytes = sum(t.numel() * t.element_size() for t in (*args, *outs) if isinstance(t, torch.Tensor))
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, _server_flops(name, shape) / FP32_FLOPS_PER_S
+        src, replaces = KERNELS[name]
+        cast = tuple(a.float() if isinstance(a, torch.Tensor) and a.dtype == torch.bfloat16 else a for a in args)
+        row = {"name": f"{name}[bf16]", "route": "cuda", "source": src, "replaces": replaces, "dtype": "bfloat16",
+               "launches": counts[name], "launches_from": "phase 5's bf16 path", "max_abs_err": err,
+               "tolerance": BF16_TOL[name], "ms": device_ms(lambda: kernel(*args)),
+               "plain_ms": device_ms(lambda: plain(*args)), "bound_ms": max(t_b, t_o) * 1e3,
+               "bound_by": "bytes" if t_b >= t_o else "operations",
+               "library_ms": None if lib is None else device_ms(lib), "shape": list(shape),
+               "fp32_ms": device_ms(lambda: kernel(*cast))}
+        rows.append(row)
+    B, H, Sq, hd, KV, Sk, dv = BF16_FLASH
+    q, k, v, do = (t.to(torch.bfloat16) for t in flash_inputs(g, B, H, KV, Sq, Sk, hd, dv))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    pairs = B * H * _allowed_pairs(Sq, Sk)
+    o, lse = ops.flash_attention_with_lse(q, k, v)
+    o_p, lse_p = F.flash_attention_with_lse_plain(q, k, v)
+    check(o.dtype == torch.bfloat16 and lse.dtype == torch.float32, "bf16 flash forward: output dtypes")
+    torch.testing.assert_close(o.float(), o_p.float(), rtol=2e-2, atol=2e-2, msg=lambda m: f"bf16 flash o: {m}")
+    torch.testing.assert_close(lse, lse_p, rtol=2e-2, atol=2e-2, msg=lambda m: f"bf16 flash lse: {m}")
+    got, want = FB.flash_attention_bwd(q, k, v, o, lse, do), FB.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    for a, b, part in zip(got, want, ("dq", "dk", "dv")):
+        check(a.dtype == torch.bfloat16, f"bf16 flash {part}: dtype {a.dtype}")
+        torch.testing.assert_close(a.float(), b.float(), rtol=2e-2, atol=2e-2, msg=lambda m: f"bf16 flash {part}: {m}")
+    qr, kr, vr = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    o_lib = sdpa(qr, kr, vr, is_causal=True, enable_gqa=True)
+    q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+    o32, lse32 = ops.flash_attention_with_lse(q32, k32, v32)
+    fp32 = {"flash_attention_fwd": lambda: ops.flash_attention_with_lse(q32, k32, v32),
+            "flash_attention_bwd": lambda: FB.flash_attention_bwd(q32, k32, v32, o32, lse32, do32)}
+    for name, fn, pl, lib, nbytes, flops, err in (
+            ("flash_attention_fwd", lambda: ops.flash_attention_with_lse(q, k, v),
+             lambda: F.flash_attention_with_lse_plain(q, k, v),
+             lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
+             2 * (q.numel() + k.numel() + v.numel() + o.numel()) + 4 * lse.numel(), 2 * (hd + dv) * pairs,
+             max((o.float() - o_p.float()).abs().max().item(), (lse - lse_p).abs().max().item())),
+            ("flash_attention_bwd", lambda: FB.flash_attention_bwd(q, k, v, o, lse, do),
+             lambda: FB.flash_attention_bwd_plain(q, k, v, o, lse, do),
+             lambda: torch.autograd.grad(o_lib, (qr, kr, vr), do, retain_graph=True),
+             2 * (2 * (q.numel() + k.numel() + v.numel()) + o.numel() + do.numel()) + 4 * lse.numel(),
+             2 * (3 * hd + 2 * dv) * pairs,
+             max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want)))):
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+        src, replaces = KERNELS[name]
+        rows.append({"name": f"{name}[bf16]", "route": "cuda", "source": src.replace(".cu", "_bf16.cu"),
+                     "replaces": replaces, "dtype": "bfloat16",
+                     "launches": counts["flash_attention_fwd" if name.endswith("fwd") else "flash_attention_dq"],
+                     "launches_from": "phase 5's bf16 path", "max_abs_err": err, "tolerance": BF16_TOL[name],
+                     "ms": device_ms(fn, 50), "plain_ms": device_ms(pl, 50), "bound_ms": max(t_b, t_o) * 1e3,
+                     "bound_by": "bytes" if t_b >= t_o else "operations", "library_ms": device_ms(lib, 50),
+                     "shape": list(BF16_FLASH), "fp32_ms": device_ms(fp32[name], 50)})
+    for r in rows:
+        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.5f} ms"
+        print(f"timing {r['name']} at {tuple(r['shape'])}: device time kernel {r['ms']:.5f} ms (the fp32 kernel on "
+              f"the rows cast: {r['fp32_ms']:.5f} ms), plain {r['plain_ms']:.5f} ms, library {lib}; bound "
+              f"{r['bound_ms']:.6f} ms ({r['bound_by']}); launches "
+              f"{r['launches']} (phase 5's bf16 path); max_abs_err {r['max_abs_err']:.3g} ({r['tolerance']})")
+    del q, k, v, do, o, lse, o_p, lse_p, got, want, qr, kr, vr, o_lib, q32, k32, v32, do32, o32, lse32
+    torch.cuda.empty_cache()
+    return rows
+
+
+def bf16_phase(shapes) -> list[dict]:
+    """Phase 5's bf16 part: the path, then the rows."""
+    counts = bf16_drive(shapes)
+    return bf16_rows(shapes, counts)
+
+
 def profile_window(label: str, run) -> None:
     """One run under ``torch.profiler`` (CUDA activity only). Device busy
     time is the sum of kernel durations (one stream, so they do not
@@ -4948,6 +5236,8 @@ def side_part(part: str, rnn_params: dict, lm_rnn_params: dict) -> dict:
         init_np, rnn_np = agreement_inputs()
         chaos_agreement(init_np, rnn_np)
         mark("chaos_agreement")
+        loop_agreement(init_np, rnn_np)
+        mark("loop_agreement")
         lm_agreement(lm_rnn_params)
         mark("lm_agreement")
         serving_agreement(rnn_np)
@@ -5016,6 +5306,113 @@ class SideRuns:
         shutil.rmtree(self.dir, ignore_errors=True)
 
 
+# ------------------------------------------------------------------ phase 3p
+# the dry-run's full-size cells on the pod mesh, each in a process of its own (tracing on meta is host
+# work): llama3.2-1b's training shape and deepseek-v2-lite-16b's prefill; the first also predicts phase 3l's
+# step (llama3.2-1b unmeshed, fp32, 2 x 4,096, remat)
+DRYRUN_CELLS = {"llama": ("llama3.2-1b", "train_4k"), "deepseek": ("deepseek-v2-lite-16b", "prefill_32k")}
+
+
+def dryrun_main(which: str, out_path: str) -> int:
+    """A phase 3p process: the dry-run's record of one full-size cell
+    (``launch.dryrun.run_cell``, bf16 on the pod mesh, ``meta`` tensors: no
+    card), and for ``llama`` also phase 3l's step at fp32 unmeshed; written
+    as JSON to ``out_path``. One intra-op thread."""
+    torch.set_num_threads(1)
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+
+    arch, shape = DRYRUN_CELLS[which]
+    out = {"cell": dryrun.run_cell(arch, shape, False, None)}
+    if which == "llama":
+        step = ShapeSpec("phase 3l", TRAIN_FULL["seq"], TRAIN_FULL["batch"], "train")
+        out["phase_3l"] = dryrun.run_cell("llama3.2-1b", step.name, False, None, cfg=get_config("llama3.2-1b"),
+                                          shape=step, mesh=dryrun.meta_mesh((1, 1)), mesh_name="1x1",
+                                          dtype=torch.float32)
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+class DryRuns:
+    """Phase 3p's processes (``chip_smoke.py --dryrun CELL OUT``), started
+    at the run's start; ``join`` waits for them after phase 3l. They touch
+    no card. ``close`` stops any that still runs."""
+
+    def __init__(self):
+        (ROOT / "build").mkdir(exist_ok=True)
+        self.dir = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_", dir=ROOT / "build"))
+        self.t0 = time.perf_counter()
+        self.procs = {}
+        for which in DRYRUN_CELLS:
+            with open(self.dir / f"{which}.log", "wb") as log:
+                self.procs[which] = subprocess.Popen(
+                    [sys.executable, "-u", str(ROOT / "chip_smoke.py"), "--dryrun", which,
+                     str(self.dir / f"{which}.json")], stdout=log, stderr=subprocess.STDOUT, cwd=ROOT)
+
+    def join(self) -> dict:
+        out, failed = {}, []
+        for which, p in self.procs.items():
+            rc = p.wait()
+            if rc:
+                failed.append(which)
+                log = (self.dir / f"{which}.log").read_text(errors="replace")
+                print(f"---- phase 3p {which}: exit {rc} ----\n{log}")
+            else:
+                out[which] = json.loads((self.dir / f"{which}.json").read_text())
+        print(f"phase 3p processes joined {time.perf_counter() - self.t0:.1f} s after their start")
+        self.close()
+        check(not failed, f"phase 3p: dry-run process {', '.join(failed)} failed")
+        return out
+
+    def close(self) -> None:
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def dryrun_phase(records: dict, training: dict) -> dict:
+    """Phase 3p's checks and figures: both full-size cells traced (status
+    OK) and printed; the predicted phase 3l step's state bytes equal to the
+    bytes of the state phase 3l placed; its FLOPs a step beside phase 3l's
+    measured seconds a step: the achieved FLOP/s and its share of the fp32
+    (outside the tensor cores) and TF32 peaks."""
+    out = {}
+    for which, rec in records.items():
+        cell = rec["cell"]
+        check(cell["status"] == "OK", f"phase 3p: {cell['arch']} x {cell['shape']}: {cell.get('error')}")
+        out[which] = {k: v for k, v in cell.items() if k != "traceback"}
+        t = cell["roofline"]
+        print(f"phase 3p dry-run {cell['arch']} x {cell['shape']} x {cell['mesh']} (bf16, meta, traced in "
+              f"{cell['trace_s']} s): {cell['flops_per_device']:.6g} FLOPs ({cell['dot_flops_per_device']:.6g} in "
+              f"products), {cell['bytes_per_device']:.6g} bytes, collectives {json.dumps(cell['collectives'])} a "
+              f"device; state {cell['state_bytes_per_device']:.6g} B a device; model_flops {cell['model_flops']:.6g}, "
+              f"ratio {cell['model_flops_ratio']:.4f}; H100 roofline compute {t['compute_s']:.6f} s, memory "
+              f"{t['memory_s']:.6f} s, collective {t['collective_s']:.6f} s: {cell['bottleneck']}")
+        print("phase 3p record: " + json.dumps(out[which]))
+    pred, full = records["llama"]["phase_3l"], training["full"]
+    check(pred["status"] == "OK", f"phase 3p: phase 3l's step: {pred.get('error')}")
+    check(pred["state_bytes_per_device"] == full["state_bytes"],
+          f"phase 3p: predicted state {pred['state_bytes_per_device']} B, phase 3l placed {full['state_bytes']} B")
+    rate = pred["flops_per_device"] / full["steady_step_s"]
+    out["phase_3l"] = {"flops": pred["flops_per_device"], "dot_flops": pred["dot_flops_per_device"],
+                       "bytes": pred["bytes_per_device"], "state_bytes": pred["state_bytes_per_device"],
+                       "step_s": full["steady_step_s"], "flops_per_s": rate,
+                       "fp32_share": rate / FP32_FLOPS_PER_S, "tf32_share": rate / TF32_FLOPS_PER_S,
+                       "roofline": pred["roofline"]}
+    p = out["phase_3l"]
+    print(f"phase 3p predicts phase 3l's step (llama3.2-1b, fp32, unmeshed, {TRAIN_FULL['batch']} x "
+          f"{TRAIN_FULL['seq']}, remat): state {p['state_bytes']:.0f} B = the {full['state_bytes']} B phase 3l "
+          f"placed; {p['flops']:.6g} FLOPs a step ({p['dot_flops']:.6g} in products) over phase 3l's "
+          f"{p['step_s']:.3f} s a step: {rate / 1e12:.3f} TFLOP/s achieved, {100 * p['fp32_share']:.2f}% of the "
+          f"fp32 peak and {100 * p['tf32_share']:.2f}% of the TF32 peak; predicted roofline compute "
+          f"{p['roofline']['compute_s']:.4f} s, memory {p['roofline']['memory_s']:.4f} s (unfused bytes)")
+    return out
+
+
 def side_main(part: str, where: str) -> int:
     """A side process: ``side_part`` with the main run's inputs, its result
     written as JSON beside them. One intra-op thread: two side processes
@@ -5031,8 +5428,20 @@ def side_main(part: str, where: str) -> int:
 
 
 # ``--phase NAME``: a model-mesh phase alone, with its flash rows (the phases that take no other phase's output)
+def bf16_alone() -> dict:
+    """Phase 5's bf16 part alone (``--phase bf16``): the main path for its
+    shapes, then the bf16 path and rows."""
+    _, shapes, _, _ = main_path()
+    return {"rows": bf16_phase(shapes)}
+
+
 PHASES = {"model_mesh": ("model_mesh_phase", "mesh_flash_timing"),
-          "zoo_mesh": ("zoo_mesh_phase", "zoo_mesh_flash_timing")}
+          "zoo_mesh": ("zoo_mesh_phase", "zoo_mesh_flash_timing"),
+          "bf16": ("bf16_alone", "bf16_rows_of")}
+
+
+def bf16_rows_of(out: dict) -> list:
+    return out["rows"]
 
 
 def one_phase(name: str) -> int:
@@ -5054,9 +5463,13 @@ def one_phase(name: str) -> int:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description="The port's main paths and kernels on one CUDA card.")
-    parser.add_argument("--phase", choices=sorted(PHASES), help="run this model-mesh phase alone")
+    parser.add_argument("--phase", choices=sorted(PHASES), help="run this phase alone (the model-mesh phases, "
+                                                                 "phase 5's bf16 part)")
     parser.add_argument("--side", nargs=2, metavar=("PART", "DIR"),
                         help="run side process PART (a or b) with the inputs in DIR (the whole run starts these)")
+    parser.add_argument("--dryrun", nargs=2, metavar=("CELL", "OUT"),
+                        help="phase 3p: trace dry-run CELL (llama or deepseek) and write it to OUT (the whole run "
+                             "starts these)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -5069,6 +5482,8 @@ def main() -> int:
         return one_phase(args.phase)
     if args.side:
         return side_main(*args.side)
+    if args.dryrun:
+        return dryrun_main(*args.dryrun)
     t0 = time.perf_counter()
 
     def mark(label: str) -> None:
@@ -5076,6 +5491,8 @@ def main() -> int:
 
     smi = probe()
     mark("probe")
+    dryruns = DryRuns()  # phase 3p, host work beside everything until after phase 3l
+    atexit.register(dryruns.close)  # stopped whatever fails before the join
     kernel_phase()
     mark("kernel_phase")
     counts, shapes, _, rnn_params = main_path()
@@ -5111,6 +5528,11 @@ def main() -> int:
     mark("zoo_serving_phase")
     training = training_phase(rnn_params)
     mark("training_phase")
+    try:
+        dry = dryrun_phase(dryruns.join(), training)
+    finally:
+        dryruns.close()
+    mark("dryrun_phase (phase 3p)")
     zoo_meshes = zoo_mesh_phase()
     mark("zoo_mesh_phase")
     rows = (timing(counts, shapes, full, tiny) + [chain_row(coal, chaos)] + uplink_rows(sweep, per_event, full_topk)
@@ -5121,6 +5543,7 @@ def main() -> int:
     for timed in (train_flash_timing(training), mesh_flash_timing(meshes), zoo_mesh_flash_timing(zoo_meshes)):
         for name, extra in timed.items():
             next(r for r in rows if r["name"] == name).update(extra)
+    rows += bf16_phase(shapes)
     for row in rows:  # phase 3m's per-shard launches beside each row's own
         if row["name"] in mesh["rows"]:
             row["phase_3m"] = mesh["rows"][row["name"]]
@@ -5140,6 +5563,7 @@ def main() -> int:
     print("sharded plane: " + json.dumps({k: v for k, v in mesh.items() if k != "rows"}))
     print("model meshes: " + json.dumps(meshes))
     print("zoo meshes: " + json.dumps(zoo_meshes))
+    print("dry-run: " + json.dumps(dry))
     print("restart: " + json.dumps({k: {f: v[f] for f in ("saved", "spent", "at", "unsteady", "bytes", "leaves")
                                        if f in v} for k, v in restart.items()}))
     print(json.dumps({"kernels": rows}))

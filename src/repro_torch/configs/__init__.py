@@ -9,12 +9,15 @@ recurrent ``xlstm-1.3b`` (mLSTM, sLSTM); and the encoder ``hubert-xlarge``.
 ``paper_tasks`` holds the paper's client MLPs."""
 from repro_torch.configs.base import (
     ARCH_REGISTRY,
+    SHAPES,
     LayerSpec,
     ModelConfig,
+    ShapeSpec,
     TrainSpec,
     get_config,
     reduced_config,
     register_arch,
+    supports_shape,
 )
 from repro_torch.configs import (  # noqa: F401  (registration)
     command_r_35b,

@@ -213,6 +213,15 @@ def get_config(name: str) -> ModelConfig:
     return ARCH_REGISTRY[name]
 
 
+def supports_shape(config: ModelConfig, shape: ShapeSpec) -> tuple[bool, str]:
+    """(supported, the reason if not): the reference's skip rules."""
+    if config.is_encoder and shape.kind == "decode":
+        return False, "encoder-only arch has no decode step"
+    if shape.name == "long_500k" and not config.subquadratic:
+        return False, "pure full-attention arch; 500k decode needs sub-quadratic state"
+    return True, ""
+
+
 def reduced_config(config: ModelConfig, d_model: int = 64, periods: int = 2) -> ModelConfig:
     """A small config of the same family for CPU tests (the reference's
     cut): at most 4 heads, head width ``d_model // heads`` (at least 8),

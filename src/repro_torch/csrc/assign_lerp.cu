@@ -28,6 +28,11 @@
 //      across the sync and blends from them; otherwise it reads the winning
 //      chunk again, from L2 ((C + 1) N floats fit the 50 MB L2 up to C ~ 15
 //      at N = 783,360).
+//
+// bf16 upload and centers (repro_assign_lerp_bf16): the same kernel on
+// bf16 loads converted to fp32 (l1_rows.cuh), the reference's cast
+// (assign_lerp.py:30-31): fp32 distances and blended row, the fp32
+// kernel's bits on the rows cast to fp32.
 #include <cooperative_groups.h>
 
 #include "l1_rows.cuh"
@@ -59,8 +64,9 @@ __device__ __forceinline__ void blend4(float* __restrict__ out, int64_t g, int64
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(repro::kThreads)
-assign_lerp_kernel(const float* __restrict__ u, const float* __restrict__ centers, int64_t c_rows,
+assign_lerp_kernel(const T* __restrict__ u, const T* __restrict__ centers, int64_t c_rows,
                    int64_t n, int64_t chunks, float omb, float b, float* scratch,
                    float* __restrict__ dists, int* __restrict__ idx_out, float* __restrict__ out) {
   __shared__ float best_v[repro::kWarps];
@@ -131,7 +137,7 @@ assign_lerp_kernel(const float* __restrict__ u, const float* __restrict__ center
     }
     return;
   }
-  const float* cr = centers + static_cast<int64_t>(idx) * n;
+  const T* cr = centers + static_cast<int64_t>(idx) * n;
   const int al_c = repro::row_align(cr), al_u = repro::row_align(u);
   for (int64_t k = blockIdx.x; k < chunks; k += gridDim.x) {
 #pragma unroll
@@ -142,15 +148,10 @@ assign_lerp_kernel(const float* __restrict__ u, const float* __restrict__ center
   }
 }
 
-int coresident[64];
-
-}  // namespace
-
-// scratch: chunks * c_rows floats, chunks = ceil(n / 4096); any other
-// `chunks` is refused. out must be 16-byte aligned.
-REPRO_API int repro_assign_lerp(const float* u, const float* centers, int64_t c_rows, int64_t n,
-                                int64_t chunks, double beta, float* scratch, float* dists,
-                                int* idx_out, float* out, int device, void* stream) {
+template <typename T>
+int assign_lerp(const T* u, const T* centers, int64_t c_rows, int64_t n, int64_t chunks, double beta,
+                float* scratch, float* dists, int* idx_out, float* out, int device, void* stream) {
+  static int coresident[64];
   if (device < 0 || device >= 64) return static_cast<int>(cudaErrorInvalidDevice);
   repro::use_device(device);
   if (c_rows <= 0 || n <= 0 || chunks != repro::l1_chunks(n) ||
@@ -160,12 +161,29 @@ REPRO_API int repro_assign_lerp(const float* u, const float* centers, int64_t c_
   // then one rounding to fp32 (src/repro/kernels/assign_lerp.py:36).
   float omb = static_cast<float>(1.0 - beta);
   float b = static_cast<float>(beta);
-  const int cap = repro::coresident_blocks(assign_lerp_kernel, device, coresident, 0);
+  const int cap = repro::coresident_blocks(assign_lerp_kernel<T>, device, coresident, 0);
   int64_t blocks = chunks * ((c_rows + repro::kTileC - 1) / repro::kTileC);
   if (blocks > cap) blocks = cap;
   void* args[] = {&u, &centers, &c_rows, &n, &chunks, &omb, &b, &scratch, &dists, &idx_out, &out};
   const cudaError_t rc = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(assign_lerp_kernel), dim3(static_cast<unsigned>(blocks)),
+      reinterpret_cast<const void*>(assign_lerp_kernel<T>), dim3(static_cast<unsigned>(blocks)),
       dim3(repro::kThreads), args, 0, static_cast<cudaStream_t>(stream));
   return rc != cudaSuccess ? static_cast<int>(rc) : repro::launch_status();
+}
+
+}  // namespace
+
+// scratch: chunks * c_rows floats, chunks = ceil(n / 4096); any other
+// `chunks` is refused. out must be 16-byte aligned.
+REPRO_API int repro_assign_lerp(const float* u, const float* centers, int64_t c_rows, int64_t n,
+                                int64_t chunks, double beta, float* scratch, float* dists,
+                                int* idx_out, float* out, int device, void* stream) {
+  return assign_lerp(u, centers, c_rows, n, chunks, beta, scratch, dists, idx_out, out, device, stream);
+}
+
+// The same on a bf16 upload and centers (fp32 distances and blended row).
+REPRO_API int repro_assign_lerp_bf16(const repro::bf16* u, const repro::bf16* centers, int64_t c_rows,
+                                     int64_t n, int64_t chunks, double beta, float* scratch, float* dists,
+                                     int* idx_out, float* out, int device, void* stream) {
+  return assign_lerp(u, centers, c_rows, n, chunks, beta, scratch, dists, idx_out, out, device, stream);
 }

@@ -47,7 +47,15 @@
 // tests/test_torch_chi2_order.py models this order in numpy. On the H100,
 // 4-byte cp.async staging beat a 1-D cp.async.bulk and plain loads, and
 // element-parallel terms beat a thread dividing J times (PERF.md §6).
+//
+// bf16 rows (repro_chi2_bf16): the same kernel, each element converted to
+// fp32 as it is staged (a plain load instead of the 4-byte cp.async) or
+// read (the warp rows), the reference's casts (chi2_feedback.py:21-23,
+// :68-70): fp32 g and segment sums, the fp32 kernel's bits on the rows
+// cast to fp32.
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -61,10 +69,11 @@ constexpr int kMaxThreadJ = 32;               // widest J a thread takes alone
 constexpr int kCluster = 8;                   // blocks of the segmented grid (portable)
 constexpr int kMaxSmem = 232448;              // shared memory a block may opt in to
 
+template <typename V>
 struct Args {
-  const float* fp;
-  const float* ft;
-  const float* ss;
+  const V* fp;
+  const V* ft;
+  const V* ss;
   const int* seg;  // null when s == 0
   float* out;      // g (m floats), then seg_sum (s floats)
   int64_t m, j, s;
@@ -145,26 +154,26 @@ __device__ __forceinline__ float lanes_sum(float v) {
 }
 
 // Step 3: g of one row in one warp, lanes strided over J.
-__device__ __forceinline__ float row_g_warp(const float* a, const float* t, const float* s,
-                                            int64_t j, int lane) {
+template <typename V>
+__device__ __forceinline__ float row_g_warp(const V* a, const V* t, const V* s, int64_t j, int lane) {
   float chi = 0.f, sum = 0.f;
   for (int64_t k = lane; k < j; k += 32) {
-    chi = __fadd_rn(chi, chi2_term(a[k], t[k]));
-    sum = __fadd_rn(sum, s[k]);
+    chi = __fadd_rn(chi, chi2_term(repro::to_f32(a[k]), repro::to_f32(t[k])));
+    sum = __fadd_rn(sum, repro::to_f32(s[k]));
   }
   chi = lanes_sum(chi);
   const float jf = static_cast<float>(j);
   const float mean = __fdiv_rn(lanes_sum(sum), jf);
   float var = 0.f;
   for (int64_t k = lane; k < j; k += 32) {
-    const float d = __fsub_rn(s[k], mean);
+    const float d = __fsub_rn(repro::to_f32(s[k]), mean);
     var = __fadd_rn(var, __fmul_rn(d, d));
   }
   return __fmul_rn(chi, __fdiv_rn(lanes_sum(var), jf));
 }
 
-template <bool kThreadRows>
-__global__ void __launch_bounds__(repro::kThreads) chi2_kernel(Args p) {
+template <bool kThreadRows, typename V>
+__global__ void __launch_bounds__(repro::kThreads) chi2_kernel(Args<V> p) {
   extern __shared__ float smem[];
   constexpr int T = kThreadRows ? kRows : kWarps;
   const int cap = static_cast<int>(p.m < T ? p.m : T);
@@ -183,9 +192,15 @@ __global__ void __launch_bounds__(repro::kThreads) chi2_kernel(Args p) {
     const int64_t base = r0 * p.j;
     for_my_elements(n, j, [&](int e, int r, int c) {
       const int at = r * stride + c;
-      cp_async4(staged + at, p.fp + base + e);
-      cp_async4(staged + cap * stride + at, p.ft + base + e);
-      cp_async4(staged + 2 * cap * stride + at, p.ss + base + e);
+      if constexpr (std::is_same_v<V, float>) {
+        cp_async4(staged + at, p.fp + base + e);
+        cp_async4(staged + cap * stride + at, p.ft + base + e);
+        cp_async4(staged + 2 * cap * stride + at, p.ss + base + e);
+      } else {
+        staged[at] = repro::to_f32(p.fp[base + e]);
+        staged[cap * stride + at] = repro::to_f32(p.ft[base + e]);
+        staged[2 * cap * stride + at] = repro::to_f32(p.ss[base + e]);
+      }
     });
     if (p.s > 0 && static_cast<int>(threadIdx.x) < rows)
       cp_async4(reinterpret_cast<float*>(ids) + threadIdx.x,
@@ -247,23 +262,23 @@ __global__ void __launch_bounds__(repro::kThreads) chi2_kernel(Args p) {
   cluster.sync();  // no block leaves while rank 0 still reads its partials
 }
 
-template <bool kThreadRows>
-int launch(const Args& p, int device, cudaStream_t stream) {
+template <bool kThreadRows, typename V>
+int launch(const Args<V>& p, int device, cudaStream_t stream) {
   constexpr int64_t T = kThreadRows ? kRows : kWarps;
   const int64_t smem = smem_bytes(p.m, p.j, p.s);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   static int64_t allowed[64];  // dynamic shared memory opted in to so far, per device
   if (smem > 48 * 1024 && smem > allowed[device]) {
     const cudaError_t rc = cudaFuncSetAttribute(
-        chi2_kernel<kThreadRows>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        chi2_kernel<kThreadRows, V>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (rc != cudaSuccess) return static_cast<int>(rc);
     allowed[device] = smem;
   }
   const int64_t tiles = (p.m + T - 1) / T;
   const int64_t blocks = p.s > 0 ? (tiles < kCluster ? (tiles > 0 ? tiles : 1) : kCluster) : tiles;
   if (blocks == 1 || p.s == 0) {  // no block reads another's partials: no cluster
-    chi2_kernel<kThreadRows><<<static_cast<unsigned>(blocks), repro::kThreads, static_cast<size_t>(smem),
-                               stream>>>(p);
+    chi2_kernel<kThreadRows, V><<<static_cast<unsigned>(blocks), repro::kThreads, static_cast<size_t>(smem),
+                                  stream>>>(p);
     return repro::launch_status();
   }
   cudaLaunchConfig_t cfg = {};
@@ -278,9 +293,22 @@ int launch(const Args& p, int device, cudaStream_t stream) {
   la[0].val.clusterDim.z = 1;
   cfg.attrs = la;
   cfg.numAttrs = 1;
-  const cudaError_t rc = cudaLaunchKernelEx(&cfg, chi2_kernel<kThreadRows>, p);
+  const cudaError_t rc = cudaLaunchKernelEx(&cfg, chi2_kernel<kThreadRows, V>, p);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   return repro::launch_status();
+}
+
+template <typename V>
+int chi2(const V* fp, const V* ft, const V* ss, const int* seg, float* out, int64_t m, int64_t j, int64_t s,
+         int device, void* stream) {
+  if (device < 0 || device >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  repro::use_device(device);
+  if (m < 0 || j < 0 || s < 0 || (m > 0 && s > 0 && seg == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (m + s == 0) return repro::launch_status();
+  const Args<V> p{fp, ft, ss, seg, out, m, j, s};
+  const auto st = static_cast<cudaStream_t>(stream);
+  return j <= kMaxThreadJ ? launch<true>(p, device, st) : launch<false>(p, device, st);
 }
 
 }  // namespace
@@ -289,12 +317,12 @@ int launch(const Args& p, int device, cudaStream_t stream) {
 // out[0 .. m + s): one launch, or none when there is nothing to write.
 REPRO_API int repro_chi2(const float* fp, const float* ft, const float* ss, const int* seg,
                          float* out, int64_t m, int64_t j, int64_t s, int device, void* stream) {
-  if (device < 0 || device >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-  repro::use_device(device);
-  if (m < 0 || j < 0 || s < 0 || (m > 0 && s > 0 && seg == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (m + s == 0) return repro::launch_status();
-  const Args p{fp, ft, ss, seg, out, m, j, s};
-  const auto st = static_cast<cudaStream_t>(stream);
-  return j <= kMaxThreadJ ? launch<true>(p, device, st) : launch<false>(p, device, st);
+  return chi2(fp, ft, ss, seg, out, m, j, s, device, stream);
+}
+
+// The same on bf16 rows (fp32 g and segment sums).
+REPRO_API int repro_chi2_bf16(const repro::bf16* fp, const repro::bf16* ft, const repro::bf16* ss,
+                              const int* seg, float* out, int64_t m, int64_t j, int64_t s, int device,
+                              void* stream) {
+  return chi2(fp, ft, ss, seg, out, m, j, s, device, stream);
 }

@@ -1,8 +1,10 @@
 // Shared helpers for the repro_torch kernels: fixed-order warp and block
-// reductions (deterministic for a given launch shape, no atomics) and the
-// error-return convention every C entry point follows.
+// reductions (deterministic for a given launch shape, no atomics), the
+// element conversions of the bf16 instantiations, and the error-return
+// convention every C entry point follows.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -11,6 +13,22 @@
 namespace repro {
 
 constexpr int kThreads = 256;
+
+using bf16 = __nv_bfloat16;
+
+// An input element as fp32: a bf16 value is exactly the fp32 value with the
+// same upper 16 bits, so the conversion loses nothing and everything after
+// the load is the fp32 kernel.
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
+// An fp32 result in an output's element type (round to nearest even for bf16).
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat16_rn(x); }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

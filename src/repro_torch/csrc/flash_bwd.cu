@@ -35,6 +35,13 @@
 // the same reason), and at E = 256, where a warp's dk and
 // dv accumulators would not both fit in registers, runs as two launches
 // (dk, then dv).
+//
+// bf16 q, k, v and do (repro_flash_dq_bf16, repro_flash_dkv_bf16): the same
+// kernels on tiles converted to fp32 as they load (flash_common.cuh), the
+// lse and D rows in fp32, dq, dk and dv in bf16, as the reference's kernels
+// (flash_attention_bwd.py:70-73, 107-110; the gradients in the inputs'
+// dtypes, :188, 215-216). flash_bwd_bf16.cu compiles them in a translation
+// unit of their own.
 #include <cooperative_groups.h>
 
 #include "flash_common.cuh"
@@ -45,8 +52,8 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-template <int E>
-__global__ void __launch_bounds__(kThreads, min_blocks(E)) flash_dq_kernel(Params p) {
+template <int E, typename T>
+__global__ void __launch_bounds__(kThreads, min_blocks(E)) flash_dq_kernel(Params<T> p) {
   constexpr int S = stride<E>(), BK = kStream, NE = E / 8, NK = BK / 8;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                        // kRows x S
@@ -58,8 +65,8 @@ __global__ void __launch_bounds__(kThreads, min_blocks(E)) flash_dq_kernel(Param
   const int64_t q0 = static_cast<int64_t>(gridDim.z - 1 - blockIdx.z) * kRows;
   const int64_t kvh = h / (p.H / p.KV);
   const int64_t bh = b * p.H + h;
-  const float* kg = p.k + (b * p.KV + kvh) * p.Sk * p.hd;
-  const float* vg = p.v + (b * p.KV + kvh) * p.Sk * p.dv;
+  const T* kg = p.k + (b * p.KV + kvh) * p.Sk * p.hd;
+  const T* vg = p.v + (b * p.KV + kvh) * p.Sk * p.dv;
   const int64_t nq = p.Sq - q0 < kRows ? p.Sq - q0 : kRows;
   const int r0 = warp * 16;
 
@@ -163,12 +170,12 @@ __global__ void __launch_bounds__(kThreads, min_blocks(E)) flash_dq_kernel(Param
   for (int j = 0; j < 2; ++j) {
     const int64_t row = q0 + r0 + g + j * 8;
     if (row >= p.Sq) continue;
-    float* out = p.o + (bh * p.Sq + row) * p.hd;
+    T* out = p.o + (bh * p.Sq + row) * p.hd;
 #pragma unroll
     for (int n = 0; n < NE; ++n) {
       const int col = n * 8 + 2 * t;
-      if (col < p.hd) out[col] = acc[n][2 * j] * p.scale;
-      if (col + 1 < p.hd) out[col + 1] = acc[n][2 * j + 1] * p.scale;
+      if (col < p.hd) out[col] = repro::from_f32<T>(acc[n][2 * j] * p.scale);
+      if (col + 1 < p.hd) out[col + 1] = repro::from_f32<T>(acc[n][2 * j + 1] * p.scale);
     }
   }
 }
@@ -194,8 +201,8 @@ constexpr int kDk = 1, kDv = 2;
 // Grid (KV * cluster, B, key tiles), clusters of (cluster, 1, 1) blocks.
 // Block rank c of the cluster of KV head kvh handles query heads
 // kvh * G + c * (G / cluster) + j for j < G / cluster.
-template <int E, int WHAT>
-__global__ void __launch_bounds__(kThreads, min_blocks(E)) flash_dkv_kernel(Params p) {
+template <int E, int WHAT, typename T>
+__global__ void __launch_bounds__(kThreads, min_blocks(E)) flash_dkv_kernel(Params<T> p) {
   constexpr int S = stride<E>(), BQ = kStream, NE = E / 8, NQ = BQ / 8;
   constexpr bool DK = WHAT & kDk, DV = WHAT & kDv;
   extern __shared__ __align__(16) float smem[];
@@ -354,8 +361,11 @@ __global__ void __launch_bounds__(kThreads, min_blocks(E)) flash_dkv_kernel(Para
     const int64_t key = k0 + idx / E;
     const int col = idx % E;
     if (key >= p.Sk) continue;
-    if (DK && col < p.hd) p.o[(bkv * p.Sk + key) * p.hd + col] = cluster_sum(cluster, part_k, idx) * p.scale;
-    if (DV && col < p.dv) p.lse_out[(bkv * p.Sk + key) * p.dv + col] = cluster_sum(cluster, part_v, idx);
+    if (DK && col < p.hd)
+      p.o[(bkv * p.Sk + key) * p.hd + col] = repro::from_f32<T>(cluster_sum(cluster, part_k, idx) * p.scale);
+    if (DV && col < p.dv)
+      static_cast<T*>(p.lse_out)[(bkv * p.Sk + key) * p.dv + col] =
+          repro::from_f32<T>(cluster_sum(cluster, part_v, idx));
   }
   cluster.sync();  // no block leaves while another still reads its partials
 }
@@ -378,9 +388,9 @@ int cluster_size(int64_t G) {
   return 1;
 }
 
-template <int E, int WHAT>
-int launch_dkv(Params p, size_t smem, dim3 grid, cudaStream_t stream) {
-  const cudaError_t attr = allow_smem(flash_dkv_kernel<E, WHAT>, smem);
+template <int E, int WHAT, typename T>
+int launch_dkv(Params<T> p, size_t smem, dim3 grid, cudaStream_t stream) {
+  const cudaError_t attr = allow_smem(flash_dkv_kernel<E, WHAT, T>, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
@@ -394,48 +404,45 @@ int launch_dkv(Params p, size_t smem, dim3 grid, cudaStream_t stream) {
   la[0].val.clusterDim.z = 1;
   cfg.attrs = la;
   cfg.numAttrs = 1;
-  const cudaError_t rc = cudaLaunchKernelEx(&cfg, flash_dkv_kernel<E, WHAT>, p);
+  const cudaError_t rc = cudaLaunchKernelEx(&cfg, flash_dkv_kernel<E, WHAT, T>, p);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   return repro::launch_status();
 }
 
-}  // namespace
-
-REPRO_API int repro_flash_dq(const float* q, const float* k, const float* v, const float* dout,
-                             const float* lse, const float* dsum, float* dq, int64_t B, int64_t H,
-                             int64_t KV, int64_t Sq, int64_t Sk, int64_t hd, int64_t dv, float scale,
-                             int causal, int64_t window, float softcap, int64_t q_pos0, int device,
-                             void* stream) {
+template <typename T>
+int flash_dq(const T* q, const T* k, const T* v, const T* dout, const float* lse, const float* dsum, T* dq,
+             int64_t B, int64_t H, int64_t KV, int64_t Sq, int64_t Sk, int64_t hd, int64_t dv, float scale,
+             int causal, int64_t window, float softcap, int64_t q_pos0, int device, void* stream) {
   repro::use_device(device);
   if (B <= 0 || H <= 0 || Sq <= 0) return repro::launch_status();
   const int vec4 = hd % 4 == 0 && dv % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
                    aligned16(dout);
-  Params p{q, k, v, dout, lse, dsum, dq, nullptr, B, H, KV, Sq, Sk, hd, dv, q_pos0, window,
-           scale, softcap, causal, vec4, 2, 1};
+  Params<T> p{q, k, v, dout, lse, dsum, dq, nullptr, B, H, KV, Sq, Sk, hd, dv, q_pos0, window,
+              scale, softcap, causal, vec4, 2, 1};
   return by_bucket(hd, dv, [&](auto e) {
     constexpr int E = decltype(e)::value;
     p.stages = dq_smem<E>(2) <= kMaxSmem ? 2 : 1;
     const size_t smem = dq_smem<E>(p.stages);
-    const cudaError_t attr = allow_smem(flash_dq_kernel<E>, smem);
+    const cudaError_t attr = allow_smem(flash_dq_kernel<E, T>, smem);
     if (attr != cudaSuccess) return static_cast<int>(attr);
     const dim3 grid(static_cast<unsigned>(H), static_cast<unsigned>(B),
                     static_cast<unsigned>((Sq + kRows - 1) / kRows));
-    flash_dq_kernel<E><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+    flash_dq_kernel<E, T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
     return repro::launch_status();
   });
 }
 
-REPRO_API int repro_flash_dkv(const float* q, const float* k, const float* v, const float* dout,
-                              const float* lse, const float* dsum, float* dk, float* dv, int64_t B,
-                              int64_t H, int64_t KV, int64_t Sq, int64_t Sk, int64_t hd, int64_t dvd,
-                              float scale, int causal, int64_t window, float softcap, int64_t q_pos0,
-                              int device, void* stream) {
+template <typename T>
+int flash_dkv(const T* q, const T* k, const T* v, const T* dout, const float* lse, const float* dsum, T* dk,
+              T* dv, int64_t B, int64_t H, int64_t KV, int64_t Sq, int64_t Sk, int64_t hd, int64_t dvd,
+              float scale, int causal, int64_t window, float softcap, int64_t q_pos0, int device,
+              void* stream) {
   repro::use_device(device);
   if (B <= 0 || KV <= 0 || Sk <= 0) return repro::launch_status();
   const int vec4 = hd % 4 == 0 && dvd % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
                    aligned16(dout);
-  Params p{q, k, v, dout, lse, dsum, dk, dv, B, H, KV, Sq, Sk, hd, dvd, q_pos0, window,
-           scale, softcap, causal, vec4, 2, cluster_size(H / KV)};
+  Params<T> p{q, k, v, dout, lse, dsum, dk, dv, B, H, KV, Sq, Sk, hd, dvd, q_pos0, window,
+              scale, softcap, causal, vec4, 2, cluster_size(H / KV)};
   const auto st = static_cast<cudaStream_t>(stream);
   return by_bucket(hd, dvd, [&](auto e) {
     constexpr int E = decltype(e)::value;
@@ -451,3 +458,43 @@ REPRO_API int repro_flash_dkv(const float* q, const float* k, const float* v, co
     }
   });
 }
+
+}  // namespace
+
+#ifndef REPRO_FLASH_BF16
+REPRO_API int repro_flash_dq(const float* q, const float* k, const float* v, const float* dout,
+                             const float* lse, const float* dsum, float* dq, int64_t B, int64_t H,
+                             int64_t KV, int64_t Sq, int64_t Sk, int64_t hd, int64_t dv, float scale,
+                             int causal, int64_t window, float softcap, int64_t q_pos0, int device,
+                             void* stream) {
+  return flash_dq(q, k, v, dout, lse, dsum, dq, B, H, KV, Sq, Sk, hd, dv, scale, causal, window, softcap,
+                  q_pos0, device, stream);
+}
+
+REPRO_API int repro_flash_dkv(const float* q, const float* k, const float* v, const float* dout,
+                              const float* lse, const float* dsum, float* dk, float* dv, int64_t B,
+                              int64_t H, int64_t KV, int64_t Sq, int64_t Sk, int64_t hd, int64_t dvd,
+                              float scale, int causal, int64_t window, float softcap, int64_t q_pos0,
+                              int device, void* stream) {
+  return flash_dkv(q, k, v, dout, lse, dsum, dk, dv, B, H, KV, Sq, Sk, hd, dvd, scale, causal, window, softcap,
+                   q_pos0, device, stream);
+}
+#else
+REPRO_API int repro_flash_dq_bf16(const repro::bf16* q, const repro::bf16* k, const repro::bf16* v,
+                                  const repro::bf16* dout, const float* lse, const float* dsum, repro::bf16* dq,
+                                  int64_t B, int64_t H, int64_t KV, int64_t Sq, int64_t Sk, int64_t hd,
+                                  int64_t dv, float scale, int causal, int64_t window, float softcap,
+                                  int64_t q_pos0, int device, void* stream) {
+  return flash_dq(q, k, v, dout, lse, dsum, dq, B, H, KV, Sq, Sk, hd, dv, scale, causal, window, softcap,
+                  q_pos0, device, stream);
+}
+
+REPRO_API int repro_flash_dkv_bf16(const repro::bf16* q, const repro::bf16* k, const repro::bf16* v,
+                                   const repro::bf16* dout, const float* lse, const float* dsum,
+                                   repro::bf16* dk, repro::bf16* dv, int64_t B, int64_t H, int64_t KV,
+                                   int64_t Sq, int64_t Sk, int64_t hd, int64_t dvd, float scale, int causal,
+                                   int64_t window, float softcap, int64_t q_pos0, int device, void* stream) {
+  return flash_dkv(q, k, v, dout, lse, dsum, dk, dv, B, H, KV, Sq, Sk, hd, dvd, scale, causal, window, softcap,
+                   q_pos0, device, stream);
+}
+#endif

@@ -14,6 +14,15 @@
 // halve the score fragments' registers and the streamed tiles' shared
 // memory, which lets more blocks share an SM; they measured faster at every
 // shape tried (PERF.md, PR 13).
+//
+// The kernels are also templated on the element type T of q, k, v, do and
+// the outputs o, dq, dk, dv: fp32, or bf16 (the reference's kernel bodies
+// cast bf16 inputs to fp32, flash_attention.py:46-48 and
+// flash_attention_bwd.py:70-73, 107-110, and write their outputs in the
+// inputs' dtypes). A bf16 tile is loaded with plain loads and converted to
+// fp32 into the same shared-memory tile, so everything after the load is
+// the fp32 kernel; outputs round to bf16 on the store. The log-sum-exp and
+// D rows stay fp32.
 #pragma once
 
 #include <type_traits>
@@ -43,15 +52,16 @@ __host__ __device__ constexpr int min_blocks(int e) { return e <= 64 ? 3 : 1; }
 template <int E>
 __host__ __device__ constexpr int stride() { return E + 4; }
 
+template <typename T>
 struct Params {
-  const float* q;
-  const float* k;
-  const float* v;
-  const float* dout;  // backward only
+  const T* q;
+  const T* k;
+  const T* v;
+  const T* dout;      // backward only
   const float* lse;   // backward only
   const float* dsum;  // backward only: rowsum(do * o)
-  float* o;           // forward: o; dq kernel: dq; dkv kernel: dk
-  float* lse_out;     // forward: lse; dkv kernel: dv
+  T* o;               // forward: o; dq kernel: dq; dkv kernel: dk
+  void* lse_out;      // forward: lse (fp32); dkv kernel: dv (T)
   int64_t B, H, KV, Sq, Sk, hd, dv, q_pos0, window;  // window < 0: none
   float scale, softcap;                              // softcap <= 0: none
   int causal;
@@ -70,7 +80,8 @@ inline bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr
 
 // The keys query position qpos may see: [*lo, *hi], clamped to [0, Sk - 1]
 // (empty when *lo > *hi). A row's mask is then two int32 compares per key.
-__device__ __forceinline__ void key_range(const Params& p, int64_t qpos, int* lo, int* hi) {
+template <typename P>
+__device__ __forceinline__ void key_range(const P& p, int64_t qpos, int* lo, int* hi) {
   int64_t a = 0, z = p.Sk - 1;
   if (p.causal && qpos < z) z = qpos;
   if (p.window >= 0 && qpos - p.window + 1 > a) a = qpos - p.window + 1;
@@ -80,7 +91,8 @@ __device__ __forceinline__ void key_range(const Params& p, int64_t qpos, int* lo
 
 // The query rows (not positions) that may see key position kpos: [*lo, *hi],
 // clamped to [0, Sq - 1]; empty for a key at or past Sk.
-__device__ __forceinline__ void query_range(const Params& p, int64_t kpos, int* lo, int* hi) {
+template <typename P>
+__device__ __forceinline__ void query_range(const P& p, int64_t kpos, int* lo, int* hi) {
   int64_t a = 0, z = p.Sq - 1;
   if (p.causal && kpos - p.q_pos0 > a) a = kpos - p.q_pos0;
   if (p.window >= 0 && kpos + p.window - 1 - p.q_pos0 < z) z = kpos + p.window - 1 - p.q_pos0;
@@ -90,7 +102,8 @@ __device__ __forceinline__ void query_range(const Params& p, int64_t kpos, int* 
 }
 
 // Softcapped logit; writes d(cap * tanh(x / cap))/dx = 1 - t^2 to chain.
-__device__ __forceinline__ float logit(const Params& p, float dot, float* chain) {
+template <typename P>
+__device__ __forceinline__ float logit(const P& p, float dot, float* chain) {
   float x = dot * p.scale;
   *chain = 1.f;
   if (p.softcap > 0.f) {
@@ -104,7 +117,8 @@ __device__ __forceinline__ float logit(const Params& p, float dot, float* chain)
 // Key tiles [*begin, *end) of `tile` rows that hold an allowed key for some
 // query position in [qlo, qhi]; tiles outside are masked for every row and
 // skipped.
-__device__ __forceinline__ void key_tiles(const Params& p, int tile, int64_t qlo, int64_t qhi,
+template <typename P>
+__device__ __forceinline__ void key_tiles(const P& p, int tile, int64_t qlo, int64_t qhi,
                                           int64_t* begin, int64_t* end) {
   int64_t kmax = p.Sk;  // exclusive
   if (p.causal && qhi + 1 < kmax) kmax = qhi + 1;
@@ -116,7 +130,8 @@ __device__ __forceinline__ void key_tiles(const Params& p, int tile, int64_t qlo
 
 // Query tiles [*begin, *end) (row indices, not positions) of `tile` rows
 // that hold a row allowed to see some key in [klo, khi].
-__device__ __forceinline__ void query_tiles(const Params& p, int tile, int64_t klo, int64_t khi,
+template <typename P>
+__device__ __forceinline__ void query_tiles(const P& p, int tile, int64_t klo, int64_t khi,
                                             int64_t* begin, int64_t* end) {
   int64_t lo = 0, hi = p.Sq;  // rows [lo, hi)
   if (p.causal && klo - p.q_pos0 > lo) lo = klo - p.q_pos0;
@@ -128,6 +143,19 @@ __device__ __forceinline__ void query_tiles(const Params& p, int tile, int64_t k
 // Start the copy of rows [row0, row0 + R) of a (rows, width) matrix into a
 // shared R x stride<E>() tile with cp.async; rows at or past `rows` and
 // columns at or past `width` are written as zeros. The caller commits.
+// A bf16 matrix is loaded and converted at once (the caller's wait and
+// barrier then find it in place).
+template <int E, int R>
+__device__ __forceinline__ void load_tile(float* __restrict__ dst, const bf16* __restrict__ src,
+                                          int64_t row0, int64_t rows, int64_t width, bool) {
+  constexpr int S = stride<E>();
+  for (int i = threadIdx.x; i < R * E; i += kThreads) {
+    const int r = i / E, c = i % E;
+    const bool ok = row0 + r < rows && c < width;
+    dst[r * S + c] = ok ? to_f32(src[(row0 + r) * width + c]) : 0.f;
+  }
+}
+
 template <int E, int R>
 __device__ __forceinline__ void load_tile(float* __restrict__ dst, const float* __restrict__ src,
                                           int64_t row0, int64_t rows, int64_t width, bool vec4) {

@@ -20,6 +20,11 @@
 // chunk partials in chunk order (N <= 4096: an ordinary launch that stores
 // the partials as the outputs). No atomics: the
 // bits depend only on the two rows and N (l1_rows.cuh), at any alignment.
+//
+// bf16 rows (repro_l1_rows_bf16): the same kernel instantiated on bf16
+// loads (l1_rows.cuh), the reference's cast of its inputs to fp32
+// (l1_distance.py:30-31, l1_pairwise.py:31-32); fp32 distances, the fp32
+// kernel's bits on the rows cast to fp32. Half the bytes a row.
 #include <cooperative_groups.h>
 
 #include "l1_rows.cuh"
@@ -32,9 +37,9 @@ namespace {
 // directly: no scratch, no grid sync, an ordinary launch of one block per
 // output. The bits are the same, since step 4 of a single partial p is
 // p + 0 + ... + 0 = p.
-template <int TM, int TC, bool kOneChunk>
+template <int TM, int TC, bool kOneChunk, typename T>
 __global__ void __launch_bounds__(repro::kThreads)
-l1_rows_kernel(const float* __restrict__ x, const float* __restrict__ c, float* __restrict__ out,
+l1_rows_kernel(const T* __restrict__ x, const T* __restrict__ c, float* __restrict__ out,
                float* scratch, int64_t m_rows, int64_t c_rows, int64_t n, int64_t chunks) {
   const int64_t mc = m_rows * c_rows;
   const int64_t c_tiles = (c_rows + TC - 1) / TC;
@@ -58,22 +63,41 @@ l1_rows_kernel(const float* __restrict__ x, const float* __restrict__ c, float* 
 }
 
 // Past one chunk: a cooperative launch of TM x TC tiles.
-template <int TM>
-int launch_chunked(const float* x, const float* c, float* out, float* scratch, int64_t m,
+template <int TM, typename T>
+int launch_chunked(const T* x, const T* c, float* out, float* scratch, int64_t m,
                    int64_t c_rows, int64_t n, int device, cudaStream_t stream) {
   constexpr int TC = repro::kTileC;
   static int coresident[64];
   int64_t chunks = repro::l1_chunks(n);
   const int64_t items = chunks * ((c_rows + TC - 1) / TC) * ((m + TM - 1) / TM);
-  const int cap = repro::coresident_blocks(l1_rows_kernel<TM, TC, false>, device, coresident, 0);
+  const int cap = repro::coresident_blocks(l1_rows_kernel<TM, TC, false, T>, device, coresident, 0);
   const int64_t outs_blocks = (m * c_rows + repro::kWarps - 1) / repro::kWarps;
   int64_t blocks = items > outs_blocks ? items : outs_blocks;
   if (blocks > cap) blocks = cap;
   void* args[] = {&x, &c, &out, &scratch, &m, &c_rows, &n, &chunks};
   const cudaError_t rc = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(l1_rows_kernel<TM, TC, false>), dim3(static_cast<unsigned>(blocks)),
+      reinterpret_cast<const void*>(l1_rows_kernel<TM, TC, false, T>), dim3(static_cast<unsigned>(blocks)),
       dim3(repro::kThreads), args, 0, stream);
   return rc != cudaSuccess ? static_cast<int>(rc) : repro::launch_status();
+}
+
+template <typename T>
+int l1_rows(const T* x, const T* c, float* out, float* scratch, int64_t m, int64_t c_rows, int64_t n,
+            int64_t chunks, int device, void* stream) {
+  if (device < 0 || device >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  repro::use_device(device);
+  if (m <= 0 || c_rows <= 0) return repro::launch_status();
+  if (n <= 0 || chunks != repro::l1_chunks(n)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (chunks == 1) {
+    l1_rows_kernel<1, 1, true, T><<<static_cast<unsigned>(m * c_rows), repro::kThreads, 0, s>>>(
+        x, c, out, scratch, m, c_rows, n, chunks);
+    return repro::launch_status();
+  }
+  // Four x rows per block share each c row's loads where rows are wide and
+  // blocks plenty; one where latency decides. The tile does not change the bits.
+  return m >= 4 && chunks >= 8 ? launch_chunked<4, T>(x, c, out, scratch, m, c_rows, n, device, s)
+                               : launch_chunked<1, T>(x, c, out, scratch, m, c_rows, n, device, s);
 }
 
 }  // namespace
@@ -83,18 +107,12 @@ int launch_chunked(const float* x, const float* c, float* out, float* scratch, i
 REPRO_API int repro_l1_rows(const float* x, const float* c, float* out, float* scratch,
                             int64_t m, int64_t c_rows, int64_t n, int64_t chunks, int device,
                             void* stream) {
-  if (device < 0 || device >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-  repro::use_device(device);
-  if (m <= 0 || c_rows <= 0) return repro::launch_status();
-  if (n <= 0 || chunks != repro::l1_chunks(n)) return static_cast<int>(cudaErrorInvalidValue);
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (chunks == 1) {
-    l1_rows_kernel<1, 1, true><<<static_cast<unsigned>(m * c_rows), repro::kThreads, 0, s>>>(
-        x, c, out, scratch, m, c_rows, n, chunks);
-    return repro::launch_status();
-  }
-  // Four x rows per block share each c row's loads where rows are wide and
-  // blocks plenty; one where latency decides. The tile does not change the bits.
-  return m >= 4 && chunks >= 8 ? launch_chunked<4>(x, c, out, scratch, m, c_rows, n, device, s)
-                               : launch_chunked<1>(x, c, out, scratch, m, c_rows, n, device, s);
+  return l1_rows(x, c, out, scratch, m, c_rows, n, chunks, device, stream);
+}
+
+// The same on bf16 rows (fp32 distances).
+REPRO_API int repro_l1_rows_bf16(const repro::bf16* x, const repro::bf16* c, float* out, float* scratch,
+                                 int64_t m, int64_t c_rows, int64_t n, int64_t chunks, int device,
+                                 void* stream) {
+  return l1_rows(x, c, out, scratch, m, c_rows, n, chunks, device, stream);
 }

@@ -18,6 +18,12 @@
 //      chunks l, l + 32, ... in chunk order, then warp_sum.
 //
 // tests/test_torch_l1_order.py models this order in numpy.
+//
+// bf16 rows (the bf16 instantiations of l1.cu and assign_lerp.cu) take the
+// same four-element groups, loaded as 8 bytes where the row is 8-byte
+// aligned, else as two 4-byte or four 2-byte loads, and converted to fp32
+// on load: the sums are then the fp32 kernel's on the rows cast to fp32,
+// bit for bit, in the same order.
 #pragma once
 
 #include "common.cuh"
@@ -35,6 +41,13 @@ inline int64_t l1_chunks(int64_t n) { return (n + kChunk - 1) / kChunk; }
 __device__ __forceinline__ int row_align(const float* p) {
   const uintptr_t a = reinterpret_cast<uintptr_t>(p);
   return (a & 15u) == 0 ? 16 : ((a & 7u) == 0 ? 8 : 4);
+}
+
+// 8, 4 or 2: the widest load a bf16 row at this address takes (four values
+// in 8 bytes).
+__device__ __forceinline__ int row_align(const bf16* p) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  return (a & 7u) == 0 ? 8 : ((a & 3u) == 0 ? 4 : 2);
 }
 
 // Elements g .. g+3 of a row (g % 4 == 0), 0 past n, whatever the alignment.
@@ -56,6 +69,36 @@ __device__ __forceinline__ float4 load4(const float* __restrict__ row, int64_t g
   return v;
 }
 
+// The two bf16 values of a 4-byte word as fp32 (element g in the low half).
+__device__ __forceinline__ float2 bf16x2_to_f32(uint32_t w) {
+  return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
+}
+
+// Elements g .. g+3 of a bf16 row (g % 4 == 0) as fp32, 0 past n.
+__device__ __forceinline__ float4 load4(const bf16* __restrict__ row, int64_t g, int64_t n, int align) {
+  if (g + 4 <= n) {
+    if (align >= 4) {
+      uint32_t lo, hi;
+      if (align == 8) {
+        const uint2 w = *reinterpret_cast<const uint2*>(row + g);
+        lo = w.x;
+        hi = w.y;
+      } else {
+        lo = *reinterpret_cast<const uint32_t*>(row + g);
+        hi = *reinterpret_cast<const uint32_t*>(row + g + 2);
+      }
+      const float2 a = bf16x2_to_f32(lo), b = bf16x2_to_f32(hi);
+      return make_float4(a.x, a.y, b.x, b.y);
+    }
+    return make_float4(to_f32(row[g]), to_f32(row[g + 1]), to_f32(row[g + 2]), to_f32(row[g + 3]));
+  }
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (g < n) v.x = to_f32(row[g]);
+  if (g + 1 < n) v.y = to_f32(row[g + 1]);
+  if (g + 2 < n) v.z = to_f32(row[g + 2]);
+  return v;
+}
+
 __device__ __forceinline__ float add_abs4(float acc, float4 a, float4 b) {
   acc += fabsf(a.x - b.x);
   acc += fabsf(a.y - b.y);
@@ -72,13 +115,13 @@ __device__ __forceinline__ float warp_tree(const float* part) {
 // Rows first .. first + R - 1 of a (rows, n) matrix (a missing row repeats
 // the last one): the four-element groups thread threadIdx.x owns in the
 // chunk that starts at element g0 - 4 threadIdx.x.
-template <int R>
-__device__ __forceinline__ void load_rows(const float* __restrict__ base, int64_t first,
+template <int R, typename T>
+__device__ __forceinline__ void load_rows(const T* __restrict__ base, int64_t first,
                                           int64_t rows, int64_t n, int64_t g0,
                                           float4 (&v)[R][kSteps]) {
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    const float* p = base + (first + r < rows ? first + r : rows - 1) * n;
+    const T* p = base + (first + r < rows ? first + r : rows - 1) * n;
     const int al = row_align(p);
 #pragma unroll
     for (int j = 0; j < kSteps; ++j) v[r][j] = load4(p, g0 + 4 * kThreads * j, n, al);
@@ -129,9 +172,9 @@ __device__ __forceinline__ void store_partials(const float (&part)[kWarps][TM * 
 // all its rows' loads before the first sum (latency decides there); four x
 // rows take the c rows one by one (registers, so two blocks fit an SM).
 // Every thread of the block must call it.
-template <int TM, int TC>
-__device__ __forceinline__ void chunk_partials(const float* __restrict__ x, int64_t m_rows,
-                                               const float* __restrict__ c, int64_t c_rows,
+template <int TM, int TC, typename T>
+__device__ __forceinline__ void chunk_partials(const T* __restrict__ x, int64_t m_rows,
+                                               const T* __restrict__ c, int64_t c_rows,
                                                int64_t n, int64_t k, int64_t m0, int64_t c0,
                                                float* dst, int64_t ld) {
   __shared__ float part[kWarps][TM * TC];

@@ -50,6 +50,12 @@
 // (a plane row of odd index is only 8-byte aligned at N % 4 = 2) needs no
 // path of its own. block_maxima is a module array, so two merges must not
 // run at once on one device; launches on one stream never do.
+//
+// bf16 rows (repro_merge_attention_bf16): the same kernel on bf16 loads,
+// each converted to fp32 (the reference's casts, merge_attention.py:36-44),
+// the merged value rounded to bf16 on the store (its output in
+// v_main.dtype, :82): the fp32 kernel's result on the rows cast to fp32,
+// rounded once to nearest even.
 #include <cooperative_groups.h>
 #include <math.h>
 
@@ -83,10 +89,9 @@ __device__ __forceinline__ float blend(float m, float a, float p, float denom) {
 
 // Thread t of block b takes elements b T E + j T + t, j < E, then the same a
 // grid's T E gridDim.x further on, while below n.
-template <int T, int E>
+template <int T, int E, typename V>
 __global__ void __launch_bounds__(T)
-merge_kernel(const float* vm, const float* __restrict__ va, const float* __restrict__ vt,
-             int64_t n, float* out) {
+merge_kernel(const V* vm, const V* __restrict__ va, const V* __restrict__ vt, int64_t n, V* out) {
   __shared__ float part[T / 32];
   const int lane = threadIdx.x & 31;
   const int64_t first = static_cast<int64_t>(blockIdx.x) * (T * E) + threadIdx.x;
@@ -97,16 +102,16 @@ merge_kernel(const float* vm, const float* __restrict__ va, const float* __restr
   for (int j = 0; j < E; ++j) {
     const int64_t k = first + j * T;
     const bool in = k < n;
-    m[j] = in ? vm[k] : 0.f;
-    a[j] = in ? va[k] : 0.f;
-    p[j] = in ? agreement(m[j], a[j], vt[k]) : -INFINITY;
+    m[j] = in ? repro::to_f32(vm[k]) : 0.f;
+    a[j] = in ? repro::to_f32(va[k]) : 0.f;
+    p[j] = in ? agreement(m[j], a[j], repro::to_f32(vt[k])) : -INFINITY;
     mx = nan_max(mx, p[j]);
   }
   for (int64_t base = first + stride; base < n; base += stride) {
 #pragma unroll
     for (int j = 0; j < E; ++j) {
       const int64_t k = base + j * T;
-      if (k < n) mx = nan_max(mx, agreement(vm[k], va[k], vt[k]));
+      if (k < n) mx = nan_max(mx, agreement(repro::to_f32(vm[k]), repro::to_f32(va[k]), repro::to_f32(vt[k])));
     }
   }
   mx = warp_nan_max(mx);
@@ -124,24 +129,23 @@ merge_kernel(const float* vm, const float* __restrict__ va, const float* __restr
 #pragma unroll
   for (int j = 0; j < E; ++j) {
     const int64_t k = first + j * T;
-    if (k < n) out[k] = blend(m[j], a[j], p[j], denom);
+    if (k < n) out[k] = repro::from_f32<V>(blend(m[j], a[j], p[j], denom));
   }
   for (int64_t base = first + stride; base < n; base += stride) {
 #pragma unroll
     for (int j = 0; j < E; ++j) {
       const int64_t k = base + j * T;
       if (k < n) {
-        const float mk = vm[k], ak = va[k];
-        out[k] = blend(mk, ak, agreement(mk, ak, vt[k]), denom);
+        const float mk = repro::to_f32(vm[k]), ak = repro::to_f32(va[k]);
+        out[k] = repro::from_f32<V>(blend(mk, ak, agreement(mk, ak, repro::to_f32(vt[k])), denom));
       }
     }
   }
 }
 
-template <int T, int E>
-int launch(const float* vm, const float* va, const float* vt, int64_t n, float* out, int64_t blocks,
-           cudaStream_t stream) {
-  const auto kernel = merge_kernel<T, E>;
+template <int T, int E, typename V>
+int launch(const V* vm, const V* va, const V* vt, int64_t n, V* out, int64_t blocks, cudaStream_t stream) {
+  const auto kernel = merge_kernel<T, E, V>;
   if (blocks == 1) {  // no other block to wait for: an ordinary launch
     kernel<<<1, T, 0, stream>>>(vm, va, vt, n, out);
     return repro::launch_status();
@@ -154,12 +158,13 @@ int launch(const float* vm, const float* va, const float* vt, int64_t n, float* 
   return rc != cudaSuccess ? static_cast<int>(rc) : last;
 }
 
-// Blocks of merge_kernel<512, 12> the card holds at once (cached per device).
+// Blocks of merge_kernel<512, 12, V> the card holds at once (cached per device).
+template <typename V>
 cudaError_t coresident(int device, int64_t* blocks) {
   static int64_t cached[64];
   if (cached[device] == 0) {
     int per_sm = 0, sms = 0;
-    cudaError_t rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, merge_kernel<512, 12>, 512, 0);
+    cudaError_t rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, merge_kernel<512, 12, V>, 512, 0);
     if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (rc != cudaSuccess) return rc;
     const int64_t all = static_cast<int64_t>(per_sm) * sms;
@@ -171,12 +176,8 @@ cudaError_t coresident(int device, int64_t* blocks) {
 
 int64_t blocks_for(int64_t n, int64_t per_block) { return (n + per_block - 1) / per_block; }
 
-}  // namespace
-
-// The merged center of three length-n rows into out, in one launch. out may
-// be vm itself; no other input may overlap it.
-REPRO_API int repro_merge_attention(const float* vm, const float* va, const float* vt, int64_t n,
-                                    float* out, int device, void* stream) {
+template <typename V>
+int merge(const V* vm, const V* va, const V* vt, int64_t n, V* out, int device, void* stream) {
   if (device < 0 || device >= 64) return static_cast<int>(cudaErrorInvalidDevice);
   repro::use_device(device);
   if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -187,8 +188,23 @@ REPRO_API int repro_merge_attention(const float* vm, const float* va, const floa
   if (n <= 128 * 256 * 4) return launch<256, 4>(vm, va, vt, n, out, blocks_for(n, 256 * 4), s);
   if (n <= 128 * 512 * 8) return launch<512, 8>(vm, va, vt, n, out, blocks_for(n, 512 * 8), s);
   int64_t cap = 0;
-  const cudaError_t rc = coresident(device, &cap);
+  const cudaError_t rc = coresident<V>(device, &cap);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   const int64_t blocks = blocks_for(n, 512 * 12);
   return launch<512, 12>(vm, va, vt, n, out, blocks < cap ? blocks : cap, s);
+}
+
+}  // namespace
+
+// The merged center of three length-n rows into out, in one launch. out may
+// be vm itself; no other input may overlap it.
+REPRO_API int repro_merge_attention(const float* vm, const float* va, const float* vt, int64_t n,
+                                    float* out, int device, void* stream) {
+  return merge(vm, va, vt, n, out, device, stream);
+}
+
+// The same on bf16 rows (a bf16 merged row).
+REPRO_API int repro_merge_attention_bf16(const repro::bf16* vm, const repro::bf16* va, const repro::bf16* vt,
+                                         int64_t n, repro::bf16* out, int device, void* stream) {
+  return merge(vm, va, vt, n, out, device, stream);
 }

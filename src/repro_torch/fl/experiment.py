@@ -178,6 +178,7 @@ def run_experiment(
     guard: Any = None,
     plane_mesh=None,
     fleet_mesh=None,
+    client_backend: str = "fleet",
     **strategy_kw,
 ):
     """Returns (task, clients, strategy, report). A synchronous strategy
@@ -193,7 +194,8 @@ def run_experiment(
     :class:`~repro_torch.fl.guard.GuardConfig` (the asynchronous loops
     only, as in the reference). ``plane_mesh``, ``fleet_mesh``: see the
     module docstring; ``mesh_min_rows`` rides ``strategy_kw`` to the
-    EchoPFL server."""
+    EchoPFL server. ``client_backend``: ``"fleet"`` (batched) or ``"loop"``
+    (one client at a time, the reference's ``client_backend="loop"``)."""
     dev = resolve_device(device)
     plane_mesh, fleet_mesh = resolve_mesh(plane_mesh, dev), resolve_mesh(fleet_mesh, dev)
     task, clients, init_params = build_clients(
@@ -211,6 +213,7 @@ def run_experiment(
         network=network or NetworkModel(),
         eval_interval=eval_interval, target_acc=target_acc, seed=seed, coalesce_window=coalesce_window,
         uplink=uplink, churn=churn, faults=faults, guard=guard, fleet_mesh=fleet_mesh,
+        client_backend=client_backend,
     )
     report = sim.run(max_time=max_time, rounds=rounds, max_uploads=max_uploads)
     report.extra["task"] = task_name

@@ -399,13 +399,15 @@ def run_lm_experiment(
     uplink=None,
     plane_mesh=None,
     fleet_mesh=None,
+    client_backend: str = "fleet",
     **strategy_kw,
 ):
     """End-to-end LM personalization run: a synchronous strategy runs
     ``rounds`` round barriers, an asynchronous one the event loop, per event
     or with ``coalesce_window`` > 0 coalesced; ``uplink`` compresses the
     uploaded deltas, ``plane_mesh`` and ``fleet_mesh`` shard the server's
-    plane and the fleet (``mesh_min_rows`` rides ``strategy_kw``), as in
+    plane and the fleet (``mesh_min_rows`` rides ``strategy_kw``), and
+    ``client_backend`` picks the batched fleet or the per-client loop, as in
     ``run_experiment``. Returns (task, clients, strategy, report) like
     :func:`repro_torch.fl.experiment.run_experiment`."""
     from repro_torch.fl.experiment import build_strategy
@@ -424,7 +426,8 @@ def run_lm_experiment(
     strategy = build_strategy(strategy_name, init_delta, clients, seed=seed, rnn_params=rnn_params,
                               device=dev, plane_mesh=plane_mesh, **strategy_kw)
     sim = Simulator(clients, strategy, network=network or NetworkModel(), eval_interval=eval_interval,
-                    seed=seed, coalesce_window=coalesce_window, uplink=uplink, fleet_mesh=fleet_mesh)
+                    seed=seed, coalesce_window=coalesce_window, uplink=uplink, fleet_mesh=fleet_mesh,
+                    client_backend=client_backend)
     report = sim.run(max_time=max_time, rounds=rounds)
     report.extra["task"] = "lm"
     report.extra["latent_clusters"] = {c.client_id: c.data.latent_cluster for c in clients}

@@ -8,7 +8,11 @@ its periodic ticks) run on an event heap, one event at a time or, with a
 coalescing window, one window of events at a time; synchronous ones
 (FedAvg, Oort, ClusterFL with per-cluster barriers, Standalone) run round
 barriers. The client side runs on the batched
-:class:`~repro_torch.fl.fleet.ClientFleet`. With ``uplink=`` the uploads
+:class:`~repro_torch.fl.fleet.ClientFleet` (``client_backend="fleet"``, the
+default) or, with ``client_backend="loop"``, one client at a time through
+:class:`~repro_torch.core.client.SimClient` (``local_train``,
+``evaluate``; the strategy's own ``feedback_fn`` probes), as the
+reference's loop backend does. With ``uplink=`` the uploads
 are compressed (:mod:`repro_torch.fl.uplink`): the server ingests each
 upload's reconstruction and the network bills its payload's exact size,
 while the client keeps its own trained model.
@@ -125,8 +129,12 @@ class Simulator:
         faults: Any = None,
         guard: Any = None,
         fleet_mesh=None,
+        client_backend: str = "fleet",
     ):
         self.clients = {c.client_id: c for c in clients}
+        self.client_backend = str(client_backend).lower()
+        if self.client_backend not in ("loop", "fleet"):
+            raise ValueError(f"client backend must be loop|fleet, got {self.client_backend}")
         self.fleet_mesh = fleet_mesh  # the client fleet's PlaneMesh (None: one device)
         self.strategy = strategy
         self.net = network or NetworkModel()
@@ -176,14 +184,17 @@ class Simulator:
 
     # -------------------------------------------------------- fleet engine
     def _ensure_fleet(self, template: PyTree) -> None:
-        """Build the batched client engine once the model structure is
-        known, and the uplink codec when the run compresses (a strategy that
-        takes it adopts it); hand the strategy its batched feedback probe
-        (replacing a hook a previous simulator's fleet installed)."""
+        """Build the uplink codec when the run compresses (a strategy that
+        takes it adopts it; both backends compress, the loop one upload at a
+        time), and on the fleet backend the batched client engine once the
+        model structure is known, handing the strategy its batched feedback
+        probe (replacing a hook a previous simulator's fleet installed). On
+        the loop backend a fleet's hook left on a reused strategy is cleared,
+        so its probes go through ``feedback_fn``."""
         strat = self.strategy
         self._template = template
         device = tree_leaves(template)[0].device
-        if self._fleet is None:
+        if self._fleet is None and self.client_backend == "fleet":
             from repro_torch.fl.fleet import ClientFleet
 
             self._fleet = ClientFleet(list(self.clients.values()), template, device=device, mesh=self.fleet_mesh)
@@ -201,6 +212,10 @@ class Simulator:
         if current == "missing":
             return
         fleet_hook = current is not None and getattr(current, "_fleet_hook", False)
+        if self._fleet is None:
+            if fleet_hook:
+                strat.feedback_batch_fn = None
+            return
         if current is None or (fleet_hook and getattr(current, "_fleet", None) is not self._fleet):
             fleet = self._fleet
 
@@ -256,10 +271,16 @@ class Simulator:
     def _evaluate(self, t: float) -> float:
         # a client gone dark for good was evicted by the server: it scores
         # with the last model it installed
-        params = [self.clients[cid].model if cid in self._dead else self.strategy.model_for(cid)
-                  for cid in self._fleet.ids]
-        fleet_accs = self._fleet.evaluate_fleet(params)
-        accs = {cid: float(a) for cid, a in zip(self._fleet.ids, fleet_accs)}
+        if self._fleet is not None:
+            params = [self.clients[cid].model if cid in self._dead else self.strategy.model_for(cid)
+                      for cid in self._fleet.ids]
+            fleet_accs = self._fleet.evaluate_fleet(params)
+            accs = {cid: float(a) for cid, a in zip(self._fleet.ids, fleet_accs)}
+        else:
+            accs = {}
+            for cid, c in self.clients.items():
+                params = c.model if cid in self._dead else self.strategy.model_for(cid)
+                accs[cid] = c.evaluate(params if params is not None else c.model)
         mean = float(np.mean(list(accs.values())))
         self.curve.append((t, mean))
         self._last_accs = accs
@@ -353,7 +374,7 @@ class Simulator:
                 if t_on > t:  # offline: the round restarts when the device is back
                     push(t_on + self.clients[cid].compute_time(), "upload_start", cid)
                     continue
-                new_params, _ = self._fleet.train_client(cid)
+                new_params = self._train_one(cid)
                 self.clients[cid].model = new_params
                 self._send_upload(push, t, cid, *self._encode_upload(cid, new_params))
             elif kind == "upload_done":
@@ -390,6 +411,13 @@ class Simulator:
         extra = strat.stats() if hasattr(strat, "stats") else {}
         extra["uploads"] = uploads
         return self._report(t, self._chaos_extra(extra))
+
+    def _train_one(self, cid) -> PyTree:
+        """One client's local round from its installed model: its fleet row
+        (written back) on the fleet backend, else ``SimClient.local_train``."""
+        if self._fleet is not None:
+            return self._fleet.train_client(cid)[0]
+        return self.clients[cid].local_train()[0]
 
     def _chaos_extra(self, extra: dict) -> dict:
         """The report's churn, fault and guard entries (each only when on)."""
@@ -653,7 +681,7 @@ class Simulator:
         ready = [cid for _, cid, resume in group if resume is None]
         trained: dict[Any, Any] = {}
         sent: dict[Any, Any] = {}
-        if len(ready) > 1:
+        if self._fleet is not None and len(ready) > 1:
             outs, _, vecs = self._fleet.train_rows(ready)
             trained = dict(zip(ready, outs))
             sent = trained if self._codec is None else dict(zip(ready, self._codec.encode_rows(ready, vecs)[0]))
@@ -667,7 +695,7 @@ class Simulator:
             if cid in trained:
                 new_params, up = trained[cid], sent[cid]
             else:
-                new_params = self._fleet.train_client(cid)[0]
+                new_params = self._train_one(cid)
                 up = self._encode_upload(cid, new_params)[0]
             self.clients[cid].model = new_params
             self._send_upload(push, ti, cid, up, *self._billing(new_params))
@@ -734,7 +762,7 @@ class Simulator:
         flat = [dl for dl in flat if not self._reorder_fenced(dl)]
         if not flat:
             return
-        batched = len(flat) > 1
+        batched = self._fleet is not None and len(flat) > 1
         if batched:
             self._fleet.set_models([dl.client_id for dl in flat], [dl.params for dl in flat])
         for dl in flat:
@@ -770,8 +798,12 @@ class Simulator:
                 if not selected:
                     continue
                 starts = [strat.model_for(cid) for cid in selected]
-                trained, _, vecs = self._fleet.train_cohort(selected, starts)
-                sent = trained if self._codec is None else self._codec.encode_rows(selected, vecs)[0]
+                if self._fleet is not None:
+                    trained, _, vecs = self._fleet.train_cohort(selected, starts)
+                    sent = trained if self._codec is None else self._codec.encode_rows(selected, vecs)[0]
+                else:
+                    trained = [self.clients[cid].local_train(p)[0] for cid, p in zip(selected, starts)]
+                    sent = [self._encode_upload(cid, p)[0] for cid, p in zip(selected, trained)]
                 finish_times, uploads = {}, {}
                 for cid, params, up in zip(selected, trained, sent):
                     dur = self.clients[cid].compute_time()

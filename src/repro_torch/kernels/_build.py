@@ -26,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("l1.cu", "assign_lerp.cu", "ingest_chain.cu", "chi2.cu", "merge.cu", "uplink.cu", "flash_fwd.cu",
-           "flash_bwd.cu")
+           "flash_bwd.cu", "flash_fwd_bf16.cu", "flash_bwd_bf16.cu")
 HEADERS = ("common.cuh", "l1_rows.cuh", "flash_common.cuh", "mma_tf32.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
@@ -65,6 +65,10 @@ _SIGNATURES = {
     "repro_flash_dq": ([_P] * 7 + _FLASH_ARGS, _INT),
     "repro_flash_dkv": ([_P] * 8 + _FLASH_ARGS, _INT),
 }
+# the bf16 instantiations take the fp32 entry points' arguments (pointers to bf16 rows)
+_SIGNATURES.update({f"{name}_bf16": _SIGNATURES[name] for name in (
+    "repro_l1_rows", "repro_assign_lerp", "repro_chi2", "repro_merge_attention", "repro_flash_fwd",
+    "repro_flash_dq", "repro_flash_dkv")})
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None

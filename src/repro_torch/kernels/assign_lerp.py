@@ -8,13 +8,18 @@ launch: the L1 distances of the upload to every center (bitwise those of
 first-index argmin on the device, and the blend of the winning center row.
 The host never reads the index; the caller syncs once on the distances it
 returns. ``assign_and_lerp.launches`` counts its launches.
+
+The upload and centers may be fp32 or bf16 (one dtype a call), as the
+reference's kernel casts either (``assign_lerp.py:30-31``); distances and
+the blended row are fp32. bf16 launches the kernel's bf16 instantiation
+(``.launches_bf16``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._dispatch import check_f32, use_plain
+from repro_torch.kernels._dispatch import check_float, count_launch, entry, upcast, use_plain
 from repro_torch.kernels.l1 import l1_chunks, l1_distance_plain
 
 
@@ -23,8 +28,8 @@ def blend_plain(c: torch.Tensor, u: torch.Tensor, beta: float) -> torch.Tensor:
     (1 - beta) folds in double and rounds once to fp32, as the reference
     folds its Python float; the two products and the sum are separate ops,
     so nothing contracts them into an FMA."""
-    m1 = torch.mul(c, 1.0 - beta)
-    m2 = torch.mul(u, beta)
+    m1 = torch.mul(upcast(c), 1.0 - beta)
+    m2 = torch.mul(upcast(u), beta)
     return torch.add(m1, m2)
 
 
@@ -37,7 +42,7 @@ def assign_and_lerp_plain(u: torch.Tensor, centers: torch.Tensor, beta: float):
 def assign_and_lerp(u: torch.Tensor, centers: torch.Tensor, beta: float):
     """u (N,), centers (C, N) -> (dists (C,) fp32, idx () int32, blended (N,))
     with ``blended = (1 - beta) * centers[idx] + beta * u``."""
-    check_f32("assign_and_lerp", ("u", u, 1), ("centers", centers, 2))
+    dtype = check_float("assign_and_lerp", ("u", u, 1), ("centers", centers, 2))
     C, N = centers.shape
     if u.shape[0] != N or C == 0:
         raise ValueError(f"assign_and_lerp: bad shapes u {tuple(u.shape)}, centers {(C, N)}")
@@ -50,13 +55,13 @@ def assign_and_lerp(u: torch.Tensor, centers: torch.Tensor, beta: float):
     dists = buf[:C]
     idx = torch.empty((), dtype=torch.int32, device=u.device)
     out = torch.empty((N,), dtype=torch.float32, device=u.device)
-    rc = _build.library().repro_assign_lerp(
+    rc = entry(_build.library(), "repro_assign_lerp", dtype)(
         u.data_ptr(), centers.data_ptr(), C, N, chunks, float(beta), buf.data_ptr() + 4 * C, buf.data_ptr(),
         idx.data_ptr(), out.data_ptr(), u.device.index or 0, _build.stream(u),
     )
     _build.check(rc, "assign_lerp")
-    assign_and_lerp.launches += 1
+    count_launch(assign_and_lerp, dtype)
     return dists, idx, out
 
 
-assign_and_lerp.launches = 0
+assign_and_lerp.launches = assign_and_lerp.launches_bf16 = 0

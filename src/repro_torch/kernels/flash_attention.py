@@ -13,13 +13,19 @@ probabilities instead of storing them.
 Masked scores take the finite ``-1e30`` the reference uses. A query row
 with no allowed key at all is not a case either version is held to.
 :func:`flash_attention_with_lse` counts its launches in ``.launches``.
+
+``q``, ``k`` and ``v`` may be fp32 or bf16 (one dtype a call), as the
+reference's kernel casts them to fp32 (``flash_attention.py:46-48``); ``o``
+comes back in ``q``'s dtype and the log-sum-exp in fp32 (``:140``). bf16
+launches the kernel's bf16 instantiation (``.launches_bf16``); the plain
+version casts to fp32 first.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._dispatch import check_f32, use_plain
+from repro_torch.kernels._dispatch import check_float, count_launch, entry, upcast, use_plain
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256  # the CUDA kernels' widest head-width bucket (csrc/flash_common.cuh)
@@ -31,8 +37,9 @@ def _scale(hd: int, scale: float | None) -> float:
 
 def check_attention_args(what: str, q, k, v, window, softcap) -> tuple[int, ...]:
     """Validate ``(B, H, Sq, hd)``, ``(B, KV, Sk, hd)``, ``(B, KV, Sk, dv)``
-    fp32 operands and the options; returns ``(B, H, KV, Sq, Sk, hd, dv)``."""
-    check_f32(what, ("q", q, 4), ("k", k, 4), ("v", v, 4))
+    operands (fp32 or bf16, one dtype) and the options; returns
+    ``(B, H, KV, Sq, Sk, hd, dv)``."""
+    check_float(what, ("q", q, 4), ("k", k, 4), ("v", v, 4))
     B, H, Sq, hd = q.shape
     KV, Sk, dv = k.shape[1], k.shape[2], v.shape[3]
     if k.shape[0] != B or v.shape[:3] != k.shape[:3] or k.shape[3] != hd:
@@ -83,7 +90,10 @@ def grouped_scores(q, k, *, scale: float, softcap):
 def flash_attention_with_lse_plain(q, k, v, *, causal=True, scale=None, window=None, softcap=None,
                                    q_pos0=0):
     """Materialized attention (the reference's ``flash_attention_ref`` with
-    the log-sum-exp rows): returns ``(o (B, H, Sq, dv), lse (B, H, Sq))``."""
+    the log-sum-exp rows), bf16 operands cast to fp32 first: returns
+    ``(o (B, H, Sq, dv) in q's dtype, lse (B, H, Sq) fp32)``."""
+    dtype = q.dtype
+    q, k, v = upcast(q), upcast(k), upcast(v)
     B, H, Sq, hd = q.shape
     Sk, dv = k.shape[2], v.shape[3]
     s, _ = grouped_scores(q, k, scale=_scale(hd, scale), softcap=softcap)
@@ -92,7 +102,7 @@ def flash_attention_with_lse_plain(q, k, v, *, causal=True, scale=None, window=N
     lse = torch.logsumexp(s, dim=-1)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bksd->bkgqd", p, v)
-    return o.reshape(B, H, Sq, dv), lse.reshape(B, H, Sq)
+    return o.reshape(B, H, Sq, dv).to(dtype), lse.reshape(B, H, Sq)
 
 
 def flash_attention_with_lse(q, k, v, *, causal=True, scale=None, window=None, softcap=None, q_pos0=0):
@@ -103,16 +113,16 @@ def flash_attention_with_lse(q, k, v, *, causal=True, scale=None, window=None, s
         return flash_attention_with_lse_plain(q, k, v, causal=causal, scale=scale, window=window,
                                               softcap=softcap, q_pos0=q_pos0)
     check_kernel_shape("flash_attention_with_lse", B, H, KV, hd, dv)
-    o = torch.empty((B, H, Sq, dv), dtype=torch.float32, device=q.device)
+    o = torch.empty((B, H, Sq, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    rc = _build.library().repro_flash_fwd(
+    rc = entry(_build.library(), "repro_flash_fwd", q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         B, H, KV, Sq, Sk, hd, dv, _scale(hd, scale), int(bool(causal)),
         -1 if window is None else int(window), 0.0 if softcap is None else float(softcap),
         int(q_pos0), q.device.index or 0, _build.stream(q),
     )
     _build.check(rc, "flash_fwd")
-    flash_attention_with_lse.launches += 1
+    count_launch(flash_attention_with_lse, q.dtype)
     return o, lse
 
 
@@ -123,4 +133,4 @@ def flash_attention(q, k, v, *, causal=True, scale=None, window=None, softcap=No
     return o
 
 
-flash_attention_with_lse.launches = 0
+flash_attention_with_lse.launches = flash_attention_with_lse.launches_bf16 = 0

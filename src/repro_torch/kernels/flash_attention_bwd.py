@@ -14,13 +14,20 @@ the reference. Then
 
 Each wrapper counts its own launches in ``.launches``;
 :func:`flash_attention_bwd` runs the pre-pass and both.
+
+``q``, ``k``, ``v``, ``do`` (and ``o``) may be fp32 or bf16, one dtype a
+call, as the reference's kernels cast them to fp32
+(``flash_attention_bwd.py:70-73``, ``:107-110``); ``lse`` and ``dsum`` are
+fp32 and the gradients come back in the inputs' dtype (``:188``,
+``:215-216``). bf16 launches the kernels' bf16 instantiations
+(``.launches_bf16``); the plain versions cast to fp32 first.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._dispatch import check_f32, use_plain
+from repro_torch.kernels._dispatch import check_f32, check_float, count_launch, entry, upcast, use_plain
 from repro_torch.kernels.flash_attention import (
     _scale,
     attention_mask,
@@ -33,7 +40,8 @@ from repro_torch.kernels.flash_attention import (
 def _check_bwd(what, q, k, v, do, lse, dsum, window, softcap):
     dims = check_attention_args(what, q, k, v, window, softcap)
     B, H, KV, Sq, Sk, hd, dv = dims
-    check_f32(what, ("do", do, 4), ("lse", lse, 3), ("dsum", dsum, 3))
+    check_float(what, ("q", q, 4), ("do", do, 4))
+    check_f32(what, ("lse", lse, 3), ("dsum", dsum, 3))
     if tuple(do.shape) != (B, H, Sq, dv) or tuple(lse.shape) != (B, H, Sq) or tuple(dsum.shape) != (B, H, Sq):
         raise ValueError(f"{what}: do {tuple(do.shape)}, lse {tuple(lse.shape)}, dsum {tuple(dsum.shape)} "
                          f"do not fit q {tuple(q.shape)} and v {tuple(v.shape)}")
@@ -42,7 +50,8 @@ def _check_bwd(what, q, k, v, do, lse, dsum, window, softcap):
 
 def _tiles(q, k, v, do, lse, dsum, *, causal, scale, window, softcap, q_pos0):
     """Recomputed ``p`` and ``ds`` in the grouped layout ``(B, KV, G, Sq, Sk)``,
-    plus the grouped ``q`` and ``do``."""
+    plus the grouped ``q`` and ``do`` (bf16 operands cast to fp32 first)."""
+    q, k, v, do = upcast(q), upcast(k), upcast(v), upcast(do)
     B, H, Sq, hd = q.shape
     KV, Sk, dv = k.shape[1], k.shape[2], v.shape[3]
     G = H // KV
@@ -64,7 +73,7 @@ def flash_attention_dq_plain(q, k, v, do, lse, dsum, *, causal=True, scale=None,
     sc = _scale(hd, scale)
     _, ds, _, _ = _tiles(q, k, v, do, lse, dsum, causal=causal, scale=sc, window=window,
                          softcap=softcap, q_pos0=q_pos0)
-    return (torch.einsum("bkgqs,bksd->bkgqd", ds, k) * sc).reshape(B, H, Sq, hd)
+    return (torch.einsum("bkgqs,bksd->bkgqd", ds, upcast(k)) * sc).reshape(B, H, Sq, hd).to(q.dtype)
 
 
 def flash_attention_dkv_plain(q, k, v, do, lse, dsum, *, causal=True, scale=None, window=None,
@@ -74,7 +83,7 @@ def flash_attention_dkv_plain(q, k, v, do, lse, dsum, *, causal=True, scale=None
                             softcap=softcap, q_pos0=q_pos0)
     dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qg) * sc
     dv = torch.einsum("bkgqs,bkgqd->bksd", p, dog)
-    return dk, dv
+    return dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _ints(B, H, KV, Sq, Sk, hd, dv, scale, causal, window, softcap, q_pos0):
@@ -91,12 +100,12 @@ def flash_attention_dq(q, k, v, do, lse, dsum, *, causal=True, scale=None, windo
         return flash_attention_dq_plain(q, k, v, do, lse, dsum, **kw)
     check_kernel_shape("flash_attention_dq", B, H, KV, hd, dv)
     dq = torch.empty_like(q)
-    rc = _build.library().repro_flash_dq(
+    rc = entry(_build.library(), "repro_flash_dq", q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
         dq.data_ptr(), *_ints(B, H, KV, Sq, Sk, hd, dv, **kw), q.device.index or 0, _build.stream(q),
     )
     _build.check(rc, "flash_dq")
-    flash_attention_dq.launches += 1
+    count_launch(flash_attention_dq, q.dtype)
     return dq
 
 
@@ -111,22 +120,22 @@ def flash_attention_dkv(q, k, v, do, lse, dsum, *, causal=True, scale=None, wind
     check_kernel_shape("flash_attention_dkv", B, H, KV, hd, dv)
     dk = torch.empty_like(k)
     dvv = torch.empty_like(v)
-    rc = _build.library().repro_flash_dkv(
+    rc = entry(_build.library(), "repro_flash_dkv", q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
         dk.data_ptr(), dvv.data_ptr(), *_ints(B, H, KV, Sq, Sk, hd, dv, **kw), q.device.index or 0,
         _build.stream(q),
     )
     _build.check(rc, "flash_dkv")
-    flash_attention_dkv.launches += 1
+    count_launch(flash_attention_dkv, q.dtype)
     return dk, dvv
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, scale=None, window=None, softcap=None,
                         q_pos0=0):
-    """``(dq, dk, dv)``: the ``D = rowsum(do * o)`` pre-pass, then the dq
-    and dkv wrappers (each dispatches by device)."""
-    check_f32("flash_attention_bwd", ("o", o, 4))
-    dsum = torch.sum(do * o, dim=-1)
+    """``(dq, dk, dv)``: the ``D = rowsum(do * o)`` pre-pass in fp32, then
+    the dq and dkv wrappers (each dispatches by device)."""
+    check_float("flash_attention_bwd", ("o", o, 4), ("do", do, 4))
+    dsum = _dsum(do, o)
     kw = dict(causal=causal, scale=scale, window=window, softcap=softcap, q_pos0=q_pos0)
     dq = flash_attention_dq(q, k, v, do, lse, dsum, **kw)
     dk, dv = flash_attention_dkv(q, k, v, do, lse, dsum, **kw)
@@ -135,11 +144,16 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, scale=None, window=
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=True, scale=None, window=None, softcap=None,
                               q_pos0=0):
-    dsum = torch.sum(do * o, dim=-1)
+    dsum = _dsum(do, o)
     kw = dict(causal=causal, scale=scale, window=window, softcap=softcap, q_pos0=q_pos0)
     return (flash_attention_dq_plain(q, k, v, do, lse, dsum, **kw),
             *flash_attention_dkv_plain(q, k, v, do, lse, dsum, **kw))
 
 
-flash_attention_dq.launches = 0
-flash_attention_dkv.launches = 0
+def _dsum(do, o):
+    """``D = rowsum(do * o)``, bf16 operands cast to fp32 (the reference's pre-pass, ``:161``)."""
+    return torch.sum(upcast(do) * upcast(o), dim=-1)
+
+
+flash_attention_dq.launches = flash_attention_dq.launches_bf16 = 0
+flash_attention_dkv.launches = flash_attention_dkv.launches_bf16 = 0

@@ -252,6 +252,11 @@ def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
+def launch_counts_bf16() -> dict[str, int]:
+    """Launches of the bf16 instantiations, for the wrappers that have one."""
+    return {name: fn.launches_bf16 for name, fn in WRAPPERS.items() if hasattr(fn, "launches_bf16")}
+
+
 def sharded_calls() -> dict[str, int]:
     """Calls of each entry point that ran over a mesh (a launch a shard each)."""
     return {name: fn.calls for name, fn in plane_sharded.SHARDED.items()}
@@ -260,6 +265,8 @@ def sharded_calls() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+        if hasattr(fn, "launches_bf16"):
+            fn.launches_bf16 = 0
     for fn in plane_sharded.SHARDED.values():
         fn.calls = 0
 
@@ -267,6 +274,6 @@ def reset_launch_counts() -> None:
 __all__ = [
     "assign_and_lerp", "attention", "chi2_feedback", "chi2_feedback_segmented", "flash_attention",
     "flash_attention_bwd", "flash_attention_with_lse", "ingest_chain", "l1_distance", "l1_distance_pairwise",
-    "launch_counts", "merge_attention", "pairwise_l1", "reset_launch_counts", "sharded_calls", "uplink_int8_encode",
-    "uplink_topk_encode",
+    "launch_counts", "launch_counts_bf16", "merge_attention", "pairwise_l1", "reset_launch_counts", "sharded_calls",
+    "uplink_int8_encode", "uplink_topk_encode",
 ]

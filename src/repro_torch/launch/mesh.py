@@ -33,6 +33,26 @@ from typing import Sequence
 
 import torch
 
+# Roofline constants of one card, from NVIDIA's data sheet for the NVIDIA H100
+# 80GB HBM3, 700 W (SXM5) part; dense rates, without sparsity. The dry-run
+# (launch/dryrun.py) and chip_smoke.py's bounds read these.
+H100_HBM_BYTES_PER_S = 3.35e12     # NVIDIA H100 80GB HBM3, 700 W: HBM3 bandwidth 3.35 TB/s
+H100_BF16_FLOPS_PER_S = 989e12     # NVIDIA H100 80GB HBM3, 700 W: BF16 tensor cores, 989 TFLOP/s dense
+H100_TF32_FLOPS_PER_S = 495e12     # NVIDIA H100 80GB HBM3, 700 W: TF32 tensor cores, 495 TFLOP/s dense
+H100_FP32_FLOPS_PER_S = 67e12      # NVIDIA H100 80GB HBM3, 700 W: FP32 outside the tensor cores, 67 TFLOP/s
+H100_NVLINK_BYTES_PER_S = 450e9    # NVIDIA H100 80GB HBM3, 700 W: NVLink 900 GB/s, 450 GB/s each direction
+
+
+def peak_flops(dtype: torch.dtype) -> float:
+    """The card's peak for products in ``dtype``: the bf16 tensor cores for
+    bf16 and fp16, fp32 outside the tensor cores for fp32 (the port keeps
+    TF32 off for PyTorch's own products, ``common/device.py``)."""
+    if dtype in (torch.bfloat16, torch.float16):
+        return H100_BF16_FLOPS_PER_S
+    if dtype == torch.float32:
+        return H100_FP32_FLOPS_PER_S
+    raise ValueError(f"no H100 peak for {dtype}")
+
 
 @dataclasses.dataclass(frozen=True)
 class PlaneMesh:

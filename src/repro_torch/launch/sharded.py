@@ -36,6 +36,7 @@ from repro_torch.common.pytrees import (TaggedSeq, is_namedtuple, tree_flatten_w
                                         tree_unflatten)
 from repro_torch.launch.mesh import axis_size, batch_axes
 from repro_torch.launch.shardings import cache_shardings_flat, param_shardings_flat
+from repro_torch.models import dist
 from repro_torch.models.dist import Ranks
 
 PyTree = Any
@@ -157,7 +158,7 @@ def read(tree: ShardedTree, i: int, region, device: torch.device) -> torch.Tenso
         if dim == len(idx):
             return _piece(tree[leaf.index(prefix)], prefix, leaf, region).to(device)
         parts = [assemble(prefix + (j,)) for j in idx[dim]]
-        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+        return parts[0] if len(parts) == 1 else dist.join_cat(parts, device, dim)  # blocks joined: an all-gather
 
     return assemble(())
 
@@ -270,7 +271,7 @@ class Periods:
         parts = []
         for m in range(tp):
             region[self.model_dim] = (m * n, (m + 1) * n)
-            parts.append(self.reads.get(self.i, tuple(region), mesh.device(self.b, m), p)[0])
+            parts.append(dist.place(self.reads.get(self.i, tuple(region), mesh.device(self.b, m), p)[0], rank=m))
         return Ranks(parts, self.model_dim - 1)
 
 
@@ -303,7 +304,7 @@ def view(tree: ShardedTree, b: int, reads: Reads | None = None) -> PyTree:
         for m in range(tp):
             region = list(_whole(leaf))
             region[model_dim] = (m * n, (m + 1) * n)
-            parts.append(reads.get(i, tuple(region), mesh.device(b, m)))
+            parts.append(dist.place(reads.get(i, tuple(region), mesh.device(b, m)), rank=m))
         leaves.append(Ranks(parts, local))
     return tree_unflatten(tree.layout.template, leaves)
 
@@ -324,10 +325,13 @@ def sq_norm(blocks: ShardedTree) -> torch.Tensor:
     """The squared L2 norm of a tree, block by block in order, on the mesh's
     first device: ``((s_0 + s_1) + s_2) + ...`` of the blocks' fp32 squares."""
     first = blocks.layout.mesh.first_device
-    total = None
+    total, squares = None, []
     for t in blocks:
         s = torch.sum(torch.square(t.to(torch.float32))).to(first)
-        total = s if total is None else total + s
+        squares.append(s)
+        with dist.collective_ops():  # the blocks' squares joined: an all-reduce
+            total = s if total is None else total + s
+    dist.note_collective("all-reduce", total, squares)
     return total
 
 

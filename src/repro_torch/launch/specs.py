@@ -14,15 +14,12 @@ from typing import Any
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
-from repro_torch.common.pytrees import tree_flatten_with_names, tree_leaves, tree_map, tree_unflatten
+from repro_torch.common.pytrees import tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.models.model import init_cache, init_params
 from repro_torch.models.steps import TrainState, make_optimizer
 
 PyTree = Any
-
-# leaves the reference draws in fp32 whatever the params' dtype
-_FP32_LEAVES = frozenset({"router", "A_log", "D", "w_i", "w_f", "f_bias", "gbias"})
 
 
 def meta(shape, dtype) -> torch.Tensor:
@@ -65,10 +62,8 @@ def decode_batch_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
 
 def _fake_params(cfg: ModelConfig, dtype) -> PyTree:
     """The params as fake tensors, each floating leaf in ``dtype`` but the
-    reference's fp32 ones."""
-    params = init_params(cfg, torch.Generator())
-    flat = [leaf if names[-1] in _FP32_LEAVES else leaf.to(dtype) for names, leaf in tree_flatten_with_names(params)]
-    return tree_unflatten(params, flat)
+    reference's fp32 ones (``models.model.init_params(dtype=)``)."""
+    return init_params(cfg, torch.Generator(), dtype=dtype)
 
 
 def param_specs(cfg: ModelConfig, dtype=torch.bfloat16) -> PyTree:

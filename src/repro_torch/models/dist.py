@@ -17,9 +17,41 @@ import contextlib
 
 import torch
 
-from repro_torch.common.pytrees import TaggedSeq
+from repro_torch.common.pytrees import TaggedSeq, tree_leaves
 
 _MESH = None
+_COST = None  # the launch.cost.CostMode counting the ops, if one is
+
+
+def place(tree, batch_shard: int | None = None, rank: int | None = None):
+    """Mark the tensors of ``tree`` as batch shard ``batch_shard``'s and model
+    rank ``rank``'s (``None``: every) for the dry-run's per-device counts
+    (``launch.cost``); the tree itself is returned. Nothing happens unless
+    a count runs."""
+    if _COST is not None:
+        for t in tree_leaves(tree):
+            if isinstance(t, torch.Tensor):
+                old = getattr(t, "_cost_place", None) or (None, None)
+                t._cost_place = (old[0] if batch_shard is None else batch_shard, old[1] if rank is None else rank)
+    return tree
+
+
+def note_collective(kind: str, result: torch.Tensor, operands=()) -> None:
+    """Record a join of the shard loops as the collective ``kind`` (the
+    reference's names: ``all-reduce``, ``all-gather``, ...) while a count runs."""
+    if _COST is not None:
+        _COST.collective(kind, result, list(operands))
+
+
+@contextlib.contextmanager
+def collective_ops():
+    """The ops of a join: a count does not bill them as compute (they are
+    the collective's)."""
+    if _COST is None:
+        yield
+        return
+    with _COST.quiet():
+        yield
 
 
 class Ranks(TaggedSeq):
@@ -30,18 +62,53 @@ class Ranks(TaggedSeq):
     cut (``launch.sharded.view``)."""
 
 
+class _PlacedGrads(torch.autograd.Function):
+    """While a count runs: the identity on a join's parts, whose backward
+    marks each part's gradient with the part's place, as the reference's
+    sharded program holds it (a rank's slice of the joined gradient is that
+    rank's, not every rank's)."""
+
+    @staticmethod
+    def forward(ctx, *parts):
+        ctx.places = [getattr(p, "_cost_place", None) for p in parts]
+        return tuple(p.view_as(p) for p in parts)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        out = []
+        for g, where in zip(grads, ctx.places):
+            if g is not None and where is not None:
+                g = place(g.view_as(g), *where)
+            out.append(g)
+        return tuple(out)
+
+
+def _counted(parts: list[torch.Tensor]) -> list[torch.Tensor]:
+    if _COST is None or not any(p.requires_grad for p in parts):
+        return parts
+    return list(_PlacedGrads.apply(*parts))
+
+
 def join_sum(partials: list[torch.Tensor], device: torch.device) -> torch.Tensor:
-    """The row-parallel join: rank partial sums added in rank order on
-    ``device``, ``((p_0 + p_1) + p_2) + ...``."""
-    acc = partials[0].to(device)
-    for p in partials[1:]:
-        acc = acc + p.to(device)
+    """The row-parallel join (an all-reduce): rank partial sums added in
+    rank order on ``device``, ``((p_0 + p_1) + p_2) + ...``."""
+    partials = _counted(partials)
+    with collective_ops():
+        acc = partials[0].to(device)
+        for p in partials[1:]:
+            acc = acc + p.to(device)
+    note_collective("all-reduce", acc, partials)
     return acc
 
 
 def join_cat(parts: list[torch.Tensor], device: torch.device, dim: int) -> torch.Tensor:
-    """The column-parallel join: rank parts concatenated in rank order."""
-    return torch.cat([p.to(device) for p in parts], dim=dim)
+    """The column-parallel join (an all-gather): rank parts concatenated in
+    rank order."""
+    parts = _counted(parts)
+    with collective_ops():
+        out = torch.cat([p.to(device) for p in parts], dim=dim)
+    note_collective("all-gather", out, parts)
+    return out
 
 
 def gathered(tree, device: torch.device):

@@ -505,7 +505,7 @@ def apply_moe_ffn_shards(params: list[PyTree], xs: list[torch.Tensor], cfg: Mode
     n = T // g
     probs = join_cat([torch.softmax((x.reshape(-1, D) @ p["router"].to(x.dtype)).to(torch.float32), dim=-1)
                       for p, x in zip(params, xs)], dev, 0)[: n * g].reshape(n, g, E)
-    expert, topw, _, keep, _, aux = _route(probs, cfg, capacity_factor)
+    expert, topw, _, keep, capacity, aux = _route(probs, cfg, capacity_factor)
     keep = keep.reshape(n * g, K)
     expert = expert.reshape(n * g, K)
     weight = topw.reshape(n * g, K) * keep
@@ -518,7 +518,10 @@ def apply_moe_ffn_shards(params: list[PyTree], xs: list[torch.Tensor], cfg: Mode
         mine = torch.nn.functional.one_hot(e, E) * k[:, None]
         place = (torch.cumsum(mine, dim=0) - mine).gather(-1, e[:, None])[:, 0]
         shards.append((e, k, place, torch.sum(mine, dim=0)))
-    width = max(1, int(torch.stack([s[3].to(dev) for s in shards]).max()))  # C_s: one read a layer
+    if dev.type == "meta":  # shapes only (the dry-run): an expert's most, its capacity
+        width = capacity
+    else:
+        width = max(1, int(torch.stack([s[3].to(dev) for s in shards]).max()))  # C_s: one read a layer
 
     ys = []
     for p, x, t, (e, k, place, _), w in zip(params, xs, counts, shards, weight.split(counts)):

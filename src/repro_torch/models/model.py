@@ -31,7 +31,7 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.common.pytrees import tree_map
+from repro_torch.common.pytrees import tree_flatten_with_names, tree_map, tree_unflatten
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.dist import Ranks, join_cat, join_sum, kv_group
@@ -63,12 +63,26 @@ def _init_layer(generator: torch.Generator, spec: LayerSpec, cfg: ModelConfig, d
     return p
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> PyTree:
+# leaves the reference draws in fp32 whatever the params' dtype
+FP32_LEAVES = frozenset({"router", "A_log", "D", "w_i", "w_f", "f_bias", "gbias"})
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, device=None, dtype=torch.float32) -> PyTree:
     """Random weights from ``generator`` (drawn on its device, then moved to
     ``device``): embed normal / sqrt(d), norms zero (gemma-style 1 + scale),
     projections normal / sqrt(fan-in) (each scaled in place), the prefix
     layers, blocks stacked over periods, then an untied head ``(d, V)``
-    where the config has one."""
+    where the config has one. Drawn in fp32, then each leaf cast to
+    ``dtype`` but the reference's fp32 ones (:data:`FP32_LEAVES`), as the
+    reference's ``init_params(cfg, key, dtype)``."""
+    params = _init_params_f32(cfg, generator, device)
+    if dtype == torch.float32:
+        return params
+    flat = [leaf if names[-1] in FP32_LEAVES else leaf.to(dtype) for names, leaf in tree_flatten_with_names(params)]
+    return tree_unflatten(params, flat)
+
+
+def _init_params_f32(cfg: ModelConfig, generator: torch.Generator, device) -> PyTree:
     device = generator.device if device is None else torch.device(device)
     embed = torch.randn((cfg.padded_vocab, cfg.d_model), generator=generator, device=generator.device)
     params: dict[str, Any] = {

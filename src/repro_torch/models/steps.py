@@ -135,7 +135,7 @@ def _sharded_grads(cfg: ModelConfig, params: sharded.ShardedTree, batch: dict, m
     grads, metrics = None, None
     for group in _shard_groups(cfg, mesh, labels.shape[0]):
         reads = sharded.Reads(req)
-        parts = [{k: v[rows].to(mesh.device(b, 0)) for k, v in batch.items()} for b, rows in group]
+        parts = [dist.place({k: v[rows].to(mesh.device(b, 0)) for k, v in batch.items()}, b) for b, rows in group]
         logits, aux, _ = forward_shards(cfg, [sharded.view(req, b, reads) for b, _ in group], parts)
         ce = None
         for out, part in zip(logits, parts):
@@ -145,7 +145,13 @@ def _sharded_grads(cfg: ModelConfig, params: sharded.ShardedTree, batch: dict, m
         del reads, logits
         g = torch.autograd.grad(loss, leaves, allow_unused=True)
         g = [torch.zeros_like(p) if gi is None else gi for p, gi in zip(leaves, g)]
-        grads = g if grads is None else [a + x for a, x in zip(grads, g)]
+        if grads is None:
+            grads = g
+        else:  # the groups' gradients joined block by block: an all-reduce over the batch shards
+            with dist.collective_ops():
+                grads = [a + x for a, x in zip(grads, g)]
+            for a in grads:
+                dist.note_collective("all-reduce", a)
         m = {"loss": loss.detach(), "ce": ce.detach(), "moe_aux": aux.detach().to(first)}
         metrics = m if metrics is None else {k: metrics[k] + m[k] for k in m}
     return metrics, sharded.ShardedTree(grads, params.layout)
@@ -282,20 +288,19 @@ def _sharded_forward(cfg: ModelConfig, params: sharded.ShardedTree, batch: dict,
     logits, caches = [], []
     for group in _shard_groups(cfg, mesh, x.shape[0]):
         reads = sharded.Reads(params)
-        parts = [{k: torch.as_tensor(v)[rows].to(mesh.device(b, 0)) for k, v in batch.items()} for b, rows in group]
+        parts = [dist.place({k: torch.as_tensor(v)[rows].to(mesh.device(b, 0)) for k, v in batch.items()}, b)
+                 for b, rows in group]
         outs, _, cs = forward_shards(cfg, [sharded.view(params, b, reads) for b, _ in group], parts, **kw)
         logits += [out.to(first) for out in outs]
         caches += cs
-    logits = torch.cat(logits)
+    logits = dist.join_cat(logits, first, 0)
     if not kw.get("return_cache"):
         return logits, None
     cache = {"len": caches[0]["len"]}
     if "prefix" in caches[0]:
-        cache["prefix"] = tree_map(lambda *t: torch.cat([c.to(first) for c in t], dim=0),
-                                   *[c["prefix"] for c in caches])
+        cache["prefix"] = tree_map(lambda *t: dist.join_cat(list(t), first, 0), *[c["prefix"] for c in caches])
     if "blocks" in caches[0]:
-        cache["blocks"] = tree_map(lambda *t: torch.cat([c.to(first) for c in t], dim=1),
-                                   *[c["blocks"] for c in caches])
+        cache["blocks"] = tree_map(lambda *t: dist.join_cat(list(t), first, 1), *[c["blocks"] for c in caches])
     return logits, cache
 
 
@@ -324,11 +329,12 @@ def _sharded_serve(cfg: ModelConfig, params: sharded.ShardedTree, cache: dict, b
     for group in _shard_groups(cfg, mesh, tokens.shape[0]):
         reads = sharded.Reads(params)
         devs = [mesh.device(b, 0) for b, _ in group]
-        local = [sharded.cache_rows(cache, rows, dev) for (_, rows), dev in zip(group, devs)]
+        local = [dist.place(sharded.cache_rows(cache, rows, dev), b) for (b, rows), dev in zip(group, devs)]
         outs, _, local = forward_shards(cfg, [sharded.view(params, b, reads) for b, _ in group],
-                                        [{"tokens": tokens[rows].to(dev)} for (_, rows), dev in zip(group, devs)],
+                                        [dist.place({"tokens": tokens[rows].to(dev)}, b)
+                                         for (b, rows), dev in zip(group, devs)],
                                         caches=local)
         for (_, rows), lc, out in zip(group, local, outs):
             sharded.store_rows(cache, rows, lc)
             logits.append(out.to(first))
-    return torch.cat(logits), {"len": cache["len"] + 1, "buffers": cache["buffers"]}
+    return dist.join_cat(logits, first, 0), {"len": cache["len"] + 1, "buffers": cache["buffers"]}

@@ -930,3 +930,104 @@ def test_cuda_sharded_ops_match_the_single_device_kernels(cuda_device, shape, n)
     g1, s1 = ops.chi2_feedback_segmented(fp, ft, ss, seg, 4)
     assert torch.equal(g2, g1)
     np.testing.assert_array_max_ulp(s2.cpu().numpy(), s1.cpu().numpy(), maxulp=1)
+
+
+# ------------------------------------------------------ bf16 instantiations
+def _bf16_rows(rng, *shape, dev):
+    return torch.from_numpy(_f32(rng, *shape)).to(dev).to(torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [25418, 4099, 783360])
+def test_cuda_bf16_server_kernels_match_plain(cuda_device, n):
+    """Each server kernel's bf16 instantiation against its plain version at
+    the tolerances ``chip_smoke.py`` phase 5 states (L1 rtol 3e-3, the
+    assign's index equal and blend bitwise, chi2 rtol 1e-5, the merge
+    bitwise), and against the fp32 kernel on the rows cast to fp32: the same
+    bits, since it is that kernel on converted loads. One launch a call,
+    counted in ``.launches_bf16``."""
+    rng = np.random.default_rng(n + 1)
+    dev = cuda_device
+    cs, u, xs = _bf16_rows(rng, 5, n, dev=dev), _bf16_rows(rng, n, dev=dev), _bf16_rows(rng, 8, n, dev=dev)
+    f = lambda t: t.float()  # noqa: E731
+    before = {k: getattr(w, "launches_bf16", 0) for k, w in ops.WRAPPERS.items()}
+    d, i, b = ops.assign_and_lerp(u, cs, 0.25)
+    dp, ip, bp = assign_lerp.assign_and_lerp_plain(u, cs, 0.25)
+    torch.testing.assert_close(d, dp, rtol=3e-3, atol=0)
+    assert int(i) == int(ip) and torch.equal(b, bp)
+    d32, i32, b32 = ops.assign_and_lerp(f(u), f(cs), 0.25)
+    assert torch.equal(d, d32) and int(i) == int(i32) and torch.equal(b, b32)
+    got = ops.l1_distance_pairwise(xs, cs)
+    torch.testing.assert_close(got, l1.l1_distance_pairwise_plain(xs, cs), rtol=3e-3, atol=0)
+    assert torch.equal(got, ops.l1_distance_pairwise(f(xs), f(cs)))
+    assert torch.equal(ops.l1_distance(u, cs), ops.l1_distance(f(u), f(cs)))
+    merged = ops.merge_attention(u, cs[0], cs[1])
+    assert merged.dtype == torch.bfloat16
+    assert torch.equal(merged.view(torch.int16), merge.merge_attention_plain(u, cs[0], cs[1])[0].view(torch.int16))
+    fp, ft, ss = (torch.from_numpy(a).to(dev).to(torch.bfloat16) for a in _feedback(rng, 64, 10))
+    seg = torch.from_numpy(np.arange(64, dtype=np.int32) % 4).to(dev)
+    g, s = ops.chi2_feedback_segmented(fp, ft, ss, seg, 4)
+    gp, sp = chi2.chi2_feedback_segmented_plain(fp, ft, ss, seg, 4)
+    torch.testing.assert_close(g, gp, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(s, sp, rtol=1e-5, atol=1e-5)
+    g32, s32 = ops.chi2_feedback_segmented(f(fp), f(ft), f(ss), seg, 4)
+    assert torch.equal(g, g32) and torch.equal(s, s32)
+    after = {k: getattr(w, "launches_bf16", 0) for k, w in ops.WRAPPERS.items()}
+    for name in ("assign_and_lerp", "l1_distance_pairwise", "l1_distance", "merge_attention",
+                 "chi2_feedback_segmented"):
+        assert after[name] - before[name] == 1, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 8, 2, 256, 64, None), (1, 4, 4, 100, 80, 32), (1, 2, 1, 64, 192, None)])
+def test_cuda_bf16_flash_matches_plain(cuda_device, shape):
+    """The flash kernels' bf16 instantiations against their plain versions
+    at the reference's bf16 tolerance (atol = rtol = 2e-2): o and the
+    gradients bf16, the log-sum-exp fp32."""
+    B, H, KV, S, hd, window = shape
+    rng = np.random.default_rng(S + hd)
+    dev = cuda_device
+    q, do = _bf16_rows(rng, B, H, S, hd, dev=dev), _bf16_rows(rng, B, H, S, hd, dev=dev)
+    k, v = _bf16_rows(rng, B, KV, S, hd, dev=dev), _bf16_rows(rng, B, KV, S, hd, dev=dev)
+    from repro_torch.kernels import flash_attention as F
+    from repro_torch.kernels import flash_attention_bwd as FB
+
+    o, lse = F.flash_attention_with_lse(q, k, v, window=window)
+    op, lsep = F.flash_attention_with_lse_plain(q, k, v, window=window)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    torch.testing.assert_close(o.float(), op.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(lse, lsep, rtol=2e-2, atol=2e-2)
+    got = FB.flash_attention_bwd(q, k, v, o, lse, do, window=window)
+    want = FB.flash_attention_bwd_plain(q, k, v, o, lse, do, window=window)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        torch.testing.assert_close(g.float(), w.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_dryrun_state_bytes_equal_the_placed_state(cuda_device):
+    """The dry-run's fp32 ``state_bytes_per_device`` of a reduced
+    llama3.2-1b train step (unmeshed) against the same ``TrainState`` placed
+    on the card: the leaves' bytes equal, and ``torch.cuda.memory_allocated``
+    grows by exactly those bytes, each leaf rounded up to the caching
+    allocator's 512-byte blocks."""
+    from repro_torch.common.pytrees import tree_leaves
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import init_params
+    from repro_torch.models.steps import TrainState, make_optimizer
+
+    cfg = reduced_config(get_config("llama3.2-1b"))
+    rec = dryrun.run_cell(cfg.name, "t", False, None, cfg=cfg, shape=ShapeSpec("t", 64, 4, "train"),
+                          mesh=dryrun.meta_mesh((1, 1)), dtype=torch.float32)
+    assert rec["status"] == "OK"
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    params = init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0), device=cuda_device)
+    state = TrainState(params, make_optimizer(cfg).init(params), torch.zeros((), dtype=torch.int32, device=cuda_device))
+    torch.cuda.synchronize()
+    placed = torch.cuda.memory_allocated() - before
+    leaves = [t.numel() * t.element_size() for t in tree_leaves(state)]
+    assert rec["state_bytes_per_device"] == sum(leaves)
+    assert placed == sum(-(-n // 512) * 512 for n in leaves)
