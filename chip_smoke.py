@@ -20,16 +20,19 @@ come after both have ended. A card whose compute mode takes one process
 runs the side phases in this process instead.
 
 1. probe — the card's name and power limit, CUDA and nvcc versions; build
-   the hand-written kernels from ``src/repro_torch/csrc`` and time the build;
-   the registers, shared memory and local memory (spills) of each flash
+   the hand-written kernels from ``src/repro_torch/csrc`` and time the build
+   (a build in which ptxas serialized any ``wgmma`` fails the run); the
+   registers, shared memory and local memory (spills) of each flash
    kernel and of the L1 rows, fused assign, ingest chain, chi2, merge and uplink encode kernels from
    ``cuobjdump --dump-resource-usage`` (the chain in both instantiations,
    with and without the guard's norm statistic), the ingest chain's launch
    plan (grid, dynamic shared memory, rows on chip) at the paths' shapes, and a check of
-   each flash kernel's SASS for tensor-core ``HMMA`` instructions (none, a
-   spill at head width 64, or an L1, assign, chain, chi2, merge or encode
-   kernel that spills fail the run; ``flash_fwd_kernel<256>``'s, which
-   phase 3j's prefill runs, on a line of its own);
+   each flash kernel's SASS for tensor-core instructions: ``HMMA`` in the
+   fp32 ones, ``HGMMA`` (wgmma) and no TF32 ``HMMA`` in the bf16 ones, whose
+   dynamic shared memory it prints too (a missing one, a spill at head width
+   64 (fp32) or up to 128 (bf16), or an L1, assign, chain, chi2, merge or
+   encode kernel that spills fail the run; ``flash_fwd_kernel<256>``'s,
+   which phase 3j's prefill runs, on a line of its own);
 2. kernels — every kernel wrapper against its plain PyTorch version on the
    card, at the main path's widths and at edge shapes; the L1 sums' fixed
    order at N % 4 = 0, 1, 2, 3, N = 1 and N = 783,360 (bitwise across
@@ -533,26 +536,36 @@ def probe():
     built = _build.build_seconds
     print(f"kernel build: {time.perf_counter() - t0:.2f} s"
           + ("" if built is not None else " (loaded an existing build)"))
+    if built is not None:  # the bf16 flash kernels' shared loop keeps every wgmma asynchronous
+        serialized = [f"{name}: {line.strip()}" for name, out in _build.build_output.items()
+                      for line in out.splitlines() if "wgmma" in line and "serialized" in line]
+        print("ptxas wgmma advisories: " + ("; ".join(serialized) if serialized else "none"))
+        check(not serialized, "ptxas serialized wgmma instructions")
     kernel_resources()
     return smi
 
 
 def _kernel_label(mangled: str) -> str:
     """``flash_dkv_kernel<64,3>`` from a mangled name."""
-    names = re.findall(r"(?:flash_[a-z]+|l1_rows|assign_lerp|ingest_chain|chi2|merge|uplink_int8|uplink_topk_split"
-                       r"|uplink_topk)_kernel", mangled)
+    names = re.findall(r"(?:flash_[a-z]+(?:_bf16)?|l1_rows|assign_lerp|ingest_chain|chi2|merge|uplink_int8"
+                       r"|uplink_topk_split|uplink_topk)_kernel", mangled)
     args = re.findall(r"Li(\d+)E", mangled)
     return (names[-1] if names else mangled) + (f"<{','.join(args)}>" if args else "")
+
+
+FLASH_BF16_RESOURCES: dict[str, dict[int, dict]] = {}  # phase 1's: "flash_fwd" etc. -> bucket -> resources
 
 
 def kernel_resources() -> None:
     """Registers, shared memory, stack and local memory of every flash
     kernel and of the L1, fused assign, ingest chain, chi2 and merge kernels
-    from ``cuobjdump --dump-resource-usage``, and each flash kernel's count
-    of ``HMMA`` (tensor-core) instructions from ``cuobjdump -sass``. A flash
-    kernel without HMMA, a flash kernel at head width 64 with a stack frame
-    or local memory (spills), or an L1, assign, chain, chi2 or merge kernel
-    with either, fails."""
+    from ``cuobjdump --dump-resource-usage``, and each flash kernel's
+    tensor-core instructions from ``cuobjdump -sass``: ``HMMA`` (mma.sync)
+    in the fp32 ones, ``HGMMA`` (wgmma) and no TF32 ``HMMA`` in the bf16 ones.
+    An fp32 flash kernel without HMMA, a bf16 one without HGMMA or with a
+    TF32 HMMA, a flash kernel with a stack frame or local memory (spills) at
+    head width 64 (fp32) or up to 128 (bf16), or an L1, assign, chain, chi2
+    or merge kernel with either, fails."""
     from repro_torch.kernels import _build
 
     tool = _build.cuda_tool("cuobjdump")
@@ -569,30 +582,49 @@ def kernel_resources() -> None:
             usage[name] = {k: int(v) for k, v in re.findall(r"(\w+):(\d+)", line)}
             name = None
     hmma: Counter = Counter()
+    hgmma: Counter = Counter()
+    tf32: Counter = Counter()
     name = None
     for line in sh(tool, "-sass", lib).splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
+        elif name and "HGMMA" in line:
+            hgmma[name] += 1
         elif name and "HMMA" in line:
             hmma[name] += 1
+            tf32[name] += "TF32" in line
     flash = sorted(n for n in usage if "flash_" in n)
     check(len(flash) > 0, "cuobjdump found no flash kernel in the library")
     for n in flash:
         u = usage[n]
-        print(f"  {_kernel_label(n):<24} registers {u.get('REG')}, shared {u.get('SHARED')} B static, "
-              f"local {u.get('LOCAL')} B, stack {u.get('STACK')} B, HMMA {hmma[n]}")
-        check(hmma[n] > 0, f"{_kernel_label(n)} has no tensor-core HMMA instruction")
-        if "Li64E" in n:  # spilled registers take stack (local memory) space
-            check(u.get("LOCAL", 0) == 0 and u.get("STACK", 0) == 0,
-                  f"{_kernel_label(n)} spills ({u.get('STACK')} B stack, {u.get('LOCAL')} B local)")
-    print(f"flash kernels: {len(flash)} instantiations, every one with HMMA; none at head width 64 spills")
+        label = _kernel_label(n)
+        width = int(re.findall(r"Li(\d+)E", n)[0])
+        spill = u.get("LOCAL", 0) or u.get("STACK", 0)
+        if "_bf16_kernel" in label:
+            kind = label.split("_bf16_kernel")[0]
+            dynamic = getattr(_build.library(), f"repro_{kind}_bf16_smem")(width, width)
+            FLASH_BF16_RESOURCES.setdefault(kind, {})[width] = {
+                "registers": u.get("REG"), "local": u.get("LOCAL"), "stack": u.get("STACK"), "dynamic_shared": dynamic}
+            print(f"  {label:<28} registers {u.get('REG')}, shared {u.get('SHARED')} B static + {dynamic} B dynamic, "
+                  f"local {u.get('LOCAL')} B, stack {u.get('STACK')} B, HGMMA {hgmma[n]}, HMMA {hmma[n]} "
+                  f"(TF32 {tf32[n]})")
+            check(hgmma[n] > 0 and tf32[n] == 0, f"{label}: bf16 products must be wgmma (HGMMA {hgmma[n]}, "
+                                                 f"TF32 HMMA {tf32[n]})")
+            check(width > 128 or not spill, f"{label} spills ({u.get('STACK')} B stack, {u.get('LOCAL')} B local)")
+        else:
+            print(f"  {label:<28} registers {u.get('REG')}, shared {u.get('SHARED')} B static, local "
+                  f"{u.get('LOCAL')} B, stack {u.get('STACK')} B, HMMA {hmma[n]}")
+            check(hmma[n] > 0, f"{label} has no tensor-core HMMA instruction")
+            check(width != 64 or not spill, f"{label} spills ({u.get('STACK')} B stack, {u.get('LOCAL')} B local)")
+    print(f"flash kernels: {len(flash)} instantiations; the fp32 ones with HMMA, none at head width 64 spilling; the "
+          "bf16 ones with HGMMA and no TF32 HMMA, none up to head width 128 spilling")
     fwd256 = [n for n in flash if "flash_fwd_kernel" in n and "Li256E" in n and "bfloat16" not in n]
     check(len(fwd256) == 1, "cuobjdump found no flash_fwd_kernel<256> (gemma2-2b's head width) in the library")
     bf16 = [n for n in usage if "bfloat16" in n]
-    check(any("flash_fwd_kernel" in n for n in bf16) and any("flash_dkv_kernel" in n for n in bf16)
+    check(all(any(f"flash_{k}_bf16_kernel" in n for n in bf16) for k in ("fwd", "dq", "dkv"))
           and any("l1_rows_kernel" in n for n in bf16) and any("merge_kernel" in n for n in bf16),
-          "cuobjdump found no bf16 instantiation of the flash, L1 or merge kernels")
+          "cuobjdump found no bf16 flash kernel or no bf16 instantiation of the L1 or merge kernels")
     print(f"bf16 instantiations: {len(bf16)} kernels (flash {sum('flash_' in n for n in bf16)})")
     u = usage[fwd256[0]]
     spill = u.get("LOCAL", 0) or u.get("STACK", 0)
@@ -4869,13 +4901,15 @@ BF16_TOL = {
     "l1_distance": "rtol 3e-3", "l1_distance_pairwise": "rtol 3e-3", "pairwise_l1": "rtol 3e-3",
     "assign_and_lerp": "distances rtol 3e-3, index equal, blended row bit for bit",
     "chi2_feedback": "rtol 1e-5, atol 1e-6", "chi2_feedback_segmented": "rtol 1e-5, atol 1e-6 (sums atol 1e-5)",
-    "merge_attention": "bit for bit", "flash_attention_fwd": "atol = rtol = 2e-2",
-    "flash_attention_bwd": "atol = rtol = 2e-2",
+    "merge_attention": "bit for bit",
+    "flash_attention_fwd": "o within one bf16 ulp or 1e-5, lse atol = rtol = 1e-5; both within 2e-2",
+    "flash_attention_bwd": "dq, dk, dv within one bf16 ulp or 1e-5; within 2e-2",
 }
 BF16_SERVER = ("l1_distance", "l1_distance_pairwise", "assign_and_lerp", "chi2_feedback", "chi2_feedback_segmented",
                "merge_attention")
 BF16_STEP = dict(periods=2, batch=2, seq=512)  # phase 5's bf16 train step: llama3.2-1b at full width, 2 periods
 BF16_FLASH = (2, 32, 512, 64, 8, 512, 64)  # (B, H, Sq, hd, KV, Sk, dv): its flash launches
+BF16_FLASH_4K = (2, 32, 4096, 64, 8, 4096, 64)  # the reference's train_4k attention at bf16: timed only
 BF16_PAIRWISE = (4, 783360)  # pairwise_l1 at the full-width LM delta rows
 
 
@@ -5006,18 +5040,14 @@ def bf16_drive(shapes) -> dict:
 def bf16_rows(shapes, counts) -> list[dict]:
     """A row a bf16 instantiation, beside the fp32 rows: checked against
     its plain version (BF16_TOL) and the fp32 kernel, then timed at the
-    shapes the fp32 rows use (the server kernels at the main path's, flash
-    at phase 5's bf16 train step's, ``pairwise_l1`` at the full-width
-    delta's). ``bound_ms``: 2 bytes an input element, outputs at their
-    dtype; operations at the fp32 CUDA-core rate for the server kernels and
-    at the bf16 tensor-core peak for flash. ``library_ms``: ``torch.cdist``
-    on the bf16 rows for L1 (None if it refuses bf16), bf16 SDPA and its
-    autograd backward for flash; ``fp32_ms``: the fp32 kernel on the inputs
-    cast to fp32, in the same call; ``launches``: :func:`bf16_drive`'s."""
-    from repro_torch.kernels import flash_attention as F
-    from repro_torch.kernels import flash_attention_bwd as FB
-    from repro_torch.kernels import ops
-
+    shapes the fp32 rows use (the server kernels at the main path's,
+    ``pairwise_l1`` at the full-width delta's). ``bound_ms``: 2 bytes an
+    input element, outputs at their dtype; operations at the fp32 CUDA-core
+    rate for the server kernels and at the bf16 tensor-core peak for flash.
+    ``library_ms``: ``torch.cdist`` on the bf16 rows for L1 (None if it
+    refuses bf16), bf16 SDPA and its autograd backward for flash; ``fp32_ms``: the fp32 kernel on the inputs
+    cast to fp32, in the same call; ``launches``: :func:`bf16_drive`'s; then
+    the flash rows (:func:`bf16_flash_rows`)."""
     g = gen(31)
     rows = []
     for name in BF16_SERVER + ("pairwise_l1",):
@@ -5048,55 +5078,111 @@ def bf16_rows(shapes, counts) -> list[dict]:
                "library_ms": None if lib is None else device_ms(lib), "shape": list(shape),
                "fp32_ms": device_ms(lambda: kernel(*cast))}
         rows.append(row)
-    B, H, Sq, hd, KV, Sk, dv = BF16_FLASH
-    q, k, v, do = (t.to(torch.bfloat16) for t in flash_inputs(g, B, H, KV, Sq, Sk, hd, dv))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    pairs = B * H * _allowed_pairs(Sq, Sk)
-    o, lse = ops.flash_attention_with_lse(q, k, v)
-    o_p, lse_p = F.flash_attention_with_lse_plain(q, k, v)
-    check(o.dtype == torch.bfloat16 and lse.dtype == torch.float32, "bf16 flash forward: output dtypes")
-    torch.testing.assert_close(o.float(), o_p.float(), rtol=2e-2, atol=2e-2, msg=lambda m: f"bf16 flash o: {m}")
-    torch.testing.assert_close(lse, lse_p, rtol=2e-2, atol=2e-2, msg=lambda m: f"bf16 flash lse: {m}")
-    got, want = FB.flash_attention_bwd(q, k, v, o, lse, do), FB.flash_attention_bwd_plain(q, k, v, o, lse, do)
-    for a, b, part in zip(got, want, ("dq", "dk", "dv")):
-        check(a.dtype == torch.bfloat16, f"bf16 flash {part}: dtype {a.dtype}")
-        torch.testing.assert_close(a.float(), b.float(), rtol=2e-2, atol=2e-2, msg=lambda m: f"bf16 flash {part}: {m}")
-    qr, kr, vr = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
-    o_lib = sdpa(qr, kr, vr, is_causal=True, enable_gqa=True)
-    q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
-    o32, lse32 = ops.flash_attention_with_lse(q32, k32, v32)
-    fp32 = {"flash_attention_fwd": lambda: ops.flash_attention_with_lse(q32, k32, v32),
-            "flash_attention_bwd": lambda: FB.flash_attention_bwd(q32, k32, v32, o32, lse32, do32)}
-    for name, fn, pl, lib, nbytes, flops, err in (
-            ("flash_attention_fwd", lambda: ops.flash_attention_with_lse(q, k, v),
-             lambda: F.flash_attention_with_lse_plain(q, k, v),
-             lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
-             2 * (q.numel() + k.numel() + v.numel() + o.numel()) + 4 * lse.numel(), 2 * (hd + dv) * pairs,
-             max((o.float() - o_p.float()).abs().max().item(), (lse - lse_p).abs().max().item())),
-            ("flash_attention_bwd", lambda: FB.flash_attention_bwd(q, k, v, o, lse, do),
-             lambda: FB.flash_attention_bwd_plain(q, k, v, o, lse, do),
-             lambda: torch.autograd.grad(o_lib, (qr, kr, vr), do, retain_graph=True),
-             2 * (2 * (q.numel() + k.numel() + v.numel()) + o.numel() + do.numel()) + 4 * lse.numel(),
-             2 * (3 * hd + 2 * dv) * pairs,
-             max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want)))):
-        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
-        src, replaces = KERNELS[name]
-        rows.append({"name": f"{name}[bf16]", "route": "cuda", "source": src.replace(".cu", "_bf16.cu"),
-                     "replaces": replaces, "dtype": "bfloat16",
-                     "launches": counts["flash_attention_fwd" if name.endswith("fwd") else "flash_attention_dq"],
-                     "launches_from": "phase 5's bf16 path", "max_abs_err": err, "tolerance": BF16_TOL[name],
-                     "ms": device_ms(fn, 50), "plain_ms": device_ms(pl, 50), "bound_ms": max(t_b, t_o) * 1e3,
-                     "bound_by": "bytes" if t_b >= t_o else "operations", "library_ms": device_ms(lib, 50),
-                     "shape": list(BF16_FLASH), "fp32_ms": device_ms(fp32[name], 50)})
+    rows += bf16_flash_rows(counts, g)
     for r in rows:
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.5f} ms"
         print(f"timing {r['name']} at {tuple(r['shape'])}: device time kernel {r['ms']:.5f} ms (the fp32 kernel on "
               f"the rows cast: {r['fp32_ms']:.5f} ms), plain {r['plain_ms']:.5f} ms, library {lib}; bound "
               f"{r['bound_ms']:.6f} ms ({r['bound_by']}); launches "
               f"{r['launches']} (phase 5's bf16 path); max_abs_err {r['max_abs_err']:.3g} ({r['tolerance']})")
-    del q, k, v, do, o, lse, o_p, lse_p, got, want, qr, kr, vr, o_lib, q32, k32, v32, do32, o32, lse32
-    torch.cuda.empty_cache()
     return rows
+
+
+def bf16_flash_rows(counts, g) -> list[dict]:
+    """The bf16 flash forward and backward rows: checked against their plain
+    versions at ``tests/torch_bf16_bounds.py``'s bounds (o and the gradients
+    within one bf16 ulp or 1e-5, lse within 1e-5) and at the reference's
+    2e-2, then timed at phase 5's step's shape and, timed only (no path
+    launches it), at the reference's train_4k attention shape, each beside
+    its plain version, bf16 SDPA (and its autograd backward) and the fp32
+    kernel on the inputs cast to fp32, in the same call; the backward also
+    as its parts, the ``D`` pre-pass, dq and dkv. ``resources``: registers,
+    local and stack bytes (phase 1's ``cuobjdump``) and dynamic shared
+    memory of the bucket's kernels (:data:`FLASH_BF16_RESOURCES`)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_bf16_bounds import LSE_TOL, REFERENCE_TOL, max_ulps, within_one_ulp
+
+    from repro_torch.kernels import flash_attention as F
+    from repro_torch.kernels import flash_attention_bwd as FB
+    from repro_torch.kernels import ops
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for shape, iters in ((BF16_FLASH, 50), (BF16_FLASH_4K, 10)):
+        B, H, Sq, hd, KV, Sk, dv = shape
+        q, k, v, do = (t.to(torch.bfloat16) for t in flash_inputs(g, B, H, KV, Sq, Sk, hd, dv))
+        check(F.bf16_copy_path(q, k, v, do) == "cp.async 16 B", f"bf16 flash at {shape}: 16-byte copies expected")
+        pairs = B * H * _allowed_pairs(Sq, Sk)
+        o, lse = ops.flash_attention_with_lse(q, k, v)
+        o_p, lse_p = F.flash_attention_with_lse_plain(q, k, v)
+        check(o.dtype == torch.bfloat16 and lse.dtype == torch.float32, "bf16 flash forward: output dtypes")
+        check(within_one_ulp(o, o_p), f"bf16 flash o at {shape}: not within one bf16 ulp or 1e-5 of the plain "
+                                       f"version ({max_ulps(o, o_p):.3g} ulps)")
+        torch.testing.assert_close(lse, lse_p, rtol=LSE_TOL, atol=LSE_TOL, msg=lambda m: f"bf16 flash lse: {m}")
+        torch.testing.assert_close(o.float(), o_p.float(), rtol=REFERENCE_TOL, atol=REFERENCE_TOL,
+                                   msg=lambda m: f"bf16 flash o: {m}")
+        errs = {"o": (o.float() - o_p.float()).abs().max().item(), "lse": (lse - lse_p).abs().max().item()}
+        ulps = {"o": max_ulps(o, o_p)}
+        del o_p, lse_p
+        got, want = FB.flash_attention_bwd(q, k, v, o, lse, do), FB.flash_attention_bwd_plain(q, k, v, o, lse, do)
+        for a, b, part in zip(got, want, ("dq", "dk", "dv")):
+            check(a.dtype == torch.bfloat16, f"bf16 flash {part}: dtype {a.dtype}")
+            check(within_one_ulp(a, b), f"bf16 flash {part} at {shape}: not within one bf16 ulp or 1e-5 of the "
+                                        f"plain version ({max_ulps(a, b):.3g} ulps)")
+            torch.testing.assert_close(a.float(), b.float(), rtol=REFERENCE_TOL, atol=REFERENCE_TOL,
+                                       msg=lambda m: f"bf16 flash {part}: {m}")
+            errs[part], ulps[part] = (a.float() - b.float()).abs().max().item(), max_ulps(a, b)
+        del got, want
+        torch.cuda.empty_cache()
+        dsum = FB._dsum(do, o)
+        qr, kr, vr = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+        o_lib = sdpa(qr, kr, vr, is_causal=True, enable_gqa=True)
+        q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+        o32, lse32 = ops.flash_attention_with_lse(q32, k32, v32)
+        fwd_bytes = 2 * (q.numel() + k.numel() + v.numel() + o.numel()) + 4 * lse.numel()
+        bwd_bytes = 2 * (2 * (q.numel() + k.numel() + v.numel()) + o.numel() + do.numel()) + 4 * lse.numel()
+        timed = {
+            "flash_attention_fwd": dict(
+                fn=lambda: ops.flash_attention_with_lse(q, k, v), plain=lambda: F.flash_attention_with_lse_plain(q, k, v),
+                lib=lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
+                fp32=lambda: ops.flash_attention_with_lse(q32, k32, v32), nbytes=fwd_bytes,
+                flops=2 * (hd + dv) * pairs, err=max(errs["o"], errs["lse"]), ulps=ulps["o"], parts={}),
+            "flash_attention_bwd": dict(
+                fn=lambda: FB.flash_attention_bwd(q, k, v, o, lse, do),
+                plain=lambda: FB.flash_attention_bwd_plain(q, k, v, o, lse, do),
+                lib=lambda: torch.autograd.grad(o_lib, (qr, kr, vr), do, retain_graph=True),
+                fp32=lambda: FB.flash_attention_bwd(q32, k32, v32, o32, lse32, do32), nbytes=bwd_bytes,
+                flops=2 * (3 * hd + 2 * dv) * pairs, err=max(errs["dq"], errs["dk"], errs["dv"]),
+                ulps=max(ulps["dq"], ulps["dk"], ulps["dv"]),
+                parts={"dsum_ms": lambda: FB._dsum(do, o), "dq_ms": lambda: FB.flash_attention_dq(q, k, v, do, lse, dsum),
+                       "dkv_ms": lambda: FB.flash_attention_dkv(q, k, v, do, lse, dsum)}),
+        }
+        for name, t in timed.items():
+            t_b, t_o = t["nbytes"] / HBM_BYTES_PER_S, t["flops"] / BF16_FLOPS_PER_S
+            out = {"shape": list(shape), "max_abs_err": t["err"], "max_ulps_past_1e-5": t["ulps"],
+                   "ms": device_ms(t["fn"], iters), "plain_ms": device_ms(t["plain"], iters),
+                   "bound_ms": max(t_b, t_o) * 1e3, "bound_by": "bytes" if t_b >= t_o else "operations",
+                   "library_ms": device_ms(t["lib"], iters), "fp32_ms": device_ms(t["fp32"], iters),
+                   **{k: device_ms(fn, iters) for k, fn in t["parts"].items()}}
+            if shape == BF16_FLASH:
+                src, replaces = KERNELS[name]
+                kinds = ("fwd",) if name.endswith("fwd") else ("dq", "dkv")
+                rows[name] = {"name": f"{name}[bf16]", "route": "cuda", "source": src.replace(".cu", "_bf16.cu"),
+                              "replaces": replaces, "dtype": "bfloat16",
+                              "launches": counts["flash_attention_fwd" if name.endswith("fwd") else "flash_attention_dq"],
+                              "launches_from": "phase 5's bf16 path", "tolerance": BF16_TOL[name],
+                              "resources": {kind: FLASH_BF16_RESOURCES.get(f"flash_{kind}", {}).get(hd)
+                                            for kind in kinds}, **out}
+            else:
+                rows[name]["at_4096"] = {**out, "launches": 0, "launches_from": "timed only: no path launches it"}
+            print(f"timing {name}[bf16] at {shape}: device time kernel {out['ms']:.5f} ms "
+                  + "".join(f"({k[:-3]} {out[k]:.5f} ms) " for k in t["parts"])
+                  + f"(the fp32 kernel on the inputs cast {out['fp32_ms']:.5f} ms), plain {out['plain_ms']:.5f} ms, "
+                  f"bf16 SDPA {out['library_ms']:.5f} ms; bound {out['bound_ms']:.6f} ms ({out['bound_by']}); max_abs_err "
+                  f"{out['max_abs_err']:.3g}, {out['max_ulps_past_1e-5']:.3g} bf16 ulps past 1e-5")
+        del q, k, v, do, o, lse, dsum, qr, kr, vr, o_lib, q32, k32, v32, do32, o32, lse32, timed
+        torch.cuda.empty_cache()
+    return list(rows.values())
 
 
 def bf16_phase(shapes) -> list[dict]:

@@ -36,14 +36,8 @@
 // dv accumulators would not both fit in registers, runs as two launches
 // (dk, then dv).
 //
-// bf16 q, k, v and do (repro_flash_dq_bf16, repro_flash_dkv_bf16): the same
-// kernels on tiles converted to fp32 as they load (flash_common.cuh), the
-// lse and D rows in fp32, dq, dk and dv in bf16, as the reference's kernels
-// (flash_attention_bwd.py:70-73, 107-110; the gradients in the inputs'
-// dtypes, :188, 215-216). flash_bwd_bf16.cu compiles them in a translation
-// unit of their own.
-#include <cooperative_groups.h>
-
+// bf16 q, k, v and do (repro_flash_dq_bf16, repro_flash_dkv_bf16) take
+// kernels of their own on the bf16 tensor cores, flash_bwd_bf16.cu.
 #include "flash_common.cuh"
 
 using namespace repro::flash;
@@ -52,8 +46,8 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-template <int E, typename T>
-__global__ void __launch_bounds__(kThreads, min_blocks(E)) flash_dq_kernel(Params<T> p) {
+template <int E>
+__global__ void __launch_bounds__(kThreads, min_blocks(E)) flash_dq_kernel(Params<float> p) {
   constexpr int S = stride<E>(), BK = kStream, NE = E / 8, NK = BK / 8;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                        // kRows x S
@@ -65,18 +59,18 @@ __global__ void __launch_bounds__(kThreads, min_blocks(E)) flash_dq_kernel(Param
   const int64_t q0 = static_cast<int64_t>(gridDim.z - 1 - blockIdx.z) * kRows;
   const int64_t kvh = h / (p.H / p.KV);
   const int64_t bh = b * p.H + h;
-  const T* kg = p.k + (b * p.KV + kvh) * p.Sk * p.hd;
-  const T* vg = p.v + (b * p.KV + kvh) * p.Sk * p.dv;
+  const float* kg = p.k + (b * p.KV + kvh) * p.Sk * p.hd;
+  const float* vg = p.v + (b * p.KV + kvh) * p.Sk * p.dv;
   const int64_t nq = p.Sq - q0 < kRows ? p.Sq - q0 : kRows;
   const int r0 = warp * 16;
 
   int64_t kt0, kt1;
   key_tiles(p, BK, p.q_pos0 + q0, p.q_pos0 + q0 + nq - 1, &kt0, &kt1);
-  load_tile<E, kRows>(qs, p.q + bh * p.Sq * p.hd, q0, p.Sq, p.hd, p.vec4);
-  load_tile<E, kRows>(dos, p.dout + bh * p.Sq * p.dv, q0, p.Sq, p.dv, p.vec4);
+  load_tile<E, kRows>(qs, p.q + bh * p.Sq * p.hd, q0, p.Sq, p.hd, p.vec);
+  load_tile<E, kRows>(dos, p.dout + bh * p.Sq * p.dv, q0, p.Sq, p.dv, p.vec);
   if (kt0 < kt1) {
-    load_tile<E, BK>(kbuf, kg, kt0 * BK, p.Sk, p.hd, p.vec4);
-    load_tile<E, BK>(vbuf, vg, kt0 * BK, p.Sk, p.dv, p.vec4);
+    load_tile<E, BK>(kbuf, kg, kt0 * BK, p.Sk, p.hd, p.vec);
+    load_tile<E, BK>(vbuf, vg, kt0 * BK, p.Sk, p.dv, p.vec);
   }
   tc::cp_commit();
 
@@ -97,8 +91,8 @@ __global__ void __launch_bounds__(kThreads, min_blocks(E)) flash_dq_kernel(Param
     const int cur = p.stages == 2 ? static_cast<int>((kt - kt0) & 1) : 0;
     if (p.stages == 2 && kt + 1 < kt1) {
       const int nxt = cur ^ 1;
-      load_tile<E, BK>(kbuf + nxt * BK * S, kg, (kt + 1) * BK, p.Sk, p.hd, p.vec4);
-      load_tile<E, BK>(vbuf + nxt * BK * S, vg, (kt + 1) * BK, p.Sk, p.dv, p.vec4);
+      load_tile<E, BK>(kbuf + nxt * BK * S, kg, (kt + 1) * BK, p.Sk, p.hd, p.vec);
+      load_tile<E, BK>(vbuf + nxt * BK * S, vg, (kt + 1) * BK, p.Sk, p.dv, p.vec);
       tc::cp_commit();
       tc::cp_wait<1>();
     } else {
@@ -159,8 +153,8 @@ __global__ void __launch_bounds__(kThreads, min_blocks(E)) flash_dq_kernel(Param
     }
     __syncthreads();
     if (p.stages == 1 && kt + 1 < kt1) {
-      load_tile<E, BK>(kbuf, kg, (kt + 1) * BK, p.Sk, p.hd, p.vec4);
-      load_tile<E, BK>(vbuf, vg, (kt + 1) * BK, p.Sk, p.dv, p.vec4);
+      load_tile<E, BK>(kbuf, kg, (kt + 1) * BK, p.Sk, p.hd, p.vec);
+      load_tile<E, BK>(vbuf, vg, (kt + 1) * BK, p.Sk, p.dv, p.vec);
       tc::cp_commit();
     }
   }
@@ -170,39 +164,21 @@ __global__ void __launch_bounds__(kThreads, min_blocks(E)) flash_dq_kernel(Param
   for (int j = 0; j < 2; ++j) {
     const int64_t row = q0 + r0 + g + j * 8;
     if (row >= p.Sq) continue;
-    T* out = p.o + (bh * p.Sq + row) * p.hd;
+    float* out = p.o + (bh * p.Sq + row) * p.hd;
 #pragma unroll
     for (int n = 0; n < NE; ++n) {
       const int col = n * 8 + 2 * t;
-      if (col < p.hd) out[col] = repro::from_f32<T>(acc[n][2 * j] * p.scale);
-      if (col + 1 < p.hd) out[col + 1] = repro::from_f32<T>(acc[n][2 * j + 1] * p.scale);
+      if (col < p.hd) out[col] = acc[n][2 * j] * p.scale;
+      if (col + 1 < p.hd) out[col + 1] = acc[n][2 * j + 1] * p.scale;
     }
   }
 }
 
-// Entry idx of `part` summed over the cluster's blocks in rank order; the
-// (at most 8) remote reads are issued before the sum so their latencies
-// overlap.
-__device__ __forceinline__ float cluster_sum(cg::cluster_group& cluster, float* part, int idx) {
-  const int n = static_cast<int>(cluster.num_blocks());
-  float v[8];
-#pragma unroll
-  for (int c = 0; c < 8; ++c) v[c] = c < n ? cluster.map_shared_rank(part, c)[idx] : 0.f;
-  float sum = v[0];
-#pragma unroll
-  for (int c = 1; c < 8; ++c)
-    if (c < n) sum += v[c];
-  return sum;
-}
-
-// What a dkv launch accumulates.
-constexpr int kDk = 1, kDv = 2;
-
 // Grid (KV * cluster, B, key tiles), clusters of (cluster, 1, 1) blocks.
 // Block rank c of the cluster of KV head kvh handles query heads
 // kvh * G + c * (G / cluster) + j for j < G / cluster.
-template <int E, int WHAT, typename T>
-__global__ void __launch_bounds__(kThreads, min_blocks(E)) flash_dkv_kernel(Params<T> p) {
+template <int E, int WHAT>
+__global__ void __launch_bounds__(kThreads, min_blocks(E)) flash_dkv_kernel(Params<float> p) {
   constexpr int S = stride<E>(), BQ = kStream, NE = E / 8, NQ = BQ / 8;
   constexpr bool DK = WHAT & kDk, DV = WHAT & kDv;
   extern __shared__ __align__(16) float smem[];
@@ -232,13 +208,13 @@ __global__ void __launch_bounds__(kThreads, min_blocks(E)) flash_dkv_kernel(Para
   auto load_query = [&](int64_t i, int buf) {
     const int64_t bh = b * p.H + kvh * G + rank * per + i / nqt;
     const int64_t qr0 = (qt0 + i % nqt) * BQ;
-    load_tile<E, BQ>(qbuf + buf * BQ * S, p.q + bh * p.Sq * p.hd, qr0, p.Sq, p.hd, p.vec4);
-    load_tile<E, BQ>(dobuf + buf * BQ * S, p.dout + bh * p.Sq * p.dv, qr0, p.Sq, p.dv, p.vec4);
+    load_tile<E, BQ>(qbuf + buf * BQ * S, p.q + bh * p.Sq * p.hd, qr0, p.Sq, p.hd, p.vec);
+    load_tile<E, BQ>(dobuf + buf * BQ * S, p.dout + bh * p.Sq * p.dv, qr0, p.Sq, p.dv, p.vec);
     load_vec<BQ>(lbuf + buf * BQ, p.lse + bh * p.Sq, qr0, p.Sq);
     load_vec<BQ>(dbuf + buf * BQ, p.dsum + bh * p.Sq, qr0, p.Sq);
   };
-  load_tile<E, kRows>(ks, p.k + bkv * p.Sk * p.hd, k0, p.Sk, p.hd, p.vec4);
-  load_tile<E, kRows>(vs, p.v + bkv * p.Sk * p.dv, k0, p.Sk, p.dv, p.vec4);
+  load_tile<E, kRows>(ks, p.k + bkv * p.Sk * p.hd, k0, p.Sk, p.hd, p.vec);
+  load_tile<E, kRows>(vs, p.v + bkv * p.Sk * p.dv, k0, p.Sk, p.dv, p.vec);
   if (iters > 0) load_query(0, 0);
   tc::cp_commit();
 
@@ -362,10 +338,9 @@ __global__ void __launch_bounds__(kThreads, min_blocks(E)) flash_dkv_kernel(Para
     const int col = idx % E;
     if (key >= p.Sk) continue;
     if (DK && col < p.hd)
-      p.o[(bkv * p.Sk + key) * p.hd + col] = repro::from_f32<T>(cluster_sum(cluster, part_k, idx) * p.scale);
+      p.o[(bkv * p.Sk + key) * p.hd + col] = cluster_sum(cluster, part_k, idx) * p.scale;
     if (DV && col < p.dv)
-      static_cast<T*>(p.lse_out)[(bkv * p.Sk + key) * p.dv + col] =
-          repro::from_f32<T>(cluster_sum(cluster, part_v, idx));
+      static_cast<float*>(p.lse_out)[(bkv * p.Sk + key) * p.dv + col] = cluster_sum(cluster, part_v, idx);
   }
   cluster.sync();  // no block leaves while another still reads its partials
 }
@@ -381,68 +356,38 @@ size_t dkv_smem(int stages) {
                           2 * stages * kStream);
 }
 
-// The largest cluster size up to 8 that divides G.
-int cluster_size(int64_t G) {
-  for (int c = 8; c > 1; --c)
-    if (G % c == 0) return c;
-  return 1;
-}
-
-template <int E, int WHAT, typename T>
-int launch_dkv(Params<T> p, size_t smem, dim3 grid, cudaStream_t stream) {
-  const cudaError_t attr = allow_smem(flash_dkv_kernel<E, WHAT, T>, smem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute la[1];
-  la[0].id = cudaLaunchAttributeClusterDimension;
-  la[0].val.clusterDim.x = static_cast<unsigned>(p.cluster);
-  la[0].val.clusterDim.y = 1;
-  la[0].val.clusterDim.z = 1;
-  cfg.attrs = la;
-  cfg.numAttrs = 1;
-  const cudaError_t rc = cudaLaunchKernelEx(&cfg, flash_dkv_kernel<E, WHAT, T>, p);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  return repro::launch_status();
-}
-
-template <typename T>
-int flash_dq(const T* q, const T* k, const T* v, const T* dout, const float* lse, const float* dsum, T* dq,
-             int64_t B, int64_t H, int64_t KV, int64_t Sq, int64_t Sk, int64_t hd, int64_t dv, float scale,
+int flash_dq(const float* q, const float* k, const float* v, const float* dout, const float* lse,
+             const float* dsum, float* dq, int64_t B, int64_t H, int64_t KV, int64_t Sq, int64_t Sk, int64_t hd, int64_t dv, float scale,
              int causal, int64_t window, float softcap, int64_t q_pos0, int device, void* stream) {
   repro::use_device(device);
   if (B <= 0 || H <= 0 || Sq <= 0) return repro::launch_status();
-  const int vec4 = hd % 4 == 0 && dv % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
+  const int vec = hd % 4 == 0 && dv % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
                    aligned16(dout);
-  Params<T> p{q, k, v, dout, lse, dsum, dq, nullptr, B, H, KV, Sq, Sk, hd, dv, q_pos0, window,
-              scale, softcap, causal, vec4, 2, 1};
+  Params<float> p{q, k, v, dout, lse, dsum, dq, nullptr, B, H, KV, Sq, Sk, hd, dv, q_pos0, window,
+                  scale, softcap, causal, vec, 2, 1};
   return by_bucket(hd, dv, [&](auto e) {
     constexpr int E = decltype(e)::value;
     p.stages = dq_smem<E>(2) <= kMaxSmem ? 2 : 1;
     const size_t smem = dq_smem<E>(p.stages);
-    const cudaError_t attr = allow_smem(flash_dq_kernel<E, T>, smem);
+    const cudaError_t attr = allow_smem(flash_dq_kernel<E>, smem);
     if (attr != cudaSuccess) return static_cast<int>(attr);
     const dim3 grid(static_cast<unsigned>(H), static_cast<unsigned>(B),
                     static_cast<unsigned>((Sq + kRows - 1) / kRows));
-    flash_dq_kernel<E, T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+    flash_dq_kernel<E><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
     return repro::launch_status();
   });
 }
 
-template <typename T>
-int flash_dkv(const T* q, const T* k, const T* v, const T* dout, const float* lse, const float* dsum, T* dk,
-              T* dv, int64_t B, int64_t H, int64_t KV, int64_t Sq, int64_t Sk, int64_t hd, int64_t dvd,
+int flash_dkv(const float* q, const float* k, const float* v, const float* dout, const float* lse,
+              const float* dsum, float* dk, float* dv, int64_t B, int64_t H, int64_t KV, int64_t Sq, int64_t Sk, int64_t hd, int64_t dvd,
               float scale, int causal, int64_t window, float softcap, int64_t q_pos0, int device,
               void* stream) {
   repro::use_device(device);
   if (B <= 0 || KV <= 0 || Sk <= 0) return repro::launch_status();
-  const int vec4 = hd % 4 == 0 && dvd % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
+  const int vec = hd % 4 == 0 && dvd % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
                    aligned16(dout);
-  Params<T> p{q, k, v, dout, lse, dsum, dk, dv, B, H, KV, Sq, Sk, hd, dvd, q_pos0, window,
-              scale, softcap, causal, vec4, 2, cluster_size(H / KV)};
+  Params<float> p{q, k, v, dout, lse, dsum, dk, dv, B, H, KV, Sq, Sk, hd, dvd, q_pos0, window,
+                  scale, softcap, causal, vec, 2, cluster_size(H / KV)};
   const auto st = static_cast<cudaStream_t>(stream);
   return by_bucket(hd, dvd, [&](auto e) {
     constexpr int E = decltype(e)::value;
@@ -451,17 +396,16 @@ int flash_dkv(const T* q, const T* k, const T* v, const T* dout, const float* ls
     const dim3 grid(static_cast<unsigned>(KV * p.cluster), static_cast<unsigned>(B),
                     static_cast<unsigned>((Sk + kRows - 1) / kRows));
     if constexpr (E < 256) {
-      return launch_dkv<E, kDk | kDv>(p, smem, grid, st);
+      return launch_cluster(flash_dkv_kernel<E, kDk | kDv>, p, smem, grid, st);
     } else {
-      const int rc = launch_dkv<E, kDk>(p, smem, grid, st);
-      return rc != 0 ? rc : launch_dkv<E, kDv>(p, smem, grid, st);
+      const int rc = launch_cluster(flash_dkv_kernel<E, kDk>, p, smem, grid, st);
+      return rc != 0 ? rc : launch_cluster(flash_dkv_kernel<E, kDv>, p, smem, grid, st);
     }
   });
 }
 
 }  // namespace
 
-#ifndef REPRO_FLASH_BF16
 REPRO_API int repro_flash_dq(const float* q, const float* k, const float* v, const float* dout,
                              const float* lse, const float* dsum, float* dq, int64_t B, int64_t H,
                              int64_t KV, int64_t Sq, int64_t Sk, int64_t hd, int64_t dv, float scale,
@@ -479,22 +423,3 @@ REPRO_API int repro_flash_dkv(const float* q, const float* k, const float* v, co
   return flash_dkv(q, k, v, dout, lse, dsum, dk, dv, B, H, KV, Sq, Sk, hd, dvd, scale, causal, window, softcap,
                    q_pos0, device, stream);
 }
-#else
-REPRO_API int repro_flash_dq_bf16(const repro::bf16* q, const repro::bf16* k, const repro::bf16* v,
-                                  const repro::bf16* dout, const float* lse, const float* dsum, repro::bf16* dq,
-                                  int64_t B, int64_t H, int64_t KV, int64_t Sq, int64_t Sk, int64_t hd,
-                                  int64_t dv, float scale, int causal, int64_t window, float softcap,
-                                  int64_t q_pos0, int device, void* stream) {
-  return flash_dq(q, k, v, dout, lse, dsum, dq, B, H, KV, Sq, Sk, hd, dv, scale, causal, window, softcap,
-                  q_pos0, device, stream);
-}
-
-REPRO_API int repro_flash_dkv_bf16(const repro::bf16* q, const repro::bf16* k, const repro::bf16* v,
-                                   const repro::bf16* dout, const float* lse, const float* dsum,
-                                   repro::bf16* dk, repro::bf16* dv, int64_t B, int64_t H, int64_t KV,
-                                   int64_t Sq, int64_t Sk, int64_t hd, int64_t dvd, float scale, int causal,
-                                   int64_t window, float softcap, int64_t q_pos0, int device, void* stream) {
-  return flash_dkv(q, k, v, dout, lse, dsum, dk, dv, B, H, KV, Sq, Sk, hd, dvd, scale, causal, window, softcap,
-                   q_pos0, device, stream);
-}
-#endif

@@ -26,12 +26,8 @@
 // first. Every sum runs in a fixed order: a launch shape always gives the
 // same bits.
 //
-// bf16 q, k, v (repro_flash_fwd_bf16): the same kernel on tiles converted to
-// fp32 as they load (flash_common.cuh), o in bf16 and the log-sum-exp in
-// fp32, as the reference's kernel (flash_attention.py:46-48, :140). Each
-// instantiation has a translation unit of its own (flash_fwd_bf16.cu
-// defines REPRO_FLASH_BF16 and includes this file), so the two compile
-// side by side.
+// bf16 q, k, v (repro_flash_fwd_bf16) take a kernel of their own on the bf16
+// tensor cores, flash_fwd_bf16.cu.
 #include "flash_common.cuh"
 
 using namespace repro::flash;
@@ -39,8 +35,8 @@ namespace tc = repro::tc;
 
 namespace {
 
-template <int E, typename T>
-__global__ void __launch_bounds__(kThreads, min_blocks(E)) flash_fwd_kernel(Params<T> p) {
+template <int E>
+__global__ void __launch_bounds__(kThreads, min_blocks(E)) flash_fwd_kernel(Params<float> p) {
   constexpr int S = stride<E>(), BK = kStream, NE = E / 8, NK = BK / 8;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                      // kRows x S
@@ -50,9 +46,9 @@ __global__ void __launch_bounds__(kThreads, min_blocks(E)) flash_fwd_kernel(Para
   const int64_t h = blockIdx.x, b = blockIdx.y;
   const int64_t q0 = static_cast<int64_t>(gridDim.z - 1 - blockIdx.z) * kRows;
   const int64_t kvh = h / (p.H / p.KV);
-  const T* qg = p.q + (b * p.H + h) * p.Sq * p.hd;
-  const T* kg = p.k + (b * p.KV + kvh) * p.Sk * p.hd;
-  const T* vg = p.v + (b * p.KV + kvh) * p.Sk * p.dv;
+  const float* qg = p.q + (b * p.H + h) * p.Sq * p.hd;
+  const float* kg = p.k + (b * p.KV + kvh) * p.Sk * p.hd;
+  const float* vg = p.v + (b * p.KV + kvh) * p.Sk * p.dv;
   const int64_t nq = p.Sq - q0 < kRows ? p.Sq - q0 : kRows;
   const int r0 = warp * 16;  // the warp's rows r0 + g and r0 + g + 8
   int klo[2], khi[2];        // the keys each of the lane's two rows may see
@@ -61,10 +57,10 @@ __global__ void __launch_bounds__(kThreads, min_blocks(E)) flash_fwd_kernel(Para
 
   int64_t kt0, kt1;
   key_tiles(p, BK, p.q_pos0 + q0, p.q_pos0 + q0 + nq - 1, &kt0, &kt1);
-  load_tile<E, kRows>(qs, qg, q0, p.Sq, p.hd, p.vec4);
+  load_tile<E, kRows>(qs, qg, q0, p.Sq, p.hd, p.vec);
   if (kt0 < kt1) {
-    load_tile<E, BK>(kbuf, kg, kt0 * BK, p.Sk, p.hd, p.vec4);
-    load_tile<E, BK>(vbuf, vg, kt0 * BK, p.Sk, p.dv, p.vec4);
+    load_tile<E, BK>(kbuf, kg, kt0 * BK, p.Sk, p.hd, p.vec);
+    load_tile<E, BK>(vbuf, vg, kt0 * BK, p.Sk, p.dv, p.vec);
   }
   tc::cp_commit();
 
@@ -76,8 +72,8 @@ __global__ void __launch_bounds__(kThreads, min_blocks(E)) flash_fwd_kernel(Para
     const int cur = p.stages == 2 ? static_cast<int>((kt - kt0) & 1) : 0;
     if (p.stages == 2 && kt + 1 < kt1) {
       const int nxt = cur ^ 1;
-      load_tile<E, BK>(kbuf + nxt * BK * S, kg, (kt + 1) * BK, p.Sk, p.hd, p.vec4);
-      load_tile<E, BK>(vbuf + nxt * BK * S, vg, (kt + 1) * BK, p.Sk, p.dv, p.vec4);
+      load_tile<E, BK>(kbuf + nxt * BK * S, kg, (kt + 1) * BK, p.Sk, p.hd, p.vec);
+      load_tile<E, BK>(vbuf + nxt * BK * S, vg, (kt + 1) * BK, p.Sk, p.dv, p.vec);
       tc::cp_commit();
       tc::cp_wait<1>();
     } else {
@@ -160,8 +156,8 @@ __global__ void __launch_bounds__(kThreads, min_blocks(E)) flash_fwd_kernel(Para
     }
     __syncthreads();  // every warp is done with this buffer before it is refilled
     if (p.stages == 1 && kt + 1 < kt1) {
-      load_tile<E, BK>(kbuf, kg, (kt + 1) * BK, p.Sk, p.hd, p.vec4);
-      load_tile<E, BK>(vbuf, vg, (kt + 1) * BK, p.Sk, p.dv, p.vec4);
+      load_tile<E, BK>(kbuf, kg, (kt + 1) * BK, p.Sk, p.hd, p.vec);
+      load_tile<E, BK>(vbuf, vg, (kt + 1) * BK, p.Sk, p.dv, p.vec);
       tc::cp_commit();
     }
   }
@@ -172,12 +168,12 @@ __global__ void __launch_bounds__(kThreads, min_blocks(E)) flash_fwd_kernel(Para
     const int64_t row = q0 + r0 + g + j * 8;
     if (row >= p.Sq) continue;
     const float l_safe = fmaxf(l[j], 1e-30f);
-    T* orow = p.o + ((b * p.H + h) * p.Sq + row) * p.dv;
+    float* orow = p.o + ((b * p.H + h) * p.Sq + row) * p.dv;
 #pragma unroll
     for (int n = 0; n < NE; ++n) {
       const int col = n * 8 + 2 * t;
-      if (col < p.dv) orow[col] = repro::from_f32<T>(acc[n][2 * j] / l_safe);
-      if (col + 1 < p.dv) orow[col + 1] = repro::from_f32<T>(acc[n][2 * j + 1] / l_safe);
+      if (col < p.dv) orow[col] = acc[n][2 * j] / l_safe;
+      if (col + 1 < p.dv) orow[col + 1] = acc[n][2 * j + 1] / l_safe;
     }
     if (t == 0) static_cast<float*>(p.lse_out)[(b * p.H + h) * p.Sq + row] = m[j] + logf(l_safe);
   }
@@ -188,31 +184,29 @@ size_t fwd_smem(int stages) {
   return sizeof(float) * stride<E>() * (kRows + 2 * stages * kStream);
 }
 
-template <typename T>
-int flash_fwd(const T* q, const T* k, const T* v, T* o, float* lse, int64_t B, int64_t H, int64_t KV,
-              int64_t Sq, int64_t Sk, int64_t hd, int64_t dv, float scale, int causal, int64_t window,
+int flash_fwd(const float* q, const float* k, const float* v, float* o, float* lse, int64_t B, int64_t H,
+              int64_t KV, int64_t Sq, int64_t Sk, int64_t hd, int64_t dv, float scale, int causal, int64_t window,
               float softcap, int64_t q_pos0, int device, void* stream) {
   repro::use_device(device);
   if (B <= 0 || H <= 0 || Sq <= 0) return repro::launch_status();
-  const int vec4 = hd % 4 == 0 && dv % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
-  Params<T> p{q, k, v, nullptr, nullptr, nullptr, o, lse, B, H, KV, Sq, Sk, hd, dv, q_pos0, window,
-              scale, softcap, causal, vec4, 2, 1};
+  const int vec = hd % 4 == 0 && dv % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
+  Params<float> p{q, k, v, nullptr, nullptr, nullptr, o, lse, B, H, KV, Sq, Sk, hd, dv, q_pos0, window,
+                  scale, softcap, causal, vec, 2, 1};
   return by_bucket(hd, dv, [&](auto e) {
     constexpr int E = decltype(e)::value;
     p.stages = fwd_smem<E>(2) <= kMaxSmem ? 2 : 1;
     const size_t smem = fwd_smem<E>(p.stages);
-    const cudaError_t attr = allow_smem(flash_fwd_kernel<E, T>, smem);
+    const cudaError_t attr = allow_smem(flash_fwd_kernel<E>, smem);
     if (attr != cudaSuccess) return static_cast<int>(attr);
     const dim3 grid(static_cast<unsigned>(H), static_cast<unsigned>(B),
                     static_cast<unsigned>((Sq + kRows - 1) / kRows));
-    flash_fwd_kernel<E, T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+    flash_fwd_kernel<E><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
     return repro::launch_status();
   });
 }
 
 }  // namespace
 
-#ifndef REPRO_FLASH_BF16
 REPRO_API int repro_flash_fwd(const float* q, const float* k, const float* v, float* o, float* lse,
                               int64_t B, int64_t H, int64_t KV, int64_t Sq, int64_t Sk, int64_t hd,
                               int64_t dv, float scale, int causal, int64_t window, float softcap,
@@ -220,12 +214,3 @@ REPRO_API int repro_flash_fwd(const float* q, const float* k, const float* v, fl
   return flash_fwd(q, k, v, o, lse, B, H, KV, Sq, Sk, hd, dv, scale, causal, window, softcap, q_pos0, device,
                    stream);
 }
-#else
-REPRO_API int repro_flash_fwd_bf16(const repro::bf16* q, const repro::bf16* k, const repro::bf16* v,
-                                   repro::bf16* o, float* lse, int64_t B, int64_t H, int64_t KV, int64_t Sq,
-                                   int64_t Sk, int64_t hd, int64_t dv, float scale, int causal,
-                                   int64_t window, float softcap, int64_t q_pos0, int device, void* stream) {
-  return flash_fwd(q, k, v, o, lse, B, H, KV, Sq, Sk, hd, dv, scale, causal, window, softcap, q_pos0, device,
-                   stream);
-}
-#endif

@@ -27,11 +27,12 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("l1.cu", "assign_lerp.cu", "ingest_chain.cu", "chi2.cu", "merge.cu", "uplink.cu", "flash_fwd.cu",
            "flash_bwd.cu", "flash_fwd_bf16.cu", "flash_bwd_bf16.cu")
-HEADERS = ("common.cuh", "l1_rows.cuh", "flash_common.cuh", "mma_tf32.cuh")
+HEADERS = ("common.cuh", "l1_rows.cuh", "flash_common.cuh", "mma_tf32.cuh", "wgmma_bf16.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # ptxas's resource lines and advisories (a serialized wgmma) into build_output
 )
 
 _P = ctypes.c_void_p
@@ -64,6 +65,12 @@ _SIGNATURES = {
     "repro_flash_fwd": ([_P] * 5 + _FLASH_ARGS, _INT),
     "repro_flash_dq": ([_P] * 7 + _FLASH_ARGS, _INT),
     "repro_flash_dkv": ([_P] * 8 + _FLASH_ARGS, _INT),
+    # q, k, v, dout (may be null), hd, dv: 1 where bf16 flash launches copy by 16-byte cp.async
+    "repro_flash_bf16_vec": ([_P] * 4 + [_I64, _I64], _INT),
+    # hd, dv: a bf16 flash launch's dynamic shared memory in bytes
+    "repro_flash_fwd_bf16_smem": ([_I64, _I64], _INT),
+    "repro_flash_dq_bf16_smem": ([_I64, _I64], _INT),
+    "repro_flash_dkv_bf16_smem": ([_I64, _I64], _INT),
 }
 # the bf16 instantiations take the fp32 entry points' arguments (pointers to bf16 rows)
 _SIGNATURES.update({f"{name}_bf16": _SIGNATURES[name] for name in (
@@ -73,6 +80,7 @@ _SIGNATURES.update({f"{name}_bf16": _SIGNATURES[name] for name in (
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
 build_seconds: float | None = None  # wall time of the last compile (None: loaded a cached build)
+build_output: dict[str, str] = {}  # source -> what nvcc printed compiling it, from this process's compile
 
 
 def cuda_tool(name: str) -> str | None:
@@ -114,6 +122,7 @@ def _compile(lib_path: Path) -> None:
     errors = []
     for name, p in procs:
         out, _ = p.communicate()
+        build_output[name] = out.decode(errors="replace")
         if p.returncode != 0:
             errors.append(f"{name}:\n{out.decode(errors='replace')}")
     if errors:

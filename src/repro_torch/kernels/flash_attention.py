@@ -1,4 +1,5 @@
-"""Family E: flash-attention forward, kernel in ``csrc/flash_fwd.cu``.
+"""Family E: flash-attention forward, kernels in ``csrc/flash_fwd.cu`` (fp32)
+and ``csrc/flash_fwd_bf16.cu`` (bf16).
 
 Replaces the TPU kernel ``src/repro/kernels/flash_attention.py``
 (``flash_attention_with_lse`` → ``_flash_kernel``, and ``flash_attention``
@@ -17,8 +18,10 @@ with no allowed key at all is not a case either version is held to.
 ``q``, ``k`` and ``v`` may be fp32 or bf16 (one dtype a call), as the
 reference's kernel casts them to fp32 (``flash_attention.py:46-48``); ``o``
 comes back in ``q``'s dtype and the log-sum-exp in fp32 (``:140``). bf16
-launches the kernel's bf16 instantiation (``.launches_bf16``); the plain
-version casts to fp32 first.
+launches the bf16 kernel (``.launches_bf16``): bf16 tiles and wgmma on the
+bf16 tensor cores, p split into two bf16 parts for ``p·v``; the plain
+version casts to fp32 first. :func:`bf16_copy_path` says how a bf16 call's
+kernels copy their tiles.
 """
 from __future__ import annotations
 
@@ -59,6 +62,17 @@ def check_kernel_shape(what: str, B: int, H: int, KV: int, hd: int, dv: int) -> 
         raise ValueError(f"{what}: CUDA kernel takes head dims up to {MAX_HEAD_DIM}, got hd={hd} dv={dv}")
     if max(B, H, KV) > 65535:
         raise ValueError(f"{what}: CUDA kernel takes at most 65535 batch rows and heads, got B={B} H={H}")
+
+
+def bf16_copy_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor | None = None) -> str:
+    """How bf16 flash launches on these CUDA operands (``do`` for the
+    backward) copy their rows into shared memory, as the kernels decide it
+    (``repro_flash_bf16_vec``, ``csrc/wgmma_bf16.cuh``): ``"cp.async 16 B"``
+    where both head widths are multiples of 8 and every base pointer is
+    16-byte aligned, else ``"per element"``."""
+    vec = _build.library().repro_flash_bf16_vec(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if do is None else do.data_ptr(), q.shape[-1], v.shape[-1])
+    return "cp.async 16 B" if vec else "per element"
 
 
 def attention_mask(Sq: int, Sk: int, *, causal: bool, window, q_pos0: int, device) -> torch.Tensor:

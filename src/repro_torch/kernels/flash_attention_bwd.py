@@ -1,4 +1,5 @@
-"""Family F: flash-attention backward, two kernels in ``csrc/flash_bwd.cu``.
+"""Family F: flash-attention backward, two kernels in ``csrc/flash_bwd.cu``
+(fp32) and two in ``csrc/flash_bwd_bf16.cu`` (bf16).
 
 Replaces the TPU kernels of ``src/repro/kernels/flash_attention_bwd.py``
 (``flash_attention_bwd`` → ``_dq_kernel`` and ``_dkv_kernel``). Given the
@@ -19,8 +20,10 @@ Each wrapper counts its own launches in ``.launches``;
 call, as the reference's kernels cast them to fp32
 (``flash_attention_bwd.py:70-73``, ``:107-110``); ``lse`` and ``dsum`` are
 fp32 and the gradients come back in the inputs' dtype (``:188``,
-``:215-216``). bf16 launches the kernels' bf16 instantiations
-(``.launches_bf16``); the plain versions cast to fp32 first.
+``:215-216``). bf16 launches the bf16 kernels (``.launches_bf16``): bf16
+tiles and wgmma on the bf16 tensor cores, p and ds split into two bf16
+parts for the products that take them; the plain versions cast to fp32
+first.
 """
 from __future__ import annotations
 
@@ -151,8 +154,9 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=True, scale=None, w
 
 
 def _dsum(do, o):
-    """``D = rowsum(do * o)``, bf16 operands cast to fp32 (the reference's pre-pass, ``:161``)."""
-    return torch.sum(upcast(do) * upcast(o), dim=-1)
+    """``D = rowsum(do * o)``, bf16 operands cast to fp32 (the reference's pre-pass, ``:161``): ``o``
+    is promoted inside the product's kernel (the same fp32 products, one cast kernel fewer)."""
+    return torch.sum(upcast(do) * o, dim=-1)
 
 
 flash_attention_dq.launches = flash_attention_dq.launches_bf16 = 0

@@ -7,7 +7,8 @@ Tolerances as in ``chip_smoke.py``: L1 and chi2 rtol 1e-5 (and the L1
 and chi2 sums bitwise those of the numpy models of their orders), the blend
 bitwise, the index equal, the merge bitwise its plain version (NaN at the
 same places), the flash forward 1e-5 and backward 3e-4 (the backward also
-bitwise across repeats); the ingest chain's cids, blended rows and carried
+bitwise across repeats), the bf16 flash kernels within one bf16 ulp or
+1e-5 (``tests/torch_bf16_bounds.py``); the ingest chain's cids, blended rows and carried
 matrix bitwise its plain version's and its distances and statistics
 bitwise the numpy model of the L1 order (``kernel_chain``), with and without
 the guard's norm statistic. The ``har``
@@ -978,30 +979,66 @@ def test_cuda_bf16_server_kernels_match_plain(cuda_device, n):
         assert after[name] - before[name] == 1, name
 
 
+# B, H, KV, Sq, Sk, hd, dv, options: a shape a head-width bucket (16, 32, 64, 128, 256), ragged Sq, a window, a
+# softcap, GQA, Sq < Sk with q_pos0, dv != hd, hd 192 (MLA's q/k width: bucket 256 with a zero-filled fourth panel
+# on q and k), no causal mask, hd % 8 != 0 (the per-element copies) and phase 5's bf16 step's shape
+BF16_FLASH_CASES = [
+    (2, 4, 2, 128, 128, 16, 16, {}),
+    (2, 4, 2, 128, 128, 32, 32, {}),
+    (2, 8, 2, 256, 256, 64, 64, {}),
+    (1, 4, 2, 192, 192, 128, 128, {}),
+    (1, 4, 2, 160, 160, 256, 256, {}),
+    (1, 4, 4, 100, 100, 80, 80, dict(window=32)),
+    (1, 8, 4, 100, 100, 64, 48, dict(window=32, softcap=30.0)),
+    (1, 8, 2, 96, 96, 256, 192, dict(softcap=50.0)),
+    (2, 8, 2, 48, 200, 64, 64, dict(q_pos0=152)),
+    (1, 2, 1, 64, 64, 192, 192, {}),
+    (1, 2, 1, 64, 192, 128, 128, dict(causal=False)),
+    (2, 4, 2, 70, 70, 12, 12, {}),
+    (2, 32, 8, 512, 512, 64, 64, {}),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 8, 2, 256, 64, None), (1, 4, 4, 100, 80, 32), (1, 2, 1, 64, 192, None)])
-def test_cuda_bf16_flash_matches_plain(cuda_device, shape):
-    """The flash kernels' bf16 instantiations against their plain versions
-    at the reference's bf16 tolerance (atol = rtol = 2e-2): o and the
-    gradients bf16, the log-sum-exp fp32."""
-    B, H, KV, S, hd, window = shape
-    rng = np.random.default_rng(S + hd)
-    dev = cuda_device
-    q, do = _bf16_rows(rng, B, H, S, hd, dev=dev), _bf16_rows(rng, B, H, S, hd, dev=dev)
-    k, v = _bf16_rows(rng, B, KV, S, hd, dev=dev), _bf16_rows(rng, B, KV, S, hd, dev=dev)
+@pytest.mark.parametrize("case", BF16_FLASH_CASES, ids=str)
+def test_cuda_bf16_flash_matches_plain(cuda_device, case):
+    """The bf16 flash kernels (wgmma, p and ds in two bf16 parts) against
+    their plain versions on the same bf16 inputs, at the bounds of
+    ``tests/torch_bf16_bounds.py``: o, dq, dk and dv within one bf16 ulp of
+    the plain value or 1e-5 absolute (each side rounds an fp32 value to bf16
+    once, and the fp32 values differ by a few 1e-6: the sums' order and the
+    split's dropped term, about 2^-17 of a product; the CPU emulation of the
+    kernels' arithmetic, ``tests/test_torch_flash_bf16_mma.py``, shows both
+    and that 1e-6 and atol = rtol = 4e-3 are too tight at phase 5's shape),
+    lse within atol = rtol = 1e-5 (fp32 on both sides), and every output
+    within the reference's 2e-2; o and the gradients bf16, lse fp32, the
+    backward bitwise across repeats. hd % 8 != 0 takes the per-element
+    copies, every other case the 16-byte cp.async."""
+    from torch_bf16_bounds import LSE_TOL, REFERENCE_TOL, within_one_ulp
+
     from repro_torch.kernels import flash_attention as F
     from repro_torch.kernels import flash_attention_bwd as FB
 
-    o, lse = F.flash_attention_with_lse(q, k, v, window=window)
-    op, lsep = F.flash_attention_with_lse_plain(q, k, v, window=window)
+    B, H, KV, Sq, Sk, hd, dv, kw = case
+    rng = np.random.default_rng(Sq + hd)
+    dev = cuda_device
+    q, do = _bf16_rows(rng, B, H, Sq, hd, dev=dev), _bf16_rows(rng, B, H, Sq, dv, dev=dev)
+    k, v = _bf16_rows(rng, B, KV, Sk, hd, dev=dev), _bf16_rows(rng, B, KV, Sk, dv, dev=dev)
+    assert F.bf16_copy_path(q, k, v, do) == ("per element" if hd % 8 else "cp.async 16 B")
+    o, lse = F.flash_attention_with_lse(q, k, v, **kw)
+    op, lsep = F.flash_attention_with_lse_plain(q, k, v, **kw)
     assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
-    torch.testing.assert_close(o.float(), op.float(), rtol=2e-2, atol=2e-2)
-    torch.testing.assert_close(lse, lsep, rtol=2e-2, atol=2e-2)
-    got = FB.flash_attention_bwd(q, k, v, o, lse, do, window=window)
-    want = FB.flash_attention_bwd_plain(q, k, v, o, lse, do, window=window)
-    for g, w in zip(got, want):
-        assert g.dtype == torch.bfloat16
-        torch.testing.assert_close(g.float(), w.float(), rtol=2e-2, atol=2e-2)
+    assert within_one_ulp(o, op)
+    torch.testing.assert_close(lse, lsep, rtol=LSE_TOL, atol=LSE_TOL)
+    torch.testing.assert_close(o.float(), op.float(), rtol=REFERENCE_TOL, atol=REFERENCE_TOL)
+    got = FB.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = FB.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == torch.bfloat16, name
+        assert within_one_ulp(g, w), name
+        torch.testing.assert_close(g.float(), w.float(), rtol=REFERENCE_TOL, atol=REFERENCE_TOL)
+    again = FB.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.cuda
