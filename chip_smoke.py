@@ -30,9 +30,10 @@ runs the side phases in this process instead.
    each flash kernel's SASS for tensor-core instructions: ``HMMA`` in the
    fp32 ones, ``HGMMA`` (wgmma) and no TF32 ``HMMA`` in the bf16 ones, whose
    dynamic shared memory it prints too (a missing one, a spill at head width
-   64 (fp32) or up to 128 (bf16), or an L1, assign, chain, chi2, merge or
-   encode kernel that spills fail the run; ``flash_fwd_kernel<256>``'s,
-   which phase 3j's prefill runs, on a line of its own);
+   64 (fp32) or up to 128 (bf16), or an L1, assign, chain, chi2, merge,
+   encode or RNN kernel that spills fail the run; ``flash_fwd_kernel<256>``'s,
+   which phase 3j's prefill runs, on a line of its own; the broadcast RNN
+   kernel's dynamic shared memory and scratch at windows of 10 and 128);
 2. kernels — every kernel wrapper against its plain PyTorch version on the
    card, at the main path's widths and at edge shapes; the L1 sums' fixed
    order at N % 4 = 0, 1, 2, 3, N = 1 and N = 783,360 (bitwise across
@@ -62,7 +63,17 @@ runs the side phases in this process instead.
    n = 1, n % chunk = 1 and k = n, on random, tie, signed-zero, NaN and
    inf rows: reconstruction, anchor and residual rows and the rows they
    must not touch, across 3 repeats, one kernel per call in a profiler
-   trace; the flash-attention forward and
+   trace; the broadcast RNN kernel (``csrc/rnn.cu``) against its plain
+   version: one SGD step at windows of 10 and 128 records within rtol 1e-6,
+   atol 1e-7, 64 decisions a window identical wherever the plain logit
+   margin exceeds 1e-5 (those under it counted), chains of 32 steps with
+   mixed gates and ragged windows (k = 10, 16, 33, 128) within rtol 1e-5,
+   atol 1e-6 under the same margin rule, each one launch and bit for bit
+   its steps as per-event launches and its own repeat, the 1,200-state
+   pretraining one launch within 4 times its fp32-against-fp64 gap
+   (``tests/torch_rnn_model.py``) of the plain pretraining on the card, a
+   window past 1,024 records refused, a parent's weights untouched by its
+   expanded child's learn; the flash-attention forward and
    backward at the LM paths' shapes and at the model zoo's head widths (up
    to 256), the backward also bitwise across repeats; the forward alone at
    phase 3j's gemma2-2b prefill shapes, (4, 512) and (2, 4,200), each with
@@ -77,12 +88,16 @@ runs the side phases in this process instead.
    are zeroed just before and read just after, and every kernel of the
    per-event path must launch (``l1_distance`` exactly twice an upload and
    once more a broadcast decision: the predictor's L1 statistics, ``l1_vec``
-   on the card); host time is summed per layer;
+   on the card; ``rnn_chain`` once a pretraining, a learn and an RNN
+   decision, each ``pretrain_rnn`` exactly one launch); host time is summed
+   per layer;
 3d. coalesced path — the same model coalesced: 128 clients, a 45 s window,
    ``refine_every=32``, 800 uploads, seed 0, the broadcast RNN of phase 3
    handed over; uploads per wall second, the arrival batches, the segments
    and the launch counts; ``ingest_chain`` must launch on segments longer
-   than 1 and every kernel of the per-event path too;
+   than 1 and every kernel of the per-event path too; each predictor chain
+   (a touched cluster a sub-window) is one ``rnn_chain`` launch, and so is
+   each learn and RNN decision outside a chain;
 3b. LM path — ``repro_torch.fl.lm_task.run_lm_experiment("echopfl",
    num_clients=8, max_time=900, eval_interval=120, seed=0)`` on ``tiny_lm``:
    its own launch counts (the flash kernels and the server's assign chain
@@ -289,7 +304,11 @@ runs the side phases in this process instead.
    device work for the same uploads, and at (25, 4, 25,418) with and without
    the guard's norm statistic; the uplink encodes at phase 3g's most
    frequent cohort, at (1, 25,418) and at (1, 783,360), the top-k beside
-   ``torch.topk`` on |c|), beside the least time the
+   ``torch.topk`` on |c|; the broadcast RNN at (S, T) = (1, 10) learn and
+   decide, at phase 3d's most frequent chain (its recorded operands) and
+   at the (1,200, 10) pretraining, beside ``torch.nn.RNN(1, 128, 2)``
+   (cuDNN) forward and backward through a linear output layer, a yardstick
+   the port never calls), beside the least time the
    card could take (fp32 on the CUDA cores; for the flash kernels also
    ``bound_tc_ms``, split TF32 on the tensor cores): device time per call from a ``torch.profiler`` trace
    (``ms``, ``plain_ms``, ``library_ms``; the profiler can lose a short
@@ -299,7 +318,7 @@ runs the side phases in this process instead.
    (``call_ms`` and its two siblings; the merge also in place, as the server
    calls it);
 6. profile — short runs of the main path (300 s), of the coalesced path
-   (300 uploads), of both LM paths (900 s, 720 s), of phase 3f's
+   (300 uploads; the RNN kernels in the trace against their launches), of both LM paths (900 s, 720 s), of phase 3f's
    full-width FedAvg run, of phase 3g's EchoPFL top-k arm (its first
    1,200 s) and of phase 3h's coalesced guard-on defense arm (seed 0,
    1,800 s) under ``torch.profiler``: device busy time, the device's idle
@@ -352,6 +371,9 @@ KERNELS = {  # row name -> (CUDA source, the TPU kernel's pallas_call it replace
     # not pallas_calls: the jitted cohort encodes of the compressed uplink
     "uplink_int8_encode": ("src/repro_torch/csrc/uplink.cu", "src/repro/fl/uplink.py:141"),
     "uplink_topk_encode": ("src/repro_torch/csrc/uplink.cu", "src/repro/fl/uplink.py:131"),
+    # not a pallas_call: ops.predictor_chain's jit body _predictor_chain_jit (a lax.scan of broadcast.py:129
+    # rnn_chain_step), with broadcast.py:71 _rnn_sgd, :81 _rnn_want and pretrain_rnn's _rnn_sgd loop (:258)
+    "rnn_chain": ("src/repro_torch/csrc/rnn.cu", "src/repro/kernels/ops.py:541"),
     "pairwise_l1": ("src/repro_torch/csrc/l1.cu", "src/repro/kernels/l1_distance.py:65"),
     "flash_attention_fwd": ("src/repro_torch/csrc/flash_fwd.cu", "src/repro/kernels/flash_attention.py:127"),
     "flash_attention_bwd": ("src/repro_torch/csrc/flash_bwd.cu", "src/repro/kernels/flash_attention_bwd.py:176"),
@@ -375,8 +397,13 @@ COALESCED = dict(num_clients=128, coalesce_window=45.0, refine_every=32, max_upl
 LM_PATH = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv", "assign_and_lerp")
 # the kernels' entry functions in src/repro_torch/csrc, as the profiler names them
 PORT_KERNEL_NAMES = ("l1_rows_kernel", "assign_lerp_kernel", "ingest_chain_kernel", "chi2_kernel", "merge_kernel",
-                     "uplink_int8_kernel", "uplink_topk_kernel", "uplink_topk_split_kernel", "flash_fwd_kernel",
-                     "flash_dq_kernel", "flash_dkv_kernel")
+                     "uplink_int8_kernel", "uplink_topk_kernel", "uplink_topk_split_kernel", "rnn_chain_kernel",
+                     "flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+# the broadcast RNN's checks: one step at these windows (top_k's 10; 128, the largest a path runs: 128 clients),
+# and chains of 32 steps at (k, seed), ragged and past the 12 records whose histories stay in shared memory
+RNN_STEP_T = (10, 128)
+RNN_CHAINS = ((10, 0), (16, 1), (33, 2), (128, 3))
+RNN_LR, RNN_PRETRAIN_LR = 1e-2, 5e-3
 # chi2 order checks: rows, widths (J > 32 takes the warp path) and segment counts (300 > threads)
 CHI2_ROWS, CHI2_WIDTHS, CHI2_SEGMENTS = (1, 20, 300, 2049), (2, 10, 16, 200), (0, 1, 4, 300)
 # extra segmented chi2 timing shapes: the 128-client fleet's refine, and the launch floor
@@ -548,7 +575,7 @@ def probe():
 def _kernel_label(mangled: str) -> str:
     """``flash_dkv_kernel<64,3>`` from a mangled name."""
     names = re.findall(r"(?:flash_[a-z]+(?:_bf16)?|l1_rows|assign_lerp|ingest_chain|chi2|merge|uplink_int8"
-                       r"|uplink_topk_split|uplink_topk)_kernel", mangled)
+                       r"|uplink_topk_split|uplink_topk|rnn_chain)_kernel", mangled)
     args = re.findall(r"Li(\d+)E", mangled)
     return (names[-1] if names else mangled) + (f"<{','.join(args)}>" if args else "")
 
@@ -632,17 +659,23 @@ def kernel_resources() -> None:
           f"{u.get('SHARED')} B static, local {u.get('LOCAL')} B, stack {u.get('STACK')} B: "
           + (f"it spills ({u.get('STACK')} B stack, {u.get('LOCAL')} B local)" if spill else "no spills"))
     kinds = ("l1_rows_kernel", "assign_lerp_kernel", "ingest_chain_kernel", "chi2_kernel", "merge_kernel",
-             "uplink_int8_kernel", "uplink_topk_kernel", "uplink_topk_split_kernel")
+             "uplink_int8_kernel", "uplink_topk_kernel", "uplink_topk_split_kernel", "rnn_chain_kernel")
     rows = sorted(n for n in usage if any(k in n for k in kinds))
     check(all(any(k in n for n in rows) for k in kinds),
-          "cuobjdump found no L1 rows, fused assign, ingest chain, chi2, merge or uplink kernel in the library")
+          "cuobjdump found no L1 rows, fused assign, ingest chain, chi2, merge, uplink or RNN kernel in the library")
     for n in rows:
         u = usage[n]
         print(f"  {_kernel_label(n):<24} registers {u.get('REG')}, shared {u.get('SHARED')} B static, "
               f"local {u.get('LOCAL')} B, stack {u.get('STACK')} B")
         check(u.get("LOCAL", 0) == 0 and u.get("STACK", 0) == 0,
               f"{_kernel_label(n)} spills ({u.get('STACK')} B stack, {u.get('LOCAL')} B local)")
-    print("L1, fused assign, ingest chain, chi2, merge and uplink encode kernels: no spills")
+    print("L1, fused assign, ingest chain, chi2, merge, uplink encode and RNN kernels: no spills")
+    from repro_torch.kernels.rnn import plan as rnn_plan
+
+    for t in (10, 128):
+        rp = rnn_plan(t)
+        print(f"  rnn_chain_kernel launch at a window of {t}: one block of 512 threads, dynamic shared {rp['smem']} B, "
+              + (f"histories in {rp['scratch']} floats of global scratch" if rp["scratch"] else "histories on chip"))
     from repro_torch.kernels.ingest_chain import chain_plan
 
     for c, n in dict.fromkeys((c, n) for _, c, n in CHAIN_SHAPES):
@@ -723,11 +756,122 @@ def kernel_phase():
     chi2_order_checks()
     merge_checks()
     uplink_checks()
+    rnn = rnn_checks()
     flash_checks()
+    return rnn
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous().view(torch.int32)
+
+
+def _rnn_weights(seed: int) -> dict:
+    from repro_torch.core.broadcast import init_rnn
+
+    return init_rnn(torch.Generator().manual_seed(seed), device=DEVICE)
+
+
+def _rnn_same_bits(a: dict, b: dict) -> bool:
+    return all(_same_bits(a[k], b[k]) for k in a)
+
+
+def rnn_checks() -> dict:
+    """The broadcast RNN kernel (``csrc/rnn.cu``) against its plain version
+    on the card (phase 2): one SGD step at RNN_STEP_T within rtol 1e-6, atol
+    1e-7, 64 decisions a window identical wherever the plain logit margin
+    exceeds 1e-5; chains of 32 steps at RNN_CHAINS within rtol 1e-5, atol
+    1e-6 under the margin rule (``tests/torch_rnn_model.py``), each one
+    launch, bit for bit the same steps launched one by one and its own
+    repeat; the pretraining one launch within PRETRAIN_BOUND_FACTOR x
+    PRETRAIN_FP32_GAP of the plain pretraining on the card, and its repeat
+    bit for bit; a window past 1,024 records refused; a parent's weights
+    untouched by its expanded child's learn. Returns the plain
+    pretraining's wall seconds on the card and the margins' counts."""
+    import numpy as np
+
+    from repro_torch.core.broadcast import BroadcastPredictor, predictor_for_expansion, pretrain_rnn, pretrain_windows
+    from repro_torch.kernels import rnn
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_rnn_model import (DECISION_MARGIN, PRETRAIN_BOUND_FACTOR, PRETRAIN_FP32_GAP, chain_inputs,
+                                 check_wants, plain_serial)
+
+    rng = np.random.default_rng(0)
+    step_err, probes, under = 0.0, 0, 0
+    for T in RNN_STEP_T:
+        p = _rnn_weights(T)
+        for label in (0, 1):
+            seq = rng.uniform(0, 1, (T, 1)).astype(np.float32)
+            got, _ = rnn.rnn_sgd(p, seq, label, RNN_LR)
+            want, _ = rnn.rnn_sgd_plain(p, torch.from_numpy(seq).to(DEVICE), label, RNN_LR)
+            for k in want:
+                torch.testing.assert_close(got[k], want[k], rtol=1e-6, atol=1e-7, msg=f"rnn step T={T} {k}")
+            step_err = max(step_err, max(float((got[k] - want[k]).abs().max()) for k in want))
+        for x in rng.uniform(0, 1, (64, T, 1)).astype(np.float32):
+            lg = rnn.rnn_logits(p, torch.from_numpy(x).to(DEVICE))
+            m = float(lg[1] - lg[0])
+            close = abs(m) <= DECISION_MARGIN
+            check(bool(rnn.rnn_want(p, x)) == (m > 0) or close, f"rnn decision T={T}: margin {m:.3g}")
+            probes, under = probes + 1, under + close
+    chain_err, split_at = 0.0, []
+    for k, seed in RNN_CHAINS:
+        p = _rnn_weights(seed)
+        pre, post, lab, fb, learn, decide, fallback = args = chain_inputs(k, 32, seed)
+        n0 = rnn.rnn_chain.launches
+        got, wants = rnn.rnn_chain(p, *args, RNN_LR)
+        check(rnn.rnn_chain.launches == n0 + 1, f"rnn chain k={k}: {rnn.rnn_chain.launches - n0} launches")
+        want, want_wants, margins = plain_serial(p, *args, RNN_LR)
+        u, split = check_wants(wants.tolist(), want_wants, margins)
+        under, probes = under + u, probes + int(np.sum(decide & ~fallback))
+        split_at.append(split)
+        if split is None:
+            for name in want:
+                torch.testing.assert_close(got[name], want[name], rtol=1e-5, atol=1e-6, msg=f"rnn chain k={k} {name}")
+            chain_err = max(chain_err, max(float((got[n] - want[n]).abs().max()) for n in want))
+        q, fire, serial = p, 0, []
+        for j in range(len(learn)):
+            if learn[j]:
+                q, _ = rnn.rnn_sgd(q, pre[j], int(lab[j, fire]), RNN_LR)
+            w = bool(fb[j, fire]) if fallback[j] else bool(rnn.rnn_want(q, post[j])) if decide[j] else False
+            fire = j + 1 if w else fire
+            serial.append(w)
+        check(wants.tolist() == serial and _rnn_same_bits(got, q), f"rnn chain k={k}: not the per-event launches' bits")
+        again, wants2 = rnn.rnn_chain(p, *args, RNN_LR)
+        check(torch.equal(wants, wants2) and _rnn_same_bits(got, again), f"rnn chain k={k}: a repeat differs")
+    n0 = rnn.rnn_chain.launches
+    pre_k = pretrain_rnn(0, device=DEVICE)
+    check(rnn.rnn_chain.launches == n0 + 1, f"pretrain_rnn: {rnn.rnn_chain.launches - n0} launches, not 1")
+    windows, labels = pretrain_windows(0)
+    learn = np.ones(len(labels), bool)
+    sync()
+    t0 = time.perf_counter()
+    pre_p, _ = rnn.rnn_chain_plain(_rnn_weights(0), windows, None, labels, None, learn, ~learn, ~learn, RNN_PRETRAIN_LR)
+    sync()
+    plain_s = time.perf_counter() - t0
+    gap = max(float((pre_k[k] - pre_p[k]).abs().max() / pre_p[k].abs().max()) for k in pre_p)
+    check(gap <= PRETRAIN_BOUND_FACTOR * PRETRAIN_FP32_GAP,
+          f"pretraining: kernel {gap:.3g} from the plain version, past {PRETRAIN_BOUND_FACTOR} x {PRETRAIN_FP32_GAP}")
+    check(_rnn_same_bits(pre_k, pretrain_rnn(0, device=DEVICE)), "pretraining: a repeat differs")
+    try:
+        rnn.rnn_sgd(_rnn_weights(1), np.zeros((rnn.MAX_T + 1, 1), np.float32), 1, RNN_LR)
+        check(False, "rnn_sgd took a window past the kernel's limit")
+    except ValueError:
+        pass
+    parent = BroadcastPredictor(params=_rnn_weights(6), k=10, records=[0.5, 1.25, 0.75])
+    before = {k: v.clone() for k, v in parent.params.items()}
+    child = predictor_for_expansion(parent, 2.0)
+    child.observe(1.5)
+    child.learn(1)
+    check(_rnn_same_bits(parent.params, before) and not _rnn_same_bits(child.params, before),
+          "rnn: an expanded child's learn touched its parent's weights")
+    sync()
+    print(f"rnn kernel: one step at windows {RNN_STEP_T} within rtol 1e-6, atol 1e-7 (max abs {step_err:.3g}); chains "
+          f"{RNN_CHAINS} within rtol 1e-5, atol 1e-6 (max abs {chain_err:.3g}), each one launch, bit for bit its "
+          f"per-event launches and its repeat (first decision difference at {split_at}); {under} of {probes} "
+          f"decisions within the {DECISION_MARGIN} margin; pretraining one launch, {gap:.3g} from the plain version "
+          f"(bound {PRETRAIN_BOUND_FACTOR * PRETRAIN_FP32_GAP:.3g}), plain on the card {plain_s:.3f} s; the window "
+          f"limit and the parent's weights held")
+    return {"pretrain_plain_s": plain_s, "pretrain_gap": gap, "under_margin": under, "decisions": probes}
 
 
 def _same_bits(*ts: torch.Tensor) -> bool:
@@ -1244,6 +1388,7 @@ def main_path():
 
     shapes, restore = _record_shapes(ops)
     spent, restore_timers = _host_timers()
+    rnn_rec, restore_rnn = _record_rnn()
     sync()
     ops.reset_launch_counts()
     runs = []
@@ -1258,6 +1403,7 @@ def main_path():
             break  # a merge happened: merge_attention ran, no second run needed
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
+    restore_rnn()
     restore_timers()
     restore()
     for bucket in sorted(spent):
@@ -1284,8 +1430,70 @@ def main_path():
         check(counts[name] > 0, f"kernel {name} never launched on the main path")
     check_l1_vec_launches(counts, [(strat, rep) for _, strat, rep, _ in runs], "main path")
     check(counts["ingest_chain"] == 0, "the per-event path launched the ingest chain")
+    check(len(rnn_rec["pretrain_launches"]) == len(runs) and not rnn_rec["chain_launches"] and rnn_rec["sgd"] > 0
+          and rnn_rec["want"] > 0, f"main path: {len(rnn_rec['pretrain_launches'])} pretrainings for {len(runs)} "
+                                   f"runs, {len(rnn_rec['chain_launches'])} chains, {rnn_rec['sgd']} learns, "
+                                   f"{rnn_rec['want']} RNN decisions")
+    check_rnn_launches(counts, rnn_rec, "main path")
+    print(f"main path rnn_chain launches: {len(rnn_rec['pretrain_launches'])} pretrainings (one launch each), "
+          f"{rnn_rec['sgd']} learns, {rnn_rec['want']} RNN decisions")
+    shapes["rnn"] = rnn_rec
     rnn = {k: v.cpu().numpy() for k, v in runs[0][1]._rnn_init.items()}  # pretrained broadcast RNN
     return counts, shapes, wall, rnn
+
+
+def _record_rnn():
+    """Count the broadcast RNN's entry points as the server calls them:
+    each learn (``_rnn_sgd``) and RNN decision (``_rnn_want``), each
+    pretraining and each coalesced chain with the ``rnn_chain`` launches it
+    made; chains by (S, k), with the first chain's operands of each shape."""
+    from repro_torch.core import broadcast as bc
+    from repro_torch.core import server as server_mod
+    from repro_torch.kernels import rnn
+
+    rec = {"sgd": 0, "want": 0, "pretrain_launches": [], "chain_launches": [], "chains": Counter(), "chain_args": {}}
+    sgd, want, chain, pretrain = bc._rnn_sgd, bc._rnn_want, server_mod.predictor_chain, server_mod.pretrain_rnn
+
+    def rec_sgd(*a, **kw):
+        rec["sgd"] += 1
+        return sgd(*a, **kw)
+
+    def rec_want(*a, **kw):
+        rec["want"] += 1
+        return want(*a, **kw)
+
+    def rec_chain(params, pre, post, lab, fb, lg, dg, fg, *a, **kw):
+        n0 = rnn.rnn_chain.launches
+        out = chain(params, pre, post, lab, fb, lg, dg, fg, *a, **kw)
+        shape = (len(lg), pre.shape[1])
+        rec["chains"][shape] += 1
+        rec["chain_launches"].append(rnn.rnn_chain.launches - n0)
+        rec["chain_args"].setdefault(shape, (params, pre, post, lab, fb, lg, dg, fg))
+        return out
+
+    def rec_pretrain(*a, **kw):
+        n0 = rnn.rnn_chain.launches
+        out = pretrain(*a, **kw)
+        rec["pretrain_launches"].append(rnn.rnn_chain.launches - n0)
+        return out
+
+    bc._rnn_sgd, bc._rnn_want, server_mod.predictor_chain, server_mod.pretrain_rnn = (rec_sgd, rec_want, rec_chain,
+                                                                                      rec_pretrain)
+
+    def restore():
+        bc._rnn_sgd, bc._rnn_want, server_mod.predictor_chain, server_mod.pretrain_rnn = sgd, want, chain, pretrain
+
+    return rec, restore
+
+
+def check_rnn_launches(counts, rec: dict, label: str) -> None:
+    """``rnn_chain`` launched once a pretraining, a chain, a learn and an RNN
+    decision, and nowhere else."""
+    want = sum(rec["pretrain_launches"]) + sum(rec["chain_launches"]) + rec["sgd"] + rec["want"]
+    check(all(n == 1 for n in rec["pretrain_launches"] + rec["chain_launches"]),
+          f"{label}: a pretraining or chain made {rec['pretrain_launches'] + rec['chain_launches']} launches, not 1")
+    check(counts["rnn_chain"] == want > 0, f"{label}: rnn_chain launched {counts['rnn_chain']} times, not once a "
+                                           f"pretraining, chain, learn and decision ({want})")
 
 
 def check_l1_vec_launches(counts, runs, label: str) -> None:
@@ -1706,6 +1914,7 @@ def coalesced_path(rnn_params: dict):
         return run(self, **kw)
 
     spent, restore_timers = _host_timers()
+    rnn_rec, restore_rnn = _record_rnn()
     ops.ingest_chain, Simulator.run_async = rec, rec_run
     sync()
     ops.reset_launch_counts()
@@ -1716,6 +1925,7 @@ def coalesced_path(rnn_params: dict):
         sync()
     finally:
         ops.ingest_chain, Simulator.run_async = fn, run
+        restore_rnn()
         restore_timers()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
@@ -1737,12 +1947,19 @@ def coalesced_path(rnn_params: dict):
           f"coalesced path: ingest_chain launched {counts['ingest_chain']} times, segments {sorted(set(sizes))}")
     for name in COALESCED_PATH:
         check(counts[name] > 0, f"coalesced path: kernel {name} never launched")
+    check(rnn_rec["chain_launches"] and not rnn_rec["pretrain_launches"],
+          f"coalesced path: {len(rnn_rec['chain_launches'])} predictor chains, "
+          f"{len(rnn_rec['pretrain_launches'])} pretrainings")
+    check_rnn_launches(counts, rnn_rec, "coalesced path")
+    print(f"coalesced path rnn_chain launches: {len(rnn_rec['chain_launches'])} chains (one launch each; (S, k) most "
+          f"frequent {rnn_rec['chains'].most_common(3)}), {rnn_rec['sgd']} learns and {rnn_rec['want']} RNN decisions "
+          f"outside a chain")
     for c in strat.clustering.clusters.values():
         v = c.center_vec
         check(v.shape == (25418,) and v.device.type == DEVICE and bool(torch.isfinite(v).all()),
               "coalesced path: centers must be finite (25418,) rows on the card")
     check(rep.final_acc > 0.5, f"coalesced path did not learn: final_acc {rep.final_acc}")
-    return dict(counts=counts, segs=segs, wall=wall, uploads=uploads, arrivals=arrivals)
+    return dict(counts=counts, segs=segs, wall=wall, uploads=uploads, arrivals=arrivals, rnn=rnn_rec)
 
 
 # ----------------------------------------------------------------- phase 3e
@@ -4577,7 +4794,7 @@ def timing(counts, shapes, full, tiny):
     full_assign = full["server_shapes"]["assign_and_lerp"].most_common(1)[0][0]
     full_shapes = {"assign_and_lerp": full_assign, "l1_distance": (1, 1, full_assign[1])}
     for name, (source, replaces) in KERNELS.items():
-        if name not in MLP_PATH:
+        if name not in MLP_PATH or name == "rnn_chain":
             continue
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                **_server_timing(name, shapes[name].most_common(1)[0][0], counts[name], g, "")}
@@ -4594,6 +4811,124 @@ def timing(counts, shapes, full, tiny):
                 row[label] = _server_timing(name, shape, runs.get(label, {}).get(name, 0), g, f"{label} ")
         rows.append(row)
     return rows
+
+
+def _rnn_cost(T: int, gates) -> tuple[float, float]:
+    """(bytes, flops) of one ``rnn_chain`` launch over these gates at window
+    T, as the kernel does the work: the weights read once and, where a step
+    learns, written once; the packed operands (the windows, the label and
+    fallback tables, the gates) read once; the losses and wants written. A
+    decision's forward is 3 T products of 128 x 128 and the output layer; a
+    learn adds the backward's 3 T - 2 (no gradient flows into the zero
+    initial states), the gradient sums' 3 T - 2 outer products and the
+    update of every leaf."""
+    from repro_torch.kernels.rnn import DECIDE, FALLBACK, HIDDEN, LEAF_FLOATS, LEARN
+
+    S = len(gates)
+    learns = sum(1 for g in gates if g & LEARN)
+    decides = sum(1 for g in gates if g & DECIDE and not g & FALLBACK)
+    cols = S + 1 if any(g & (DECIDE | FALLBACK) for g in gates) else 1
+    mm = HIDDEN * HIDDEN
+    flops = decides * 2 * (3 * T * mm + 2 * HIDDEN) + learns * (2 * ((9 * T - 4) * mm + 4 * HIDDEN) + 2 * LEAF_FLOATS)
+    nbytes = 4 * LEAF_FLOATS * (1 + (learns > 0)) + 4 * (S * T * (1 + (decides > 0)) + 2 * S * cols + S) + 5 * S
+    return nbytes, flops
+
+
+def _rnn_yardstick(T: int, gates):
+    """``torch.nn.RNN(1, 128, 2, nonlinearity="tanh")`` (cuDNN) through a
+    linear output layer over the same steps: forward, cross-entropy and
+    backward a learn step, the forward and argmax a decision step (no
+    update). A yardstick the port never calls."""
+    from repro_torch.kernels.rnn import DECIDE, FALLBACK, HIDDEN, LEARN
+
+    net = torch.nn.RNN(1, HIDDEN, 2, nonlinearity="tanh").to(DEVICE)
+    out = torch.nn.Linear(HIDDEN, 2).to(DEVICE)
+    x = torch.rand((T, 1, 1), generator=gen(T), device=DEVICE)
+    label = torch.ones(1, dtype=torch.long, device=DEVICE)
+
+    def run():
+        for g in gates:
+            if g & LEARN:
+                hs, _ = net(x)
+                torch.nn.functional.cross_entropy(out(hs[-1]), label).backward()
+            if g & DECIDE and not g & FALLBACK:
+                with torch.no_grad():
+                    hs, _ = net(x)
+                    torch.argmax(out(hs[-1, 0])) == 1  # noqa: B015
+    return run
+
+
+def _rnn_timing(label: str, T: int, gates, fn, plain, launches: int, err: float, iters: int = 100,
+                plain_iters: int | None = 10) -> dict:
+    """One ``rnn_chain`` case: device and per-call times of the kernel, the
+    plain version (``plain_iters`` None: not timed) and the cuDNN
+    yardstick (per call only where it takes under a second)."""
+    bound_ms, bound_by = bound(*_rnn_cost(T, gates))
+    lib = _rnn_yardstick(T, gates)
+    lib_iters = max(1, iters // len(gates))
+    row = {
+        "launches": launches, "max_abs_err": err, "ms": device_ms(fn, iters),
+        "plain_ms": None if plain_iters is None else device_ms(plain, plain_iters), "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": device_ms(lib, lib_iters),
+        "call_ms": call_ms(fn, iters, 3), "plain_call_ms": None if plain_iters is None else call_ms(plain, plain_iters, 3),
+        "library_call_ms": call_ms(lib, lib_iters, 3) if len(gates) < 100 else None, "shape": [len(gates), T],
+    }
+    print(f"timing rnn_chain at {label} (S, T) = {(len(gates), T)}: device time kernel {row['ms']:.5f} ms, plain "
+          + ("not measured" if row["plain_ms"] is None else f"{row['plain_ms']:.5f} ms")
+          + f", cuDNN RNN {row['library_ms']:.5f} ms; bound {bound_ms:.6f} ms ({bound_by}); per call kernel "
+          f"{row['call_ms']:.4f} ms, plain " + ("not measured" if row["plain_call_ms"] is None else
+                                                f"{row['plain_call_ms']:.4f} ms")
+          + ", cuDNN " + ("not measured" if row["library_call_ms"] is None else f"{row['library_call_ms']:.4f} ms")
+          + f"; launches {launches}; max_abs_err {err:.3g}")
+    return row
+
+
+def rnn_row(counts, shapes, coal, rnn_check) -> dict:
+    """The broadcast RNN's row: a per-event learn at (S, T) = (1, 10)
+    (``launches``: the main path's ``rnn_chain`` launches, all four entry
+    points), beside it a decision at (1, 10) (the main path's RNN
+    decisions), phase 3d's most frequent chain on its recorded operands (its
+    chains of that shape) and the (1,200, 10) pretraining (the main path's
+    pretrainings; the plain version's wall time on the card from phase 2)."""
+    import numpy as np
+
+    from repro_torch.core.broadcast import pretrain_windows
+    from repro_torch.kernels import rnn
+
+    source, replaces = KERNELS["rnn_chain"]
+    main_rec, coal_rec = shapes["rnn"], coal["rnn"]
+    p = _rnn_weights(0)
+    seq = np.random.default_rng(10).uniform(0, 1, (10, 1)).astype(np.float32)
+    seq_d = torch.from_numpy(seq).to(DEVICE)
+    got, want = rnn.rnn_sgd(p, seq, 1, RNN_LR)[0], rnn.rnn_sgd_plain(p, seq_d, 1, RNN_LR)[0]
+    err = max(float((got[k] - want[k]).abs().max()) for k in want)
+    row = {"name": "rnn_chain", "route": "cuda", "source": source, "replaces": replaces,
+           "note": "not a pallas_call: ops.predictor_chain's jit body _predictor_chain_jit (src/repro/kernels/"
+                   "ops.py:541), broadcast.py:71 _rnn_sgd, :81 _rnn_want and pretrain_rnn's _rnn_sgd loop (:258)",
+           **_rnn_timing("a per-event learn", 10, [rnn.LEARN], lambda: rnn.rnn_sgd(p, seq, 1, RNN_LR),
+                         lambda: rnn.rnn_sgd_plain(p, seq_d, 1, RNN_LR), counts["rnn_chain"], err)}
+    row["decide"] = _rnn_timing("a per-event decision", 10, [rnn.DECIDE], lambda: rnn.rnn_want(p, seq),
+                                lambda: rnn.rnn_want_plain(p, seq_d), main_rec["want"],
+                                0.0 if bool(rnn.rnn_want(p, seq)) == bool(rnn.rnn_want_plain(p, seq_d)) else 1.0)
+    shape, n = coal_rec["chains"].most_common(1)[0]
+    params, pre, post, lab, fb, lg, dg, fg = coal_rec["chain_args"][shape]
+    lg, dg, fg = (np.asarray(g, bool) for g in (lg, dg, fg))
+    gates = (lg * rnn.LEARN | (dg & ~fg) * rnn.DECIDE | fg * rnn.FALLBACK).tolist()
+    got, want = (f(params, pre, post, lab, fb, lg, dg, fg, RNN_LR)[0] for f in (rnn.rnn_chain, rnn.rnn_chain_plain))
+    row["chain"] = _rnn_timing("phase 3d's most frequent chain", shape[1], gates,
+                               lambda: rnn.rnn_chain(params, pre, post, lab, fb, lg, dg, fg, RNN_LR),
+                               lambda: rnn.rnn_chain_plain(params, pre, post, lab, fb, lg, dg, fg, RNN_LR), n,
+                               max(float((got[k] - want[k]).abs().max()) for k in want), iters=50)
+    row["chain"]["gates"] = {"learn": int(lg.sum()), "decide": int((dg & ~fg).sum()), "fallback": int(fg.sum())}
+    windows, labels = pretrain_windows(0)
+    learn = np.ones(len(labels), bool)
+    row["pretraining"] = _rnn_timing(
+        "the pretraining", 10, [rnn.LEARN] * len(labels),
+        lambda: rnn.rnn_chain(p, windows, None, labels, None, learn, ~learn, ~learn, RNN_PRETRAIN_LR), None,
+        sum(main_rec["pretrain_launches"]), rnn_check["pretrain_gap"], iters=2, plain_iters=None)
+    row["pretraining"]["plain_wall_ms"] = 1e3 * rnn_check["pretrain_plain_s"]
+    row["pretraining"]["max_abs_err_is"] = "the largest relative leaf gap to the plain pretraining (phase 2)"
+    return row
 
 
 def _allowed_pairs(Sq: int, Sk: int) -> int:
@@ -5223,7 +5558,7 @@ def profile_window(label: str, run) -> None:
     print("  kernels in the trace / launched: " + ", ".join(
         f"{kernel} {sum(v for k, v in seen.items() if kernel in k)}/{launched[wrapper]}"
         for kernel, wrapper in (("assign_lerp_kernel", "assign_and_lerp"), ("ingest_chain_kernel", "ingest_chain"),
-                                ("uplink_topk", "uplink_topk_encode"),
+                                ("rnn_chain_kernel", "rnn_chain"), ("uplink_topk", "uplink_topk_encode"),
                                 ("flash_fwd_kernel", "flash_attention_fwd"))))
     for name, us in per.most_common(12):
         print(f"  device time {us / 1e3:10.3f} ms ({100 * us / 1e6 / busy:5.1f}%)  {name[:110]}")
@@ -5579,7 +5914,7 @@ def main() -> int:
     mark("probe")
     dryruns = DryRuns()  # phase 3p, host work beside everything until after phase 3l
     atexit.register(dryruns.close)  # stopped whatever fails before the join
-    kernel_phase()
+    rnn_check = kernel_phase()
     mark("kernel_phase")
     counts, shapes, _, rnn_params = main_path()
     mark("main_path")
@@ -5621,8 +5956,8 @@ def main() -> int:
     mark("dryrun_phase (phase 3p)")
     zoo_meshes = zoo_mesh_phase()
     mark("zoo_mesh_phase")
-    rows = (timing(counts, shapes, full, tiny) + [chain_row(coal, chaos)] + uplink_rows(sweep, per_event, full_topk)
-            + lm_timing(tiny, full, cohort))
+    rows = (timing(counts, shapes, full, tiny) + [chain_row(coal, chaos), rnn_row(counts, shapes, coal, rnn_check)]
+            + uplink_rows(sweep, per_event, full_topk) + lm_timing(tiny, full, cohort))
     flash_row = next(r for r in rows if r["name"] == "flash_attention_fwd")
     flash_row.update(gemma_flash_timing(serving))
     flash_row.update(mla_flash_timing(zoo))

@@ -5,7 +5,9 @@ accumulated change since the last broadcast. A 2x128 tanh RNN reads the
 cluster's Top-K recent L1-change records and emits [no-bcast, bcast]
 logits; it is pre-trained on 1200 synthetic states and fine-tuned online
 on every realized ground truth (Eq. 4). Counterpart of
-``repro.core.broadcast``; gradients come from autograd.
+``repro.core.broadcast``. The RNN's device work (a learn step, a decision,
+a coalesced window's chain, the pretraining) is :mod:`repro_torch.kernels.rnn`:
+one launch of ``csrc/rnn.cu`` on the card, autograd on the CPU.
 """
 from __future__ import annotations
 
@@ -15,11 +17,10 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.common.device import to_device
+from repro_torch.kernels.rnn import HIDDEN, NUM_LAYERS, rnn_chain, rnn_sgd, rnn_want
+from repro_torch.kernels.rnn import rnn_chain_step, rnn_logits  # noqa: F401  (the plain RNN, under its names here)
 
 PyTree = Any
-HIDDEN = 128
-NUM_LAYERS = 2
 LEARN_LR = 1e-2  # the online fine-tune's SGD step (Eq. 4)
 FALLBACK_THRESHOLD = 1.0  # cold start: broadcast iff the gap exceeds this times the change scale
 
@@ -44,58 +45,18 @@ def init_rnn(generator: torch.Generator, hidden: int = HIDDEN, device="cpu") -> 
     return params
 
 
-def rnn_logits(params: dict, seq: torch.Tensor) -> torch.Tensor:
-    """seq: (T, 1) normalized change records -> (2,) logits."""
-    x = seq
-    h = None
-    for layer in range(NUM_LAYERS):
-        wx, wh, b = params[f"wx{layer}"], params[f"wh{layer}"], params[f"b{layer}"]
-        h = torch.zeros(wh.shape[0], dtype=seq.dtype, device=seq.device)
-        hs = []
-        for t in range(x.shape[0]):
-            h = torch.tanh(x[t] @ wx + h @ wh + b)
-            hs.append(h)
-        x = torch.stack(hs)
-    return h @ params["w_out"] + params["b_out"]
-
-
-def _rnn_sgd(params: dict, seq: torch.Tensor, label: int | torch.Tensor, lr: float) -> tuple[dict, torch.Tensor]:
-    """One SGD step on -log softmax(logits)[label]; returns fresh params.
-    ``label`` is an int or a (1,) int64 device tensor (read without a host
-    sync); both give the same gradient bits."""
-    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-    with torch.enable_grad():
-        logp = torch.log_softmax(rnn_logits(leaves, seq), dim=-1)
-        loss = -(logp[label] if isinstance(label, int) else logp.index_select(0, label)[0])
-        grads = torch.autograd.grad(loss, list(leaves.values()))
-    new = {k: (v - lr * g).detach() for (k, v), g in zip(leaves.items(), grads)}
-    return new, loss.detach()
-
-
-def _rnn_want(params: dict, seq: torch.Tensor) -> torch.Tensor:
-    """Forward + first-index argmax decision (a device bool)."""
-    return torch.argmax(rnn_logits(params, seq)) == 1
-
-
-def rnn_chain_step(params: dict, pre: torch.Tensor, post: torch.Tensor, label: torch.Tensor,
-                   learn_gate: bool, decide_gate: bool, lr: float) -> tuple[dict, torch.Tensor | None]:
-    """One upload's predictor work in a coalesced window (the step of
-    :func:`predictor_chain`): the SGD step on the pre-observe window when
-    ``learn_gate``, then the broadcast decision on the post-observe window
-    when ``decide_gate`` (a device bool, else None). The gates are host
-    booleans, so a skipped body costs nothing; ``label`` is a (1,) device
-    tensor. The same arithmetic as a serial :meth:`BroadcastPredictor.learn`
-    then :meth:`BroadcastPredictor.decide`."""
-    if learn_gate:
-        params, _ = _rnn_sgd(params, pre, label, lr)
-    return params, (_rnn_want(params, post) if decide_gate else None)
+# one SGD step (fresh params and the loss) and one decision (a device bool),
+# each one rnn_chain launch on the card (kernels/rnn.py)
+_rnn_sgd = rnn_sgd
+_rnn_want = rnn_want
 
 
 def predictor_chain(params: dict, pre, post, lab_table, fb_table, learn_gate, decide_gate, fb_gate,
                     lr: float = LEARN_LR) -> tuple[dict, torch.Tensor]:
     """The broadcast predictor's learn/decide steps of one cluster over a
     coalesced window, in order, with no host sync (counterpart of the
-    reference's ``ops.predictor_chain``; plain PyTorch, not a kernel).
+    reference's ``ops.predictor_chain``): one ``rnn_chain`` launch on the
+    card, its plain version on the CPU.
 
     ``pre``/``post`` (S, k, 1) are the record windows before and after each
     step's observe, at the cluster's own ``k`` (the reference front-pads to
@@ -103,29 +64,12 @@ def predictor_chain(params: dict, pre, post, lab_table, fb_table, learn_gate, de
     ints and ``fb_table`` (S, S + 1) bools hold each step's Eq. 4 label and
     cold-start fallback decision for every "last fired position": column 0
     the window-start anchor, column q + 1 step q fired last. The chain
-    carries the RNN weights and the fired position ``fire`` as a device
-    int, gathers each step's label and fallback decision from the tables on
-    the device, and moves ``fire`` where a step wants a broadcast. The
-    three gates are host booleans. Returns (final params, wants (S,) device
-    bools), the weights and decisions of the serial learn/decide path."""
-    dev = _device_of(params)
-    pre_d = to_device(np.asarray(pre, np.float32), dev)
-    post_d = to_device(np.asarray(post, np.float32), dev)
-    lab_d = to_device(np.asarray(lab_table, np.int64), dev)
-    fb_d = to_device(np.asarray(fb_table, np.bool_), dev)
-    fire = torch.zeros(1, dtype=torch.long, device=dev)
-    no = torch.zeros((), dtype=torch.bool, device=dev)
-    wants = []
-    for p in range(len(learn_gate)):
-        params, want = rnn_chain_step(params, pre_d[p], post_d[p], lab_d[p].index_select(0, fire),
-                                      bool(learn_gate[p]), bool(decide_gate[p]), lr)
-        if fb_gate[p]:
-            want = fb_d[p].index_select(0, fire)[0]
-        elif want is None:
-            want = no
-        fire = torch.where(want, p + 1, fire)
-        wants.append(want)
-    return params, torch.stack(wants)
+    carries the RNN weights and the fired position on the device, gathers
+    each step's label and fallback decision from the tables there, and
+    moves the position where a step wants a broadcast. The three gates are
+    host booleans. Returns (final params, wants (S,) device bools), the
+    weights and decisions of the serial learn/decide path."""
+    return rnn_chain(params, pre, post, lab_table, fb_table, learn_gate, decide_gate, fb_gate, lr)
 
 
 def build_seq(records: list, k: int) -> np.ndarray:
@@ -134,10 +78,6 @@ def build_seq(records: list, k: int) -> np.ndarray:
     rec = [0.0] * (k - len(rec)) + rec
     norm = max(max((abs(r) for r in rec), default=0.0), 1e-12)
     return np.asarray(rec, np.float32)[:, None] / norm
-
-
-def _device_of(params: dict) -> torch.device:
-    return next(iter(params.values())).device
 
 
 # ------------------------------------------------------------- per-cluster
@@ -163,9 +103,6 @@ class BroadcastPredictor:
         self.records.append(float(change))
         self.records = self.records[-max(self.k, 1):]
         self.scale = 0.9 * self.scale + 0.1 * max(abs(change), 1e-12)
-
-    def _seq(self) -> torch.Tensor:
-        return torch.from_numpy(build_seq(self.records, self.k)).to(_device_of(self.params))
 
     def decision_kind(self) -> str:
         """Count a decision and name its rule: ``"inactive"`` (a fresh
@@ -196,7 +133,7 @@ class BroadcastPredictor:
         if kind == "fallback":
             want = self.fallback_wants(accumulated_gap, self.scale, fallback_threshold)
         else:
-            want = bool(_rnn_want(self.params, self._seq()))
+            want = bool(_rnn_want(self.params, build_seq(self.records, self.k)))
         return self.record_decision(want)
 
     def apply_decision(self, want: bool) -> bool:
@@ -207,7 +144,7 @@ class BroadcastPredictor:
     def learn(self, label: int, lr: float = LEARN_LR) -> torch.Tensor:
         """Online fine-tune on the realized ground truth (Eq. 4); returns the
         loss as a device scalar (no host read)."""
-        self.params, loss = _rnn_sgd(self.params, self._seq(), label, lr)
+        self.params, loss = _rnn_sgd(self.params, build_seq(self.records, self.k), label, lr)
         return loss
 
 
@@ -245,14 +182,15 @@ def predictor_for_merge(a: BroadcastPredictor, b: BroadcastPredictor) -> Broadca
 
 
 # -------------------------------------------------------------- pretraining
-def pretrain_rnn(seed: int, k: int = 10, num_states: int = 1200, lr: float = 5e-3,
-                 device="cpu") -> dict:
-    """Pre-train on synthetic historical states (Sec. 5.2.1): decaying change
-    sequences labeled by the paper's text rule. The reference derives its
-    numpy stream from ``jax.random``; the port seeds it from ``seed``."""
-    params = init_rnn(torch.Generator().manual_seed(seed), device=device)
+def pretrain_windows(seed: int, k: int = 10, num_states: int = 1200) -> tuple[np.ndarray, np.ndarray]:
+    """The synthetic historical states of Sec. 5.2.1 from ``seed``'s numpy
+    stream: decaying change sequences labeled by the paper's text rule, as
+    (num_states, k, 1) fp32 windows and (num_states, 1) labels. The draws
+    do not depend on the weights, so they are all made before the training."""
     rng = np.random.default_rng(seed)
-    for _ in range(num_states):
+    windows = np.empty((num_states, k, 1), np.float32)
+    labels = np.empty((num_states, 1), np.int64)
+    for n in range(num_states):
         decay = rng.uniform(0.6, 1.5)
         base = rng.uniform(0.5, 2.0)
         noise = rng.uniform(0.02, 0.3)
@@ -260,8 +198,20 @@ def pretrain_rnn(seed: int, k: int = 10, num_states: int = 1200, lr: float = 5e-
         seq = np.abs(seq)[::-1]  # oldest -> newest
         accumulated = float(np.sum(seq[-3:]))
         predicted_next = float(seq[-1] / decay)
-        label = 1 if predicted_next > 1.15 * accumulated / 3 else 0
+        labels[n, 0] = 1 if predicted_next > 1.15 * accumulated / 3 else 0
         scale = max(float(np.max(seq)), 1e-9)
-        x = torch.as_tensor((seq / scale).astype(np.float32)[:, None], device=device)
-        params, _ = _rnn_sgd(params, x, label, lr)
+        windows[n] = (seq / scale).astype(np.float32)[:, None]
+    return windows, labels
+
+
+def pretrain_rnn(seed: int, k: int = 10, num_states: int = 1200, lr: float = 5e-3,
+                 device="cpu") -> dict:
+    """Pre-train on synthetic historical states (Sec. 5.2.1), one SGD step a
+    state in draw order: one ``rnn_chain`` launch of ``num_states`` learn
+    steps on the card. The reference derives its numpy stream from
+    ``jax.random``; the port seeds it from ``seed``."""
+    params = init_rnn(torch.Generator().manual_seed(seed), device=device)
+    windows, labels = pretrain_windows(seed, k, num_states)
+    learn = np.ones(len(labels), bool)
+    params, _ = rnn_chain(params, windows, None, labels, None, learn, ~learn, ~learn, lr)
     return params

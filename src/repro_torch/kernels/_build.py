@@ -25,8 +25,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("l1.cu", "assign_lerp.cu", "ingest_chain.cu", "chi2.cu", "merge.cu", "uplink.cu", "flash_fwd.cu",
-           "flash_bwd.cu", "flash_fwd_bf16.cu", "flash_bwd_bf16.cu")
+SOURCES = ("l1.cu", "assign_lerp.cu", "ingest_chain.cu", "chi2.cu", "merge.cu", "uplink.cu", "rnn.cu",
+           "flash_fwd.cu", "flash_bwd.cu", "flash_fwd_bf16.cu", "flash_bwd_bf16.cu")
 HEADERS = ("common.cuh", "l1_rows.cuh", "flash_common.cuh", "mma_tf32.cuh", "wgmma_bf16.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
@@ -62,6 +62,11 @@ _SIGNATURES = {
     "repro_uplink_topk": ([_P] * 6 + [_I64] * 4 + [_INT, _P], _INT),
     # B, n, device, plan (2 int64: blocks a row, scratch ints)
     "repro_uplink_topk_plan": ([_I64, _I64, _INT, _P], _INT),
+    # wx0, wh0, b0, wx1, wh1, b1, w_out, b_out, pre, post, lab, fb, gates, out, loss, want, scratch, S, T, cols,
+    # lr, device, stream
+    "repro_rnn_chain": ([_P] * 17 + [_I64] * 3 + [_F32, _INT, _P], _INT),
+    # T, plan (2 int64: dynamic shared memory bytes, scratch floats)
+    "repro_rnn_chain_plan": ([_I64, _P], _INT),
     "repro_flash_fwd": ([_P] * 5 + _FLASH_ARGS, _INT),
     "repro_flash_dq": ([_P] * 7 + _FLASH_ARGS, _INT),
     "repro_flash_dkv": ([_P] * 8 + _FLASH_ARGS, _INT),

@@ -37,6 +37,7 @@ from repro_torch.kernels.flash_attention_bwd import (
 from repro_torch.kernels.ingest_chain import ingest_chain
 from repro_torch.kernels.l1 import l1_distance, pairwise_l1
 from repro_torch.kernels.merge import merge_attention
+from repro_torch.kernels.rnn import rnn_chain
 from repro_torch.kernels.uplink import uplink_int8_encode, uplink_topk_encode
 from repro_torch.models.dist import Ranks, kv_group
 
@@ -51,6 +52,7 @@ WRAPPERS = {
     "merge_attention": merge_attention,
     "uplink_int8_encode": uplink_int8_encode,
     "uplink_topk_encode": uplink_topk_encode,
+    "rnn_chain": rnn_chain,
     "pairwise_l1": pairwise_l1,
     "flash_attention_fwd": flash_attention_with_lse,
     "flash_attention_dq": flash_attention_dq,
@@ -274,6 +276,7 @@ def reset_launch_counts() -> None:
 __all__ = [
     "assign_and_lerp", "attention", "chi2_feedback", "chi2_feedback_segmented", "flash_attention",
     "flash_attention_bwd", "flash_attention_with_lse", "ingest_chain", "l1_distance", "l1_distance_pairwise",
-    "launch_counts", "launch_counts_bf16", "merge_attention", "pairwise_l1", "reset_launch_counts", "sharded_calls",
+    "launch_counts", "launch_counts_bf16", "merge_attention", "pairwise_l1", "reset_launch_counts", "rnn_chain",
+    "sharded_calls",
     "uplink_int8_encode", "uplink_topk_encode",
 ]

@@ -23,7 +23,14 @@ layer in the prefill, none in the decode), reduced hubert's forward card
 against CPU within 1e-4, and the pytree backend's assign as one
 ``l1_distance`` launch. Training: remat on and off bit for bit, a
 ``TrainState`` saved from the card restored on the CPU, and the EchoPFL
-transformer-client example card against CPU.
+transformer-client example card against CPU. The broadcast RNN kernel
+(``csrc/rnn.cu``, ``-k rnn``): one SGD step within rtol 1e-6, atol 1e-7 of
+the plain version, a chain of 32 steps within rtol 1e-5, atol 1e-6, the
+decisions identical wherever the plain logit margin exceeds 1e-5, the
+pretraining within 4 times its fp32-against-fp64 gap
+(``tests/torch_rnn_model.py``); a chain bit for bit the same steps as
+per-event launches, every launch repeating its bits, one launch a chain and
+a pretraining, and a parent's weights untouched by its child's learning.
 """
 import numpy as np
 import pytest
@@ -1068,3 +1075,147 @@ def test_cuda_dryrun_state_bytes_equal_the_placed_state(cuda_device):
     leaves = [t.numel() * t.element_size() for t in tree_leaves(state)]
     assert rec["state_bytes_per_device"] == sum(leaves)
     assert placed == sum(-(-n // 512) * 512 for n in leaves)
+
+
+# ------------------------------------------------------- the broadcast RNN
+# chains: (window length k, seed); k = 128 is the largest a path runs (128 clients), past the 12 whose
+# histories the kernel keeps in shared memory
+RNN_CHAINS = [(10, 0), (16, 1), (33, 2), (128, 3)]
+
+
+def _rnn_weights(seed, device):
+    from repro_torch.core.broadcast import init_rnn
+
+    return init_rnn(torch.Generator().manual_seed(seed), device=device)
+
+
+def _rnn_same_bits(a, b):
+    return all(torch.equal(_bits(a[k]), _bits(b[k])) for k in a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [10, 128])
+def test_cuda_rnn_step_matches_plain(cuda_device, T):
+    """One SGD step (each label) within rtol 1e-6, atol 1e-7 of the plain
+    step, and 64 decisions identical wherever the plain margin exceeds 1e-5."""
+    from repro_torch.kernels import rnn
+
+    rng = np.random.default_rng(T)
+    p = _rnn_weights(T, cuda_device)
+    for label in (0, 1):
+        seq = rng.uniform(0, 1, (T, 1)).astype(np.float32)
+        got, loss = rnn.rnn_sgd(p, seq, label, 1e-2)
+        want, want_loss = rnn.rnn_sgd_plain(p, torch.from_numpy(seq).to(cuda_device), label, 1e-2)
+        for k in want:
+            torch.testing.assert_close(got[k], want[k], rtol=1e-6, atol=1e-7, msg=k)
+        torch.testing.assert_close(loss, want_loss, rtol=1e-6, atol=0)
+    seqs = rng.uniform(0, 1, (64, T, 1)).astype(np.float32)
+    got = [bool(rnn.rnn_want(p, x)) for x in seqs]
+    margins = [float(np.diff(rnn.rnn_logits(p, torch.from_numpy(x).to(cuda_device)).cpu().numpy())[0]) for x in seqs]
+    want = [m > 0 for m in margins]
+    under = sum(abs(m) <= 1e-5 for m in margins)
+    print(f"T {T}: {under} of 64 probes within the 1e-5 margin")
+    assert all(a == b or abs(m) <= 1e-5 for a, b, m in zip(got, want, margins))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,seed", RNN_CHAINS, ids=str)
+def test_cuda_rnn_chain_matches_plain(cuda_device, k, seed):
+    """32 steps with mixed gates and ragged windows: wants identical under
+    the margin rule, leaves within rtol 1e-5, atol 1e-6."""
+    from repro_torch.kernels import rnn
+    from torch_rnn_model import chain_inputs, check_wants, plain_serial
+
+    p = _rnn_weights(seed, cuda_device)
+    args = chain_inputs(k, 32, seed)
+    got, wants = rnn.rnn_chain(p, *args, 1e-2)
+    want, want_wants, margins = plain_serial(p, *args, 1e-2)
+    under, split = check_wants(wants.tolist(), want_wants, margins)
+    print(f"k {k}: {under} decisions within the margin, first difference at {split}")
+    if split is None:
+        for name in want:
+            torch.testing.assert_close(got[name], want[name], rtol=1e-5, atol=1e-6, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,seed", RNN_CHAINS, ids=str)
+def test_cuda_rnn_chain_is_per_event_launches_bit_for_bit(cuda_device, k, seed):
+    """A chain is one launch and the same bits as its steps launched one by
+    one (a learn, a decision), as ``BroadcastPredictor.learn`` and
+    ``decide`` launch them; a launch repeats its bits."""
+    from repro_torch.kernels import rnn
+    from torch_rnn_model import chain_inputs
+
+    p = _rnn_weights(seed, cuda_device)
+    pre, post, lab, fb, learn, decide, fallback = args = chain_inputs(k, 32, seed)
+    ops.reset_launch_counts()
+    got, wants = rnn.rnn_chain(p, *args, 1e-2)
+    assert ops.launch_counts()["rnn_chain"] == 1
+    q, fire, serial = p, 0, []
+    for s in range(len(learn)):
+        if learn[s]:
+            q, _ = rnn.rnn_sgd(q, pre[s], int(lab[s, fire]), 1e-2)
+        want = bool(fb[s, fire]) if fallback[s] else bool(rnn.rnn_want(q, post[s])) if decide[s] else False
+        fire = s + 1 if want else fire
+        serial.append(want)
+    assert ops.launch_counts()["rnn_chain"] == 1 + int(learn.sum()) + int((decide & ~fallback).sum())
+    assert wants.tolist() == serial and _rnn_same_bits(got, q)
+    again, wants2 = rnn.rnn_chain(p, *args, 1e-2)
+    assert torch.equal(wants, wants2) and _rnn_same_bits(got, again)
+
+
+@pytest.mark.cuda
+def test_cuda_rnn_pretraining_is_one_launch_within_its_bound(cuda_device):
+    """``pretrain_rnn``: one launch of 1,200 learn steps, within 4 times the
+    fp32-against-fp64 gap of the plain pretraining on the card; twice the
+    same bits."""
+    from repro_torch.core.broadcast import pretrain_rnn, pretrain_windows
+    from repro_torch.kernels import rnn
+    from torch_rnn_model import PRETRAIN_BOUND_FACTOR, PRETRAIN_FP32_GAP
+
+    ops.reset_launch_counts()
+    got = pretrain_rnn(0, device=cuda_device)
+    assert ops.launch_counts()["rnn_chain"] == 1
+    windows, labels = pretrain_windows(0)
+    learn = np.ones(len(labels), bool)
+    want, _ = rnn.rnn_chain_plain(_rnn_weights(0, cuda_device), windows, None, labels, None, learn, ~learn, ~learn,
+                                  5e-3)
+    gap = max(float((got[k] - want[k]).abs().max() / want[k].abs().max()) for k in want)
+    print(f"pretraining, kernel against plain on the card: largest relative leaf gap {gap:.3g}")
+    assert gap <= PRETRAIN_BOUND_FACTOR * PRETRAIN_FP32_GAP
+    assert _rnn_same_bits(got, pretrain_rnn(0, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_cuda_rnn_window_limit(cuda_device):
+    """The longest window (1,024 records) launches; one more raises, with no fallback."""
+    from repro_torch.kernels import rnn
+
+    p = _rnn_weights(5, cuda_device)
+    x = np.random.default_rng(5).uniform(0, 1, (rnn.MAX_T + 1, 1)).astype(np.float32)
+    ops.reset_launch_counts()
+    got, _ = rnn.rnn_sgd(p, x[:-1], 1, 1e-2)
+    want, _ = rnn.rnn_sgd_plain(p, torch.from_numpy(x[:-1]).to(cuda_device), 1, 1e-2)
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=1e-6, atol=1e-7, msg=k)
+    with pytest.raises(ValueError):
+        rnn.rnn_sgd(p, x, 1, 1e-2)
+    with pytest.raises(ValueError):
+        rnn.rnn_want(p, x)
+    assert ops.launch_counts()["rnn_chain"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_rnn_child_learns_without_touching_its_parent(cuda_device):
+    """An expanded cluster's predictor shares its parent's weight tensors;
+    its learn launches into fresh leaves and leaves the parent's bits."""
+    from repro_torch.core.broadcast import BroadcastPredictor, predictor_for_expansion
+
+    parent = BroadcastPredictor(params=_rnn_weights(6, cuda_device), k=10, records=[0.5, 1.25, 0.75])
+    before = {k: v.clone() for k, v in parent.params.items()}
+    child = predictor_for_expansion(parent, 2.0)
+    child.observe(1.5)
+    child.learn(1)
+    assert _rnn_same_bits(parent.params, before)
+    assert not _rnn_same_bits(child.params, before)
+    assert not any(child.params[k].data_ptr() == parent.params[k].data_ptr() for k in before)
