@@ -576,7 +576,7 @@ def _kernel_label(mangled: str) -> str:
     """``flash_dkv_kernel<64,3>`` from a mangled name."""
     names = re.findall(r"(?:flash_[a-z]+(?:_bf16)?|l1_rows|assign_lerp|ingest_chain|chi2|merge|uplink_int8"
                        r"|uplink_topk_split|uplink_topk|rnn_chain)_kernel", mangled)
-    args = re.findall(r"Li(\d+)E", mangled)
+    args = re.findall(r"L[ib](\d+)E" if "rnn_chain" in mangled else r"Li(\d+)E", mangled)
     return (names[-1] if names else mangled) + (f"<{','.join(args)}>" if args else "")
 
 
@@ -672,10 +672,15 @@ def kernel_resources() -> None:
     print("L1, fused assign, ingest chain, chi2, merge, uplink encode and RNN kernels: no spills")
     from repro_torch.kernels.rnn import plan as rnn_plan
 
-    for t in (10, 128):
+    for t in (10, 33, 104, 105, 128):
         rp = rnn_plan(t)
-        print(f"  rnn_chain_kernel launch at a window of {t}: one block of 512 threads, dynamic shared {rp['smem']} B, "
+        print(f"  rnn_chain_kernel launch at a window of {t}: {rp['cluster']} block(s) of {rp['threads']} threads "
+              f"(a cluster of {rp['cluster']}), {rp['registers']} registers, local {rp['local_bytes']} B, dynamic "
+              f"shared {rp['smem']} B a block, "
               + (f"histories in {rp['scratch']} floats of global scratch" if rp["scratch"] else "histories on chip"))
+        check(rp["local_bytes"] == 0 and rp["threads"] == 512 and rp["cluster"] == (1 if t <= 104 else 2),
+              f"rnn_chain_kernel at a window of {t}: {rp}")
+        check(bool(rp["scratch"]) == (t > 104), f"rnn_chain_kernel at a window of {t}: scratch {rp['scratch']}")
     from repro_torch.kernels.ingest_chain import chain_plan
 
     for c, n in dict.fromkeys((c, n) for _, c, n in CHAIN_SHAPES):
@@ -777,9 +782,12 @@ def _rnn_same_bits(a: dict, b: dict) -> bool:
 
 def rnn_checks() -> dict:
     """The broadcast RNN kernel (``csrc/rnn.cu``) against its plain version
-    on the card (phase 2): one SGD step at RNN_STEP_T within rtol 1e-6, atol
-    1e-7, 64 decisions a window identical wherever the plain logit margin
-    exceeds 1e-5; chains of 32 steps at RNN_CHAINS within rtol 1e-5, atol
+    on the card (phase 2), at windows that reach both its variants (one
+    block to 104 records, a cluster of two past that): one SGD step at
+    RNN_STEP_T within rtol 1e-6, atol 1e-7, 64 decisions a window identical wherever the
+    plain logit margin exceeds 1e-5, and a per-event upload's learn and
+    decision in one ``rnn_step`` launch bit for bit a learn launch then a
+    decision launch; chains of 32 steps at RNN_CHAINS within rtol 1e-5, atol
     1e-6 under the margin rule (``tests/torch_rnn_model.py``), each one
     launch, bit for bit the same steps launched one by one and its own
     repeat; the pretraining one launch within PRETRAIN_BOUND_FACTOR x
@@ -797,30 +805,56 @@ def rnn_checks() -> dict:
                                  check_wants, plain_serial)
 
     rng = np.random.default_rng(0)
-    step_err, probes, under = 0.0, 0, 0
+    steps = []  # (T, weights, [(seq, label, plain step)], decision windows, plain margins)
     for T in RNN_STEP_T:
         p = _rnn_weights(T)
+        learns = []
         for label in (0, 1):
             seq = rng.uniform(0, 1, (T, 1)).astype(np.float32)
+            learns.append((seq, label, rnn.rnn_sgd_plain(p, torch.from_numpy(seq).to(DEVICE), label, RNN_LR)[0]))
+        xs = rng.uniform(0, 1, (64, T, 1)).astype(np.float32)
+        margins = [float(np.diff(rnn.rnn_logits(p, torch.from_numpy(x).to(DEVICE)).cpu().numpy())[0]) for x in xs]
+        steps.append((T, p, learns, xs, margins))
+    chains = []
+    for k, seed in RNN_CHAINS:
+        p = _rnn_weights(seed)
+        args = chain_inputs(k, 32, seed)
+        chains.append((k, p, args, plain_serial(p, *args, RNN_LR)))
+    windows, labels = pretrain_windows(0)
+    learn = np.ones(len(labels), bool)
+    sync()
+    t0 = time.perf_counter()
+    pre_p, _ = rnn.rnn_chain_plain(_rnn_weights(0), windows, None, labels, None, learn, ~learn, ~learn, RNN_PRETRAIN_LR)
+    sync()
+    plain_s = time.perf_counter() - t0
+    step_err, probes, under, fused = 0.0, 0, 0, 0
+    for T, p, learns, xs, margins in steps:
+        for seq, label, want in learns:
             got, _ = rnn.rnn_sgd(p, seq, label, RNN_LR)
-            want, _ = rnn.rnn_sgd_plain(p, torch.from_numpy(seq).to(DEVICE), label, RNN_LR)
             for k in want:
                 torch.testing.assert_close(got[k], want[k], rtol=1e-6, atol=1e-7, msg=f"rnn step T={T} {k}")
             step_err = max(step_err, max(float((got[k] - want[k]).abs().max()) for k in want))
-        for x in rng.uniform(0, 1, (64, T, 1)).astype(np.float32):
-            lg = rnn.rnn_logits(p, torch.from_numpy(x).to(DEVICE))
-            m = float(lg[1] - lg[0])
+        for x, m in zip(xs, margins):
             close = abs(m) <= DECISION_MARGIN
             check(bool(rnn.rnn_want(p, x)) == (m > 0) or close, f"rnn decision T={T}: margin {m:.3g}")
             probes, under = probes + 1, under + close
+        for (seq, label, _), x in zip(learns, xs):  # one launch: the learn, then the decision on its weights
+            n0 = rnn.rnn_chain.launches
+            q, w = rnn.rnn_step(p, seq, x, label, RNN_LR)
+            check(rnn.rnn_chain.launches == n0 + 1, f"rnn_step T={T}: {rnn.rnn_chain.launches - n0} launches")
+            a, _ = rnn.rnn_sgd(p, seq, label, RNN_LR)
+            check(_rnn_same_bits(q, a) and bool(w) == bool(rnn.rnn_want(a, x)),
+                  f"rnn_step T={T}: not a learn launch then a decision launch")
+            q, w = rnn.rnn_step(p, None, x, None, RNN_LR)
+            check(w is not None and bool(w) == bool(rnn.rnn_want(p, x)) and q is p,
+                  f"rnn_step T={T}: a decision alone differs from rnn_want")
+            fused += 1
     chain_err, split_at = 0.0, []
-    for k, seed in RNN_CHAINS:
-        p = _rnn_weights(seed)
-        pre, post, lab, fb, learn, decide, fallback = args = chain_inputs(k, 32, seed)
+    for k, p, args, (want, want_wants, margins) in chains:
+        pre, post, lab, fb, learn_g, decide, fallback = args
         n0 = rnn.rnn_chain.launches
         got, wants = rnn.rnn_chain(p, *args, RNN_LR)
         check(rnn.rnn_chain.launches == n0 + 1, f"rnn chain k={k}: {rnn.rnn_chain.launches - n0} launches")
-        want, want_wants, margins = plain_serial(p, *args, RNN_LR)
         u, split = check_wants(wants.tolist(), want_wants, margins)
         under, probes = under + u, probes + int(np.sum(decide & ~fallback))
         split_at.append(split)
@@ -829,8 +863,8 @@ def rnn_checks() -> dict:
                 torch.testing.assert_close(got[name], want[name], rtol=1e-5, atol=1e-6, msg=f"rnn chain k={k} {name}")
             chain_err = max(chain_err, max(float((got[n] - want[n]).abs().max()) for n in want))
         q, fire, serial = p, 0, []
-        for j in range(len(learn)):
-            if learn[j]:
+        for j in range(len(learn_g)):
+            if learn_g[j]:
                 q, _ = rnn.rnn_sgd(q, pre[j], int(lab[j, fire]), RNN_LR)
             w = bool(fb[j, fire]) if fallback[j] else bool(rnn.rnn_want(q, post[j])) if decide[j] else False
             fire = j + 1 if w else fire
@@ -841,13 +875,6 @@ def rnn_checks() -> dict:
     n0 = rnn.rnn_chain.launches
     pre_k = pretrain_rnn(0, device=DEVICE)
     check(rnn.rnn_chain.launches == n0 + 1, f"pretrain_rnn: {rnn.rnn_chain.launches - n0} launches, not 1")
-    windows, labels = pretrain_windows(0)
-    learn = np.ones(len(labels), bool)
-    sync()
-    t0 = time.perf_counter()
-    pre_p, _ = rnn.rnn_chain_plain(_rnn_weights(0), windows, None, labels, None, learn, ~learn, ~learn, RNN_PRETRAIN_LR)
-    sync()
-    plain_s = time.perf_counter() - t0
     gap = max(float((pre_k[k] - pre_p[k]).abs().max() / pre_p[k].abs().max()) for k in pre_p)
     check(gap <= PRETRAIN_BOUND_FACTOR * PRETRAIN_FP32_GAP,
           f"pretraining: kernel {gap:.3g} from the plain version, past {PRETRAIN_BOUND_FACTOR} x {PRETRAIN_FP32_GAP}")
@@ -862,15 +889,17 @@ def rnn_checks() -> dict:
     child = predictor_for_expansion(parent, 2.0)
     child.observe(1.5)
     child.learn(1)
+    child.step(0, np.ones((10, 1), np.float32), True)
     check(_rnn_same_bits(parent.params, before) and not _rnn_same_bits(child.params, before),
           "rnn: an expanded child's learn touched its parent's weights")
     sync()
-    print(f"rnn kernel: one step at windows {RNN_STEP_T} within rtol 1e-6, atol 1e-7 (max abs {step_err:.3g}); chains "
-          f"{RNN_CHAINS} within rtol 1e-5, atol 1e-6 (max abs {chain_err:.3g}), each one launch, bit for bit its "
-          f"per-event launches and its repeat (first decision difference at {split_at}); {under} of {probes} "
-          f"decisions within the {DECISION_MARGIN} margin; pretraining one launch, {gap:.3g} from the plain version "
-          f"(bound {PRETRAIN_BOUND_FACTOR * PRETRAIN_FP32_GAP:.3g}), plain on the card {plain_s:.3f} s; the window "
-          f"limit and the parent's weights held")
+    print(f"rnn kernel: one step at windows {RNN_STEP_T} within rtol 1e-6, atol 1e-7 (max abs {step_err:.3g}), "
+          f"{fused} per-event learn + decision launches bit for bit a learn then a decision; chains {RNN_CHAINS} "
+          f"within rtol 1e-5, atol 1e-6 (max abs {chain_err:.3g}), each one launch, bit for bit its per-event "
+          f"launches and its repeat (first decision difference at {split_at}); {under} of {probes} decisions within "
+          f"the {DECISION_MARGIN} margin; pretraining one launch, {gap:.3g} from the plain version (bound "
+          f"{PRETRAIN_BOUND_FACTOR * PRETRAIN_FP32_GAP:.3g}), plain on the card {plain_s:.3f} s; the window limit and "
+          f"the parent's weights held")
     return {"pretrain_plain_s": plain_s, "pretrain_gap": gap, "under_margin": under, "decisions": probes}
 
 
@@ -1354,8 +1383,8 @@ def _host_timers():
     wrap(server_mod.EchoPFLServer, "_plan_predictor_window", "server:   predictor plan and chains")
     wrap(server_mod.EchoPFLServer, "handle_upload", "server: handle_upload")
     wrap(DynamicClustering, "assign", "server:   assign (reads the distances)")
-    wrap(BroadcastPredictor, "learn", "server:   predictor learn")
-    wrap(BroadcastPredictor, "decide", "server:   predictor decide")
+    wrap(BroadcastPredictor, "step", "server:   predictor step (learn and/or decision, one launch)")
+    wrap(BroadcastPredictor, "conclude", "server:   predictor conclude (reads the decision)")
     wrap(server_mod.EchoPFLServer, "_refine", "server:   _refine")
     wrap(ClientFleet, "train_cohort", "client: train_cohort (a round)")
     from repro_torch.fl.uplink import UplinkCodec
@@ -1430,13 +1459,17 @@ def main_path():
         check(counts[name] > 0, f"kernel {name} never launched on the main path")
     check_l1_vec_launches(counts, [(strat, rep) for _, strat, rep, _ in runs], "main path")
     check(counts["ingest_chain"] == 0, "the per-event path launched the ingest chain")
-    check(len(rnn_rec["pretrain_launches"]) == len(runs) and not rnn_rec["chain_launches"] and rnn_rec["sgd"] > 0
-          and rnn_rec["want"] > 0, f"main path: {len(rnn_rec['pretrain_launches'])} pretrainings for {len(runs)} "
-                                   f"runs, {len(rnn_rec['chain_launches'])} chains, {rnn_rec['sgd']} learns, "
-                                   f"{rnn_rec['want']} RNN decisions")
+    learns, decides, both = (sum(k) for k in zip(*((lg, dg, lg and dg) for lg, dg in rnn_rec["steps"])))
+    check(len(rnn_rec["pretrain_launches"]) == len(runs) and not rnn_rec["chain_launches"] and learns > 0
+          and decides > 0 and rnn_rec["sgd"] == rnn_rec["want"] == 0,
+          f"main path: {len(rnn_rec['pretrain_launches'])} pretrainings for {len(runs)} runs, "
+          f"{len(rnn_rec['chain_launches'])} chains, {learns} learns and {decides} RNN decisions in "
+          f"{len(rnn_rec['steps'])} rnn_step calls, {rnn_rec['sgd']} rnn_sgd and {rnn_rec['want']} rnn_want calls")
+    check(len(rnn_rec["steps"]) <= uploads, f"main path: {len(rnn_rec['steps'])} rnn_step calls for {uploads} uploads")
     check_rnn_launches(counts, rnn_rec, "main path")
     print(f"main path rnn_chain launches: {len(rnn_rec['pretrain_launches'])} pretrainings (one launch each), "
-          f"{rnn_rec['sgd']} learns, {rnn_rec['want']} RNN decisions")
+          f"{len(rnn_rec['steps'])} per-event uploads' rnn_step (one launch each: {learns} learns, {decides} RNN "
+          f"decisions, {both} both) of {uploads} uploads")
     shapes["rnn"] = rnn_rec
     rnn = {k: v.cpu().numpy() for k, v in runs[0][1]._rnn_init.items()}  # pretrained broadcast RNN
     return counts, shapes, wall, rnn
@@ -1444,15 +1477,26 @@ def main_path():
 
 def _record_rnn():
     """Count the broadcast RNN's entry points as the server calls them:
-    each learn (``_rnn_sgd``) and RNN decision (``_rnn_want``), each
-    pretraining and each coalesced chain with the ``rnn_chain`` launches it
-    made; chains by (S, k), with the first chain's operands of each shape."""
+    each per-event upload's ``_rnn_step`` (its learn and decision gates,
+    with the ``rnn_chain`` launches it made), each learn (``_rnn_sgd``) and
+    RNN decision (``_rnn_want``) outside it, each pretraining and each
+    coalesced chain with its launches; chains by (S, k), with the first
+    chain's operands of each shape."""
     from repro_torch.core import broadcast as bc
     from repro_torch.core import server as server_mod
     from repro_torch.kernels import rnn
 
-    rec = {"sgd": 0, "want": 0, "pretrain_launches": [], "chain_launches": [], "chains": Counter(), "chain_args": {}}
+    rec = {"sgd": 0, "want": 0, "steps": [], "step_launches": [], "pretrain_launches": [], "chain_launches": [],
+           "chains": Counter(), "chain_args": {}}
     sgd, want, chain, pretrain = bc._rnn_sgd, bc._rnn_want, server_mod.predictor_chain, server_mod.pretrain_rnn
+    step = bc._rnn_step
+
+    def rec_step(params, pre, post, label, lr):
+        n0 = rnn.rnn_chain.launches
+        out = step(params, pre, post, label, lr)
+        rec["steps"].append((label is not None, post is not None))
+        rec["step_launches"].append(rnn.rnn_chain.launches - n0)
+        return out
 
     def rec_sgd(*a, **kw):
         rec["sgd"] += 1
@@ -1479,21 +1523,27 @@ def _record_rnn():
 
     bc._rnn_sgd, bc._rnn_want, server_mod.predictor_chain, server_mod.pretrain_rnn = (rec_sgd, rec_want, rec_chain,
                                                                                       rec_pretrain)
+    bc._rnn_step = rec_step
 
     def restore():
         bc._rnn_sgd, bc._rnn_want, server_mod.predictor_chain, server_mod.pretrain_rnn = sgd, want, chain, pretrain
+        bc._rnn_step = step
 
     return rec, restore
 
 
 def check_rnn_launches(counts, rec: dict, label: str) -> None:
-    """``rnn_chain`` launched once a pretraining, a chain, a learn and an RNN
-    decision, and nowhere else."""
-    want = sum(rec["pretrain_launches"]) + sum(rec["chain_launches"]) + rec["sgd"] + rec["want"]
-    check(all(n == 1 for n in rec["pretrain_launches"] + rec["chain_launches"]),
-          f"{label}: a pretraining or chain made {rec['pretrain_launches'] + rec['chain_launches']} launches, not 1")
+    """``rnn_chain`` launched once a pretraining, a chain, a per-event
+    upload that learns or decides by the RNN (one ``rnn_step``, whichever
+    gates it takes), and a learn and an RNN decision outside those, and
+    nowhere else."""
+    want = (sum(rec["pretrain_launches"]) + sum(rec["chain_launches"]) + sum(rec["step_launches"]) + rec["sgd"]
+            + rec["want"])
+    check(all(n == 1 for n in rec["pretrain_launches"] + rec["chain_launches"] + rec["step_launches"]),
+          f"{label}: a pretraining, chain or upload's rnn_step made other than 1 launch")
+    check(all(lg or dg for lg, dg in rec["steps"]), f"{label}: an rnn_step call neither learned nor decided")
     check(counts["rnn_chain"] == want > 0, f"{label}: rnn_chain launched {counts['rnn_chain']} times, not once a "
-                                           f"pretraining, chain, learn and decision ({want})")
+                                           f"pretraining, chain, upload's learn and/or decision ({want})")
 
 
 def check_l1_vec_launches(counts, runs, label: str) -> None:
@@ -1952,8 +2002,8 @@ def coalesced_path(rnn_params: dict):
           f"{len(rnn_rec['pretrain_launches'])} pretrainings")
     check_rnn_launches(counts, rnn_rec, "coalesced path")
     print(f"coalesced path rnn_chain launches: {len(rnn_rec['chain_launches'])} chains (one launch each; (S, k) most "
-          f"frequent {rnn_rec['chains'].most_common(3)}), {rnn_rec['sgd']} learns and {rnn_rec['want']} RNN decisions "
-          f"outside a chain")
+          f"frequent {rnn_rec['chains'].most_common(3)}), {len(rnn_rec['steps'])} per-upload rnn_step launches and "
+          f"{rnn_rec['sgd']} learns and {rnn_rec['want']} RNN decisions outside a chain")
     for c in strat.clustering.clusters.values():
         v = c.center_vec
         check(v.shape == (25418,) and v.device.type == DEVICE and bool(torch.isfinite(v).all()),
@@ -4885,11 +4935,15 @@ def _rnn_timing(label: str, T: int, gates, fn, plain, launches: int, err: float,
 
 def rnn_row(counts, shapes, coal, rnn_check) -> dict:
     """The broadcast RNN's row: a per-event learn at (S, T) = (1, 10)
-    (``launches``: the main path's ``rnn_chain`` launches, all four entry
-    points), beside it a decision at (1, 10) (the main path's RNN
-    decisions), phase 3d's most frequent chain on its recorded operands (its
-    chains of that shape) and the (1,200, 10) pretraining (the main path's
-    pretrainings; the plain version's wall time on the card from phase 2)."""
+    (``launches``: the main path's ``rnn_chain`` launches, all entry
+    points), beside it a decision at (1, 10) (the main path's uploads that
+    decide by the RNN without a learn), a per-event upload's learn and
+    decision in one ``rnn_step`` launch (the main path's uploads that take
+    both), phase 3d's most frequent chain on its recorded operands (its
+    chains of that shape), the (1,200, 10) pretraining (the main path's
+    pretrainings; the plain version's wall time on the card from phase 2),
+    and the host split of a per-event learn call and of an upload's call
+    (``rnn_host_split``)."""
     import numpy as np
 
     from repro_torch.core.broadcast import pretrain_windows
@@ -4905,11 +4959,22 @@ def rnn_row(counts, shapes, coal, rnn_check) -> dict:
     row = {"name": "rnn_chain", "route": "cuda", "source": source, "replaces": replaces,
            "note": "not a pallas_call: ops.predictor_chain's jit body _predictor_chain_jit (src/repro/kernels/"
                    "ops.py:541), broadcast.py:71 _rnn_sgd, :81 _rnn_want and pretrain_rnn's _rnn_sgd loop (:258)",
+           "variant": rnn.plan(10),
            **_rnn_timing("a per-event learn", 10, [rnn.LEARN], lambda: rnn.rnn_sgd(p, seq, 1, RNN_LR),
                          lambda: rnn.rnn_sgd_plain(p, seq_d, 1, RNN_LR), counts["rnn_chain"], err)}
+    steps = Counter(main_rec["steps"])  # (learns, decides) -> per-event uploads
     row["decide"] = _rnn_timing("a per-event decision", 10, [rnn.DECIDE], lambda: rnn.rnn_want(p, seq),
-                                lambda: rnn.rnn_want_plain(p, seq_d), main_rec["want"],
+                                lambda: rnn.rnn_want_plain(p, seq_d), steps[False, True],
                                 0.0 if bool(rnn.rnn_want(p, seq)) == bool(rnn.rnn_want_plain(p, seq_d)) else 1.0)
+    post = np.random.default_rng(11).uniform(0, 1, (10, 1)).astype(np.float32)
+    post_d = torch.from_numpy(post).to(DEVICE)
+    q, w = rnn.rnn_step(p, seq, post, 1, RNN_LR)
+    q_p, w_p = rnn.rnn_chain_step(p, seq_d, post_d, 1, True, True, RNN_LR)
+    row["upload"] = _rnn_timing(
+        "a per-event upload's learn + decision (one rnn_step)", 10, [rnn.LEARN | rnn.DECIDE],
+        lambda: rnn.rnn_step(p, seq, post, 1, RNN_LR),
+        lambda: rnn.rnn_chain_step(p, seq_d, post_d, 1, True, True, RNN_LR), steps[True, True],
+        max(max(float((q[k] - q_p[k]).abs().max()) for k in q), float(bool(w) != bool(w_p))))
     shape, n = coal_rec["chains"].most_common(1)[0]
     params, pre, post, lab, fb, lg, dg, fg = coal_rec["chain_args"][shape]
     lg, dg, fg = (np.asarray(g, bool) for g in (lg, dg, fg))
@@ -4928,7 +4993,71 @@ def rnn_row(counts, shapes, coal, rnn_check) -> dict:
         sum(main_rec["pretrain_launches"]), rnn_check["pretrain_gap"], iters=2, plain_iters=None)
     row["pretraining"]["plain_wall_ms"] = 1e3 * rnn_check["pretrain_plain_s"]
     row["pretraining"]["max_abs_err_is"] = "the largest relative leaf gap to the plain pretraining (phase 2)"
+    row["host_us"] = {"learn": rnn_host_split(rnn, lambda: rnn.rnn_sgd(p, seq, 1, RNN_LR)),
+                      "upload": rnn_host_split(rnn, lambda: rnn.rnn_step(p, seq, post, 1, RNN_LR))}
+    for what, parts in row["host_us"].items():
+        print(f"timing rnn_chain host time of a per-event {what} call (us): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
     return row
+
+
+def rnn_host_split(rnn, fn, calls: int = 200) -> dict:
+    """Mean host microseconds of a call ``fn`` of the RNN wrapper module
+    ``rnn`` (this tree's or another's), from time stamps around its pieces:
+    ``entry`` (the entry point's own work outside ``_launch``),
+    ``checks_packing`` (``_launch`` up to the operand copy or the C call),
+    ``copy`` (``to_device``, a pinned copy made and queued; 0 where the C
+    call queues the copy), ``alloc`` (the output and scratch buffers),
+    ``ctypes`` (the C call: the launch queued), ``views`` (the result's
+    tensors), ``total``. Each stamp costs well under a microsecond."""
+    stamps: list[tuple[str, int]] = []
+    clock = time.perf_counter_ns
+    launch, lib = rnn._launch, rnn._build.library()
+    copy = getattr(rnn, "to_device", None)
+
+    def timed(tag, f):
+        def run(*a, **kw):
+            stamps.append((tag + "0", clock()))
+            out = f(*a, **kw)
+            stamps.append((tag + "1", clock()))
+            return out
+        return run
+
+    class Lib:
+        repro_rnn_chain = staticmethod(timed("c", lib.repro_rnn_chain))
+
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+    proxy, library = Lib(), rnn._build.library
+    rnn._launch, rnn._build.library = timed("l", launch), lambda: proxy
+    if copy is not None:
+        rnn.to_device = timed("p", copy)
+    try:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        parts = dict.fromkeys(("entry", "checks_packing", "copy", "alloc", "ctypes", "views", "total"), 0.0)
+        for _ in range(calls):
+            stamps.clear()
+            t0 = clock()
+            fn()
+            t1 = clock()
+            at = dict(stamps)
+            first = at.get("p0", at["c0"])
+            parts["entry"] += at["l0"] - t0 + t1 - at["l1"]
+            parts["checks_packing"] += first - at["l0"]
+            parts["copy"] += at["p1"] - at["p0"] if "p0" in at else 0
+            parts["alloc"] += at["c0"] - at.get("p1", first)
+            parts["ctypes"] += at["c1"] - at["c0"]
+            parts["views"] += at["l1"] - at["c1"]
+            parts["total"] += t1 - t0
+            torch.cuda.synchronize()
+    finally:
+        rnn._launch, rnn._build.library = launch, library
+        if copy is not None:
+            rnn.to_device = copy
+    return {k: v / calls / 1e3 for k, v in parts.items()}
 
 
 def _allowed_pairs(Sq: int, Sk: int) -> int:

@@ -17,7 +17,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.kernels.rnn import HIDDEN, NUM_LAYERS, rnn_chain, rnn_sgd, rnn_want
+from repro_torch.kernels.rnn import HIDDEN, NUM_LAYERS, rnn_chain, rnn_sgd, rnn_step, rnn_want
 from repro_torch.kernels.rnn import rnn_chain_step, rnn_logits  # noqa: F401  (the plain RNN, under its names here)
 
 PyTree = Any
@@ -45,10 +45,12 @@ def init_rnn(generator: torch.Generator, hidden: int = HIDDEN, device="cpu") -> 
     return params
 
 
-# one SGD step (fresh params and the loss) and one decision (a device bool),
-# each one rnn_chain launch on the card (kernels/rnn.py)
+# one SGD step (fresh params and the loss), one decision (a device bool) and
+# one upload's learn and/or decision, each one rnn_chain launch on the card
+# (kernels/rnn.py)
 _rnn_sgd = rnn_sgd
 _rnn_want = rnn_want
+_rnn_step = rnn_step
 
 
 def predictor_chain(params: dict, pre, post, lab_table, fb_table, learn_gate, decide_gate, fb_gate,
@@ -126,15 +128,36 @@ class BroadcastPredictor:
         return want
 
     def decide(self, accumulated_gap: float, fallback_threshold: float = FALLBACK_THRESHOLD) -> bool:
-        """RNN decision; when inactive (fresh expansion) never broadcast."""
+        """RNN decision; when inactive (fresh expansion) never broadcast. The
+        serial reference (a launch of its own) that tests and the card's
+        checks hold :meth:`step`'s fused decision to; the server calls
+        :meth:`step` and :meth:`conclude`."""
         kind = self.decision_kind()
+        want = _rnn_want(self.params, build_seq(self.records, self.k)) if kind == "rnn" else None
+        return self.conclude(kind, accumulated_gap, want, fallback_threshold)
+
+    def conclude(self, kind: str, accumulated_gap: float, want: torch.Tensor | None,
+                 fallback_threshold: float = FALLBACK_THRESHOLD) -> bool:
+        """The decision of ``kind`` (from :meth:`decision_kind`): none when
+        inactive, the cold-start rule on ``accumulated_gap``, or the RNN's
+        ``want`` (a device bool, read here); counts a broadcast."""
         if kind == "inactive":
             return False
         if kind == "fallback":
-            want = self.fallback_wants(accumulated_gap, self.scale, fallback_threshold)
-        else:
-            want = bool(_rnn_want(self.params, build_seq(self.records, self.k)))
-        return self.record_decision(want)
+            return self.record_decision(self.fallback_wants(accumulated_gap, self.scale, fallback_threshold))
+        return self.record_decision(bool(want))
+
+    def step(self, label: int | None, pre, decide: bool, lr: float = LEARN_LR) -> torch.Tensor | None:
+        """One upload's RNN work in one launch: the fine-tune toward
+        ``label`` on ``pre`` (the window before this upload's :meth:`observe`)
+        where ``label`` is not None, then, where ``decide``, the decision on
+        the current window, returned as a device bool (no host read). The
+        weights and decision of :meth:`learn` then :meth:`decide`'s RNN rule."""
+        if label is None and not decide:
+            return None
+        self.params, want = _rnn_step(self.params, pre, build_seq(self.records, self.k) if decide else None, label,
+                                      lr)
+        return want
 
     def apply_decision(self, want: bool) -> bool:
         """:meth:`decide` with its outcome already known (the coalesced
@@ -143,7 +166,9 @@ class BroadcastPredictor:
 
     def learn(self, label: int, lr: float = LEARN_LR) -> torch.Tensor:
         """Online fine-tune on the realized ground truth (Eq. 4); returns the
-        loss as a device scalar (no host read)."""
+        loss as a device scalar (no host read). The serial reference (a
+        launch of its own) that tests and the card's checks hold
+        :meth:`step`'s fused learn to; the server calls :meth:`step`."""
         self.params, loss = _rnn_sgd(self.params, build_seq(self.records, self.k), label, lr)
         return loss
 

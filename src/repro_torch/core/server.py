@@ -235,14 +235,17 @@ class EchoPFLServer:
                 out.extend(self._refine())
             return out
 
-        # 4. Top-K change record + online fine-tune on the ground truth (Eq. 4)
+        # 4. Top-K change record + online fine-tune on the ground truth (Eq. 4),
+        # and the kind of step 6's decision, taken once the record is in: the
+        # fine-tune and an RNN decision are one launch (``pred.step``)
         if pred is not None:
             change = cl.l1(cluster.head, prev_center)
             gap_before = cl.l1(prev_center, cluster.anchor)
             label = 1 if change > gap_before else 0
-            if pred.records:
-                pred.learn(label)
+            pre = build_seq(pred.records, pred.k) if pred.records else None
             pred.observe(change)
+            kind = pred.decision_kind() if cluster.size > 1 else None
+            want = pred.step(None if pre is None else label, pre, kind == "rnn")
 
         # 5. unicast fresh center to the uploader
         out.append(Downlink(client_id, cluster.center, cluster.version, cid, "unicast"))
@@ -252,7 +255,7 @@ class EchoPFLServer:
         if pred is not None and cluster.size > 1:
             gap = cl.l1(cluster.head, cluster.anchor)
             self._decisions += 1
-            if pred.decide(gap):
+            if pred.conclude(kind, gap, want):
                 self._rnn_broadcasts += 1
                 out.extend(self._broadcast(cluster, exclude={client_id}))
 

@@ -62,11 +62,11 @@ _SIGNATURES = {
     "repro_uplink_topk": ([_P] * 6 + [_I64] * 4 + [_INT, _P], _INT),
     # B, n, device, plan (2 int64: blocks a row, scratch ints)
     "repro_uplink_topk_plan": ([_I64, _I64, _INT, _P], _INT),
-    # wx0, wh0, b0, wx1, wh1, b1, w_out, b_out, pre, post, lab, fb, gates, out, loss, want, scratch, S, T, cols,
-    # lr, device, stream
-    "repro_rnn_chain": ([_P] * 17 + [_I64] * 3 + [_F32, _INT, _P], _INT),
-    # T, plan (2 int64: dynamic shared memory bytes, scratch floats)
-    "repro_rnn_chain_plan": ([_I64, _P], _INT),
+    # desc (24 int64: csrc/rnn.cu RnnDesc), the operands on the host, stream
+    "repro_rnn_chain": ([_P, _P, _P], _INT),
+    # T, device, plan (6 int64: dynamic shared memory bytes a block, scratch floats, threads a block,
+    # blocks a cluster, registers a thread, local bytes a thread)
+    "repro_rnn_chain_plan": ([_I64, _INT, _P], _INT),
     "repro_flash_fwd": ([_P] * 5 + _FLASH_ARGS, _INT),
     "repro_flash_dq": ([_P] * 7 + _FLASH_ARGS, _INT),
     "repro_flash_dkv": ([_P] * 8 + _FLASH_ARGS, _INT),

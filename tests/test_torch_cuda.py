@@ -1219,3 +1219,79 @@ def test_cuda_rnn_child_learns_without_touching_its_parent(cuda_device):
     assert _rnn_same_bits(parent.params, before)
     assert not _rnn_same_bits(child.params, before)
     assert not any(child.params[k].data_ptr() == parent.params[k].data_ptr() for k in before)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [10, 33, 105, 128])
+def test_cuda_rnn_upload_step_is_a_learn_then_a_decision(cuda_device, T):
+    """A per-event upload's learn and decision in one ``rnn_step`` launch: bit for bit a learn launch then
+    a decision launch, in each variant of the kernel (one block to 104 records, a cluster of two past
+    that); a learn or a decision alone is one launch too."""
+    from repro_torch.kernels import rnn
+
+    rng = np.random.default_rng(T)
+    p = _rnn_weights(T + 7, cuda_device)
+    for label in (0, 1):
+        pre, post = (rng.uniform(0, 1, (T, 1)).astype(np.float32) for _ in range(2))
+        ops.reset_launch_counts()
+        q, want = rnn.rnn_step(p, pre, post, label, 1e-2)
+        assert ops.launch_counts()["rnn_chain"] == 1
+        a, _ = rnn.rnn_sgd(p, pre, label, 1e-2)
+        assert _rnn_same_bits(q, a) and bool(want) == bool(rnn.rnn_want(a, post))
+        learned, none = rnn.rnn_step(p, pre, None, label, 1e-2)
+        assert none is None and _rnn_same_bits(learned, a)
+        same, decided = rnn.rnn_step(p, None, post, None, 1e-2)
+        assert same is p and bool(decided) == bool(rnn.rnn_want(p, post))
+        assert ops.launch_counts()["rnn_chain"] == 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,seed", [(16, 1), (33, 2)], ids=str)
+def test_cuda_rnn_chains_keep_their_histories_on_chip(cuda_device, k, seed):
+    """Phase 3d's chains at k = 16 and 33: the plan keeps the histories in shared memory (no scratch), the
+    launch allocates its one output buffer and nothing else, and the chain is its per-event launches bit for
+    bit and within the chain tolerance of the plain version."""
+    from repro_torch.kernels import rnn
+    from torch_rnn_model import chain_inputs, check_wants, plain_serial
+
+    assert rnn.plan(k)["scratch"] == 0 and rnn.plan(128)["scratch"] > 0
+    p = _rnn_weights(seed, cuda_device)
+    pre, post, lab, fb, learn, decide, fallback = args = chain_inputs(k, 32, seed)
+    rnn.rnn_chain(p, *args, 1e-2)  # warm: the library and the staging slots
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    got, wants = rnn.rnn_chain(p, *args, 1e-2)
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] - before == 1
+    want, want_wants, margins = plain_serial(p, *args, 1e-2)
+    _, split = check_wants(wants.tolist(), want_wants, margins)
+    if split is None:
+        for name in want:
+            torch.testing.assert_close(got[name], want[name], rtol=1e-5, atol=1e-6, msg=name)
+    q, fire, serial = p, 0, []
+    for s in range(len(learn)):
+        w = None
+        if learn[s] or (decide[s] and not fallback[s]):
+            q, w = rnn.rnn_step(q, pre[s] if learn[s] else None, post[s] if decide[s] and not fallback[s] else None,
+                                int(lab[s, fire]) if learn[s] else None, 1e-2)
+        want_s = bool(fb[s, fire]) if fallback[s] else bool(w) if w is not None else False
+        fire = s + 1 if want_s else fire
+        serial.append(want_s)
+    assert wants.tolist() == serial and _rnn_same_bits(got, q)
+
+
+@pytest.mark.cuda
+def test_cuda_rnn_plan_reports_registers_and_cluster(cuda_device):
+    """``repro_rnn_chain_plan``: 512 threads a block, no spilled registers in either variant; one block with
+    the histories on chip up to 104 records, a cluster of two past that with a scratch of 4 x 1,024 x 128
+    floats a block; no window past 1,024 records."""
+    from repro_torch.kernels import rnn
+
+    for T, cluster, scratch in ((1, 1, 0), (10, 1, 0), (104, 1, 0), (105, 2, 2 * 4 * 1024 * 128),
+                                (128, 2, 2 * 4 * 1024 * 128), (1024, 2, 2 * 4 * 1024 * 128)):
+        plan = rnn.plan(T)
+        print(f"T {T}: {plan}")
+        assert plan["threads"] == 512 and plan["cluster"] == cluster and plan["scratch"] == scratch
+        assert 0 < plan["registers"] <= 128 and plan["local_bytes"] == 0
+        assert plan["smem"] <= 232448
+    with pytest.raises(RuntimeError):
+        rnn.plan(1025)

@@ -104,6 +104,105 @@ def chain(params: dict, pre, post, lab, fb, learn, decide, fallback, lr: float, 
     return p, wants, margins
 
 
+# ------------------------------------------- the kernel's sums (csrc/rnn.cu)
+# A thread holds rows 32 r + 8 g + a (a < 8) and columns 32 c + 4 q + b (b < 4) of each matrix: row tile
+# r, row group g, column tile c, column group q (csrc/rnn.cu's kRowsT, kColsT, kRowGroups, kColGroups).
+TILE, TILES, ROWS_T, COLS_T, ROW_GROUPS, COL_GROUPS = 32, 4, 8, 4, 4, 8
+# The model's gradients in float32 are held to autograd's and jax.grad's at rtol GRAD_RTOL plus an atol
+# of GRAD_ATOL_OF_MAX times a leaf's largest |gradient| (tests/test_torch_rnn_kernel.py's bounds).
+GRAD_RTOL, GRAD_ATOL_OF_MAX = 1e-5, 2e-6
+
+
+def _fma(a, b, c) -> np.ndarray:
+    """fmaf on float32 arrays: the product is exact in float64 and the sum
+    rounded there, then to float32 (a double rounding the card's fmaf does
+    not make, at most one float32 ulp in rare cases: the model is held by
+    tolerance)."""
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64) + np.asarray(c, np.float64)).astype(np.float32)
+
+
+def kernel_hw(h: np.ndarray, W: np.ndarray) -> np.ndarray:
+    """h @ W in the kernel's forward order: each thread's fmaf chain over its
+    8 rows, the warp's reduce-scatter (S0 + S2) + (S1 + S3) over its row
+    groups, then the row tiles ((r0 + r1) + r2) + r3."""
+    hr = np.asarray(h, np.float32).reshape(TILES, ROW_GROUPS, ROWS_T)
+    Wr = np.asarray(W, np.float32).reshape(TILES, ROW_GROUPS, ROWS_T, HIDDEN)
+    acc = np.zeros((TILES, ROW_GROUPS, HIDDEN), np.float32)
+    for a in range(ROWS_T):
+        acc = _fma(hr[:, :, a, None], Wr[:, :, a], acc)
+    warp = (acc[:, 0] + acc[:, 2]) + (acc[:, 1] + acc[:, 3])
+    return ((warp[0] + warp[1]) + warp[2]) + warp[3]
+
+
+def kernel_wd(W: np.ndarray, d: np.ndarray) -> np.ndarray:
+    """W @ d in the kernel's backward order: each thread's fmaf chain over its
+    4 columns, the warp's reduce-scatter over its 8 column groups,
+    ((C0 + C4) + (C2 + C6)) + ((C1 + C5) + (C3 + C7)), then the column tiles
+    in order."""
+    Wc = np.asarray(W, np.float32).reshape(HIDDEN, TILES, COL_GROUPS, COLS_T)
+    dc = np.asarray(d, np.float32).reshape(TILES, COL_GROUPS, COLS_T)
+    acc = np.zeros((HIDDEN, TILES, COL_GROUPS), np.float32)
+    for b in range(COLS_T):
+        acc = _fma(Wc[..., b], dc[None, :, :, b], acc)
+    C = [acc[..., q] for q in range(COL_GROUPS)]
+    warp = ((C[0] + C[4]) + (C[2] + C[6])) + ((C[1] + C[5]) + (C[3] + C[7]))
+    return ((warp[:, 0] + warp[:, 1]) + warp[:, 2]) + warp[:, 3]
+
+
+def butterfly(v: np.ndarray) -> np.float32:
+    """A warp's sum of 32 lanes by shuffles xor 16, 8, 4, 2, 1 (every lane ends with these bits)."""
+    v = np.asarray(v, np.float32)
+    for o in (16, 8, 4, 2, 1):
+        v = v + v[np.arange(32) ^ o]
+    return v[0]
+
+
+def kernel_grads(params: dict, x: np.ndarray, label: int):
+    """The gradient of every leaf and the loss as csrc/rnn.cu sums them, in
+    float32: the forward and backward passes in the orders of
+    :func:`kernel_hw` and :func:`kernel_wd`, the logits a lane's fmaf chain
+    over rows l, l + 32, l + 64, l + 96 then :func:`butterfly`, and each
+    weight's gradient an fmaf chain over t in descending order. numpy's
+    tanh, exp and log stand for the card's."""
+    f32 = np.float32
+    p = {k: np.asarray(v, f32) for k, v in params.items()}
+    x = np.asarray(x, f32).reshape(-1)
+    T = x.shape[0]
+    H0, H1 = np.zeros((T, HIDDEN), f32), np.zeros((T, HIDDEN), f32)
+    h1 = np.zeros(HIDDEN, f32)
+    for t in range(T):
+        s0 = kernel_hw(H0[t - 1], p["wh0"]) if t else np.zeros(HIDDEN, f32)
+        H0[t] = np.tanh((x[t] * p["wx0"][0] + s0) + p["b0"])
+        H1[t] = h1 = np.tanh((kernel_hw(H0[t], p["wx1"]) + kernel_hw(h1, p["wh1"])) + p["b1"])
+    lanes = np.zeros((2, 32), f32)
+    for m in range(TILES):
+        lanes = _fma(h1[m * TILE:(m + 1) * TILE], p["w_out"][m * TILE:(m + 1) * TILE].T, lanes)
+    lg = np.array([butterfly(lanes[0]), butterfly(lanes[1])], f32) + p["b_out"]
+    m = max(lg[0], lg[1])
+    lse = f32(np.log(np.exp(lg[0] - m) + np.exp(lg[1] - m)))
+    logp = (lg - m) - lse
+    dl = np.exp(logp) - np.eye(2, dtype=f32)[label]
+    D0, D1 = np.zeros((T, HIDDEN), f32), np.zeros((T, HIDDEN), f32)
+    D1[T - 1] = (p["w_out"][:, 0] * dl[0] + p["w_out"][:, 1] * dl[1]) * (1 - H1[T - 1] * H1[T - 1])
+    for t in range(T - 1, -1, -1):
+        if t >= 1:
+            D1[t - 1] = kernel_wd(p["wh1"], D1[t]) * (1 - H1[t - 1] * H1[t - 1])
+        r0 = kernel_wd(p["wh0"], D0[t + 1]) if t + 1 < T else np.zeros(HIDDEN, f32)
+        D0[t] = (kernel_wd(p["wx1"], D1[t]) + r0) * (1 - H0[t] * H0[t])
+    g = {k: np.zeros_like(v) for k, v in p.items()}
+    for t in range(T - 1, -1, -1):
+        if t >= 1:
+            g["wh0"] = _fma(H0[t - 1][:, None], D0[t][None], g["wh0"])
+            g["wh1"] = _fma(H1[t - 1][:, None], D1[t][None], g["wh1"])
+        g["wx1"] = _fma(H0[t][:, None], D1[t][None], g["wx1"])
+        g["wx0"][0] = _fma(x[t], D0[t], g["wx0"][0])
+        g["b0"] = g["b0"] + D0[t]
+        g["b1"] = g["b1"] + D1[t]
+    g["w_out"] = H1[T - 1][:, None] * dl[None]
+    g["b_out"] = dl
+    return g, -logp[label]
+
+
 # ------------------------------------------------ the card's checks (no JAX)
 DECISION_MARGIN = 1e-5  # kernel and plain decisions must agree where the plain logit margin exceeds this
 
